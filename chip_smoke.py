@@ -7,18 +7,37 @@ Builds the port's CUDA kernel from ``pawsometracker_tpu_torch/csrc`` and runs
 three phases on the card; any failure exits non-zero:
 
 1. The kernel against its plain PyTorch version on the same card tensors, at
-   the bench shape (1080p frames, ``target_width=25``, 41x41 window, T=64):
-   unbounded; bounded with random deltas/lo/hi from a fixed seed; bounded with
-   subpixel offsets; the quarter-frame autodetect snap; the subpixel snap;
-   and two exact-tie geometries, a flat field and a mirror-symmetric blob.
-   Integer positions must be equal, offsets within ``atol=1e-3``.
-2. The main path: ``track()`` on a synthetic 1080p, 480-frame clip (a dark
-   disc of radius 12 on 128-gray moving on a circle), with the start location
-   given, auto-detected, and with ``subpixel=True``. Each call must launch
-   the kernel 1 + ceil(479/64) = 9 times, land within RMSE < 1 px of the
-   drawn truth, and equal the port's own ``device="cpu"`` run.
-3. Timing with CUDA events: the kernel per launch at T=64 (and the snap),
-   the plain version on the same chunk, and end-to-end frames/s.
+   the bench shape (1080p frames, ``target_width=25``, 41x41 window, T=64).
+   One chain: unbounded; bounded with random deltas/lo/hi from a fixed seed;
+   bounded with subpixel offsets; the quarter-frame autodetect snap; the
+   subpixel snap; and two exact-tie geometries, a flat field and a
+   mirror-symmetric blob. B = 4 lanes with fills 128/100/160/128 in one
+   launch: unbounded; bounded and bounded+subpixel (T=16); four targets
+   reading one frame stream (lane stride 0); the quarter-frame snap and the
+   subpixel snap; and one lane equal to the unbatched call. Integer
+   positions must be equal, offsets within ``atol=1e-3``.
+2. The main paths, each driven with the launch counts set to 0 just before
+   it and read just after:
+   - ``track()`` on a synthetic 1080p, 480-frame clip (a dark disc of radius
+     12 on 128-gray moving on a circle), with the start location given,
+     auto-detected, and with ``subpixel=True``: 1 + ceil(479/64) = 9
+     launches each;
+   - ``track_batch`` on four 1080p clips of 160, 160, 120 and 160 frames, each
+     a disc on its own background on the circle at phase b*pi/2: start
+     locations given, lane 2 auto-detected, and ``subpixel=True``;
+   - ``track_multi`` on one 1080p clip of 160 frames with four discs: start
+     locations given, ``n_targets=4``, and ``subpixel=True``.
+   Each call must launch the kernel as often as its chunking says and never
+   run the plain version, land within RMSE < 1 px of the drawn truth per
+   video or target, equal the port's single-video ``track()`` of each video
+   or target on the card, and (the first call of each path) equal the
+   port's own ``device="cpu"`` run.
+3. Timing with CUDA events: the kernel per launch at T=64 (one chain:
+   unbounded, bounded, bounded+subpixel, the snap; lanes: B = 1, 4 and 16,
+   and four targets on shared frames; bounded and bounded+subpixel lanes at
+   T=16), the plain version on the same inputs, each bound; end-to-end
+   frames/s of the three paths; and a ``torch.profiler`` busy share of one
+   ``track()`` and one ``track_batch``.
 
 Prints the card's name and power limit, the build time, the kernel's
 configurations with their launch counts, one JSON line of per-kernel numbers,
@@ -48,29 +67,62 @@ CHUNK = 64
 DISC_R = 12
 SEED = 0
 OFFSET_ATOL = 1e-3
+#: the track_batch clips: one background (= fill) and length per video
+BATCH_FILLS = (128, 100, 160, 128)
+BATCH_LENS = (160, 160, 120, 160)
+MULTI_FRAMES = 160
+MULTI_CHUNK = 16  # track_multi's default chunk_size
+#: steps of the batched bounded phase-1 cases (the plain version takes ~30 ms a step)
+BOUNDED_T = 16
 #: H100 SXM published peaks: f32 outside the tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+N_SMS = 132
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def synth_clip():
-    """The disc's path (integer centres on a circle of radius 200 px about
-    the frame centre, starting inside the autodetect window) and the frames."""
-    t = np.arange(N_FRAMES)
-    ang = 2 * np.pi * t / N_FRAMES
-    truth = np.stack([np.round(540 + 200 * np.sin(ang)), np.round(960 + 200 * np.cos(ang))],
-                     axis=1).astype(np.int64)
-    frames = np.full((N_FRAMES, H, W), 128, np.uint8)
+def circle_path(n, phase=0.0):
+    """Integer centres on a circle of radius 200 px about the frame centre,
+    one revolution per N_FRAMES frames, starting at angle ``phase``."""
+    ang = 2 * np.pi * np.arange(n) / N_FRAMES + phase
+    return np.stack([np.round(540 + 200 * np.sin(ang)), np.round(960 + 200 * np.cos(ang))],
+                    axis=1).astype(np.int64)
+
+
+def draw_discs(frames, paths):
+    """Dark discs (gray 30, radius DISC_R) at each path's centre per frame."""
     yy, xx = np.mgrid[-DISC_R:DISC_R + 1, -DISC_R:DISC_R + 1]
     disc = yy**2 + xx**2 <= DISC_R**2
-    for k, (i, j) in enumerate(truth):
-        win = frames[k, i - DISC_R:i + DISC_R + 1, j - DISC_R:j + DISC_R + 1]
-        win[disc] = 30
-    return frames, truth
+    for path in paths:
+        for k, (i, j) in enumerate(path[:len(frames)]):
+            frames[k, i - DISC_R:i + DISC_R + 1, j - DISC_R:j + DISC_R + 1][disc] = 30
+    return frames
+
+
+def synth_clip():
+    """track()'s clip: one disc starting inside the autodetect window."""
+    truth = circle_path(N_FRAMES)
+    return draw_discs(np.full((N_FRAMES, H, W), 128, np.uint8), [truth]), truth
+
+
+def synth_batch():
+    """track_batch's clips: video b has its own background and length, and
+    its disc on the circle at phase b*pi/2."""
+    clips, truths = [], []
+    for b, (bg, n) in enumerate(zip(BATCH_FILLS, BATCH_LENS)):
+        truth = circle_path(n, b * np.pi / 2)
+        clips.append(draw_discs(np.full((n, H, W), bg, np.uint8), [truth]))
+        truths.append(truth)
+    return clips, truths
+
+
+def synth_multi():
+    """track_multi's clip: four discs on the circle, a quarter turn apart."""
+    truths = [circle_path(MULTI_FRAMES, b * np.pi / 2) for b in range(4)]
+    return draw_discs(np.full((MULTI_FRAMES, H, W), 128, np.uint8), truths), truths
 
 
 def card_line() -> str:
@@ -81,17 +133,22 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def cost(radii, L, T, subpixel=False, bounded=False):
+def cost(radii, L, T, subpixel=False, bounded=False, lanes=1):
     """FLOPs of the direct taps and bytes the scan must move (each patch read
-    once, each output written once), and the least time at the card's peaks.
-    The subpixel offsets read the response's neighbours, which the taps have
-    already computed, so they add no FLOPs here."""
+    once, each output written once) for ``lanes`` chains of T steps, and the
+    least time at the card's peaks. The subpixel offsets read the response's
+    neighbours, which the taps have already computed, so they add no FLOPs
+    here. Also the least time of one chain on one SM (1/132 of the f32 peak),
+    which is what bounds a chain: its steps run in order on one CTA."""
     wh, ww = 2 * radii[0] + 1, 2 * radii[1] + 1
     ph, pw = wh + L - 1, ww + L - 1
     flops = T * (2 * 2 * wh * pw * L + 2 * 2 * wh * ww * L)
-    nbytes = T * ph * pw + T * 8 + (T * 8 if subpixel else 0) + (T * 24 if bounded else 0) + 8 * L
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return flops, nbytes, 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    nbytes = T * ph * pw + T * 8 + (T * 8 if subpixel else 0) + (T * 24 if bounded else 0) + 9
+    t_ops, t_bytes = lanes * flops / PEAK_F32_FLOPS, lanes * nbytes / PEAK_BYTES_PER_S
+    return {"flops": lanes * flops, "bytes": lanes * nbytes + 8 * L,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "sm_bound_ms": 1e3 * flops / (PEAK_F32_FLOPS / N_SMS)}
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -109,6 +166,53 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def rmse(ij, truth) -> float:
+    d = np.asarray(ij, np.float64) - np.asarray(truth[:len(ij)], np.float64)
+    return float(np.sqrt(np.mean(np.sum(d ** 2, axis=-1))))
+
+
+def same(a, b, subpixel) -> bool:
+    if a.shape != b.shape:
+        return False
+    if subpixel:
+        return bool(np.allclose(a, b, rtol=0, atol=OFFSET_ATOL))
+    return bool(np.array_equal(a, b))
+
+
+def profile_busy(fn):
+    """Wall time of one call and the card's busy time in it, by event name
+    (device-side events only: host ops repeat their time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            dev[e.key] = float(e.self_device_time_total)
+    busy = sum(dev.values())
+    return {"wall_us": wall_us, "device_us_by_name": dev,
+            "device_busy_share": (busy / wall_us) if dev else None}
+
+
+def log_profile(name, prof):
+    dev, wall_us = prof["device_us_by_name"], prof["wall_us"]
+    if not dev:
+        log(f"phase 3 profile of one {name}: the profiler recorded no device time (not measured)")
+        return
+    busy = sum(dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:4]
+    log(f"phase 3 profile of one {name}: wall {wall_us / 1e3:.1f} ms, device time"
+        f" {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}% of wall): "
+        + ", ".join(f"{k[:40]} {v / 1e3:.2f} ms" for k, v in top))
+
+
 def main() -> int:
     import torch
 
@@ -117,7 +221,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
-        from pawsometracker_tpu_torch import IJ, track
+        from pawsometracker_tpu_torch import IJ, global_detect_peaks, track, track_batch, track_multi
+        from pawsometracker_tpu_torch.models import dog_tracker
         from pawsometracker_tpu_torch.models.dog_tracker import autodetect_spec, make_spec
         from pawsometracker_tpu_torch.ops import _build, tracker_kernel as tk
         from pawsometracker_tpu_torch.ops.filters import mode_u8_host
@@ -131,6 +236,20 @@ def main() -> int:
     log(record["card"])  # as nvidia-smi gives it: name, power limit
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
+    # the plain versions count their runs here, so phase 2 can show the main
+    # paths never took them on the card
+    plain_runs = {"n": 0}
+
+    def counted(fn):
+        def wrapper(*a, **k):
+            plain_runs["n"] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    for mod in (tk, dog_tracker):
+        mod.dog_scan_plain = counted(mod.dog_scan_plain)
+        mod.dog_scan_batch_plain = counted(mod.dog_scan_batch_plain)
+
     t0 = time.perf_counter()
     tk._lib()
     record["build_s"] = time.perf_counter() - t0
@@ -139,13 +258,18 @@ def main() -> int:
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"  ptxas: {line.strip()}")
 
+    t0 = time.perf_counter()
     frames_np, truth = synth_clip()
+    clips, truths = synth_batch()
+    multi_np, multi_truths = synth_multi()
+    log(f"synthetic clips drawn in {time.perf_counter() - t0:.1f} s")
     spec = make_spec((H, W), WINDOW, TARGET_WIDTH, True)
     aspec = autodetect_spec(spec)
     L = spec.kernel_len
     fill = mode_u8_host(frames_np[0])
     kw = dict(radii=spec.radii, sigma=spec.sigma, darker_target=True)
     kwa = dict(radii=aspec.radii, sigma=aspec.sigma, darker_target=True)
+    B = len(clips)
 
     # ---- phase 1: the kernel against its plain version, on the card -------
     rng = np.random.default_rng(SEED)
@@ -167,19 +291,57 @@ def main() -> int:
     mirror = torch.from_numpy(np.clip(fill - 110.0 * blob, 0, 255).astype(np.uint8)).to(dev)
     mirror = mirror[None].expand(CHUNK, H, W).contiguous()
     mid = torch.tensor([H // 2 + 3, W // 2 - 2], dtype=torch.int32, device=dev)
+
+    # lanes: frames 1..64 of each batch clip, per-lane fills, per-lane boxes
+    lanes = torch.from_numpy(np.stack([c[1:1 + CHUNK] for c in clips])).to(dev)
+    lane_pos0 = torch.tensor(np.stack([t[0] for t in truths]), dtype=torch.int32, device=dev)
+    lane_fills = torch.tensor(BATCH_FILLS, dtype=torch.uint8, device=dev)
+    ltr = np.stack([t[1:1 + BOUNDED_T] for t in truths])
+    lbnd = {"deltas": rng.integers(-3, 4, size=(B, BOUNDED_T, 2)),
+            "lo": np.maximum(ltr - rng.integers(0, 16, size=(B, BOUNDED_T, 2)), 0),
+            "hi": np.minimum(ltr + rng.integers(0, 16, size=(B, BOUNDED_T, 2)), [H - 1, W - 1])}
+    lbnd = {k: torch.tensor(v, dtype=torch.int32, device=dev) for k, v in lbnd.items()}
+    lanes_t = lanes[:, :BOUNDED_T].contiguous()
+    lanes0 = torch.from_numpy(np.stack([c[0] for c in clips])).to(dev)[:, None].contiguous()
+    centres = centre[None].expand(B, 2).contiguous()
+    shared = torch.from_numpy(multi_np[1:1 + CHUNK]).to(dev)
+    shared_pos0 = torch.tensor(np.stack([t[0] for t in multi_truths]), dtype=torch.int32,
+                               device=dev)
+    shared_fills = torch.full((B,), 128, dtype=torch.uint8, device=dev)
+
+    # name: (frames, pos0, fill(s), spec kwargs, bounds, subpixel, batched)
     cases = {
-        "unbounded": (chunk, pos0, kw, {}, False),
-        "flat field (ties)": (flat, centre, kw, {}, False),
-        "mirror blob (ties)": (mirror, mid, kw, {}, False),
-        "bounded": (chunk, pos0, kw, bnd, False),
-        "bounded+subpixel": (chunk, pos0, kw, bnd, True),
-        "snap quarter-frame": (frame0, centre, kwa, {}, False),
-        "snap+subpixel": (frame0, pos0, kw, {}, True),
+        "unbounded": (chunk, pos0, fill, kw, {}, False, False),
+        "flat field (ties)": (flat, centre, fill, kw, {}, False, False),
+        "mirror blob (ties)": (mirror, mid, fill, kw, {}, False, False),
+        "bounded": (chunk, pos0, fill, kw, bnd, False, False),
+        "bounded+subpixel": (chunk, pos0, fill, kw, bnd, True, False),
+        "snap quarter-frame": (frame0, centre, fill, kwa, {}, False, False),
+        "snap+subpixel": (frame0, pos0, fill, kw, {}, True, False),
+        "batched unbounded": (lanes, lane_pos0, lane_fills, kw, {}, False, True),
+        "batched bounded": (lanes_t, lane_pos0, lane_fills, kw, lbnd, False, True),
+        "batched bounded+subpixel": (lanes_t, lane_pos0, lane_fills, kw, lbnd, True, True),
+        "batched shared frames (4 targets)": (shared, shared_pos0, shared_fills, kw, {}, False,
+                                              True),
+        "batched snap quarter-frame": (lanes0, centres, lane_fills, kwa, {}, False, True),
+        "batched snap+subpixel": (lanes0, lane_pos0, lane_fills, kw, {}, True, True),
     }
+
+    def run_kernel(name):
+        fr, p0, fl, k, b, sub, batched = cases[name]
+        if batched:
+            return tk.dog_scan_batch_cuda(fr, p0, fl, subpixel=sub, **k, **b)
+        return tk.dog_scan_cuda(fr, p0, fl, subpixel=sub, **k, **b)
+
+    def run_plain(name):
+        fr, p0, fl, k, b, sub, batched = cases[name]
+        if batched:
+            return tk.dog_scan_batch_plain(fr, p0, fl, subpixel=sub, **k, **b)
+        return tk.dog_scan_plain(fr, p0, fl, subpixel=sub, **k, **b)
+
     phase1 = {}
-    for name, (fr, p0, k, b, sub) in cases.items():
-        got = tk.dog_scan_cuda(fr, p0, fill, subpixel=sub, **k, **b)
-        want = tk.dog_scan_plain(fr, p0, fill, subpixel=sub, **k, **b)
+    for name, (fr, p0, fl, k, b, sub, batched) in cases.items():
+        got, want = run_kernel(name), run_plain(name)
         torch.cuda.synchronize()
         gp, wp = (got[0], want[0]) if sub else (got, want)
         pos_equal = bool(torch.equal(gp, wp))
@@ -187,82 +349,178 @@ def main() -> int:
         if sub:
             err = max(err, float((got[1] - want[1]).abs().max()))
         ok = pos_equal and err <= (OFFSET_ATOL if sub else 0)
-        phase1[name] = {"T": int(fr.shape[0]), "positions_equal": pos_equal, "max_abs_err": err,
-                        "ok": ok}
-        log(f"phase 1 {name}: T={fr.shape[0]} positions equal={pos_equal} max_abs_err={err:.3g}"
-            f" -> {'ok' if ok else 'FAIL'}")
+        steps = int(fr.shape[-3])
+        phase1[name] = {"T": steps, "lanes": int(p0.shape[0]) if batched else 1,
+                        "positions_equal": pos_equal, "max_abs_err": err, "ok": ok}
+        log(f"phase 1 {name}: T={steps} lanes={phase1[name]['lanes']} positions equal={pos_equal}"
+            f" max_abs_err={err:.3g} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"phase 1 {name}: kernel and plain version disagree")
+    one = tk.dog_scan_batch_cuda(chunk[None], pos0[None], lane_fills[:1], **kw)
+    one_ok = bool(torch.equal(one[0], tk.dog_scan_cuda(chunk, pos0, int(BATCH_FILLS[0]), **kw)))
+    phase1["batched B=1 equals unbatched"] = {"T": CHUNK, "lanes": 1, "positions_equal": one_ok,
+                                              "max_abs_err": 0.0 if one_ok else None,
+                                              "ok": one_ok}
+    log(f"phase 1 batched B=1 equals unbatched: T={CHUNK} -> {'ok' if one_ok else 'FAIL'}")
+    if not one_ok:
+        raise SystemExit("phase 1: a one-lane batched launch differs from the unbatched one")
     del flat, mirror
     record["phase1"] = phase1
 
-    # ---- phase 2: the main path through track() -----------------------------
+    # ---- phase 2: the main paths --------------------------------------------
     base = dict(fps=FPS, target_width=TARGET_WIDTH, window_size=WINDOW, stream="full")
-    runs = {
-        "start_location": dict(start_location=IJ(int(truth[0][0]), int(truth[0][1]))),
-        "autodetect": dict(start_location=None),
-        "subpixel": dict(start_location=IJ(int(truth[0][0]), int(truth[0][1])), subpixel=True),
+    start0 = IJ(int(truth[0][0]), int(truth[0][1]))
+    batch_locs = [IJ(int(t[0][0]), int(t[0][1])) for t in truths]
+    multi_locs = [IJ(int(t[0][0]), int(t[0][1])) for t in multi_truths]
+    paths = {
+        "track": {
+            "start_location": dict(start_location=start0),
+            "autodetect": dict(start_location=None),
+            "subpixel": dict(start_location=start0, subpixel=True),
+        },
+        "track_batch": {
+            "start_location": dict(start_location=batch_locs),
+            "lane 2 autodetect": dict(start_location=batch_locs[:2] + [None] + batch_locs[3:]),
+            "subpixel": dict(start_location=batch_locs, subpixel=True),
+        },
+        "track_multi": {
+            "start_locations": dict(start_locations=multi_locs),
+            "n_targets=4": dict(n_targets=4),
+            "subpixel": dict(start_locations=multi_locs, subpixel=True),
+        },
     }
-    want_launches = 1 + math.ceil((N_FRAMES - 1) / CHUNK)
-    tk.reset_launches()
-    results = {}
-    for name, extra in runs.items():
-        before = tk.launches
-        t0 = time.perf_counter()
-        ts, ij = track(frames_np, **base, **extra)
-        wall = time.perf_counter() - t0
-        results[name] = (ts, ij, tk.launches - before, wall)
-    main_counts = dict(tk.launches_by_config)
-    main_total = tk.launches
+    entry = {
+        "track": lambda **k: track(frames_np, **base, **k),
+        "track_batch": lambda **k: track_batch(clips, **base, **k),
+        "track_multi": lambda **k: track_multi(multi_np, **base, **k),
+    }
+    n_batch_scans = math.ceil((max(BATCH_LENS) - 1) / CHUNK)
+    want_launches = {
+        "track": {n: 1 + math.ceil((N_FRAMES - 1) / CHUNK) for n in paths["track"]},
+        "track_batch": {"start_location": 1 + n_batch_scans, "lane 2 autodetect": 2 + n_batch_scans,
+                        "subpixel": 1 + n_batch_scans},
+        "track_multi": {n: 1 + math.ceil((MULTI_FRAMES - 1) / MULTI_CHUNK)
+                        for n in paths["track_multi"]},
+    }
+    results, main_counts = {}, {}
+    for path, runs in paths.items():
+        tk.reset_launches()  # counts to 0 just before the path, read just after
+        plain_runs["n"] = 0
+        for name, extra in runs.items():
+            before, plain_before = tk.launches, plain_runs["n"]
+            t0 = time.perf_counter()
+            out = entry[path](**extra)
+            torch.cuda.synchronize()
+            results[path, name] = (out, tk.launches - before, plain_runs["n"] - plain_before,
+                                   time.perf_counter() - t0)
+        main_counts[path] = {"total": tk.launches, "by_config": dict(tk.launches_by_config),
+                             "plain_runs": plain_runs["n"]}
+    record["main_path_launches"] = main_counts
+
     phase2 = {}
-    for name, extra in runs.items():
-        ts, ij, n_launch, wall = results[name]
-        ts_c, ij_c = track(frames_np, **base, **extra, device="cpu")
-        rmse = float(np.sqrt(np.mean(np.sum((np.asarray(ij, np.float64) - truth) ** 2, axis=1))))
-        if extra.get("subpixel"):
-            same = bool(np.allclose(ij, ij_c, rtol=0, atol=OFFSET_ATOL))
-        else:
-            same = bool(np.array_equal(ij, ij_c))
-        same = same and np.array_equal(ts, ts_c) and len(ij) == N_FRAMES
-        ok = n_launch == want_launches and rmse < 1.0 and same
-        phase2[name] = {"launches": n_launch, "rmse_px": rmse, "equals_cpu_run": same,
-                        "frames": len(ij), "wall_s": wall, "ok": ok}
-        log(f"phase 2 track({name}): {len(ij)} frames, launches={n_launch} (want {want_launches}),"
-            f" rmse={rmse:.4f} px, equals device='cpu' run={same}, {wall:.3f} s"
-            f" -> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"phase 2 {name} failed")
+    detected = global_detect_peaks(spec, 4)(torch.from_numpy(multi_np[0]).to(dev), 128)
+    detected = [IJ(int(i), int(j)) for i, j in detected.cpu().numpy()]
+    for path, runs in paths.items():
+        for name, extra in runs.items():
+            out, n_launch, n_plain, wall = results[path, name]
+            sub = bool(extra.get("subpixel"))
+            if path == "track":
+                videos = [(out, truth, frames_np, extra)]
+            elif path == "track_batch":
+                videos = [(out[b], truths[b], clips[b],
+                           dict(extra, start_location=extra["start_location"][b]))
+                          for b in range(B)]
+            else:
+                starts = detected if "n_targets" in extra else multi_locs
+                order = [int(np.argmin([abs(s.i - t[0][0]) + abs(s.j - t[0][1])
+                                        for t in multi_truths])) for s in starts]
+                ts_m, pos_m = out
+                videos = [((ts_m, pos_m[:, n]), multi_truths[order[n]], multi_np,
+                           dict(start_location=starts[n], subpixel=sub))
+                          for n in range(len(starts))]
+            errs, equal_single = [], True
+            for (ts, ij), tru, frames, single_kw in videos:
+                errs.append(rmse(ij, tru))
+                if path != "track":  # each video or target alone through track() on the card
+                    ts_1, ij_1 = track(frames, **base, **single_kw)
+                    equal_single &= same(ij, ij_1, sub) and np.array_equal(ts, ts_1)
+            equal_cpu = None
+            if path == "track" or name in ("start_location", "start_locations"):
+                cpu = entry[path](**extra, device="cpu")
+                pairs = [(out, cpu)] if path != "track_batch" else list(zip(out, cpu))
+                equal_cpu = all(same(a[1], c[1], sub) and np.array_equal(a[0], c[0])
+                                for a, c in pairs)
+            want_n = want_launches[path][name]
+            ok = (n_launch == want_n and n_plain == 0 and max(errs) < 1.0 and equal_single
+                  and equal_cpu is not False)
+            if path == "track":
+                ok = ok and len(out[1]) == N_FRAMES
+            phase2[f"{path} {name}"] = {"launches": n_launch, "want_launches": want_n,
+                                        "plain_runs": n_plain, "rmse_px": errs,
+                                        "equals_single_track": equal_single,
+                                        "equals_cpu_run": equal_cpu, "wall_s": wall, "ok": ok}
+            log(f"phase 2 {path}({name}): launches={n_launch} (want {want_n}), plain runs={n_plain},"
+                f" rmse max={max(errs):.4f} px over {len(errs)}, equals single track()="
+                f"{equal_single}, equals device='cpu' run={equal_cpu}, {wall:.3f} s"
+                f" -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"phase 2 {path} {name} failed")
     record["phase2"] = phase2
-    record["main_path_launches"] = {"total": main_total, "by_config": main_counts}
 
     # ---- phase 3: timing ------------------------------------------------------
-    cfgs = {
-        "unbounded": (chunk, pos0, kw, {}, False),
-        "bounded+subpixel": (chunk, pos0, kw, bnd, True),
-        "snap quarter-frame": (frame0, centre, kwa, {}, False),
+    cases["batched unbounded B=1"] = (lanes[:1], lane_pos0[:1], lane_fills[:1], kw, {}, False,
+                                      True)
+    cases["batched unbounded B=16"] = (lanes.repeat(4, 1, 1, 1), lane_pos0.repeat(4, 1),
+                                       lane_fills.repeat(4), kw, {}, False, True)
+    timed = {  # name: (case, whether the plain version is timed too)
+        "unbounded": ("unbounded", True),
+        "bounded": ("bounded", True),
+        "bounded+subpixel": ("bounded+subpixel", True),
+        "snap quarter-frame": ("snap quarter-frame", True),
+        "batched unbounded B=1": ("batched unbounded B=1", True),
+        "batched unbounded B=4": ("batched unbounded", True),
+        "batched unbounded B=16": ("batched unbounded B=16", False),
+        "batched bounded B=4 (T=16)": ("batched bounded", True),
+        "batched bounded+subpixel B=4 (T=16)": ("batched bounded+subpixel", True),
+        "batched shared frames (4 targets)": ("batched shared frames (4 targets)", False),
     }
     timing = {}
-    for name, (fr, p0, k, b, sub) in cfgs.items():
-        ms = cuda_time_ms(lambda: tk.dog_scan_cuda(fr, p0, fill, subpixel=sub, **k, **b), reps=20)
-        plain_ms = cuda_time_ms(lambda: tk.dog_scan_plain(fr, p0, fill, subpixel=sub, **k, **b),
-                                reps=3, warmup=1)
-        flops, nbytes, bound_ms, bound_by = cost(k["radii"], L, int(fr.shape[0]), sub, bool(b))
-        timing[name] = {"T": int(fr.shape[0]), "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-                        "bytes": nbytes, "us_per_step": 1e3 * ms / int(fr.shape[0])}
-        log(f"phase 3 {name}: T={fr.shape[0]} kernel {ms:.4f} ms/launch"
-            f" ({1e3 * ms / fr.shape[0]:.2f} us/step), plain {plain_ms:.3f} ms,"
-            f" bound {bound_ms:.6f} ms ({bound_by})")
-    e2e = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        track(frames_np, **base, **runs["start_location"])
-        e2e.append(time.perf_counter() - t0)
-    record["e2e_fps"] = {"median": N_FRAMES / statistics.median(e2e),
-                         "runs_s": e2e, "frames": N_FRAMES}
-    log(f"phase 3 e2e track(start_location): {record['e2e_fps']['median']:.1f} frames/s"
-        f" (median of {len(e2e)}, {N_FRAMES} frames of {W}x{H})")
+    for name, (case, with_plain) in timed.items():
+        fr, p0, fl, k, b, sub, batched = cases[case]
+        n_lanes = int(p0.shape[0]) if batched else 1
+        steps = int(fr.shape[-3])
+        ms = cuda_time_ms(lambda: run_kernel(case), reps=20)
+        plain_ms = cuda_time_ms(lambda: run_plain(case), reps=1, warmup=1) if with_plain else None
+        c = cost(k["radii"], L, steps, sub, bool(b), lanes=n_lanes)
+        timing[name] = {"config": tk._config_name(bool(b), sub, batched), "T": steps,
+                        "lanes": n_lanes, "ms": ms, "plain_ms": plain_ms, **c,
+                        "us_per_step": 1e3 * ms / steps}
+        log(f"phase 3 {name}: T={steps} lanes={n_lanes} kernel {ms:.4f} ms/launch"
+            f" ({1e3 * ms / steps:.2f} us/step), plain "
+            + (f"{plain_ms:.3f} ms" if plain_ms is not None else "not measured")
+            + f", bound {c['bound_ms']:.6f} ms ({c['bound_by']}), one chain on one SM"
+            f" {c['sm_bound_ms']:.4f} ms")
+    del cases["batched unbounded B=16"]
+    record["timing"] = timing
+
+    e2e = {}
+    for path, frames_per_call, extra in (
+            ("track", N_FRAMES, paths["track"]["start_location"]),
+            ("track_batch", sum(BATCH_LENS), paths["track_batch"]["start_location"]),
+            ("track_multi", MULTI_FRAMES, paths["track_multi"]["start_locations"])):
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            entry[path](**extra)
+            walls.append(time.perf_counter() - t0)
+        e2e[path] = {"frames_per_s": frames_per_call / statistics.median(walls),
+                     "runs_s": walls, "frames": frames_per_call}
+        log(f"phase 3 e2e {path}: {e2e[path]['frames_per_s']:.1f} frames/s (median of"
+            f" {len(walls)}, {frames_per_call} frames of {W}x{H}"
+            + (", summed over 4 videos)" if path == "track_batch" else
+               ", clip frames with 4 targets)" if path == "track_multi" else ")"))
+    record["e2e_fps"] = e2e
     # where one chunk's time goes: the host copy into a pinned staging buffer,
     # the host-to-device copy, the kernel (above)
     pinned = torch.empty((CHUNK, H, W), dtype=torch.uint8, pin_memory=True)
@@ -275,55 +533,48 @@ def main() -> int:
                                       "kernel": timing["unbounded"]["ms"], "frames": CHUNK}
     log(f"phase 3 per {CHUNK}-frame chunk: host copy to pinned {host_ms:.2f} ms,"
         f" host-to-device {h2d_ms:.2f} ms, kernel {timing['unbounded']['ms']:.2f} ms")
-    from torch.profiler import ProfilerActivity, profile
+    record["profile"] = {}
+    for path, extra in (("track", paths["track"]["start_location"]),
+                        ("track_batch", paths["track_batch"]["start_location"])):
+        record["profile"][path] = profile_busy(lambda: entry[path](**extra))
+        log_profile(f"{path}()", record["profile"][path])
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        t0 = time.perf_counter()
-        track(frames_np, **base, **runs["start_location"])
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    from torch.autograd import DeviceType
-
-    dev = {}  # device-side events only (kernels, copies): host ops repeat their time
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            dev[e.key] = float(e.self_device_time_total)
-    busy = sum(dev.values())
-    record["profile"] = {"wall_us": wall_us, "device_us_by_name": dev,
-                         "device_busy_share": (busy / wall_us) if dev else None}
-    top = sorted(dev.items(), key=lambda kv: -kv[1])[:4]
-    log(f"phase 3 profile of one track(): wall {wall_us / 1e3:.1f} ms, device time"
-        f" {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}% of wall): "
-        + ", ".join(f"{k[:40]} {v / 1e3:.2f} ms" for k, v in top)
-        if dev else "phase 3 profile: the profiler recorded no device time (not measured)")
-    record["timing"] = timing
-
-    log(f"kernels: dog_scan configurations and main-path launches: {json.dumps(main_counts)}"
-        f" (total {main_total}); phase 1 checked {', '.join(phase1)}")
+    # ---- the record -------------------------------------------------------------
+    by_config: dict = {}
+    for counts in main_counts.values():
+        for cfg, n in counts["by_config"].items():
+            by_config[cfg] = by_config.get(cfg, 0) + n
+    total = sum(c["total"] for c in main_counts.values())
+    log(f"kernels: dog_scan configurations and main-path launches: {json.dumps(by_config)}"
+        f" (total {total}); phase 1 checked {', '.join(phase1)}")
     main = timing["unbounded"]
-    configs = [{"config": n, **timing[n]} for n in timing]
     line = {"kernels": [{
         "name": "dog_scan",
         "route": "cuda",
         "source": "pawsometracker_tpu_torch/csrc/dog_scan.cu",
         "replaces": "pawsometracker_tpu/ops/pallas_tracker.py:342",
-        "launches": main_total,
+        "launches": total,
         "max_abs_err": max(v["max_abs_err"] for v in phase1.values()),
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": None,
-        "launches_by_config": main_counts,
-        "configs": configs,
+        "launches_by_config": by_config,
+        "launches_by_path": {p: c["total"] for p, c in main_counts.items()},
+        # every configuration's timed cases, each with the configuration's
+        # launches on the main paths
+        "configs": [{"case": n, "launches": by_config.get(t["config"], 0), "library_ms": None,
+                     **{k: v for k, v in t.items() if k not in ("flops", "bytes")}}
+                    for n, t in timing.items()],
     }]}
     record["kernels"] = line["kernels"]
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
-    if main_total <= 0:
-        raise SystemExit("the main path launched no kernel")
+    for path, counts in main_counts.items():
+        if counts["total"] <= 0:
+            raise SystemExit(f"the {path} path launched no kernel")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,20 @@
-"""PawsomeTracker in PyTorch and CUDA: the single-target DoG video tracker on an NVIDIA card.
+"""PawsomeTracker in PyTorch and CUDA: the DoG video tracker on an NVIDIA card.
 
 A port of ``pawsometracker_tpu`` (JAX, TPU) that follows one blob-like
 target through a video with a Difference-of-Gaussians matched filter
 evaluated in a search window around the previous position. Host decode feeds
 chunks of uint8 frames to a hand-written CUDA kernel that carries the whole
-per-frame recurrence of a chunk in one launch (``csrc/dog_scan.cu``); the same
-step in plain PyTorch runs on the CPU (``track(..., device="cpu")``).
+per-frame recurrence of a chunk in one launch (``csrc/dog_scan.cu``), one
+CTA per chain: ``track`` runs one chain, ``track_batch`` one per video and
+``track_multi`` one per target of one video. The same step in plain PyTorch
+runs on the CPU (``device="cpu"``).
 
 This package imports neither JAX nor the JAX package, and importing it has no
 side effects: the kernel is built at first use.
 """
 
 from .api import DEFAULT_MAX_DURATION_SECONDS, IJ, track
+from .batch import track_batch
 from .diagnose import Diagnose, Dont, diagnose
 from .models.dog_tracker import (
     TrackerSpec,
@@ -20,6 +23,7 @@ from .models.dog_tracker import (
     spec_from_reference,
     tracker_fns,
 )
+from .multi import track_multi
 from .ops.dog_kernel import (
     dog_kernel_2d,
     dog_kernel_separable,
@@ -27,11 +31,14 @@ from .ops.dog_kernel import (
     get_sigma,
     guess_window_size,
 )
+from .parallel import ShardedBatchTracker, global_detect_batch, global_detect_peaks
 
 __version__ = "0.1.0"
 
 __all__ = [
     "track",
+    "track_batch",
+    "track_multi",
     "IJ",
     "DEFAULT_MAX_DURATION_SECONDS",
     "TrackerSpec",
@@ -47,5 +54,8 @@ __all__ = [
     "Diagnose",
     "Dont",
     "diagnose",
+    "ShardedBatchTracker",
+    "global_detect_batch",
+    "global_detect_peaks",
     "__version__",
 ]

@@ -19,7 +19,6 @@ Returns ``(ts, positions)``: ``ts`` float64 seconds, ``positions`` int
 
 from __future__ import annotations
 
-import functools
 import logging
 from typing import NamedTuple, Sequence
 
@@ -27,10 +26,11 @@ import numpy as np
 import torch
 
 from .diagnose import diagnose
-from .io.decode import ChunkPrefetcher, open_source
+from .io.decode import open_source
 from .models.dog_tracker import (
     autodetect_spec,
     center_guess,
+    full_frame_sub_scan,
     make_spec,
     resolve_device,
     tracker_fns,
@@ -73,6 +73,20 @@ def _check_choice(name: str, value, allowed: tuple) -> None:
         raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
 
 
+def _check_stream(stream: str, roi_frames) -> None:
+    """The streaming choices: ``"auto"`` and ``"full"`` stream full frames
+    (the same positions as the JAX package's ROI streaming); ``"roi"`` raises
+    ``NotImplementedError`` until the ROI pipeline is ported."""
+    _check_choice("stream", stream, ("auto", "roi", "full"))
+    if stream == "roi":
+        raise NotImplementedError(
+            "stream='roi' is not ported yet (the speculative ROI pipeline comes in a "
+            "later slice of the port); stream='auto' and 'full' stream full frames "
+            "with identical positions")
+    if roi_frames is not None and int(roi_frames) < 1:
+        raise ValueError(f"roi_frames must be None or a positive frame count, got {roi_frames!r}")
+
+
 def _resolve_guess(start_location, sar: float, frame_shape) -> tuple[int, int]:
     """Start-location resolution (reference: src/PawsomeTracker.jl:74-90)."""
     if start_location is None:
@@ -104,46 +118,13 @@ def _initial_position(frame0: np.ndarray, guess, auto: bool, spec, fill: int,
     return fns.snap(frame, g, fill).cpu().numpy(), np.zeros(2, np.float32)
 
 
-@functools.lru_cache(maxsize=128)
-def _full_scan_sub(spec, device, engine: str = "auto"):
-    """Whole-frame subpixel scan: the bounded subpixel scan with zero deltas
-    and the clamp box pinned to the frame (the box tensors are made once per
-    chunk length)."""
-    fns = tracker_fns(spec, device, engine)
-    hi_row = np.array(spec.frame_shape, np.int32) - 1
-
-    @functools.lru_cache(maxsize=8)
-    def bounds(T):
-        zeros = torch.zeros((T, 2), dtype=torch.int32, device=device)
-        hi = torch.from_numpy(np.tile(hi_row, (T, 1))).to(device)
-        return zeros, hi
-
-    def run(c, p, f):
-        zeros, hi = bounds(int(c.shape[0]))
-        return fns.scan_sub(c, p, f, zeros, zeros, hi)
-
-    return run
-
-
-def _scan_fn_for(spec, engine: str, device):
+def _scan_fn_for(spec, engine: str, device, subpixel: bool = False):
     """The chunk scan: the CUDA kernel on the card for ``"auto"`` and
     ``"pallas"`` (the plain version on the CPU), the plain PyTorch scan for
-    ``"xla"``. No fallback: a kernel that cannot run raises."""
-    return tracker_fns(spec, device, engine).scan
-
-
-def padded_chunks(prefetch: ChunkPrefetcher, chunk_size: int):
-    """Yield ``(chunk, chunk_in, k)`` where ``chunk_in`` is ``chunk`` padded to
-    the static scan length by repeating the last frame (padded steps are
-    discarded by the caller)."""
-    for chunk in prefetch:
-        k = chunk.shape[0]
-        if k < chunk_size:
-            pad = np.repeat(chunk[-1:], chunk_size - k, axis=0)
-            chunk_in = np.concatenate([chunk, pad], axis=0)
-        else:
-            chunk_in = chunk
-        yield chunk, chunk_in, k
+    ``"xla"``. With ``subpixel``, the bounded subpixel scan over the whole
+    frame. No fallback: a kernel that cannot run raises."""
+    fns = tracker_fns(spec, device, engine)
+    return full_frame_sub_scan(fns.scan_sub, spec.frame_shape, device) if subpixel else fns.scan
 
 
 def _track_one(
@@ -188,7 +169,7 @@ def _track_one(
         file, start=start, stop=stop, fps=fps, backend=backend, prefetch=None,
         workers=decode_workers, input_fps=input_fps, fast_decode=fast_decode,
     )
-    prefetchers: list[ChunkPrefetcher] = []  # joined in finally BEFORE src.close()
+    prefetchers: list = []  # joined in finally BEFORE src.close()
     try:
         sar_val = src.info.sar if sar is None else float(sar)
 
@@ -227,11 +208,8 @@ def _track_one(
         # positions are identical either way (docs/architecture.md).
         timer = Timer()
         if n > 1:
-            scan = (_full_scan_sub(spec, device, engine) if subpixel
-                    else _scan_fn_for(spec, engine, device))
             pos_blocks, off_blocks, tracked = run_full_pipeline(
                 src,
-                spec,
                 np.asarray(pos),
                 fill,
                 n - 1,
@@ -240,7 +218,7 @@ def _track_one(
                 # most 3 deep, bounded by the ring budget (4K drops to 1)
                 depth=min(3, _pipeline_auto_depth_cap(frame_shape, chunk_size))
                 if pipeline_depth == "auto" else pipeline_depth,
-                scan=scan,
+                scan=_scan_fn_for(spec, engine, device, subpixel),
                 subpixel=subpixel,
                 dia=dia,
                 timer=timer,
@@ -335,17 +313,10 @@ def track(
     resumes from the previous segment's last position
     (reference: src/PawsomeTracker.jl:203-206).
     """
-    _check_choice("stream", stream, ("auto", "roi", "full"))
     _check_choice("speculate", speculate, ("predict", "contain"))
     _check_choice("backend", backend, ("auto", "native", "opencv"))
     _check_choice("engine", engine, ("auto", "pallas", "xla"))
-    if stream == "roi":
-        raise NotImplementedError(
-            "stream='roi' is not ported yet (the speculative ROI pipeline comes in the "
-            "second slice of the port); stream='auto' and 'full' stream full frames "
-            "with identical positions")
-    if roi_frames is not None and int(roi_frames) < 1:
-        raise ValueError(f"roi_frames must be None or a positive frame count, got {roi_frames!r}")
+    _check_stream(stream, roi_frames)
     dev = resolve_device(device)
     if window_size is None:
         window_size = guess_window_size(target_width)

@@ -1,0 +1,349 @@
+"""Batched multi-video tracking on one card.
+
+``track_batch(files, ...)`` has the signature, defaults and outputs of the
+JAX package's ``track_batch`` (``pawsometracker_tpu/batch.py``), plus a
+keyword-only ``device``. Every file is an independent video. The per-video
+scan is sequential but independent across videos, so B videos run in one
+launch of the CUDA kernel per chunk, one CTA (one SM) per video. The host
+decodes each video on its own prefetch thread and stages the chunks into the
+rows of one pinned ``[B, T, H, W]`` slot (:func:`..pipeline.run_batch_pipeline`).
+
+Full frames are streamed on every input: ``stream="roi"`` raises until the
+ROI pipeline is ported, and ``stream="auto"`` gives the same positions as the
+JAX package's ROI streaming (``docs/architecture.md``). ``mesh=None`` and
+``mesh="auto"`` run on the one card given by ``device``; any other ``mesh``
+raises until multi-GPU is ported.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from .api import (
+    DEFAULT_CHUNK_SIZE,
+    DEFAULT_MAX_DURATION_SECONDS,
+    IJ,
+    _check_choice,
+    _check_stream,
+    _resolve_guess,
+)
+from .diagnose import Diagnose, Dont
+from .io.decode import ChunkPrefetcher, open_source
+from .models.dog_tracker import full_frame_sub_scan, make_spec, resolve_device
+from .ops.dog_kernel import fix_window_size, guess_window_size
+from .ops.filters import mode_u8_host
+from .parallel.mesh import MULTI_GPU, ShardedBatchTracker
+from .pipeline import auto_depth_cap, run_batch_pipeline
+from .utils.profiling import Timer
+
+__all__ = ["track_batch"]
+
+logger = logging.getLogger(__name__)
+
+
+def _broadcast(x, n, default):
+    if x is None:
+        return [default] * n
+    if isinstance(x, (list, tuple)):
+        if len(x) != n:
+            raise ValueError(f"expected {n} entries, got {len(x)}")
+        return [default if v is None else v for v in x]
+    return [x] * n
+
+
+def _check_mesh(mesh) -> None:
+    """The port runs a batch on one card: ``None`` and ``"auto"`` (which the
+    JAX package resolves to a data-parallel mesh, with equal results) both
+    mean the card given by ``device``. Any other mesh raises."""
+    if not (mesh is None or (isinstance(mesh, str) and mesh == "auto")):
+        raise NotImplementedError(MULTI_GPU)
+
+
+def _is_single_location(x):
+    """True for one start_location value (IJ or numeric (x, y)), as opposed to
+    a per-file list of locations."""
+    if x is None or isinstance(x, IJ):
+        return True
+    return (
+        isinstance(x, tuple)
+        and len(x) == 2
+        and all(isinstance(v, (int, float, np.integer, np.floating)) for v in x)
+    )
+
+
+def track_batch(
+    files,
+    *,
+    start=None,
+    stop=None,
+    target_width=25,
+    start_location=None,
+    window_size=None,
+    darker_target=True,
+    fps: float = 24,
+    sar: float | None = None,
+    mesh=None,
+    backend: str = "auto",
+    chunk_size: int = DEFAULT_CHUNK_SIZE,
+    stream: str = "auto",
+    roi_frames: int | None = None,
+    pipeline_depth: int | str = "auto",
+    diagnostic_files=None,
+    engine: str = "auto",
+    subpixel: bool = False,
+    decode_workers: int | None = None,
+    fast_decode: bool | None = None,
+    progress=None,
+    input_fps: float | None = None,
+    device=None,
+):
+    """Track one target in each of ``files`` concurrently on the card.
+
+    Entries of ``files`` may be in-memory uint8 frame arrays ``[T, H, W]`` /
+    ``[T, H, W, 3]`` (see :func:`.api.track`), mixed freely with paths;
+    ``input_fps`` states the arrays' native rate (default: already at
+    ``fps``).
+
+    Unlike ``track(list)`` (consecutive segments of ONE recording), every
+    file here is an independent video. Videos may have DIFFERENT resolutions,
+    and ``target_width`` / ``window_size`` / ``darker_target`` may be
+    per-file lists: the batch is bucketed by tracker configuration (one
+    batched launch per chunk and bucket) and results are returned in input
+    order, each identical to a per-video :func:`.api.track` call.
+    ``start``/``stop``/``start_location`` may be scalars (broadcast) or
+    per-file lists; ``start_location`` entries follow the same kinds as
+    :func:`.api.track` (None / IJ / (x, y)).
+
+    ``mesh``: ``None`` or ``"auto"``, one card (a device mesh needs
+    multi-GPU, which is not ported). ``diagnostic_files``: optional per-file
+    overlay video paths (None entries disable). ``subpixel=True`` returns
+    float positions (integer recurrence + parabolic response-peak refinement,
+    exactly like :func:`.api.track`). ``engine``, ``stream``, ``roi_frames``
+    and ``pipeline_depth`` are as in :func:`.api.track`. ``progress`` is an
+    optional ``callback(frames_done, frames_expected)`` over the whole batch.
+    ``device`` (keyword-only): ``None`` is the CUDA card and raises when there
+    is none; ``"cpu"`` runs the plain PyTorch version on the host.
+
+    Returns a list of ``(ts, positions)``.
+    """
+    _check_choice("backend", backend, ("auto", "native", "opencv"))
+    _check_choice("engine", engine, ("auto", "pallas", "xla"))
+    _check_stream(stream, roi_frames)
+    _check_mesh(mesh)
+    dev = resolve_device(device)
+    files = list(files)
+    B = len(files)
+    if B == 0:
+        return []
+    tws = _broadcast(target_width, B, 25)
+    wss = _broadcast(window_size, B, None) if isinstance(window_size, (list,)) else [window_size] * B
+    darks = _broadcast(darker_target, B, True) if isinstance(darker_target, (list,)) else [darker_target] * B
+    starts_in = _broadcast(start, B, None)
+    stops_in = _broadcast(stop, B, None)
+    locs_in = (
+        [start_location] * B
+        if _is_single_location(start_location)
+        else _broadcast(start_location, B, None)
+    )
+    dias_in = _broadcast(diagnostic_files, B, None) if diagnostic_files else [None] * B
+
+    # bucket by tracker configuration (+ resolution, probed cheaply): one
+    # batched scan per bucket
+    from .io.decode import probe as _probe
+
+    keys, infos = [], []
+    for f, tw, ws, dk in zip(files, tws, wss, darks):
+        info = _probe(f)
+        infos.append(info)
+        keys.append((info.frame_shape, float(tw), None if ws is None else tuple(np.atleast_1d(ws)), bool(dk)))
+    buckets: dict = {}
+    for i, k in enumerate(keys):
+        buckets.setdefault(k, []).append(i)
+
+    bucket_cb = None
+    if progress is not None:
+        # aggregate across the whole batch: expected total from per-file
+        # durations, capped by container frame counts on open-ended stops
+        est_total = 0
+        for i in range(B):
+            t0 = 0.0 if starts_in[i] is None else float(starts_in[i])
+            t1 = DEFAULT_MAX_DURATION_SECONDS if stops_in[i] is None else float(stops_in[i])
+            ni = max(int(np.round(fps * (t1 - t0))) - 1, 0)
+            fc, nf = infos[i].frame_count, infos[i].fps
+            if t1 >= DEFAULT_MAX_DURATION_SECONDS and fc and nf:
+                ni = min(ni, max(int(np.round(fc * fps / nf)) - 1, 1))
+            est_total += ni
+        done_base = {"n": 0}
+
+        def bucket_cb(done_in_bucket):
+            progress(done_base["n"] + done_in_bucket, est_total)
+
+    results: list = [None] * B
+    for k, idxs in buckets.items():
+        sub = _track_batch_uniform(
+            [files[i] for i in idxs],
+            start=[starts_in[i] for i in idxs],
+            stop=[stops_in[i] for i in idxs],
+            target_width=tws[idxs[0]],
+            start_location=[locs_in[i] for i in idxs],
+            window_size=wss[idxs[0]],
+            darker_target=darks[idxs[0]],
+            fps=fps,
+            sar=sar,
+            backend=backend,
+            chunk_size=chunk_size,
+            pipeline_depth=pipeline_depth,
+            diagnostic_files=[dias_in[i] for i in idxs],
+            engine=engine,
+            subpixel=subpixel,
+            decode_workers=decode_workers,
+            fast_decode=fast_decode,
+            progress=bucket_cb,
+            input_fps=input_fps,
+            device=dev,
+        )
+        for i, r in zip(idxs, sub):
+            results[i] = r
+        if bucket_cb is not None:
+            done_base["n"] += sum(max(len(ij) - 1, 0) for _, ij in sub)
+    return results
+
+
+def _track_batch_uniform(
+    files,
+    *,
+    start,
+    stop,
+    target_width: float,
+    start_location,
+    window_size,
+    darker_target: bool,
+    fps: float,
+    sar: float | None,
+    backend: str,
+    chunk_size: int,
+    pipeline_depth: int | str,
+    diagnostic_files,
+    engine: str,
+    subpixel: bool,
+    decode_workers: int | None,
+    fast_decode: bool | None,
+    progress,
+    input_fps: float | None,
+    device: torch.device,
+):
+    """One-bucket core of :func:`track_batch`: all videos share a resolution
+    and tracker configuration (``start``, ``stop``, ``start_location`` and
+    ``diagnostic_files`` are per-video lists)."""
+    B = len(files)
+    starts = [0.0 if s is None else float(s) for s in start]
+    stops = [DEFAULT_MAX_DURATION_SECONDS if s is None else float(s) for s in stop]
+    if window_size is None:
+        window_size = guess_window_size(target_width)
+    window_size = fix_window_size(window_size)
+
+    sources, prefetchers, dias = [], [], []
+    try:
+        for f, t0, t1 in zip(files, starts, stops):
+            sources.append(
+                open_source(f, start=t0, stop=t1, fps=fps, backend=backend, prefetch=None,
+                            workers=decode_workers, input_fps=input_fps,
+                            fast_decode=fast_decode)
+            )
+
+        shapes = {s.info.frame_shape for s in sources}
+        if len(shapes) != 1:
+            raise ValueError(f"all videos in a batch must share one resolution, got {shapes}")
+        frame_shape = shapes.pop()
+
+        ns = [int(np.round(fps * (t1 - t0))) for t0, t1 in zip(starts, stops)]
+        frames0 = []
+        for f, s in zip(files, sources):
+            fr = s.read()
+            if fr is None:
+                raise EOFError(f"no frames decoded from {f}")
+            frames0.append(fr)
+        frames0 = np.stack(frames0)
+        fills = np.array([mode_u8_host(f) for f in frames0], np.uint8)
+
+        spec = make_spec(frame_shape, window_size, target_width, darker_target)
+        tracker = ShardedBatchTracker(spec, None, engine, device=device)
+
+        guesses = np.array(
+            [
+                _resolve_guess(loc, sar if sar is not None else s.info.sar, frame_shape)
+                for loc, s in zip(start_location, sources)
+            ],
+            np.int32,
+        )
+        auto = np.array([loc is None for loc in start_location])
+
+        f0 = tracker.shard_chunk(frames0)
+        fills_dev = tracker.shard_chunk(fills)
+        g_dev = tracker.shard_chunk(guesses)
+        # where any lane auto-detects, every lane snaps both ways and each
+        # takes its own (the JAX package's rule)
+        auto_col = tracker.shard_chunk(auto)[:, None]
+        if subpixel:
+            pos, off = tracker.snap_sub(f0, g_dev, fills_dev)
+            if auto.any():
+                pos_det, off_det = tracker.snap_detect_sub(f0, g_dev, fills_dev)
+                pos = torch.where(auto_col, pos_det, pos)
+                off = torch.where(auto_col, off_det, off)
+            off0 = off.cpu().numpy()
+        else:
+            pos = tracker.snap(f0, g_dev, fills_dev)
+            if auto.any():
+                pos = torch.where(auto_col, tracker.snap_detect(f0, g_dev, fills_dev), pos)
+            off0 = np.zeros((B, 2), np.float32)
+        pos_host = pos.cpu().numpy()
+
+        for p, fr0 in zip(diagnostic_files, frames0):
+            d = Dont() if p is None else Diagnose(p, darker_target, fps)
+            d.update_ratio(fr0.shape)
+            dias.append(d)
+
+        prefetchers = [ChunkPrefetcher(s, chunk_size, max_frames=n - 1)
+                       for s, n in zip(sources, ns)]
+        if pipeline_depth == "auto":
+            # full-frame chunks are memory-heavy: at most 3 deep, bounded by
+            # the ring budget shared by the B lanes
+            depth = min(3, auto_depth_cap(frame_shape, chunk_size, lanes=B))
+        else:
+            depth = max(0, int(pipeline_depth))
+        timer = Timer()
+        scan = (full_frame_sub_scan(tracker.scan_sub, frame_shape, tracker.device)
+                if subpixel else tracker.scan)
+        pos_blocks, off_blocks, counts = run_batch_pipeline(
+            prefetchers, pos, fills_dev, chunk_size=chunk_size, depth=depth, scan=scan,
+            subpixel=subpixel, dias=dias, timer=timer, device=tracker.device,
+            progress=progress,
+        )
+        if timer.totals:
+            logger.debug(
+                "track_batch B=%d: %d frames on %s, stream=full, sections=%s",
+                B, sum(counts) + B, tracker.device,
+                {k: round(v, 3) for k, v in timer.totals.items()},
+            )
+    finally:
+        for p in prefetchers:
+            p.close()  # join decode threads BEFORE destroying the sources
+        for s in sources:
+            s.close()
+        for d in dias:
+            d.close()
+
+    out = []
+    sz = np.array(frame_shape) - 1
+    for b in range(B):
+        n_b = 1 + counts[b]
+        ts = np.linspace(starts[b], stops[b], ns[b])[:n_b]
+        ij = np.concatenate([pos_host[b].reshape(1, 2)] + pos_blocks[b], axis=0)[:n_b]
+        if subpixel:
+            off = np.concatenate([off0[b].reshape(1, 2)] + off_blocks[b], axis=0)[:n_b]
+            ij = np.clip(ij.astype(np.float64) + off, 0, sz)
+        out.append((ts, ij))
+    return out

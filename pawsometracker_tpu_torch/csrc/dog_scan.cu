@@ -1,20 +1,24 @@
 // dog_scan.cu: the DoG tracker recurrence over a chunk of frames, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel pawsometracker_tpu/ops/pallas_tracker.py::_scan_fn_cached
-// (its pl.pallas_call at :342), in its unbatched configurations: unbounded, and bounded
-// with or without subpixel offsets. Per step t of one chain:
-//   1. p = pos (+ deltas[t] when bounded); the patch origin is p clamped to [0,H-1]x[0,W-1],
+// (its pl.pallas_call at :342) in all its configurations: unbatched (grid (T,)) and batched
+// (grid (B, T), :103-108, :126-131, :161-162, :277-304), each unbounded, or bounded with or
+// without subpixel offsets. Lane b of a launch is one chain of T steps; the unbatched call is
+// the case B = 1. Per step t of lane b:
+//   1. p = pos (+ deltas[b,t] when bounded); the patch origin is p clamped to [0,H-1]x[0,W-1],
 //      as lax.dynamic_slice clamps in the XLA engine;
 //   2. the (2ri+L)x(2rj+L) patch at that padded origin is read straight from the unpadded
-//      u8 frame, out-of-frame cells taking the fill value (no padded copy of the chunk);
+//      u8 frame of lane b (at frames + b * lane_stride; lane_stride 0 when every lane tracks
+//      its own target through the same frames), out-of-frame cells taking the lane's fill
+//      value (no padded copy of the chunk);
 //   3. resp = dir * (Gc_r P Gc_c^T - Gs_r P Gs_c^T), rows first, then columns, each output a
 //      sequential f32 FMA sum over the L direct taps (no TF32, no tensor cores);
 //   4. the first maximum in column-major order: a larger value wins, an equal value with the
 //      smaller col*wh+row wins;
-//   5. new pos = clamp(p - r + (row, col), lo[t], hi[t]) (the frame box when unbounded), carried
-//      in shared memory to step t+1. It starts from p, not from the clamped origin, as the XLA
-//      engine does (the Pallas kernel starts from the origin); the two differ only for a p
-//      outside the frame, such as a start location off the frame;
+//   5. new pos = clamp(p - r + (row, col), lo[b,t], hi[b,t]) (the frame box when unbounded),
+//      carried in shared memory to step t+1. It starts from p, not from the clamped origin, as
+//      the XLA engine does (the Pallas kernel starts from the origin); the two differ only for
+//      a p outside the frame, such as a start location off the frame;
 //   6. with out_off set, per-axis parabolic offsets in [-0.5, 0.5] from the four neighbours
 //      of the maximum, 0 at the window edge or where the response is not concave.
 //
@@ -22,16 +26,18 @@
 // 1.56 MFLOP of direct taps (rows 2*2*41*105*65, columns 2*2*41*41*65) on about 11 KB of
 // patch. The recurrence is sequential, so one chain is one CTA on one SM: the bound that
 // matters is one SM's f32 FMA rate and the latency of the per-step argmax and its
-// __syncthreads, not the card's memory or its 132-SM peak. The design keeps the patch (as u8)
-// and both row-pass sums in shared memory, so the frame is read once per step and nothing
-// intermediate touches device memory. A window too large for shared memory (the quarter-frame
-// autodetect snap, 271x481 at 1080p) is walked in output tiles, each with its apron, keeping a
-// running (max, column-major index). Spreading one step over a cluster, TMA loads and tensor
-// cores are left for later work.
+// __syncthreads, not the card's memory or its 132-SM peak. Lanes are independent, so the grid
+// is one CTA per lane (blockIdx.x = b) and lanes run on separate SMs: a launch of B <= 132
+// lanes should take about the time of one chain. The design keeps the patch (as u8) and both
+// row-pass sums in shared memory, so the frame is read once per step and nothing intermediate
+// touches device memory. A window too large for shared memory (the quarter-frame autodetect
+// snap, 271x481 at 1080p) is walked in output tiles, each with its apron, keeping a running
+// (max, column-major index). Spreading one step over a cluster, TMA loads and tensor cores are
+// left for later work.
 //
 // Summation order decides argmax ties, so the plain PyTorch version
 // (ops/filters.py::separable_correlate_valid) emulates this FMA sequence exactly; the two agree
-// bit for bit on any input. Keep them in step.
+// bit for bit on any input, lane by lane. Keep them in step.
 //
 // Built with nvcc into a shared library with a plain C interface and bound with ctypes
 // (pawsometracker_tpu_torch/ops/_build.py, ops/tracker_kernel.py). The kernel allocates nothing.
@@ -68,13 +74,26 @@ __device__ __forceinline__ float pixel(const uint8_t* frame, int H, int W, int r
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
-dog_scan_kernel(const uint8_t* __restrict__ frames, int T, int H, int W,
-                const int32_t* __restrict__ pos0, int fill,
+dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T, int H, int W,
+                const int32_t* __restrict__ pos0, const uint8_t* __restrict__ fills,
                 const int32_t* __restrict__ deltas, const int32_t* __restrict__ lo,
                 const int32_t* __restrict__ hi, const float* __restrict__ taps, int L, int ri,
                 int rj, float direction, int32_t* __restrict__ out_pos,
                 float* __restrict__ out_off, int tile_h, int tile_w) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // this CTA's lane: its frames [T,H,W] at chain * lane_stride, pos0 [2], fill, and
+  // deltas, lo, hi, out_pos and out_off [T,2]
+  const int chain = blockIdx.x;
+  const long long lane_steps = 2LL * T * chain;
+  frames += chain * lane_stride;
+  pos0 += 2 * chain;
+  const int fill = fills[chain];
+  if (deltas) deltas += lane_steps;
+  if (lo) lo += lane_steps;
+  if (hi) hi += lane_steps;
+  out_pos += lane_steps;
+  if (out_off) out_off += lane_steps;
+
   const int wh = 2 * ri + 1, ww = 2 * rj + 1;
   const int pad_i = ri + L / 2, pad_j = rj + L / 2;
   const int tpw = tile_w + L - 1;
@@ -233,22 +252,27 @@ long long dog_scan_smem_bytes(int L, int tile_h, int tile_w) {
   return 4LL * (10LL * L + 2LL * tile_h * tpw) + (long long)(tile_h + L - 1) * tpw;
 }
 
-// Launches one chain of T steps on `stream`. Device pointers: frames [T,H,W] u8 contiguous,
-// pos0 [2] i32, taps [2L] f32 (centre then surround), out_pos [T,2] i32; deltas, lo and hi
-// ([T,2] i32) and out_off ([T,2] f32) may be null. Returns cudaGetLastError() after launch.
-int dog_scan_launch(const void* frames, int T, int H, int W, const void* pos0, int fill,
-                    const void* deltas, const void* lo, const void* hi, const void* taps, int L,
-                    int ri, int rj, float direction, void* out_pos, void* out_off, int tile_h,
-                    int tile_w, int threads, void* stream) {
+// Launches B chains of T steps on `stream`, one CTA per lane. Device pointers: frames u8
+// contiguous, lane b's [T,H,W] at frames + b * lane_stride (lane_stride 0: all lanes read the
+// same frames), pos0 [B,2] i32, fills [B] u8, taps [2L] f32 (centre then surround), out_pos
+// [B,T,2] i32; deltas, lo and hi ([B,T,2] i32) and out_off ([B,T,2] f32) may be null. Returns
+// cudaGetLastError() after launch.
+int dog_scan_launch(const void* frames, long long lane_stride, int B, int T, int H, int W,
+                    const void* pos0, const void* fills, const void* deltas, const void* lo,
+                    const void* hi, const void* taps, int L, int ri, int rj, float direction,
+                    void* out_pos, void* out_off, int tile_h, int tile_w, int threads,
+                    void* stream) {
   if (threads <= 0 || threads > kMaxThreads || threads % 32 != 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || lane_stride < 0) return (int)cudaErrorInvalidValue;
   const long long smem = dog_scan_smem_bytes(L, tile_h, tile_w);
   cudaError_t e = cudaFuncSetAttribute(dog_scan_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dog_scan_kernel<<<1, threads, (size_t)smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)frames, T, H, W, (const int32_t*)pos0, fill, (const int32_t*)deltas,
-      (const int32_t*)lo, (const int32_t*)hi, (const float*)taps, L, ri, rj, direction,
-      (int32_t*)out_pos, (float*)out_off, tile_h, tile_w);
+  dog_scan_kernel<<<B, threads, (size_t)smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)frames, lane_stride, T, H, W, (const int32_t*)pos0,
+      (const uint8_t*)fills, (const int32_t*)deltas, (const int32_t*)lo, (const int32_t*)hi,
+      (const float*)taps, L, ri, rj, direction, (int32_t*)out_pos, (float*)out_off, tile_h,
+      tile_w);
   return (int)cudaGetLastError();
 }
 

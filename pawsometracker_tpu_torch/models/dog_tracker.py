@@ -7,9 +7,10 @@ kernel apron) around the last position, out-of-frame cells taking the mode
 fill; computes the DoG response as two separable correlations; takes the
 first maximum in column-major order; and clamps the new position to the frame
 (or to a per-step box). A chunk of frames runs as one call of
-:func:`~..ops.tracker_kernel.dog_scan`: the CUDA kernel for tensors on the
-card, its plain version on the CPU, or the plain version anywhere with
-``engine="xla"``.
+:func:`~..ops.tracker_kernel.dog_scan` (one chain) or
+:func:`~..ops.tracker_kernel.dog_scan_batch` (B videos, or N targets in one
+video): the CUDA kernel for tensors on the card, its plain version on the
+CPU, or the plain version anywhere with ``engine="xla"``.
 
 All coordinates are 0-based ``(row, col)`` int32.
 """
@@ -24,10 +25,11 @@ import numpy as np
 import torch
 
 from ..ops.dog_kernel import default_gaussian_len, get_sigma
-from ..ops.tracker_kernel import dog_scan, dog_scan_plain
+from ..ops.tracker_kernel import dog_scan, dog_scan_batch, dog_scan_batch_plain, dog_scan_plain
 
 __all__ = ["TrackerSpec", "TrackerFns", "tracker_fns", "center_guess", "autodetect_spec",
-           "make_spec", "spec_from_reference", "resolve_device"]
+           "make_spec", "spec_from_reference", "resolve_device", "frame_box",
+           "full_frame_sub_scan"]
 
 
 @dataclass(frozen=True)
@@ -135,6 +137,29 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+@functools.lru_cache(maxsize=64)
+def frame_box(frame_shape, lead: tuple, device: torch.device):
+    """``(zeros, hi)``: int32 ``[*lead, 2]`` tensors on ``device``, ``hi``
+    holding the frame's last row and column. As ``deltas``, ``lo`` and ``hi``
+    of a bounded scan they make it a whole-frame scan. Made once per shape."""
+    zeros = torch.zeros(tuple(lead) + (2,), dtype=torch.int32, device=device)
+    last = torch.tensor([frame_shape[0] - 1, frame_shape[1] - 1], dtype=torch.int32)
+    return zeros, last.expand(tuple(lead) + (2,)).contiguous().to(device)
+
+
+def full_frame_sub_scan(scan_sub, frame_shape, device: torch.device):
+    """A bounded subpixel scan (``scan_sub`` or ``scan_sub_batch`` of
+    :class:`TrackerFns`) as a whole-frame scan ``run(frames, pos0, fill)``:
+    zero deltas and the clamp box pinned to the frame."""
+
+    def run(frames, pos0, fill):
+        zeros, hi = frame_box(tuple(frame_shape), tuple(pos0.shape[:-1]) + (frames.shape[-3],),
+                              device)
+        return scan_sub(frames, pos0, fill, zeros, zeros, hi)
+
+    return run
+
+
 @dataclass(frozen=True)
 class TrackerFns:
     """Spec-specialized tracker entry points on one device (tensors or
@@ -145,6 +170,23 @@ class TrackerFns:
     - ``scan_bounded(frames, pos0, fill, deltas, lo, hi) -> int32 [T,2]``
     - ``scan_sub(frames, pos0, fill, deltas, lo, hi) -> (int32 [T,2], float32 [T,2])``
     - ``snap_sub(frame, guess, fill) -> (int32 [2], float32 [2])``
+
+    B videos in one launch, with per-video fills ``fills [B]`` (u8):
+
+    - ``snap_batch(frames [B,H,W], guesses [B,2], fills) -> int32 [B,2]``
+    - ``scan_batch(frames [B,T,H,W], pos0 [B,2], fills) -> int32 [B,T,2]``
+    - ``scan_bounded_batch(frames, pos0, fills, deltas, lo, hi [B,T,2]) -> int32 [B,T,2]``
+    - ``scan_sub_batch(frames, pos0, fills, deltas, lo, hi) -> (int32 [B,T,2], float32 [B,T,2])``
+    - ``snap_sub_batch(frames [B,H,W], guesses, fills) -> (int32 [B,2], float32 [B,2])``
+
+    N targets in one video, in one launch whose lanes read the same frames
+    (the JAX package's layout, steps first):
+
+    - ``snap_multi(frame [H,W], guesses [N,2], fill) -> int32 [N,2]``
+    - ``scan_multi(frames [T,H,W], pos0s [N,2], fill) -> int32 [T,N,2]``
+    - ``snap_multi_sub(frame, guesses, fill) -> (int32 [N,2], float32 [N,2])``
+    - ``scan_multi_sub(frames, pos0s, fill) -> (int32 [T,N,2], float32 [T,N,2])``, clamped
+      to the frame
     """
 
     spec: TrackerSpec
@@ -153,10 +195,26 @@ class TrackerFns:
     scan_bounded: callable
     scan_sub: callable
     snap_sub: callable
+    snap_batch: callable
+    scan_batch: callable
+    scan_bounded_batch: callable
+    scan_sub_batch: callable
+    snap_sub_batch: callable
+    scan_multi: callable
+    snap_multi: callable
+    scan_multi_sub: callable
+    snap_multi_sub: callable
+
+
+@functools.lru_cache(maxsize=1024)
+def _lane_fills(fill: int, n: int, device: torch.device) -> torch.Tensor:
+    """One fill for ``n`` lanes, as uint8 ``[n]`` on ``device``, made once."""
+    return torch.full((n,), int(fill), dtype=torch.uint8, device=device)
 
 
 def _build(spec: TrackerSpec, device: torch.device, engine: str) -> TrackerFns:
     run = dog_scan_plain if engine == "xla" else dog_scan
+    run_b = dog_scan_batch_plain if engine == "xla" else dog_scan_batch
     kw = dict(radii=spec.radii, sigma=spec.sigma, darker_target=spec.darker_target)
 
     def u8(x):
@@ -184,8 +242,53 @@ def _build(spec: TrackerSpec, device: torch.device, engine: str) -> TrackerFns:
         return run(u8(frames_u8), i32(pos0), int(fill), deltas=i32(deltas), lo=i32(lo),
                    hi=i32(hi), subpixel=True, **kw)
 
+    def snap_batch(frames_u8, guesses, fills):
+        return run_b(u8(frames_u8)[:, None], i32(guesses), u8(fills), **kw)[:, 0]
+
+    def snap_sub_batch(frames_u8, guesses, fills):
+        pos, off = run_b(u8(frames_u8)[:, None], i32(guesses), u8(fills), subpixel=True, **kw)
+        return pos[:, 0], off[:, 0]
+
+    def scan_batch(frames_u8, pos0, fills):
+        return run_b(u8(frames_u8), i32(pos0), u8(fills), **kw)
+
+    def scan_bounded_batch(frames_u8, pos0, fills, deltas, lo, hi):
+        return run_b(u8(frames_u8), i32(pos0), u8(fills), deltas=i32(deltas), lo=i32(lo),
+                     hi=i32(hi), **kw)
+
+    def scan_sub_batch(frames_u8, pos0, fills, deltas, lo, hi):
+        return run_b(u8(frames_u8), i32(pos0), u8(fills), deltas=i32(deltas), lo=i32(lo),
+                     hi=i32(hi), subpixel=True, **kw)
+
+    def snap_multi(frame_u8, guesses, fill):
+        g = i32(guesses)
+        return run_b(u8(frame_u8)[None], g, _lane_fills(int(fill), g.shape[0], device),
+                     **kw)[:, 0]
+
+    def snap_multi_sub(frame_u8, guesses, fill):
+        g = i32(guesses)
+        pos, off = run_b(u8(frame_u8)[None], g, _lane_fills(int(fill), g.shape[0], device),
+                         subpixel=True, **kw)
+        return pos[:, 0], off[:, 0]
+
+    def scan_multi(frames_u8, pos0s, fill):
+        p = i32(pos0s)
+        return run_b(u8(frames_u8), p, _lane_fills(int(fill), p.shape[0], device),
+                     **kw).transpose(0, 1)
+
+    def scan_multi_sub(frames_u8, pos0s, fill):
+        p, f = i32(pos0s), u8(frames_u8)
+        zeros, hi = frame_box(spec.frame_shape, (p.shape[0], f.shape[0]), device)
+        pos, off = run_b(f, p, _lane_fills(int(fill), p.shape[0], device), deltas=zeros,
+                         lo=zeros, hi=hi, subpixel=True, **kw)
+        return pos.transpose(0, 1), off.transpose(0, 1)
+
     return TrackerFns(spec=spec, snap=snap, scan=scan, scan_bounded=scan_bounded,
-                      scan_sub=scan_sub, snap_sub=snap_sub)
+                      scan_sub=scan_sub, snap_sub=snap_sub, snap_batch=snap_batch,
+                      scan_batch=scan_batch, scan_bounded_batch=scan_bounded_batch,
+                      scan_sub_batch=scan_sub_batch, snap_sub_batch=snap_sub_batch,
+                      scan_multi=scan_multi, snap_multi=snap_multi,
+                      scan_multi_sub=scan_multi_sub, snap_multi_sub=snap_multi_sub)
 
 
 @functools.lru_cache(maxsize=256)

@@ -28,12 +28,14 @@ import torch
 from .dog_kernel import dog_kernel_separable
 from .filters import argmax_colmajor, separable_correlate_valid
 
-__all__ = ["dog_scan", "dog_scan_plain", "dog_scan_cuda", "launches", "launches_by_config",
+__all__ = ["dog_scan", "dog_scan_plain", "dog_scan_cuda", "dog_scan_batch",
+           "dog_scan_batch_plain", "dog_scan_batch_cuda", "launches", "launches_by_config",
            "reset_launches", "tile_shape", "THREADS"]
 
 #: kernel launches since import (or the last :func:`reset_launches`)
 launches = 0
-#: the same count split by configuration (``unbounded``, ``bounded``, ``+subpixel``)
+#: the same count split by configuration (``unbounded``, ``bounded``, ``+subpixel``, each
+#: also with a ``batched`` prefix)
 launches_by_config: Counter = Counter()
 
 #: threads per CTA (a multiple of 32, at most the kernel's launch bound)
@@ -49,9 +51,10 @@ def reset_launches() -> None:
     launches_by_config.clear()
 
 
-def _config_name(bounded: bool, subpixel: bool) -> str:
+def _config_name(bounded: bool, subpixel: bool, batched: bool = False) -> str:
     """Configuration name used in the launch counts and reports."""
-    return ("bounded" if bounded else "unbounded") + ("+subpixel" if subpixel else "")
+    return (("batched " if batched else "") + ("bounded" if bounded else "unbounded")
+            + ("+subpixel" if subpixel else ""))
 
 
 @functools.lru_cache(maxsize=64)
@@ -81,6 +84,31 @@ def _check_args(frames, pos0, deltas, lo, hi):
     if pos0.device != frames.device:
         raise ValueError(f"pos0 is on {pos0.device}, frames on {frames.device}")
     return bounded
+
+
+def _check_batch_args(frames, pos0, fills, deltas, lo, hi):
+    if frames.dtype != torch.uint8 or frames.dim() not in (3, 4):
+        raise ValueError(f"frames must be uint8 [B, T, H, W] or shared [T, H, W], got "
+                         f"{frames.dtype} {tuple(frames.shape)}")
+    if pos0.dim() != 2 or pos0.shape[1] != 2:
+        raise ValueError(f"pos0 must have shape (B, 2), got {tuple(pos0.shape)}")
+    B = pos0.shape[0]
+    T = frames.shape[-3]
+    if frames.dim() == 4 and frames.shape[0] != B:
+        raise ValueError(f"frames has {frames.shape[0]} lanes, pos0 {B}")
+    if tuple(fills.shape) != (B,):
+        raise ValueError(f"fills must have shape ({B},), got {tuple(fills.shape)}")
+    bounded = deltas is not None
+    if bounded != (lo is not None) or bounded != (hi is not None):
+        raise ValueError("deltas, lo and hi are given together or not at all")
+    for name, a in (("pos0", pos0), ("fills", fills), ("deltas", deltas), ("lo", lo), ("hi", hi)):
+        if a is None:
+            continue
+        if name in ("deltas", "lo", "hi") and tuple(a.shape) != (B, T, 2):
+            raise ValueError(f"{name} must have shape ({B}, {T}, 2), got {tuple(a.shape)}")
+        if a.device != frames.device:
+            raise ValueError(f"{name} is on {a.device}, frames on {frames.device}")
+    return bounded, B, T
 
 
 def dog_scan(frames: torch.Tensor, pos0: torch.Tensor, fill: int, *, radii, sigma: float,
@@ -169,6 +197,50 @@ def _parabolic_offset(resp: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.stack([axis_off(i0, wh, rm, rp), axis_off(j0, ww, cm, cp)]).to(torch.float32)
 
 
+def dog_scan_batch(frames: torch.Tensor, pos0: torch.Tensor, fills: torch.Tensor, *, radii,
+                   sigma: float, darker_target: bool, deltas=None, lo=None, hi=None,
+                   subpixel: bool = False):
+    """Track B chains in one call: lane b through ``frames[b]`` (``frames
+    [B, T, H, W]``), or every lane through the same ``frames [T, H, W]``, from
+    ``pos0[b]`` with fill ``fills[b]`` (and ``deltas``/``lo``/``hi [B, T, 2]``
+    when bounded).
+
+    Returns positions ``int32 [B, T, 2]``, and with ``subpixel`` also offsets
+    ``float32 [B, T, 2]``. A CUDA tensor launches the kernel; a CPU tensor runs
+    the plain version; any other device raises."""
+    if frames.is_cuda:
+        return dog_scan_batch_cuda(frames, pos0, fills, radii=radii, sigma=sigma,
+                                   darker_target=darker_target, deltas=deltas, lo=lo, hi=hi,
+                                   subpixel=subpixel)
+    if frames.device.type == "cpu":
+        return dog_scan_batch_plain(frames, pos0, fills, radii=radii, sigma=sigma,
+                                    darker_target=darker_target, deltas=deltas, lo=lo, hi=hi,
+                                    subpixel=subpixel)
+    raise ValueError(f"dog_scan_batch runs on CUDA or CPU tensors, got {frames.device}")
+
+
+def dog_scan_batch_plain(frames: torch.Tensor, pos0: torch.Tensor, fills: torch.Tensor, *,
+                         radii, sigma: float, darker_target: bool, deltas=None, lo=None,
+                         hi=None, subpixel: bool = False):
+    """The plain PyTorch version of :func:`dog_scan_batch`, on any device: a
+    loop over lanes of :func:`dog_scan_plain`, so each lane's arithmetic is
+    the kernel's bit for bit."""
+    bounded, B, T = _check_batch_args(frames, pos0, fills, deltas, lo, hi)
+    dev = frames.device
+    out_pos = torch.empty((B, T, 2), dtype=torch.int32, device=dev)
+    out_off = torch.empty((B, T, 2), dtype=torch.float32, device=dev) if subpixel else None
+    for b in range(B):
+        box = dict(deltas=deltas[b], lo=lo[b], hi=hi[b]) if bounded else {}
+        out = dog_scan_plain(frames if frames.dim() == 3 else frames[b], pos0[b], int(fills[b]),
+                             radii=radii, sigma=sigma, darker_target=darker_target,
+                             subpixel=subpixel, **box)
+        if subpixel:
+            out_pos[b], out_off[b] = out
+        else:
+            out_pos[b] = out
+    return (out_pos, out_off) if subpixel else out_pos
+
+
 def tile_shape(radii, L: int, smem_limit: int) -> tuple[int, int]:
     """Output tile (rows, cols) for one kernel pass: the window itself when it
     fits, else halved along its longer side until the tile, its apron and the
@@ -198,8 +270,9 @@ def _lib():
 
     lib = kernel_library("dog_scan")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.dog_scan_launch.argtypes = [vp, i32, i32, i32, vp, i32, vp, vp, vp, vp, i32, i32, i32,
-                                    ctypes.c_float, vp, vp, i32, i32, i32, vp]
+    lib.dog_scan_launch.argtypes = [vp, ctypes.c_longlong, i32, i32, i32, i32, vp, vp, vp, vp,
+                                    vp, vp, i32, i32, i32, ctypes.c_float, vp, vp, i32, i32, i32,
+                                    vp]
     lib.dog_scan_launch.restype = i32
     lib.dog_scan_error_string.argtypes = [i32]
     lib.dog_scan_error_string.restype = ctypes.c_char_p
@@ -216,40 +289,80 @@ def _ptr(a):
     return None if a is None else a.data_ptr()
 
 
-def dog_scan_cuda(frames: torch.Tensor, pos0: torch.Tensor, fill: int, *, radii, sigma: float,
-                  darker_target: bool, deltas=None, lo=None, hi=None, subpixel: bool = False):
-    """Launch ``csrc/dog_scan.cu`` on the current stream for CUDA tensors
-    (int32 ``pos0``/``deltas``/``lo``/``hi``, contiguous). Raises on anything
-    the kernel does not take and on a failed launch."""
-    global launches
-    bounded = _check_args(frames, pos0, deltas, lo, hi)
-    if not frames.is_cuda:
-        raise ValueError(f"dog_scan_cuda needs CUDA tensors, got {frames.device}")
-    for name, a in (("frames", frames), ("pos0", pos0), ("deltas", deltas), ("lo", lo), ("hi", hi)):
+@functools.lru_cache(maxsize=1024)
+def _fill_tensor(fill: int, device: torch.device) -> torch.Tensor:
+    """One lane's fill as a uint8 ``[1]`` tensor on ``device``, made once per
+    value, so an unbatched launch never waits on a host-to-device copy."""
+    return torch.full((1,), int(fill), dtype=torch.uint8, device=device)
+
+
+def _check_cuda(tensors: dict):
+    for name, a in tensors.items():
         if a is None:
             continue
-        if name != "frames" and a.dtype != torch.int32:
-            raise ValueError(f"{name} must be int32, got {a.dtype}")
+        if not a.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {a.device}")
+        want = torch.uint8 if name in ("frames", "fills") else torch.int32
+        if a.dtype != want:
+            raise ValueError(f"{name} must be {str(want).replace('torch.', '')}, got {a.dtype}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    T, H, W = frames.shape
+
+
+def _launch(frames, lane_stride: int, B: int, T: int, pos0, fills, deltas, lo, hi, radii,
+            sigma, darker_target, subpixel, config: str):
+    """Launch the kernel for B lanes of T steps on the current stream; returns
+    ``out_pos [B,T,2]`` (and ``out_off``). Counts the launch."""
+    global launches
+    H, W = frames.shape[-2:]
     dev = frames.device
-    out_pos = torch.empty((T, 2), dtype=torch.int32, device=dev)
-    out_off = torch.empty((T, 2), dtype=torch.float32, device=dev) if subpixel else None
-    if T == 0:
-        return (out_pos, out_off) if subpixel else out_pos
+    out_pos = torch.empty((B, T, 2), dtype=torch.int32, device=dev)
+    out_off = torch.empty((B, T, 2), dtype=torch.float32, device=dev) if subpixel else None
+    if B == 0 or T == 0:
+        return out_pos, out_off
     taps, direction, L = _taps(float(sigma), bool(darker_target), dev)
     th, tw = tile_shape(radii, L, _smem_limit(dev.index if dev.index is not None else 0))
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dog_scan_launch(
-            frames.data_ptr(), T, H, W, pos0.data_ptr(), int(fill),
+            frames.data_ptr(), lane_stride, B, T, H, W, pos0.data_ptr(), fills.data_ptr(),
             _ptr(deltas), _ptr(lo), _ptr(hi), taps.data_ptr(), L, int(radii[0]), int(radii[1]),
             direction, out_pos.data_ptr(), _ptr(out_off), th, tw, THREADS, stream,
         )
     if err != 0:
         raise RuntimeError(f"dog_scan launch failed: {lib.dog_scan_error_string(err).decode()}")
     launches += 1
-    launches_by_config[_config_name(bounded, subpixel)] += 1
+    launches_by_config[config] += 1
+    return out_pos, out_off
+
+
+def dog_scan_cuda(frames: torch.Tensor, pos0: torch.Tensor, fill: int, *, radii, sigma: float,
+                  darker_target: bool, deltas=None, lo=None, hi=None, subpixel: bool = False):
+    """Launch ``csrc/dog_scan.cu`` for one chain (one lane) on the current
+    stream for CUDA tensors (int32 ``pos0``/``deltas``/``lo``/``hi``,
+    contiguous). Raises on anything the kernel does not take and on a failed
+    launch."""
+    bounded = _check_args(frames, pos0, deltas, lo, hi)
+    _check_cuda(dict(frames=frames, pos0=pos0, deltas=deltas, lo=lo, hi=hi))
+    T = frames.shape[0]
+    out_pos, out_off = _launch(frames, 0, 1, T, pos0, _fill_tensor(int(fill), frames.device),
+                               deltas, lo, hi, radii, sigma, darker_target, subpixel,
+                               _config_name(bounded, subpixel))
+    return (out_pos[0], out_off[0]) if subpixel else out_pos[0]
+
+
+def dog_scan_batch_cuda(frames: torch.Tensor, pos0: torch.Tensor, fills: torch.Tensor, *, radii,
+                        sigma: float, darker_target: bool, deltas=None, lo=None, hi=None,
+                        subpixel: bool = False):
+    """Launch ``csrc/dog_scan.cu`` with one CTA per lane on the current stream
+    for CUDA tensors (uint8 ``fills``, int32 ``pos0``/``deltas``/``lo``/``hi``,
+    contiguous). Shared ``frames [T, H, W]`` launch with a lane stride of 0.
+    Raises on anything the kernel does not take and on a failed launch."""
+    bounded, B, T = _check_batch_args(frames, pos0, fills, deltas, lo, hi)
+    _check_cuda(dict(frames=frames, pos0=pos0, fills=fills, deltas=deltas, lo=lo, hi=hi))
+    lane_stride = 0 if frames.dim() == 3 else frames.stride(0)
+    out_pos, out_off = _launch(frames, lane_stride, B, T, pos0, fills, deltas, lo, hi, radii,
+                               sigma, darker_target, subpixel,
+                               _config_name(bounded, subpixel, batched=True))
     return (out_pos, out_off) if subpixel else out_pos

@@ -36,6 +36,8 @@ def test_import_leaves_jax_out():
         "import pawsometracker_tpu_torch\n"
         "import pawsometracker_tpu_torch.api, pawsometracker_tpu_torch.pipeline\n"
         "import pawsometracker_tpu_torch.ops.tracker_kernel\n"
+        "import pawsometracker_tpu_torch.batch, pawsometracker_tpu_torch.multi\n"
+        "import pawsometracker_tpu_torch.parallel.mesh\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pawsometracker_tpu' or m.startswith('pawsometracker_tpu.')]\n"
         "assert not bad, bad\n"
@@ -71,7 +73,10 @@ def test_source_scan_covers_the_package():
     rel = {os.path.relpath(p, ROOT) for p in port_sources()}
     for must in ("chip_smoke.py", "pawsometracker_tpu_torch/api.py",
                  "pawsometracker_tpu_torch/ops/tracker_kernel.py",
-                 "pawsometracker_tpu_torch/io/parallel_decode.py"):
+                 "pawsometracker_tpu_torch/io/parallel_decode.py",
+                 "pawsometracker_tpu_torch/batch.py", "pawsometracker_tpu_torch/multi.py",
+                 "pawsometracker_tpu_torch/parallel/mesh.py",
+                 "pawsometracker_tpu_torch/parallel/__init__.py"):
         assert must in rel
 
 
@@ -91,7 +96,9 @@ def test_exports():
     for name in port.__all__:
         assert hasattr(port, name), name
     for name in ("track", "IJ", "make_spec", "tracker_fns", "TrackerSpec",
-                 "spec_from_reference", "dog_kernel_separable", "guess_window_size"):
+                 "spec_from_reference", "dog_kernel_separable", "guess_window_size",
+                 "track_batch", "track_multi", "ShardedBatchTracker", "global_detect_batch",
+                 "global_detect_peaks"):
         assert name in port.__all__
 
 
@@ -106,6 +113,35 @@ def test_track_signature_matches_jax_track():
         assert got[name].kind == p.kind, name
     assert got["device"].kind is inspect.Parameter.KEYWORD_ONLY
     assert got["device"].default is None
+
+
+@pytest.mark.parametrize("name", ["track_batch", "track_multi"])
+def test_batch_and_multi_signatures_match_jax(name):
+    """The JAX package's signature, defaults and kinds, plus a keyword-only
+    ``device=None``."""
+    import pawsometracker_tpu as ref
+
+    want = inspect.signature(getattr(ref, name)).parameters
+    got = inspect.signature(getattr(port, name)).parameters
+    assert list(got) == list(want) + ["device"]
+    for pname, p in want.items():
+        assert got[pname].default == p.default, pname
+        assert got[pname].kind == p.kind, pname
+    assert got["device"].kind is inspect.Parameter.KEYWORD_ONLY
+    assert got["device"].default is None
+
+
+@pytest.mark.parametrize("name", ["track_batch", "track_multi"])
+def test_batch_and_multi_without_device_raise_without_cuda(monkeypatch, name):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    frames = np.full((3, 40, 40), 128, np.uint8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if name == "track_batch":
+            port.track_batch([frames, frames], start_location=port.IJ(20, 20), target_width=6)
+        else:
+            port.track_multi(frames, [port.IJ(20, 20)], target_width=6)
 
 
 def test_track_without_device_raises_without_cuda(monkeypatch):

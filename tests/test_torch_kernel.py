@@ -1,7 +1,9 @@
 """The tracker scan's plain PyTorch version against the JAX package's Pallas
-kernel (interpret mode) and XLA scan, and the wrapper's dispatch and checks.
-The CUDA kernel itself is tested on the card by tests/test_torch_cuda.py."""
+kernel (interpret mode) and XLA scan, in the unbatched and the batched
+configurations, and the wrappers' dispatch and checks. The CUDA kernel itself
+is tested on the card by tests/test_torch_cuda.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,7 +12,7 @@ import torch
 from pawsometracker_tpu.models.dog_tracker import make_spec as ref_make_spec
 from pawsometracker_tpu.models.dog_tracker import tracker_fns as ref_tracker_fns
 from pawsometracker_tpu.ops.pallas_tracker import pallas_scan_fn
-from pawsometracker_tpu_torch.models.dog_tracker import make_spec
+from pawsometracker_tpu_torch.models.dog_tracker import make_spec, tracker_fns
 from pawsometracker_tpu_torch.ops import tracker_kernel as tk
 from pawsometracker_tpu_torch.pipeline import _crop_with_fill
 
@@ -166,7 +168,7 @@ def test_flat_field_ties_break_column_major(ch, win, tw, dark):
     moves by -radii until the clamp. The plain scan computes every response
     with the same FMA sequence, so the tie is exact and the rule decides.
     (XLA's jitted dot is not position-invariant here and can pick another
-    cell: ROADMAP.md, queue 3.)"""
+    cell: a decided divergence, ROADMAP.md "Exact ties".)"""
     K, fill = 4, 128
     spec = make_spec((ch, ch), win, tw, dark)
     crops = np.full((K, ch, ch), fill, np.uint8)
@@ -261,3 +263,143 @@ def test_smem_formula_matches_kernel_source():
     src = open(os.path.join(os.path.dirname(tk.__file__), "..", "csrc", "dog_scan.cu")).read()
     assert "4LL * (10LL * L + 2LL * tile_h * tpw) + (long long)(tile_h + L - 1) * tpw" in src
     assert tk._smem_bytes(65, 41, 41) == 4 * (650 + 2 * 41 * 105) + 105 * 105
+
+
+# ---- the batched configurations (grid over lanes) ---------------------------
+
+
+def plain_batch(spec, frames, pos0, fills, deltas=None, lo=None, hi=None, subpixel=False):
+    b = {}
+    if deltas is not None:
+        b = {k: torch.from_numpy(np.asarray(v, np.int32))
+             for k, v in (("deltas", deltas), ("lo", lo), ("hi", hi))}
+    out = tk.dog_scan_batch(torch.from_numpy(frames), torch.from_numpy(np.asarray(pos0, np.int32)),
+                            torch.from_numpy(np.asarray(fills, np.uint8)), radii=spec.radii,
+                            sigma=spec.sigma, darker_target=spec.darker_target,
+                            subpixel=subpixel, **b)
+    return tuple(o.numpy() for o in out) if subpixel else out.numpy()
+
+
+@pytest.mark.parametrize("fills_kind", ["shared fill", "per-video fills"])
+def test_batched_plain_matches_pallas_and_xla(fills_kind):
+    """The cases of tests/test_pallas.py:58-90: grid (B, T), one fill or
+    per-video fills."""
+    if fills_kind == "shared fill":
+        h, w, T, B = 80, 90, 8, 3
+        paths = [[(20 + b * 5 + t, 30 + t) for t in range(T)] for b in range(B)]
+        frames = np.stack([np.stack([draw_blob(h, w, ij, 3) for ij in p]) for p in paths])
+        fills = np.full((B,), 128, np.uint8)
+    else:
+        h, w, T, B = 64, 64, 5, 2
+        frames = np.stack([
+            np.stack([draw_blob(h, w, (20 + t, 20 + t), 3, bg=100) for t in range(T)]),
+            np.stack([draw_blob(h, w, (30 + t, 30 + t), 3, bg=200) for t in range(T)]),
+        ])
+        paths = [[(20, 20)], [(30, 30)]]
+        fills = np.array([100, 200], np.uint8)
+    rspec = ref_make_spec((h, w), 15, 6, True)
+    pos0 = np.array([p[0] for p in paths], np.int32)
+    want_x = np.asarray(ref_tracker_fns(rspec).scan_batch(*jax_args(frames, pos0, fills)))
+    want_p = np.asarray(pallas_scan_fn(rspec, batched=True, interpret=True)(*jax_args(frames, pos0,
+                                                                               fills)))
+    got = plain_batch(make_spec((h, w), 15, 6, True), frames, pos0, fills)
+    np.testing.assert_array_equal(got, want_x)
+    np.testing.assert_array_equal(got, want_p)
+    assert got.dtype == np.int32 and got.shape == (B, T, 2)
+
+
+def test_batched_bounded_plain_matches_pallas_and_xla():
+    """tests/test_pallas.py:129-159: per-lane clamp boxes and fills."""
+    ch, cw, T, B = 81, 89, 6, 3
+    paths = [[(30 + 4 * b + t, 40 + t) for t in range(T)] for b in range(B)]
+    crops = np.stack([np.stack([draw_blob(ch, cw, ij, 4, bg=90 + 40 * b) for ij in p])
+                      for b, p in enumerate(paths)])
+    rspec = ref_make_spec((ch, cw), 19, 8, True)
+    pos0 = np.array([p[0] for p in paths], np.int32)
+    fills = np.array([90, 130, 170], np.uint8)
+    deltas = np.zeros((B, T, 2), np.int32)
+    lo = np.tile(np.array([[0, 0], [2, 1], [0, 3]], np.int32)[:, None], (1, T, 1))
+    hi = np.tile(np.array([[80, 88], [70, 85], [78, 80]], np.int32)[:, None], (1, T, 1))
+    args = jax_args(crops, pos0, fills, deltas, lo, hi)
+    base = ref_tracker_fns(rspec).scan_bounded
+    want_x = np.asarray(jax.vmap(getattr(base, "__wrapped__", base))(*args))
+    want_p = np.asarray(pallas_scan_fn(rspec, batched=True, bounded=True, interpret=True)(*args))
+    got = plain_batch(make_spec((ch, cw), 19, 8, True), crops, pos0, fills, deltas, lo, hi)
+    np.testing.assert_array_equal(got, want_x)
+    np.testing.assert_array_equal(got, want_p)
+    got_f = tracker_fns(make_spec((ch, cw), 19, 8, True), "cpu").scan_bounded_batch(
+        crops, pos0, fills, deltas, lo, hi)
+    np.testing.assert_array_equal(got_f.numpy(), want_x)
+
+
+def test_batched_subpixel_plain_matches_pallas_and_xla(rng):
+    """tests/test_pallas.py:162-206 (batched): positions exact, offsets within
+    1e-3 (the engines sum the response in different orders)."""
+    ch, cw, T, B = 64, 64, 6, 2
+    path = [(30 + t, 28 + 2 * t) for t in range(T)]
+    frames = np.stack([draw_blob(ch, cw, ij, 3) for ij in path]).astype(np.uint8)
+    frames = np.clip(frames.astype(np.int32) + rng.integers(-3, 4, frames.shape), 0,
+                     255).astype(np.uint8)
+    fb = np.stack([frames, frames[:, ::-1].copy()])
+    pos0 = np.tile(np.array([[30, 28]], np.int32), (B, 1))
+    deltas = np.zeros((B, T, 2), np.int32)
+    lo = np.zeros((B, T, 2), np.int32)
+    hi = np.tile(np.array([[[ch - 1, cw - 1]]], np.int32), (B, T, 1))
+    fills = np.full((B,), 128, np.uint8)
+    rspec = ref_make_spec((ch, cw), 15, 6, True)
+    args = jax_args(fb, pos0, fills, deltas, lo, hi)
+    base = ref_tracker_fns(rspec).scan_sub
+    xp, xo = jax.jit(jax.vmap(getattr(base, "__wrapped__", base)))(*args)
+    pp, po = pallas_scan_fn(rspec, batched=True, bounded=True, subpixel=True, interpret=True)(*args)
+    spec = make_spec((ch, cw), 15, 6, True)
+    gp, go = plain_batch(spec, fb, pos0, fills, deltas, lo, hi, subpixel=True)
+    assert np.abs(go).max() > 0
+    for wp, wo in ((xp, xo), (pp, po)):
+        np.testing.assert_array_equal(gp, np.asarray(wp))
+        np.testing.assert_allclose(go, np.asarray(wo), rtol=0, atol=1e-3)
+    fp, fo = tracker_fns(spec, "cpu").scan_sub_batch(fb, pos0, fills, deltas, lo, hi)
+    np.testing.assert_array_equal(fp.numpy(), gp)
+    np.testing.assert_array_equal(fo.numpy(), go)
+
+
+def test_batched_wrapper_checks_and_dispatch():
+    spec = make_spec((40, 40), 9, 6, True)
+    kw = dict(radii=spec.radii, sigma=spec.sigma, darker_target=True)
+    frames = torch.from_numpy(np.stack([np.stack([draw_blob(40, 40, (20, 20 + t), 3)
+                                                  for t in range(5)])] * 2))
+    p0 = torch.tensor([[20, 20], [20, 21]], dtype=torch.int32)
+    fl = torch.tensor([128, 128], dtype=torch.uint8)
+    before = tk.launches
+    got = tk.dog_scan_batch(frames, p0, fl, **kw)
+    assert tk.launches == before  # the CPU tensor took the plain version
+    for b in range(2):
+        np.testing.assert_array_equal(got[b].numpy(),
+                                      tk.dog_scan(frames[b], p0[b], 128, **kw).numpy())
+    shared = tk.dog_scan_batch(frames[0], p0, fl, **kw)  # lanes read one stream
+    np.testing.assert_array_equal(shared[0].numpy(), got[0].numpy())
+    with pytest.raises(ValueError, match="uint8"):
+        tk.dog_scan_batch(frames.float(), p0, fl, **kw)
+    with pytest.raises(ValueError, match="pos0"):
+        tk.dog_scan_batch(frames, p0[0], fl, **kw)
+    with pytest.raises(ValueError, match="lanes"):
+        tk.dog_scan_batch(frames, p0[:1], fl[:1], **kw)
+    with pytest.raises(ValueError, match="fills"):
+        tk.dog_scan_batch(frames, p0, fl[:1], **kw)
+    z = torch.zeros((2, 5, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="together"):
+        tk.dog_scan_batch(frames, p0, fl, deltas=z, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        tk.dog_scan_batch(frames, p0, fl, deltas=z[:, :4], lo=z, hi=z, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.dog_scan_batch_cuda(frames, p0, fl, **kw)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tk.dog_scan_batch(frames.to("meta"), p0.to("meta"), fl.to("meta"), **kw)
+
+
+def test_source_names_the_batched_configurations():
+    import os
+
+    src = open(os.path.join(os.path.dirname(tk.__file__), "..", "csrc", "dog_scan.cu")).read()
+    assert "blockIdx.x" in src and "lane_stride" in src
+    assert tk._config_name(True, True, batched=True) == "batched bounded+subpixel"
+    assert tk._config_name(False, False) == "unbounded"
