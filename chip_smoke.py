@@ -3,19 +3,23 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``pawsometracker_tpu_torch/csrc`` and runs
-three phases on the card; any failure exits non-zero:
+Builds the port's CUDA kernels (``dog_scan`` and ``dog_scan_tiled``, one
+source) from ``pawsometracker_tpu_torch/csrc`` and runs three phases on the
+card; any failure exits non-zero:
 
-1. The kernel against its plain PyTorch version on the same card tensors, at
+1. Each kernel against its plain PyTorch version on the same card tensors, at
    the bench shape (1080p frames, ``target_width=25``, 41x41 window, T=64).
    One chain: unbounded; bounded with random deltas/lo/hi from a fixed seed;
-   bounded with subpixel offsets; the quarter-frame autodetect snap; the
-   subpixel snap; and two exact-tie geometries, a flat field and a
+   bounded with subpixel offsets; a clamp box far from the position with
+   deltas up to the window radius; the quarter-frame autodetect snap (the
+   tiled kernel); the subpixel snap; a frame 1918 wide (not a multiple of 16,
+   T=16, subpixel); and two exact-tie geometries, a flat field and a
    mirror-symmetric blob. B = 4 lanes with fills 128/100/160/128 in one
-   launch: unbounded; bounded and bounded+subpixel (T=16); four targets
-   reading one frame stream (lane stride 0); the quarter-frame snap and the
-   subpixel snap; and one lane equal to the unbatched call. Integer
-   positions must be equal, offsets within ``atol=1e-3``.
+   launch: unbounded; bounded and bounded+subpixel (T=16); a lane starting
+   off the frame (T=16); four targets reading one frame stream (lane stride
+   0); the quarter-frame snap and the subpixel snap; and one lane equal to
+   the unbatched call. Integer positions must be equal, offsets within
+   ``atol=1e-3``.
 2. The main paths, each driven with the launch counts set to 0 just before
    it and read just after:
    - ``track()`` on a synthetic 1080p, 480-frame clip (a dark disc of radius
@@ -32,17 +36,18 @@ three phases on the card; any failure exits non-zero:
    video or target, equal the port's single-video ``track()`` of each video
    or target on the card, and (the first call of each path) equal the
    port's own ``device="cpu"`` run.
-3. Timing with CUDA events: the kernel per launch at T=64 (one chain:
+3. Timing with CUDA events: each kernel per launch at T=64 (one chain:
    unbounded, bounded, bounded+subpixel, the snap; lanes: B = 1, 4 and 16,
    and four targets on shared frames; bounded and bounded+subpixel lanes at
-   T=16), the plain version on the same inputs, each bound; end-to-end
-   frames/s of the three paths; and a ``torch.profiler`` busy share of one
-   ``track()`` and one ``track_batch``.
+   T=16) and at T=1 (the fixed cost of a launch), the plain version on the
+   same inputs, each bound and the share of one SM's bound the kernel
+   reaches; end-to-end frames/s of the three paths; and a ``torch.profiler``
+   busy share of one ``track()`` and one ``track_batch``.
 
-Prints the card's name and power limit, the build time, the kernel's
-configurations with their launch counts, one JSON line of per-kernel numbers,
-and, last, ``{"ok": true, "device": {...}}``. The full record goes to
-``build/chip_smoke.json``.
+Prints the card's name and power limit, the build time and ``ptxas``'s
+registers, the kernels' configurations with their launch counts, one JSON
+line of per-kernel numbers, and, last, ``{"ok": true, "device": {...}}``. The
+full record goes to ``build/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -152,12 +158,16 @@ def cost(radii, L, T, subpixel=False, bounded=False, lanes=1):
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Card time per call of ``fn``: CUDA events around ``reps`` calls queued
+    behind a sleep of the card (~0.2 ms a call), so that the card runs them
+    back to back and the host's cost per launch does not enter."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(400_000 * reps)
     t0.record()
     for _ in range(reps):
         fn()
@@ -255,7 +265,13 @@ def main() -> int:
     record["build_s"] = time.perf_counter() - t0
     log(f"build: dog_scan.cu in {record['build_s']:.2f} s")
     for line in _build.build_log.get("dog_scan", "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        entry = re.search(r"Compiling entry function .*\d(dog_scan(?:_tiled)?_kernel)(ILb([01]))?",
+                          line)
+        if entry:
+            log(f"  ptxas: {entry.group(1)}"
+                + ({"0": "<per-row offsets>", "1": "<aligned>"}[entry.group(3)]
+                   if entry.group(3) else ""))
+        elif "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
     t0 = time.perf_counter()
@@ -291,6 +307,8 @@ def main() -> int:
     mirror = torch.from_numpy(np.clip(fill - 110.0 * blob, 0, 255).astype(np.uint8)).to(dev)
     mirror = mirror[None].expand(CHUNK, H, W).contiguous()
     mid = torch.tensor([H // 2 + 3, W // 2 - 2], dtype=torch.int32, device=dev)
+    # a width that is not a multiple of 16: each superset row at its own offset
+    narrow = chunk[:BOUNDED_T, :, :W - 2].contiguous()
 
     # lanes: frames 1..64 of each batch clip, per-lane fills, per-lane boxes
     lanes = torch.from_numpy(np.stack([c[1:1 + CHUNK] for c in clips])).to(dev)
@@ -301,6 +319,13 @@ def main() -> int:
             "lo": np.maximum(ltr - rng.integers(0, 16, size=(B, BOUNDED_T, 2)), 0),
             "hi": np.minimum(ltr + rng.integers(0, 16, size=(B, BOUNDED_T, 2)), [H - 1, W - 1])}
     lbnd = {k: torch.tensor(v, dtype=torch.int32, device=dev) for k, v in lbnd.items()}
+    # a clamp box far from the carried position, deltas up to the window radius
+    ri, rj = spec.radii
+    far_lo = np.stack([rng.integers(800, 1000, CHUNK), rng.integers(100, 300, CHUNK)], 1)
+    far = {"deltas": np.stack([rng.integers(-ri, ri + 1, CHUNK),
+                               rng.integers(-rj, rj + 1, CHUNK)], 1),
+           "lo": far_lo, "hi": far_lo + rng.integers(0, 40, (CHUNK, 2))}
+    far = {k: torch.tensor(v, dtype=torch.int32, device=dev) for k, v in far.items()}
     lanes_t = lanes[:, :BOUNDED_T].contiguous()
     lanes0 = torch.from_numpy(np.stack([c[0] for c in clips])).to(dev)[:, None].contiguous()
     centres = centre[None].expand(B, 2).contiguous()
@@ -308,6 +333,8 @@ def main() -> int:
     shared_pos0 = torch.tensor(np.stack([t[0] for t in multi_truths]), dtype=torch.int32,
                                device=dev)
     shared_fills = torch.full((B,), 128, dtype=torch.uint8, device=dev)
+    off_pos0 = lane_pos0.clone()
+    off_pos0[1] = torch.tensor([-50, W + 60], dtype=torch.int32, device=dev)  # off the frame
 
     # name: (frames, pos0, fill(s), spec kwargs, bounds, subpixel, batched)
     cases = {
@@ -316,11 +343,14 @@ def main() -> int:
         "mirror blob (ties)": (mirror, mid, fill, kw, {}, False, False),
         "bounded": (chunk, pos0, fill, kw, bnd, False, False),
         "bounded+subpixel": (chunk, pos0, fill, kw, bnd, True, False),
+        "far box, large deltas": (chunk, pos0, fill, kw, far, False, False),
         "snap quarter-frame": (frame0, centre, fill, kwa, {}, False, False),
         "snap+subpixel": (frame0, pos0, fill, kw, {}, True, False),
+        "width 1918 +subpixel": (narrow, pos0, fill, kw, {}, True, False),
         "batched unbounded": (lanes, lane_pos0, lane_fills, kw, {}, False, True),
         "batched bounded": (lanes_t, lane_pos0, lane_fills, kw, lbnd, False, True),
         "batched bounded+subpixel": (lanes_t, lane_pos0, lane_fills, kw, lbnd, True, True),
+        "batched lane off the frame": (lanes_t, off_pos0, lane_fills, kw, {}, False, True),
         "batched shared frames (4 targets)": (shared, shared_pos0, shared_fills, kw, {}, False,
                                               True),
         "batched snap quarter-frame": (lanes0, centres, lane_fills, kwa, {}, False, True),
@@ -332,6 +362,12 @@ def main() -> int:
         if batched:
             return tk.dog_scan_batch_cuda(fr, p0, fl, subpixel=sub, **k, **b)
         return tk.dog_scan_cuda(fr, p0, fl, subpixel=sub, **k, **b)
+
+    smem_limit = tk._smem_limit(0)
+
+    def kernel_of(name):
+        k = cases[name][3]
+        return tk.kernel_for(k["radii"], tk._taps(k["sigma"], True, dev)[2], smem_limit)
 
     def run_plain(name):
         fr, p0, fl, k, b, sub, batched = cases[name]
@@ -350,21 +386,23 @@ def main() -> int:
             err = max(err, float((got[1] - want[1]).abs().max()))
         ok = pos_equal and err <= (OFFSET_ATOL if sub else 0)
         steps = int(fr.shape[-3])
-        phase1[name] = {"T": steps, "lanes": int(p0.shape[0]) if batched else 1,
+        phase1[name] = {"kernel": kernel_of(name), "T": steps,
+                        "lanes": int(p0.shape[0]) if batched else 1,
                         "positions_equal": pos_equal, "max_abs_err": err, "ok": ok}
-        log(f"phase 1 {name}: T={steps} lanes={phase1[name]['lanes']} positions equal={pos_equal}"
-            f" max_abs_err={err:.3g} -> {'ok' if ok else 'FAIL'}")
+        log(f"phase 1 {name} ({kernel_of(name)}): T={steps} lanes={phase1[name]['lanes']}"
+            f" positions equal={pos_equal} max_abs_err={err:.3g} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"phase 1 {name}: kernel and plain version disagree")
     one = tk.dog_scan_batch_cuda(chunk[None], pos0[None], lane_fills[:1], **kw)
     one_ok = bool(torch.equal(one[0], tk.dog_scan_cuda(chunk, pos0, int(BATCH_FILLS[0]), **kw)))
-    phase1["batched B=1 equals unbatched"] = {"T": CHUNK, "lanes": 1, "positions_equal": one_ok,
+    phase1["batched B=1 equals unbatched"] = {"kernel": "dog_scan", "T": CHUNK, "lanes": 1,
+                                              "positions_equal": one_ok,
                                               "max_abs_err": 0.0 if one_ok else None,
                                               "ok": one_ok}
     log(f"phase 1 batched B=1 equals unbatched: T={CHUNK} -> {'ok' if one_ok else 'FAIL'}")
     if not one_ok:
         raise SystemExit("phase 1: a one-lane batched launch differs from the unbatched one")
-    del flat, mirror
+    del flat, mirror, narrow
     record["phase1"] = phase1
 
     # ---- phase 2: the main paths --------------------------------------------
@@ -414,6 +452,7 @@ def main() -> int:
             results[path, name] = (out, tk.launches - before, plain_runs["n"] - plain_before,
                                    time.perf_counter() - t0)
         main_counts[path] = {"total": tk.launches, "by_config": dict(tk.launches_by_config),
+                             "by_kernel": dict(tk.launches_by_kernel),
                              "plain_runs": plain_runs["n"]}
     record["main_path_launches"] = main_counts
 
@@ -472,6 +511,11 @@ def main() -> int:
                                       True)
     cases["batched unbounded B=16"] = (lanes.repeat(4, 1, 1, 1), lane_pos0.repeat(4, 1),
                                        lane_fills.repeat(4), kw, {}, False, True)
+    bnd1 = {k: v[:1] for k, v in bnd.items()}
+    cases["unbounded T=1"] = (chunk[:1], pos0, fill, kw, {}, False, False)
+    cases["bounded+subpixel T=1"] = (chunk[:1], pos0, fill, kw, bnd1, True, False)
+    cases["batched unbounded B=4 T=1"] = (lanes[:, :1].contiguous(), lane_pos0, lane_fills, kw,
+                                          {}, False, True)
     timed = {  # name: (case, whether the plain version is timed too)
         "unbounded": ("unbounded", True),
         "bounded": ("bounded", True),
@@ -483,24 +527,29 @@ def main() -> int:
         "batched bounded B=4 (T=16)": ("batched bounded", True),
         "batched bounded+subpixel B=4 (T=16)": ("batched bounded+subpixel", True),
         "batched shared frames (4 targets)": ("batched shared frames (4 targets)", False),
+        "unbounded T=1": ("unbounded T=1", True),
+        "bounded+subpixel T=1": ("bounded+subpixel T=1", True),
+        "batched unbounded B=4 T=1": ("batched unbounded B=4 T=1", True),
     }
     timing = {}
     for name, (case, with_plain) in timed.items():
         fr, p0, fl, k, b, sub, batched = cases[case]
         n_lanes = int(p0.shape[0]) if batched else 1
         steps = int(fr.shape[-3])
-        ms = cuda_time_ms(lambda: run_kernel(case), reps=20)
+        ms = cuda_time_ms(lambda: run_kernel(case), reps=20 if steps > 1 else 200)
         plain_ms = cuda_time_ms(lambda: run_plain(case), reps=1, warmup=1) if with_plain else None
         c = cost(k["radii"], L, steps, sub, bool(b), lanes=n_lanes)
-        timing[name] = {"config": tk._config_name(bool(b), sub, batched), "T": steps,
-                        "lanes": n_lanes, "ms": ms, "plain_ms": plain_ms, **c,
-                        "us_per_step": 1e3 * ms / steps}
-        log(f"phase 3 {name}: T={steps} lanes={n_lanes} kernel {ms:.4f} ms/launch"
-            f" ({1e3 * ms / steps:.2f} us/step), plain "
+        timing[name] = {"kernel": kernel_of(case), "config": tk._config_name(bool(b), sub, batched),
+                        "T": steps, "lanes": n_lanes, "ms": ms, "plain_ms": plain_ms, **c,
+                        "us_per_step": 1e3 * ms / steps, "sm_bound_share": c["sm_bound_ms"] / ms}
+        log(f"phase 3 {name} ({kernel_of(case)}): T={steps} lanes={n_lanes} kernel {ms:.4f}"
+            f" ms/launch ({1e3 * ms / steps:.2f} us/step), plain "
             + (f"{plain_ms:.3f} ms" if plain_ms is not None else "not measured")
             + f", bound {c['bound_ms']:.6f} ms ({c['bound_by']}), one chain on one SM"
-            f" {c['sm_bound_ms']:.4f} ms")
-    del cases["batched unbounded B=16"]
+            f" {c['sm_bound_ms']:.4f} ms ({100 * c['sm_bound_ms'] / ms:.1f}% of it reached)")
+    for name in ("batched unbounded B=16", "unbounded T=1", "bounded+subpixel T=1",
+                 "batched unbounded B=4 T=1"):
+        del cases[name]
     record["timing"] = timing
 
     e2e = {}
@@ -545,36 +594,48 @@ def main() -> int:
         for cfg, n in counts["by_config"].items():
             by_config[cfg] = by_config.get(cfg, 0) + n
     total = sum(c["total"] for c in main_counts.values())
-    log(f"kernels: dog_scan configurations and main-path launches: {json.dumps(by_config)}"
+    log(f"kernels: configurations and main-path launches: {json.dumps(by_config)}"
         f" (total {total}); phase 1 checked {', '.join(phase1)}")
-    main = timing["unbounded"]
-    line = {"kernels": [{
-        "name": "dog_scan",
-        "route": "cuda",
-        "source": "pawsometracker_tpu_torch/csrc/dog_scan.cu",
-        "replaces": "pawsometracker_tpu/ops/pallas_tracker.py:342",
-        "launches": total,
-        "max_abs_err": max(v["max_abs_err"] for v in phase1.values()),
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": None,
-        "launches_by_config": by_config,
-        "launches_by_path": {p: c["total"] for p, c in main_counts.items()},
-        # every configuration's timed cases, each with the configuration's
-        # launches on the main paths
-        "configs": [{"case": n, "launches": by_config.get(t["config"], 0), "library_ms": None,
-                     **{k: v for k, v in t.items() if k not in ("flops", "bytes")}}
-                    for n, t in timing.items()],
-    }]}
-    record["kernels"] = line["kernels"]
+    # each kernel with its headline case: the 64-step chunk scan, and the
+    # quarter-frame snap (the tiled kernel's only main-path shape)
+    headline = {"dog_scan": "unbounded", "dog_scan_tiled": "snap quarter-frame"}
+    kernels = []
+    for kname, case in headline.items():
+        main = timing[case]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "pawsometracker_tpu_torch/csrc/dog_scan.cu",
+            "replaces": "pawsometracker_tpu/ops/pallas_tracker.py:342",
+            "launches": sum(c["by_kernel"].get(kname, 0) for c in main_counts.values()),
+            "max_abs_err": max(v["max_abs_err"] for v in phase1.values()
+                               if v["kernel"] == kname),
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": None,
+            "launches_by_config": {c: n for c, n in by_config.items()
+                                   if c.startswith(kname + ":")},
+            "launches_by_path": {p: c["by_kernel"].get(kname, 0) for p, c in main_counts.items()},
+            # the kernel's timed cases, each with its configuration's launches
+            # on the main paths
+            "configs": [{"case": n, "launches": by_config.get(f"{kname}: {t['config']}", 0),
+                         "library_ms": None,
+                         **{k: v for k, v in t.items() if k not in ("flops", "bytes", "kernel")}}
+                        for n, t in timing.items() if t["kernel"] == kname],
+        })
+    line = {"kernels": kernels}
+    record["kernels"] = kernels
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
     for path, counts in main_counts.items():
         if counts["total"] <= 0:
             raise SystemExit(f"the {path} path launched no kernel")
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise SystemExit(f"the main paths never launched {k['name']}")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -9,11 +9,15 @@ unbatched configurations:
 - bounded: plus per-step ``deltas, lo, hi [T,2] i32`` (carry rebase and clamp box);
 - either with ``subpixel=True``: plus per-step parabolic offsets ``[T,2] f32``.
 
-On a CUDA tensor it launches ``csrc/dog_scan.cu`` (one CTA per chain, the
-step loop inside the kernel, see the note there) or raises; it never falls
-back. On a CPU tensor it runs :func:`dog_scan_plain`, a Python loop over steps
-of the :mod:`.filters` ops, which is also what the kernel is held against on
-the card. :data:`launches` counts kernel launches (and only those).
+On a CUDA tensor it launches one of the two kernels of ``csrc/dog_scan.cu``
+(one CTA per chain, the step loop inside the kernel, see the note there) or
+raises; it never falls back. Which kernel is a matter of shape
+(:func:`kernel_for`): ``dog_scan`` (register-blocked passes, the next patch
+prefetched) when its working set fits shared memory, ``dog_scan_tiled`` for
+larger windows such as the quarter-frame autodetect snap. On a CPU tensor it
+runs :func:`dog_scan_plain`, a Python loop over steps of the :mod:`.filters`
+ops, which is also what both kernels are held against on the card.
+:data:`launches` counts kernel launches (and only those).
 """
 
 from __future__ import annotations
@@ -30,17 +34,25 @@ from .filters import argmax_colmajor, separable_correlate_valid
 
 __all__ = ["dog_scan", "dog_scan_plain", "dog_scan_cuda", "dog_scan_batch",
            "dog_scan_batch_plain", "dog_scan_batch_cuda", "launches", "launches_by_config",
-           "reset_launches", "tile_shape", "THREADS"]
+           "launches_by_kernel", "reset_launches", "kernel_for", "tile_shape", "KERNELS",
+           "TILED_THREADS"]
 
 #: kernel launches since import (or the last :func:`reset_launches`)
 launches = 0
-#: the same count split by configuration (``unbounded``, ``bounded``, ``+subpixel``, each
-#: also with a ``batched`` prefix)
+#: the same count by kernel and configuration, as ``"<kernel>: <configuration>"``: the
+#: kernel one of :data:`KERNELS`, the configuration ``unbounded`` or ``bounded``, either
+#: with ``+subpixel``, each also with a ``batched`` prefix (:func:`_config_name`)
 launches_by_config: Counter = Counter()
+#: the same count by kernel
+launches_by_kernel: Counter = Counter()
 
-#: threads per CTA (a multiple of 32, at most the kernel's launch bound)
-THREADS = 512
-#: largest output tile (rows, cols) one pass of the kernel covers
+#: the kernels of csrc/dog_scan.cu, each with its own entry point
+KERNELS = ("dog_scan", "dog_scan_tiled")
+#: outputs per thread of dog_scan's register-blocked passes (kR in the source)
+SCAN_R = 7
+#: threads per CTA of dog_scan_tiled (a multiple of 32, at most its launch bound)
+TILED_THREADS = 512
+#: largest output tile (rows, cols) one pass of dog_scan_tiled covers
 MAX_TILE = (64, 128)
 
 
@@ -49,6 +61,7 @@ def reset_launches() -> None:
     global launches
     launches = 0
     launches_by_config.clear()
+    launches_by_kernel.clear()
 
 
 def _config_name(bounded: bool, subpixel: bool, batched: bool = False) -> str:
@@ -241,13 +254,31 @@ def dog_scan_batch_plain(frames: torch.Tensor, pos0: torch.Tensor, fills: torch.
     return (out_pos, out_off) if subpixel else out_pos
 
 
+def kernel_for(radii, L: int, smem_limit: int) -> str:
+    """The kernel a window of ``radii`` with L taps launches: ``dog_scan`` when
+    its two patch supersets, row-pass sums, response and taps fit
+    ``smem_limit`` bytes of shared memory, else ``dog_scan_tiled``."""
+    fits = _scan_smem_bytes(L, int(radii[0]), int(radii[1])) <= smem_limit
+    return KERNELS[0] if fits else KERNELS[1]
+
+
+def _scan_smem_bytes(L: int, ri: int, rj: int) -> int:
+    # mirror of scan_layout in csrc/dog_scan.cu
+    wh, ww = 2 * ri + 1, 2 * rj + 1
+    nbv, nbh = -(-wh // SCAN_R), -(-ww // SCAN_R)
+    brows = 2 * ri + nbv * SCAN_R + L
+    pitch = 16 * ((4 * rj + L + 30) // 16)
+    pitch2 = (nbh * SCAN_R + L) | 1
+    return 2 * brows * pitch + 8 * wh * pitch2 + 8 * L + 4 * wh * ww + 8 * brows
+
+
 def tile_shape(radii, L: int, smem_limit: int) -> tuple[int, int]:
-    """Output tile (rows, cols) for one kernel pass: the window itself when it
-    fits, else halved along its longer side until the tile, its apron and the
-    row-pass sums fit ``smem_limit`` bytes of shared memory."""
+    """Output tile (rows, cols) for one pass of ``dog_scan_tiled``: the window
+    itself when it fits, else halved along its longer side until the tile, its
+    apron and the row-pass sums fit ``smem_limit`` bytes of shared memory."""
     wh, ww = 2 * int(radii[0]) + 1, 2 * int(radii[1]) + 1
     th, tw = min(wh, MAX_TILE[0]), min(ww, MAX_TILE[1])
-    while _smem_bytes(L, th, tw) > smem_limit:
+    while _tiled_smem_bytes(L, th, tw) > smem_limit:
         if th == 1 and tw == 1:
             raise ValueError(f"a DoG kernel of length {L} does not fit the card's "
                              f"{smem_limit} bytes of shared memory per block")
@@ -258,8 +289,8 @@ def tile_shape(radii, L: int, smem_limit: int) -> tuple[int, int]:
     return th, tw
 
 
-def _smem_bytes(L: int, th: int, tw: int) -> int:
-    # mirror of dog_scan_smem_bytes in csrc/dog_scan.cu
+def _tiled_smem_bytes(L: int, th: int, tw: int) -> int:
+    # mirror of dog_scan_tiled_smem_bytes in csrc/dog_scan.cu
     tpw = tw + L - 1
     return 4 * (10 * L + 2 * th * tpw) + (th + L - 1) * tpw
 
@@ -268,12 +299,18 @@ def _smem_bytes(L: int, th: int, tw: int) -> int:
 def _lib():
     from ._build import kernel_library
 
-    lib = kernel_library("dog_scan")
+    return _bind(kernel_library("dog_scan"))
+
+
+def _bind(lib):
+    """Declare the C interface of a library built from ``csrc/dog_scan.cu``."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.dog_scan_launch.argtypes = [vp, ctypes.c_longlong, i32, i32, i32, i32, vp, vp, vp, vp,
-                                    vp, vp, i32, i32, i32, ctypes.c_float, vp, vp, i32, i32, i32,
-                                    vp]
+    common = [vp, ctypes.c_longlong, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32,
+              ctypes.c_float, vp, vp]
+    lib.dog_scan_launch.argtypes = common + [vp]
     lib.dog_scan_launch.restype = i32
+    lib.dog_scan_tiled_launch.argtypes = common + [i32, i32, i32, vp]
+    lib.dog_scan_tiled_launch.restype = i32
     lib.dog_scan_error_string.argtypes = [i32]
     lib.dog_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -311,8 +348,9 @@ def _check_cuda(tensors: dict):
 
 def _launch(frames, lane_stride: int, B: int, T: int, pos0, fills, deltas, lo, hi, radii,
             sigma, darker_target, subpixel, config: str):
-    """Launch the kernel for B lanes of T steps on the current stream; returns
-    ``out_pos [B,T,2]`` (and ``out_off``). Counts the launch."""
+    """Launch the kernel for B lanes of T steps on the current stream (the one
+    :func:`kernel_for` picks); returns ``out_pos [B,T,2]`` (and ``out_off``).
+    Counts the launch."""
     global launches
     H, W = frames.shape[-2:]
     dev = frames.device
@@ -321,25 +359,30 @@ def _launch(frames, lane_stride: int, B: int, T: int, pos0, fills, deltas, lo, h
     if B == 0 or T == 0:
         return out_pos, out_off
     taps, direction, L = _taps(float(sigma), bool(darker_target), dev)
-    th, tw = tile_shape(radii, L, _smem_limit(dev.index if dev.index is not None else 0))
+    limit = _smem_limit(dev.index if dev.index is not None else 0)
+    kernel = kernel_for(radii, L, limit)
     lib = _lib()
+    args = (frames.data_ptr(), lane_stride, B, T, H, W, pos0.data_ptr(), fills.data_ptr(),
+            _ptr(deltas), _ptr(lo), _ptr(hi), taps.data_ptr(), L, int(radii[0]), int(radii[1]),
+            direction, out_pos.data_ptr(), _ptr(out_off))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dog_scan_launch(
-            frames.data_ptr(), lane_stride, B, T, H, W, pos0.data_ptr(), fills.data_ptr(),
-            _ptr(deltas), _ptr(lo), _ptr(hi), taps.data_ptr(), L, int(radii[0]), int(radii[1]),
-            direction, out_pos.data_ptr(), _ptr(out_off), th, tw, THREADS, stream,
-        )
+        if kernel == "dog_scan":
+            err = lib.dog_scan_launch(*args, stream)
+        else:
+            err = lib.dog_scan_tiled_launch(*args, *tile_shape(radii, L, limit), TILED_THREADS,
+                                            stream)
     if err != 0:
-        raise RuntimeError(f"dog_scan launch failed: {lib.dog_scan_error_string(err).decode()}")
+        raise RuntimeError(f"{kernel} launch failed: {lib.dog_scan_error_string(err).decode()}")
     launches += 1
-    launches_by_config[config] += 1
+    launches_by_kernel[kernel] += 1
+    launches_by_config[f"{kernel}: {config}"] += 1
     return out_pos, out_off
 
 
 def dog_scan_cuda(frames: torch.Tensor, pos0: torch.Tensor, fill: int, *, radii, sigma: float,
                   darker_target: bool, deltas=None, lo=None, hi=None, subpixel: bool = False):
-    """Launch ``csrc/dog_scan.cu`` for one chain (one lane) on the current
+    """Launch a kernel of ``csrc/dog_scan.cu`` for one chain (one lane) on the current
     stream for CUDA tensors (int32 ``pos0``/``deltas``/``lo``/``hi``,
     contiguous). Raises on anything the kernel does not take and on a failed
     launch."""
@@ -355,7 +398,7 @@ def dog_scan_cuda(frames: torch.Tensor, pos0: torch.Tensor, fill: int, *, radii,
 def dog_scan_batch_cuda(frames: torch.Tensor, pos0: torch.Tensor, fills: torch.Tensor, *, radii,
                         sigma: float, darker_target: bool, deltas=None, lo=None, hi=None,
                         subpixel: bool = False):
-    """Launch ``csrc/dog_scan.cu`` with one CTA per lane on the current stream
+    """Launch a kernel of ``csrc/dog_scan.cu`` with one CTA per lane on the current stream
     for CUDA tensors (uint8 ``fills``, int32 ``pos0``/``deltas``/``lo``/``hi``,
     contiguous). Shared ``frames [T, H, W]`` launch with a lane stride of 0.
     Raises on anything the kernel does not take and on a failed launch."""

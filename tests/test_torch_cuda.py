@@ -32,15 +32,21 @@ def ellipse_frames(h, w, path, ry=5, rx=4):
     return frames
 
 
-def check(card, frames, p0, spec_radii, sigma, subpixel=False, bounds=None, fill=128):
+def check(card, frames, p0, spec_radii, sigma, subpixel=False, bounds=None, fill=128,
+          kernel=None):
+    """One chain through the kernel equals the plain version bit for bit;
+    ``kernel`` names the kernel the launch must take. ``frames`` is a numpy
+    array or a card tensor."""
     kw = dict(radii=spec_radii, sigma=sigma, darker_target=True)
-    fr = torch.from_numpy(frames).to(card)
+    fr = frames if torch.is_tensor(frames) else torch.from_numpy(frames).to(card)
     pos0 = torch.tensor(p0, dtype=torch.int32, device=card)
     b = {} if bounds is None else {k: torch.from_numpy(v.astype(np.int32)).to(card)
                                    for k, v in bounds.items()}
-    before = tk.launches
+    before, before_k = tk.launches, tk.launches_by_kernel[kernel]
     got = tk.dog_scan(fr, pos0, fill, subpixel=subpixel, **kw, **b)
     assert tk.launches == before + 1
+    if kernel is not None:
+        assert tk.launches_by_kernel[kernel] == before_k + 1
     want = tk.dog_scan_plain(fr, pos0, fill, subpixel=subpixel, **kw, **b)
     torch.cuda.synchronize()
     if subpixel:
@@ -66,12 +72,16 @@ def test_kernel_equals_plain(card, cfg):
 
 @pytest.mark.parametrize("window", [(151, 301), (65, 129), (1, 1), (3, 200)])
 def test_tiled_windows_equal_plain(card, window):
-    """Windows larger than one output tile (64x128) are walked in tiles."""
+    """Windows larger than one output tile (64x128) are walked in tiles by
+    dog_scan_tiled when dog_scan's working set does not fit; the others take
+    dog_scan. Either way the kernel equals the plain version."""
     h, w = 200, 360
     spec = make_spec((h, w), window, 10, True)
+    kernel = tk.kernel_for(spec.radii, spec.kernel_len, tk._smem_limit(0))
+    assert (kernel == "dog_scan_tiled") == (window == (151, 301))
     frames = ellipse_frames(h, w, [(90, 170)])
-    check(card, frames, (100, 180), spec.radii, spec.sigma)
-    check(card, frames, (100, 180), spec.radii, spec.sigma, subpixel=True)
+    check(card, frames, (100, 180), spec.radii, spec.sigma, kernel=kernel)
+    check(card, frames, (100, 180), spec.radii, spec.sigma, subpixel=True, kernel=kernel)
 
 
 def test_flat_field_ties(card):
@@ -219,3 +229,112 @@ def test_frame_response_card_equals_cpu(card):
     peaks = global_detect_peaks(spec, 3)
     assert torch.equal(peaks(torch.from_numpy(frames[0]).to(card), 128).cpu(),
                        peaks(torch.from_numpy(frames[0]), 128))
+
+
+# ---- dog_scan's prefetched superset, at the frame's edges and beyond ----------
+
+
+EDGE_STARTS = {
+    "off the frame, top left": (-30, -45),
+    "off the frame, bottom right": (120, 160),
+    "top left corner": (0, 0),
+    "top right corner": (0, 117),
+    "bottom left corner": (89, 0),
+    "bottom right corner": (89, 117),
+    "top edge": (0, 60),
+    "left edge": (45, 0),
+    "bottom edge": (89, 60),
+    "right edge": (45, 117),
+}
+
+
+@pytest.mark.parametrize("where", list(EDGE_STARTS))
+def test_edges_and_off_frame_starts_equal_plain(card, where):
+    """Starts off the frame and on each edge and corner of a 90x118 frame (a
+    width that is not a multiple of 16): the superset of the next patch runs
+    off the frame, where its cells take the fill."""
+    h, w, T = 90, 118, 10
+    p0 = EDGE_STARTS[where]
+    i0, j0 = min(max(p0[0], 0), h - 1), min(max(p0[1], 0), w - 1)
+    path = [(min(max(i0 + (t if i0 < h // 2 else -t), 0), h - 1),
+             min(max(j0 + (t if j0 < w // 2 else -t), 0), w - 1)) for t in range(T)]
+    spec = make_spec((h, w), 21, 10, True)
+    frames = ellipse_frames(h, w, path)
+    rng = np.random.default_rng(3)
+    bounds = {"deltas": rng.integers(-3, 4, (T, 2)), "lo": np.zeros((T, 2)),
+              "hi": np.tile([h - 1, w - 1], (T, 1))}
+    check(card, frames, p0, spec.radii, spec.sigma, fill=77, kernel="dog_scan")
+    check(card, frames, p0, spec.radii, spec.sigma, subpixel=True, bounds=bounds, fill=77,
+          kernel="dog_scan")
+
+
+@pytest.mark.parametrize("subpixel", [False, True])
+def test_far_bounded_box_and_large_deltas_equal_plain(card, subpixel):
+    """A clamp box far from the carried position and deltas up to the window
+    radius: the next patch lies anywhere in the superset, not near p."""
+    h, w, T = 160, 200, 16
+    spec = make_spec((h, w), 21, 10, True)
+    ri, rj = spec.radii
+    rng = np.random.default_rng(4)
+    path = [(40 + 3 * t, 150 - 4 * t) for t in range(T)]
+    lo = np.stack([rng.integers(100, 140, T), rng.integers(0, 30, T)], 1)
+    bounds = {"deltas": np.stack([rng.integers(-ri, ri + 1, T), rng.integers(-rj, rj + 1, T)], 1),
+              "lo": lo, "hi": lo + rng.integers(0, 20, (T, 2))}
+    check(card, ellipse_frames(h, w, path), (20, 180), spec.radii, spec.sigma,
+          subpixel=subpixel, bounds=bounds, kernel="dog_scan")
+
+
+@pytest.mark.parametrize("shape", [(1080, 1918), (360, 641), (120, 1920)])
+def test_unaligned_widths_equal_plain(card, shape):
+    """Frame widths that are not a multiple of 16 (each row of the superset
+    starts at its own offset), and a 16-aligned width read at a lane base that
+    is not 16-byte aligned."""
+    h, w = shape
+    T = 4
+    path = [(h // 2 + 3 * t, w // 2 - 5 * t) for t in range(T)]
+    spec = make_spec((h, w), 41, 25, True)
+    frames = ellipse_frames(h, w, path, ry=12, rx=12)
+    if w % 16 == 0:
+        flat = torch.zeros(frames.size + 1, dtype=torch.uint8, device=card)
+        flat[1:] = torch.from_numpy(frames.reshape(-1)).to(card)
+        frames = flat[1:].view(T, h, w)  # data_ptr one byte past an aligned allocation
+        assert frames.data_ptr() % 16 != 0
+    check(card, frames, path[0], spec.radii, spec.sigma, kernel="dog_scan")
+    check(card, frames, path[0], spec.radii, spec.sigma, subpixel=True, kernel="dog_scan")
+
+
+@pytest.mark.parametrize("window", [(21, 21), (15, 41), (41, 9)])
+@pytest.mark.parametrize("target_width", [5, 10, 25, 40])
+def test_windows_and_kernel_lengths_equal_plain(card, window, target_width):
+    """Non-square windows and several kernel lengths L (17 to 129 taps): the
+    register-blocked passes' remainder taps and partial blocks."""
+    h, w, T = 200, 256, 6
+    spec = make_spec((h, w), window, target_width, True)
+    path = [(100 + 2 * t, 128 - 3 * t) for t in range(T)]
+    r = max(2, target_width // 2)
+    frames = ellipse_frames(h, w, path, ry=r, rx=max(2, r - 1))
+    kernel = tk.kernel_for(spec.radii, spec.kernel_len, tk._smem_limit(0))
+    check(card, frames, path[0], spec.radii, spec.sigma, kernel=kernel)
+    check(card, frames, path[0], spec.radii, spec.sigma, subpixel=True, kernel=kernel)
+
+
+@pytest.mark.parametrize("field", ["blobs", "flat (ties)"])
+def test_one_step_140_lanes_on_shared_frames_equal_plain(card, field):
+    """T = 1 and B = 140 lanes (more than the card's 132 SMs, so the CTAs run in
+    waves) reading one frame stream (lane stride 0), each prefetching nothing;
+    then 140 lanes of their own 3-frame clips, on a flat field where every
+    window cell ties."""
+    h, w, B = 120, 150, 140
+    rng = np.random.default_rng(5)
+    spec = make_spec((h, w), 21, 10, True)
+    if field == "flat (ties)":
+        shared = np.full((1, h, w), 128, np.uint8)
+        own = np.full((B, 3, h, w), 128, np.uint8)
+    else:
+        shared = ellipse_frames(h, w, [(60, 75)])
+        own = np.stack([ellipse_frames(h, w, [(40 + b % 40, 50 + b % 50)] * 3) for b in range(B)])
+    starts = np.stack([rng.integers(-10, h + 10, B), rng.integers(-10, w + 10, B)], 1)
+    fills = rng.integers(0, 256, B)
+    check_batch(card, shared, starts, fills, spec.radii, spec.sigma)
+    check_batch(card, shared, starts, fills, spec.radii, spec.sigma, subpixel=True)
+    check_batch(card, own, starts, fills, spec.radii, spec.sigma)

@@ -247,7 +247,7 @@ def test_tile_shape_fits_shared_memory(radii, L):
     th, tw = tk.tile_shape(radii, L, limit)
     assert 1 <= th <= min(2 * radii[0] + 1, tk.MAX_TILE[0])
     assert 1 <= tw <= min(2 * radii[1] + 1, tk.MAX_TILE[1])
-    assert tk._smem_bytes(L, th, tw) <= limit
+    assert tk._tiled_smem_bytes(L, th, tw) <= limit
     if 2 * radii[0] + 1 <= tk.MAX_TILE[0] and 2 * radii[1] + 1 <= tk.MAX_TILE[1]:
         assert (th, tw) == (2 * radii[0] + 1, 2 * radii[1] + 1)  # one tile per step
 
@@ -258,11 +258,59 @@ def test_tile_shape_rejects_oversized_kernel():
 
 
 def test_smem_formula_matches_kernel_source():
+    """Both kernels' shared-memory formulas, as the source has them and as the
+    wrapper mirrors them."""
     import os
 
     src = open(os.path.join(os.path.dirname(tk.__file__), "..", "csrc", "dog_scan.cu")).read()
+    # dog_scan_tiled_kernel
     assert "4LL * (10LL * L + 2LL * tile_h * tpw) + (long long)(tile_h + L - 1) * tpw" in src
-    assert tk._smem_bytes(65, 41, 41) == 4 * (650 + 2 * 41 * 105) + 105 * 105
+    assert tk._tiled_smem_bytes(65, 41, 41) == 4 * (650 + 2 * 41 * 105) + 105 * 105
+    # dog_scan_kernel: scan_layout
+    assert f"constexpr int kR = {tk.SCAN_R};" in src
+    for line in ("s.brows = 2 * ri + s.nbv * kR + L;",
+                 "s.pitch = 16 * ((4 * rj + L + 30) / 16);",
+                 "s.pitch2 = (s.nbh * kR + L) | 1;",
+                 "s.off_rows = 2LL * s.brows * s.pitch;",
+                 "s.off_taps = s.off_rows + 8LL * wh * s.pitch2;",
+                 "s.off_resp = s.off_taps + 8LL * L;",
+                 "s.off_shift = s.off_resp + 4LL * wh * ww;",
+                 "s.bytes = s.off_shift + 8LL * s.brows;"):
+        assert line in src, line
+    # bench shape: two 147x160 u8 supersets, 41x107 float2 row sums, 65 tap pairs,
+    # the 41x41 response, 2x147 row offsets
+    assert tk._scan_smem_bytes(65, 20, 20) == (2 * 147 * 160 + 8 * 41 * 107 + 8 * 65
+                                               + 4 * 41 * 41 + 8 * 147)
+
+
+@pytest.mark.parametrize("radii,L,want", [
+    ((20, 20), 65, "dog_scan"),          # bench window, target_width=25
+    ((10, 10), 17, "dog_scan"),          # window 21, target_width=5
+    ((20, 20), 129, "dog_scan"),         # target_width=40
+    ((135, 240), 65, "dog_scan_tiled"),  # quarter-frame autodetect snap at 1080p
+    ((0, 0), 65, "dog_scan"),
+])
+def test_kernel_for_picks_by_shape(radii, L, want):
+    """The bench window takes the register-blocked kernel, the quarter-frame
+    snap the tiled one: a shape dispatch between two kernels, each fitting."""
+    limit = 232448
+    assert tk.kernel_for(radii, L, limit) == want
+    if want == "dog_scan":
+        assert tk._scan_smem_bytes(L, *radii) <= limit
+    else:
+        assert tk._scan_smem_bytes(L, *radii) > limit
+        assert tk._tiled_smem_bytes(L, *tk.tile_shape(radii, L, limit)) <= limit
+
+
+def test_bench_shapes_dispatch():
+    """At 1080p the spec's window and the autodetect window go to the two
+    kernels (make_spec / autodetect_spec as the main paths build them)."""
+    from pawsometracker_tpu_torch.models.dog_tracker import autodetect_spec
+
+    spec = make_spec((1080, 1920), 41, 25, True)
+    assert tk.kernel_for(spec.radii, spec.kernel_len, 232448) == "dog_scan"
+    aspec = autodetect_spec(spec)
+    assert tk.kernel_for(aspec.radii, aspec.kernel_len, 232448) == "dog_scan_tiled"
 
 
 # ---- the batched configurations (grid over lanes) ---------------------------
