@@ -18,8 +18,12 @@ card; any failure exits non-zero:
    launch: unbounded; bounded and bounded+subpixel (T=16); a lane starting
    off the frame (T=16); four targets reading one frame stream (lane stride
    0); the quarter-frame snap and the subpixel snap; and one lane equal to
-   the unbatched call. Integer positions must be equal, offsets within
-   ``atol=1e-3``.
+   the unbatched call. ``dog_scan_tiled`` in chains at the default windows
+   of ``target_width`` 40, 60 (T=12) and 100 (T=4): one chain unbounded,
+   bounded and bounded+subpixel, 4 lanes with their own frames, 4 targets on
+   shared frames, a lane starting off the frame, and (at 60) a flat field,
+   whose ties span tiles of different CTAs. Integer positions must be equal,
+   offsets within ``atol=1e-3``.
 2. The main paths, each driven with the launch counts set to 0 just before
    it and read just after:
    - ``track()`` on a synthetic 1080p, 480-frame clip (a dark disc of radius
@@ -30,7 +34,11 @@ card; any failure exits non-zero:
      a disc on its own background on the circle at phase b*pi/2: start
      locations given, lane 2 auto-detected, and ``subpixel=True``;
    - ``track_multi`` on one 1080p clip of 160 frames with four discs: start
-     locations given, ``n_targets=4``, and ``subpixel=True``.
+     locations given, ``n_targets=4``, and ``subpixel=True``;
+   - ``track()`` of a large target: ``target_width=60`` with its default
+     window (105x105, L = 149), a disc of radius 30 on the same circle, 480
+     frames, the same three ways; every launch must be ``dog_scan_tiled``,
+     and the ``device="cpu"`` cross-check runs the first 33 frames.
    Each call must launch the kernel as often as its chunking says and never
    run the plain version, land within RMSE < 1 px of the drawn truth per
    video or target, equal the port's single-video ``track()`` of each video
@@ -39,10 +47,15 @@ card; any failure exits non-zero:
 3. Timing with CUDA events: each kernel per launch at T=64 (one chain:
    unbounded, bounded, bounded+subpixel, the snap; lanes: B = 1, 4 and 16,
    and four targets on shared frames; bounded and bounded+subpixel lanes at
-   T=16) and at T=1 (the fixed cost of a launch), the plain version on the
-   same inputs, each bound and the share of one SM's bound the kernel
-   reaches; end-to-end frames/s of the three paths; and a ``torch.profiler``
-   busy share of one ``track()`` and one ``track_batch``.
+   T=16) and at T=1 (the fixed cost of a launch); the tiled kernel's snap for
+   B = 4 and its T=64 chunk scans at the default windows of ``target_width``
+   40, 60 and 100 (B = 1 and 4, unbounded and bounded+subpixel); the plain
+   version on the same inputs, each bound and the share of the whole card's,
+   one SM's and (tiled) the cluster's SMs' bound the kernel reaches; one
+   cuDNN ``conv2d`` with the 2-D DoG kernel plus ``argmax`` as the snap's
+   library yardstick; end-to-end frames/s of the four paths; and a
+   ``torch.profiler`` busy share of one ``track()``, one ``track_batch`` and
+   one large-target ``track()``.
 
 Prints the card's name and power limit, the build time and ``ptxas``'s
 registers, the kernels' configurations with their launch counts, one JSON
@@ -73,6 +86,17 @@ CHUNK = 64
 DISC_R = 12
 SEED = 0
 OFFSET_ATOL = 1e-3
+#: the large-target path: track() at target_width=60 with its default window
+#: (105x105, L = 149, dog_scan_tiled on every launch), a disc of radius 30
+LARGE_TW = 60
+LARGE_DISC_R = 30
+#: frames of the large-target clip that the device="cpu" cross-check runs
+#: (the plain version takes ~0.3 s a step on the host at this window)
+CPU_CHECK_FRAMES = 33
+#: dog_scan_tiled's phase-1 chains: the default windows of these target
+#: widths at 1080p, and the steps of each (the plain version costs more a step
+#: as the window and L grow)
+TILED_STEPS = {40: 12, 60: 12, 100: 4}
 #: the track_batch clips: one background (= fill) and length per video
 BATCH_FILLS = (128, 100, 160, 128)
 BATCH_LENS = (160, 160, 120, 160)
@@ -98,13 +122,13 @@ def circle_path(n, phase=0.0):
                     axis=1).astype(np.int64)
 
 
-def draw_discs(frames, paths):
-    """Dark discs (gray 30, radius DISC_R) at each path's centre per frame."""
-    yy, xx = np.mgrid[-DISC_R:DISC_R + 1, -DISC_R:DISC_R + 1]
-    disc = yy**2 + xx**2 <= DISC_R**2
+def draw_discs(frames, paths, radius=DISC_R):
+    """Dark discs (gray 30) at each path's centre per frame."""
+    yy, xx = np.mgrid[-radius:radius + 1, -radius:radius + 1]
+    disc = yy**2 + xx**2 <= radius**2
     for path in paths:
         for k, (i, j) in enumerate(path[:len(frames)]):
-            frames[k, i - DISC_R:i + DISC_R + 1, j - DISC_R:j + DISC_R + 1][disc] = 30
+            frames[k, i - radius:i + radius + 1, j - radius:j + radius + 1][disc] = 30
     return frames
 
 
@@ -112,6 +136,28 @@ def synth_clip():
     """track()'s clip: one disc starting inside the autodetect window."""
     truth = circle_path(N_FRAMES)
     return draw_discs(np.full((N_FRAMES, H, W), 128, np.uint8), [truth]), truth
+
+
+def synth_large():
+    """The large-target clip: track()'s circle with a disc of radius 30."""
+    truth = circle_path(N_FRAMES)
+    return draw_discs(np.full((N_FRAMES, H, W), 128, np.uint8), [truth], LARGE_DISC_R), truth
+
+
+def device_clips(n, lanes, radius, dev):
+    """``lanes`` clips of n 1080p frames made on the card (so the host does
+    not copy them): a disc of ``radius`` on 128-gray on the circle at phase
+    b*pi/2 in lane b; and the paths."""
+    import torch
+
+    yy = torch.arange(H, device=dev)[:, None]
+    xx = torch.arange(W, device=dev)[None, :]
+    frames = torch.full((lanes, n, H, W), 128, dtype=torch.uint8, device=dev)
+    paths = [circle_path(n, b * np.pi / 2) for b in range(lanes)]
+    for b, path in enumerate(paths):
+        for t, (i, j) in enumerate(path):
+            frames[b, t][(yy - int(i)) ** 2 + (xx - int(j)) ** 2 <= radius ** 2] = 30
+    return frames, paths
 
 
 def synth_batch():
@@ -235,6 +281,7 @@ def main() -> int:
         from pawsometracker_tpu_torch.models import dog_tracker
         from pawsometracker_tpu_torch.models.dog_tracker import autodetect_spec, make_spec
         from pawsometracker_tpu_torch.ops import _build, tracker_kernel as tk
+        from pawsometracker_tpu_torch.ops.dog_kernel import dog_kernel_2d, guess_window_size
         from pawsometracker_tpu_torch.ops.filters import mode_u8_host
     except ImportError as e:
         print(f"chip_smoke: the port's package is not beside this script ({e})", file=sys.stderr)
@@ -278,6 +325,7 @@ def main() -> int:
     frames_np, truth = synth_clip()
     clips, truths = synth_batch()
     multi_np, multi_truths = synth_multi()
+    large_np, large_truth = synth_large()
     log(f"synthetic clips drawn in {time.perf_counter() - t0:.1f} s")
     spec = make_spec((H, W), WINDOW, TARGET_WIDTH, True)
     aspec = autodetect_spec(spec)
@@ -356,6 +404,43 @@ def main() -> int:
         "batched snap quarter-frame": (lanes0, centres, lane_fills, kwa, {}, False, True),
         "batched snap+subpixel": (lanes0, lane_pos0, lane_fills, kw, {}, True, True),
     }
+    # dog_scan_tiled in chains (T > 1) at the default windows of large targets:
+    # one chain unbounded, bounded and bounded+subpixel; 4 lanes with their own
+    # frames and fills, one of them starting off the frame; 4 targets on shared
+    # frames; and a flat field, where the ties span tiles of different CTAs
+    for tw, steps in TILED_STEPS.items():
+        tspec = make_spec((H, W), guess_window_size(tw), tw, True)
+        tkw = dict(radii=tspec.radii, sigma=tspec.sigma, darker_target=True)
+        tpaths = [circle_path(steps + 1, b * np.pi / 2) for b in range(B)]
+        own = np.stack([draw_discs(np.full((steps + 1, H, W), bg, np.uint8), [tp], tw // 2)
+                        for tp, bg in zip(tpaths, BATCH_FILLS)])
+        own = torch.from_numpy(np.ascontiguousarray(own[:, 1:])).to(dev)
+        tshared = draw_discs(np.full((steps + 1, H, W), 128, np.uint8), tpaths, tw // 2)
+        tshared = torch.from_numpy(np.ascontiguousarray(tshared[1:])).to(dev)
+        tstarts = torch.tensor(np.stack([tp[0] for tp in tpaths]), dtype=torch.int32, device=dev)
+        toff = tstarts.clone()
+        toff[1] = torch.tensor([-50, W + 60], dtype=torch.int32, device=dev)
+        ttr = tpaths[0][1:]
+        tbnd = {"deltas": rng.integers(-3, 4, size=(steps, 2)),
+                "lo": np.maximum(ttr - rng.integers(0, 16, size=(steps, 2)), 0),
+                "hi": np.minimum(ttr + rng.integers(0, 16, size=(steps, 2)), [H - 1, W - 1])}
+        tbnd = {k: torch.tensor(v, dtype=torch.int32, device=dev) for k, v in tbnd.items()}
+        cases.update({
+            f"tiled tw={tw} unbounded": (own[0], tstarts[0], 128, tkw, {}, False, False),
+            f"tiled tw={tw} bounded": (own[0], tstarts[0], 128, tkw, tbnd, False, False),
+            f"tiled tw={tw} bounded+subpixel": (own[0], tstarts[0], 128, tkw, tbnd, True, False),
+            f"tiled tw={tw} batched own frames": (own, tstarts, lane_fills, tkw, {}, False, True),
+            f"tiled tw={tw} batched shared frames (4 targets)": (tshared, tstarts, shared_fills,
+                                                                 tkw, {}, False, True),
+            f"tiled tw={tw} batched lane off the frame": (own, toff, lane_fills, tkw, {}, False,
+                                                          True),
+        })
+        if tw == LARGE_TW:
+            tflat = torch.full((steps, H, W), fill, dtype=torch.uint8, device=dev)
+            cases[f"tiled tw={tw} flat field (ties across CTAs)"] = (tflat, centre, fill, tkw, {},
+                                                                     False, False)
+            cases[f"tiled tw={tw} flat field (ties across CTAs) +subpixel"] = (
+                tflat, centre, fill, tkw, {}, True, False)
 
     def run_kernel(name):
         fr, p0, fl, k, b, sub, batched = cases[name]
@@ -393,6 +478,8 @@ def main() -> int:
             f" positions equal={pos_equal} max_abs_err={err:.3g} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"phase 1 {name}: kernel and plain version disagree")
+        if name.startswith("tiled") and kernel_of(name) != "dog_scan_tiled":
+            raise SystemExit(f"phase 1 {name}: took {kernel_of(name)}, not dog_scan_tiled")
     one = tk.dog_scan_batch_cuda(chunk[None], pos0[None], lane_fills[:1], **kw)
     one_ok = bool(torch.equal(one[0], tk.dog_scan_cuda(chunk, pos0, int(BATCH_FILLS[0]), **kw)))
     phase1["batched B=1 equals unbatched"] = {"kernel": "dog_scan", "T": CHUNK, "lanes": 1,
@@ -402,11 +489,14 @@ def main() -> int:
     log(f"phase 1 batched B=1 equals unbatched: T={CHUNK} -> {'ok' if one_ok else 'FAIL'}")
     if not one_ok:
         raise SystemExit("phase 1: a one-lane batched launch differs from the unbatched one")
-    del flat, mirror, narrow
+    for name in [n for n in cases if n.startswith("tiled ")]:
+        del cases[name]
+    del flat, mirror, narrow, own, tshared, tflat
     record["phase1"] = phase1
 
     # ---- phase 2: the main paths --------------------------------------------
     base = dict(fps=FPS, target_width=TARGET_WIDTH, window_size=WINDOW, stream="full")
+    large = dict(fps=FPS, target_width=LARGE_TW, stream="full")  # the default window
     start0 = IJ(int(truth[0][0]), int(truth[0][1]))
     batch_locs = [IJ(int(t[0][0]), int(t[0][1])) for t in truths]
     multi_locs = [IJ(int(t[0][0]), int(t[0][1])) for t in multi_truths]
@@ -426,11 +516,17 @@ def main() -> int:
             "n_targets=4": dict(n_targets=4),
             "subpixel": dict(start_locations=multi_locs, subpixel=True),
         },
+        "track large target": {
+            "start_location": dict(start_location=start0),
+            "autodetect": dict(start_location=None),
+            "subpixel": dict(start_location=start0, subpixel=True),
+        },
     }
     entry = {
         "track": lambda **k: track(frames_np, **base, **k),
         "track_batch": lambda **k: track_batch(clips, **base, **k),
         "track_multi": lambda **k: track_multi(multi_np, **base, **k),
+        "track large target": lambda **k: track(large_np, **large, **k),
     }
     n_batch_scans = math.ceil((max(BATCH_LENS) - 1) / CHUNK)
     want_launches = {
@@ -439,6 +535,8 @@ def main() -> int:
                         "subpixel": 1 + n_batch_scans},
         "track_multi": {n: 1 + math.ceil((MULTI_FRAMES - 1) / MULTI_CHUNK)
                         for n in paths["track_multi"]},
+        "track large target": {n: 1 + math.ceil((N_FRAMES - 1) / CHUNK)
+                               for n in paths["track large target"]},
     }
     results, main_counts = {}, {}
     for path, runs in paths.items():
@@ -446,11 +544,13 @@ def main() -> int:
         plain_runs["n"] = 0
         for name, extra in runs.items():
             before, plain_before = tk.launches, plain_runs["n"]
+            tiled_before = tk.launches_by_kernel["dog_scan_tiled"]
             t0 = time.perf_counter()
             out = entry[path](**extra)
             torch.cuda.synchronize()
             results[path, name] = (out, tk.launches - before, plain_runs["n"] - plain_before,
-                                   time.perf_counter() - t0)
+                                   time.perf_counter() - t0,
+                                   tk.launches_by_kernel["dog_scan_tiled"] - tiled_before)
         main_counts[path] = {"total": tk.launches, "by_config": dict(tk.launches_by_config),
                              "by_kernel": dict(tk.launches_by_kernel),
                              "plain_runs": plain_runs["n"]}
@@ -461,10 +561,12 @@ def main() -> int:
     detected = [IJ(int(i), int(j)) for i, j in detected.cpu().numpy()]
     for path, runs in paths.items():
         for name, extra in runs.items():
-            out, n_launch, n_plain, wall = results[path, name]
+            out, n_launch, n_plain, wall, n_tiled = results[path, name]
             sub = bool(extra.get("subpixel"))
             if path == "track":
                 videos = [(out, truth, frames_np, extra)]
+            elif path == "track large target":
+                videos = [(out, large_truth, large_np, extra)]
             elif path == "track_batch":
                 videos = [(out[b], truths[b], clips[b],
                            dict(extra, start_location=extra["start_location"][b]))
@@ -480,11 +582,17 @@ def main() -> int:
             errs, equal_single = [], True
             for (ts, ij), tru, frames, single_kw in videos:
                 errs.append(rmse(ij, tru))
-                if path != "track":  # each video or target alone through track() on the card
+                if path in ("track_batch", "track_multi"):  # each alone through track()
                     ts_1, ij_1 = track(frames, **base, **single_kw)
                     equal_single &= same(ij, ij_1, sub) and np.array_equal(ts, ts_1)
             equal_cpu = None
-            if path == "track" or name in ("start_location", "start_locations"):
+            if path == "track large target":
+                # the plain version at this window is slow on the host: the first
+                # CPU_CHECK_FRAMES frames, against the same prefix of the card's run
+                ts_c, ij_c = track(large_np[:CPU_CHECK_FRAMES], **large, **extra, device="cpu")
+                equal_cpu = (same(out[1][:CPU_CHECK_FRAMES], ij_c, sub)
+                             and np.array_equal(out[0][:CPU_CHECK_FRAMES], ts_c))
+            elif path == "track" or name in ("start_location", "start_locations"):
                 cpu = entry[path](**extra, device="cpu")
                 pairs = [(out, cpu)] if path != "track_batch" else list(zip(out, cpu))
                 equal_cpu = all(same(a[1], c[1], sub) and np.array_equal(a[0], c[0])
@@ -492,13 +600,17 @@ def main() -> int:
             want_n = want_launches[path][name]
             ok = (n_launch == want_n and n_plain == 0 and max(errs) < 1.0 and equal_single
                   and equal_cpu is not False)
-            if path == "track":
+            if path in ("track", "track large target"):
                 ok = ok and len(out[1]) == N_FRAMES
+            if path == "track large target":  # every launch of this path is the tiled kernel
+                ok = ok and n_tiled == n_launch
             phase2[f"{path} {name}"] = {"launches": n_launch, "want_launches": want_n,
+                                        "tiled_launches": n_tiled,
                                         "plain_runs": n_plain, "rmse_px": errs,
                                         "equals_single_track": equal_single,
                                         "equals_cpu_run": equal_cpu, "wall_s": wall, "ok": ok}
-            log(f"phase 2 {path}({name}): launches={n_launch} (want {want_n}), plain runs={n_plain},"
+            log(f"phase 2 {path}({name}): launches={n_launch} (want {want_n}, dog_scan_tiled"
+                f" {n_tiled}), plain runs={n_plain},"
                 f" rmse max={max(errs):.4f} px over {len(errs)}, equals single track()="
                 f"{equal_single}, equals device='cpu' run={equal_cpu}, {wall:.3f} s"
                 f" -> {'ok' if ok else 'FAIL'}")
@@ -516,6 +628,31 @@ def main() -> int:
     cases["bounded+subpixel T=1"] = (chunk[:1], pos0, fill, kw, bnd1, True, False)
     cases["batched unbounded B=4 T=1"] = (lanes[:, :1].contiguous(), lane_pos0, lane_fills, kw,
                                           {}, False, True)
+    # dog_scan_tiled's chunk scans at the default windows of large targets, 64
+    # frames made on the card, one lane and 4 lanes, unbounded and
+    # bounded+subpixel (frame-sized boxes, as track(subpixel=True) gives)
+    large_cases = []
+    for tw in TILED_STEPS:
+        tspec = make_spec((H, W), guess_window_size(tw), tw, True)
+        tkw = dict(radii=tspec.radii, sigma=tspec.sigma, darker_target=True)
+        tframes, tpaths = device_clips(CHUNK + 1, B, tw // 2, dev)
+        tframes = tframes[:, 1:].contiguous()
+        tstarts = torch.tensor(np.stack([tp[0] for tp in tpaths]), dtype=torch.int32, device=dev)
+        box = {"deltas": torch.zeros((B, CHUNK, 2), dtype=torch.int32, device=dev),
+               "lo": torch.zeros((B, CHUNK, 2), dtype=torch.int32, device=dev),
+               "hi": torch.tensor([H - 1, W - 1], dtype=torch.int32,
+                                  device=dev).expand(B, CHUNK, 2).contiguous()}
+        for n_lanes in (1, B):
+            for sub in (False, True):
+                name = (f"tiled tw={tw} T=64 {'bounded+subpixel' if sub else 'unbounded'}"
+                        f" B={n_lanes}")
+                if n_lanes == 1:  # one chain, as track() launches it
+                    cases[name] = (tframes[0], tstarts[0], 128, tkw,
+                                   {k: v[0] for k, v in box.items()} if sub else {}, sub, False)
+                else:
+                    cases[name] = (tframes, tstarts, lane_fills, tkw, box if sub else {}, sub,
+                                   True)
+                large_cases.append(name)
     timed = {  # name: (case, whether the plain version is timed too)
         "unbounded": ("unbounded", True),
         "bounded": ("bounded", True),
@@ -530,6 +667,9 @@ def main() -> int:
         "unbounded T=1": ("unbounded T=1", True),
         "bounded+subpixel T=1": ("bounded+subpixel T=1", True),
         "batched unbounded B=4 T=1": ("batched unbounded B=4 T=1", True),
+        "batched snap quarter-frame B=4": ("batched snap quarter-frame", True),
+        # the plain version at the large-target path's shape only (~60 ms a step)
+        **{n: (n, n == f"tiled tw={LARGE_TW} T=64 unbounded B=1") for n in large_cases},
     }
     timing = {}
     for name, (case, with_plain) in timed.items():
@@ -537,26 +677,63 @@ def main() -> int:
         n_lanes = int(p0.shape[0]) if batched else 1
         steps = int(fr.shape[-3])
         ms = cuda_time_ms(lambda: run_kernel(case), reps=20 if steps > 1 else 200)
-        plain_ms = cuda_time_ms(lambda: run_plain(case), reps=1, warmup=1) if with_plain else None
-        c = cost(k["radii"], L, steps, sub, bool(b), lanes=n_lanes)
+        plain_ms = (cuda_time_ms(lambda: run_plain(case), reps=1, warmup=int(case not in large_cases))
+                    if with_plain else None)
+        case_L = tk._taps(k["sigma"], True, dev)[2]
+        c = cost(k["radii"], case_L, steps, sub, bool(b), lanes=n_lanes)
         timing[name] = {"kernel": kernel_of(case), "config": tk._config_name(bool(b), sub, batched),
-                        "T": steps, "lanes": n_lanes, "ms": ms, "plain_ms": plain_ms, **c,
-                        "us_per_step": 1e3 * ms / steps, "sm_bound_share": c["sm_bound_ms"] / ms}
+                        "T": steps, "lanes": n_lanes, "L": case_L, "ms": ms, "plain_ms": plain_ms,
+                        **c, "us_per_step": 1e3 * ms / steps, "sm_bound_share": c["sm_bound_ms"] / ms,
+                        "card_bound_share": c["bound_ms"] / ms}
+        where = ""
+        if kernel_of(case) == "dog_scan_tiled":  # a chain runs on its cluster's C SMs
+            plan = tk._tiled_plan(k["radii"], case_L, smem_limit, sub, 0)
+            timing[name].update(cluster=plan.cluster, tile=list(plan.tile), work=plan.work,
+                                cluster_bound_ms=c["sm_bound_ms"] / plan.cluster,
+                                cluster_bound_share=c["sm_bound_ms"] / plan.cluster / ms)
+            where = (f"; its cluster of {plan.cluster} SMs {c['sm_bound_ms'] / plan.cluster:.4f}"
+                     f" ms ({100 * c['sm_bound_ms'] / plan.cluster / ms:.1f}% of it reached,"
+                     f" tiles {plan.tile[0]}x{plan.tile[1]}, work {plan.work:.3f}x the direct taps)")
         log(f"phase 3 {name} ({kernel_of(case)}): T={steps} lanes={n_lanes} kernel {ms:.4f}"
             f" ms/launch ({1e3 * ms / steps:.2f} us/step), plain "
             + (f"{plain_ms:.3f} ms" if plain_ms is not None else "not measured")
-            + f", bound {c['bound_ms']:.6f} ms ({c['bound_by']}), one chain on one SM"
-            f" {c['sm_bound_ms']:.4f} ms ({100 * c['sm_bound_ms'] / ms:.1f}% of it reached)")
+            + f", bound {c['bound_ms']:.6f} ms ({c['bound_by']}, {100 * c['bound_ms'] / ms:.2f}%"
+            f" of it reached), one chain on one SM {c['sm_bound_ms']:.4f} ms"
+            f" ({100 * c['sm_bound_ms'] / ms:.1f}%){where}")
     for name in ("batched unbounded B=16", "unbounded T=1", "bounded+subpixel T=1",
-                 "batched unbounded B=4 T=1"):
+                 "batched unbounded B=4 T=1", *large_cases):
         del cases[name]
+    del tframes, box
+    # the library yardstick of the snap's response: one cuDNN conv2d of the
+    # quarter-frame patch with the 2-D DoG kernel (TF32 off), then argmax. Two
+    # calls, and not bit-equal to the kernel (cuDNN sums in its own order)
+    k2d, kl = dog_kernel_2d(aspec.sigma, True)
+    pi_, pj_ = aspec.radii[0] + kl // 2, aspec.radii[1] + kl // 2
+    ci, cj = int(centre[0]), int(centre[1])
+    snap_patch = frame0[0, ci - pi_:ci + pi_ + 1, cj - pj_:cj + pj_ + 1].float()[None, None]
+    weight = torch.from_numpy(k2d).to(dev)[None, None]
+
+    def library_snap():
+        return torch.nn.functional.conv2d(snap_patch, weight).flatten().argmax()
+
+    library_ms = cuda_time_ms(library_snap, reps=20)
+    lib_k = int(library_snap())
+    kernel_ij = tk.dog_scan_cuda(frame0, centre, fill, **kwa)[0].cpu().numpy()
+    lib_ij = [ci - aspec.radii[0] + lib_k // (2 * aspec.radii[1] + 1),
+              cj - aspec.radii[1] + lib_k % (2 * aspec.radii[1] + 1)]
+    record["snap_library"] = {"ms": library_ms, "call": "torch.nn.functional.conv2d + argmax",
+                              "argmax_ij": lib_ij, "kernel_ij": kernel_ij.tolist()}
+    log(f"phase 3 snap library yardstick (cuDNN conv2d with the 2-D DoG kernel, TF32 off, +"
+        f" argmax; two calls, not bit-equal): {library_ms:.4f} ms, its maximum at {lib_ij}"
+        f" (the kernel's: {kernel_ij.tolist()})")
     record["timing"] = timing
 
     e2e = {}
     for path, frames_per_call, extra in (
             ("track", N_FRAMES, paths["track"]["start_location"]),
             ("track_batch", sum(BATCH_LENS), paths["track_batch"]["start_location"]),
-            ("track_multi", MULTI_FRAMES, paths["track_multi"]["start_locations"])):
+            ("track_multi", MULTI_FRAMES, paths["track_multi"]["start_locations"]),
+            ("track large target", N_FRAMES, paths["track large target"]["start_location"])):
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -584,7 +761,8 @@ def main() -> int:
         f" host-to-device {h2d_ms:.2f} ms, kernel {timing['unbounded']['ms']:.2f} ms")
     record["profile"] = {}
     for path, extra in (("track", paths["track"]["start_location"]),
-                        ("track_batch", paths["track_batch"]["start_location"])):
+                        ("track_batch", paths["track_batch"]["start_location"]),
+                        ("track large target", paths["track large target"]["start_location"])):
         record["profile"][path] = profile_busy(lambda: entry[path](**extra))
         log_profile(f"{path}()", record["profile"][path])
 
@@ -596,9 +774,12 @@ def main() -> int:
     total = sum(c["total"] for c in main_counts.values())
     log(f"kernels: configurations and main-path launches: {json.dumps(by_config)}"
         f" (total {total}); phase 1 checked {', '.join(phase1)}")
-    # each kernel with its headline case: the 64-step chunk scan, and the
-    # quarter-frame snap (the tiled kernel's only main-path shape)
+    # each kernel with its headline case: the bench shape's 64-step chunk scan,
+    # and the quarter-frame snap (the one shape of dog_scan_tiled on every
+    # autodetected path; it also takes every launch of the large-target path,
+    # timed in its configs)
     headline = {"dog_scan": "unbounded", "dog_scan_tiled": "snap quarter-frame"}
+    library = {"dog_scan": None, "dog_scan_tiled": library_ms}
     kernels = []
     for kname, case in headline.items():
         main = timing[case]
@@ -614,14 +795,14 @@ def main() -> int:
             "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"],
-            "library_ms": None,
+            "library_ms": library[kname],
             "launches_by_config": {c: n for c, n in by_config.items()
                                    if c.startswith(kname + ":")},
             "launches_by_path": {p: c["by_kernel"].get(kname, 0) for p, c in main_counts.items()},
             # the kernel's timed cases, each with its configuration's launches
             # on the main paths
             "configs": [{"case": n, "launches": by_config.get(f"{kname}: {t['config']}", 0),
-                         "library_ms": None,
+                         "library_ms": library_ms if n.startswith("snap quarter") else None,
                          **{k: v for k, v in t.items() if k not in ("flops", "bytes", "kernel")}}
                         for n, t in timing.items() if t["kernel"] == kname],
         })

@@ -57,14 +57,33 @@
 // 20 warps, the column pass runs on 8 warps, and the argmax and barriers cost ~1 us
 // (tools/dog_scan_split.py; PERF.md).
 //
-// dog_scan_tiled_kernel takes windows whose working set does not fit (the quarter-frame
-// autodetect snap, 271x481 at 1080p): it walks the window in output tiles, each with its apron,
-// keeping a running (max, column-major index), and recomputes the subpixel neighbours with the
-// same FMA sequence. The wrapper picks between the two by shape (ops/tracker_kernel.py).
+// dog_scan_tiled_kernel takes windows whose working set does not fit: the quarter-frame
+// autodetect snap (271x481 at 1080p) and every chunk scan from target_width 39 up at the
+// default window (69x69 with L = 97 and larger). A step there is 20-100 MFLOP, too much for one
+// SM, so a lane is one thread-block cluster of C <= 16 CTAs (grid (C, B), cluster dims (C,1,1)):
+//   - the window is cut into output tiles of 7 rows (one kR block) by the whole window's width,
+//     or by a few column tiles when that does not fit, so a tile's row pass recomputes at most
+//     the L - 1 apron columns of its column tiles (tile_plan in ops/tracker_kernel.py counts the
+//     work against the direct taps); CTA r owns tiles r, r + C, ...;
+//   - per tile, dog_scan's register-blocked passes; the tile's patch is copied with cp.async by
+//     load_region (out-of-frame cells take the fill), and the next tile's patch is copied into
+//     the same buffer while the column pass runs, since the row pass is done with it by then;
+//   - per step, each CTA reduces its (max, column-major index) with keep_better, the C pairs
+//     are exchanged through distributed shared memory after one cluster barrier, and every CTA
+//     computes the same new position from them: no round trip through global memory, no second
+//     kernel. keep_better is a total order, so the result does not depend on the tiling;
+//   - with subpixel offsets each CTA keeps its tiles' responses (double-buffered by step
+//     parity, so the next step's writes wait for the reads behind the next cluster barrier),
+//     and CTA 0 reads the four neighbours of the maximum from the CTAs that own them: the
+//     values the argmax saw.
+// The wrapper picks between the two kernels by shape (ops/tracker_kernel.py::kernel_for), and
+// picks C from the tile count and cudaOccupancyMaxActiveClusters before the launch; a launch
+// that cannot be scheduled fails and raises.
 //
 // Summation order decides argmax ties, so the plain PyTorch version
 // (ops/filters.py::separable_correlate_valid) emulates this FMA sequence exactly; both kernels
-// agree with it bit for bit on any input, lane by lane. Keep them in step.
+// agree with it bit for bit on any input, lane by lane, however the window is tiled. Keep them
+// in step.
 //
 // Built with nvcc into a shared library with a plain C interface and bound with ctypes
 // (pawsometracker_tpu_torch/ops/_build.py, ops/tracker_kernel.py). The kernels allocate nothing.
@@ -414,28 +433,71 @@ dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T
   }
 }
 
-// ---- dog_scan_tiled_kernel: windows whose working set does not fit shared memory ------------
+// ---- dog_scan_tiled_kernel: one thread-block cluster per lane --------------------------------
 
-constexpr int kTiledMaxThreads = 512;
-constexpr int kTiledMaxWarps = kTiledMaxThreads / 32;
+constexpr int kMaxCluster = 16;  // CTAs of one cluster; above 8 a non-portable size
 
-__device__ __forceinline__ float pixel(const uint8_t* frame, int H, int W, int r, int c,
-                                       int fill) {
-  return (r >= 0 && r < H && c >= 0 && c < W) ? (float)frame[(size_t)r * W + c]
-                                              : (float)fill;
+// Shared-memory layout of one CTA of dog_scan_tiled_kernel, from L, the output tile (th x tw,
+// both multiples of kR) and the response slots (tiles a CTA owns; 0 without subpixel offsets).
+struct TiledLayout {
+  int brows;   // patch rows: th + L (the row-blocked reads' slack row included)
+  int pitch;   // bytes of one patch row: its tw + L - 1 columns, up to 15 bytes of row offset,
+               // in whole 16-byte chunks
+  int pitch2;  // float2 pairs of one row-sum row: tw + L, odd (no bank conflicts)
+  long long off_rows, off_taps, off_resp, off_shift, bytes;
+};
+
+__host__ __device__ inline TiledLayout tiled_layout(int L, int th, int tw, int resp_slots) {
+  TiledLayout s;
+  s.brows = th + L;
+  s.pitch = 16 * ((tw + L + 29) / 16);
+  s.pitch2 = (tw + L) | 1;
+  s.off_rows = (long long)s.brows * s.pitch;                 // [brows][pitch] u8 tile patch
+  s.off_taps = s.off_rows + 8LL * th * s.pitch2;             // [th][pitch2] float2 row sums
+  s.off_resp = s.off_taps + 8LL * L;                         // [L] float2 (centre, surround) taps
+  s.off_shift = s.off_resp + 8LL * resp_slots * th * tw;     // [2][slots][th][tw] f32 response
+  s.bytes = s.off_shift + 4LL * s.brows;                     // [brows] i32 row offsets
+  return s;
 }
 
-__global__ void __launch_bounds__(kTiledMaxThreads)
+// The cluster's barrier: every thread of every CTA arrives (its shared-memory writes released
+// to the cluster) and waits (the others' acquired).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Address of `p` (this CTA's shared memory) in CTA `rank`'s shared memory, and loads from it.
+__device__ __forceinline__ unsigned dsmem_addr(const void* p, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ float dsmem_f32(unsigned addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ int dsmem_s32(unsigned addr) {
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// Lane b is the cluster of the C CTAs with blockIdx.y = b; CTA r (blockIdx.x) owns output tiles
+// r, r + C, r + 2C, ... of the window (row-major over the ntr x ntc tiles of th x tw outputs).
+template <bool kAligned>
+__global__ void __launch_bounds__(kThreads)
 dog_scan_tiled_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T, int H,
                       int W, const int32_t* __restrict__ pos0, const uint8_t* __restrict__ fills,
                       const int32_t* __restrict__ deltas, const int32_t* __restrict__ lo,
                       const int32_t* __restrict__ hi, const float* __restrict__ taps, int L,
                       int ri, int rj, float direction, int32_t* __restrict__ out_pos,
-                      float* __restrict__ out_off, int tile_h, int tile_w) {
+                      float* __restrict__ out_off, int th, int tw) {
   extern __shared__ __align__(16) unsigned char smem[];
-  // this CTA's lane: its frames [T,H,W] at chain * lane_stride, pos0 [2], fill, and
-  // deltas, lo, hi, out_pos and out_off [T,2]
-  const int chain = blockIdx.x;
+  const int chain = blockIdx.y;
+  const int rank = blockIdx.x, C = gridDim.x;  // the grid's x dimension is one cluster
   const long long lane_steps = 2LL * T * chain;
   frames += chain * lane_stride;
   pos0 += 2 * chain;
@@ -448,82 +510,113 @@ dog_scan_tiled_kernel(const uint8_t* __restrict__ frames, long long lane_stride,
 
   const int wh = 2 * ri + 1, ww = 2 * rj + 1;
   const int pad_i = ri + L / 2, pad_j = rj + L / 2;
-  const int tpw = tile_w + L - 1;
-  float* gc = reinterpret_cast<float*>(smem);  // [L] centre taps
-  float* gs = gc + L;                          // [L] surround taps
-  float* nb = gs + L;                          // [8L] neighbour row sums (centre, surround)
-  float* tmp_c = nb + 8 * L;                   // [tile_h, tpw] row pass, centre
-  float* tmp_s = tmp_c + tile_h * tpw;         // [tile_h, tpw] row pass, surround
-  uint8_t* patch = reinterpret_cast<uint8_t*>(tmp_s + tile_h * tpw);  // [tile_h+L-1, tpw]
+  const int ntc = (ww + tw - 1) / tw, nt = ((wh + th - 1) / th) * ntc;
+  const int slots = (nt + C - 1) / C;
+  const int pw = tw + L - 1;  // row sums a tile needs per row
+  const int nbv = th / kR, nbh = tw / kR;
+  const TiledLayout ly = tiled_layout(L, th, tw, out_off ? slots : 0);
+  uint8_t* patch = smem;                                         // [brows][pitch]
+  float2* rows = reinterpret_cast<float2*>(smem + ly.off_rows);  // [th][pitch2]
+  float2* tp = reinterpret_cast<float2*>(smem + ly.off_taps);    // [L] (centre, surround)
+  float* resp = reinterpret_cast<float*>(smem + ly.off_resp);    // [2][slots][th][tw]
+  int* shifts = reinterpret_cast<int*>(smem + ly.off_shift);     // [brows]
+  __shared__ float s_v[kWarps];
+  __shared__ int s_k[kWarps];
+  __shared__ float s_best_v[2];  // this CTA's (max, column-major index), by step parity
+  __shared__ int s_best_k[2];
 
-  __shared__ int s_pos[2];
-  __shared__ float s_v[kTiledMaxWarps];
-  __shared__ int s_k[kTiledMaxWarps];
-  __shared__ float s_best_v;
-  __shared__ int s_best_k;
-  __shared__ float s_nb[4];
-
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = (nthr + 31) >> 5;
-  for (int k = tid; k < 2 * L; k += nthr) gc[k] = taps[k];
-  if (tid == 0) {
-    s_pos[0] = pos0[0];
-    s_pos[1] = pos0[1];
-  }
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int k = tid; k < L; k += kThreads) tp[k] = make_float2(taps[k], taps[L + k]);
   __syncthreads();
 
+  int pi = pos0[0], pj = pos0[1];
   for (int t = 0; t < T; ++t) {
     const uint8_t* frame = frames + (size_t)t * H * W;
-    int pi = s_pos[0], pj = s_pos[1];
+    int qi = pi, qj = pj;  // p
+    int lo_i = 0, lo_j = 0, hi_i = H - 1, hi_j = W - 1;
     if (deltas) {
-      pi += deltas[2 * t];
-      pj += deltas[2 * t + 1];
+      qi += deltas[2 * t];
+      qj += deltas[2 * t + 1];
+      lo_i = lo[2 * t];
+      lo_j = lo[2 * t + 1];
+      hi_i = hi[2 * t];
+      hi_j = hi[2 * t + 1];
     }
-    const int r0 = min(max(pi, 0), H - 1) - pad_i;  // frame row of the patch origin
-    const int c0 = min(max(pj, 0), W - 1) - pad_j;
+    const int r0 = clampi(qi, 0, H - 1) - pad_i;  // frame row and column of the patch origin
+    const int c0 = clampi(qj, 0, W - 1) - pad_j;
+    const int par = t & 1;
+    float* rcur = resp + par * slots * th * tw;
+
+    // the first tile's patch, loaded synchronously; each next one is copied while the
+    // current tile's column pass runs (the row pass is done with the patch by then)
+    if (rank < nt) {
+      const int tr = rank / ntc, tc = rank - tr * ntc;
+      load_region<kAligned>(patch, shifts, frame, H, W, r0 + tr * th, ly.brows, c0 + tc * tw, pw,
+                            ly.pitch, fill, tid);
+    }
+    cp_async_wait_all();
+    __syncthreads();
 
     float bv = -INFINITY;
     int bk = INT_MAX;
-    for (int tr = 0; tr < wh; tr += tile_h) {
-      const int th = min(tile_h, wh - tr);
-      const int ph = th + L - 1;
-      for (int tc = 0; tc < ww; tc += tile_w) {
-        const int tw = min(tile_w, ww - tc);
-        const int pw = tw + L - 1;
-        for (int idx = tid; idx < ph * pw; idx += nthr) {
-          const int u = idx / pw, v = idx - u * pw;
-          const int r = r0 + tr + u, c = c0 + tc + v;
-          patch[idx] = (r >= 0 && r < H && c >= 0 && c < W) ? frame[(size_t)r * W + c]
-                                                            : (uint8_t)fill;
-        }
-        __syncthreads();
-        for (int idx = tid; idx < th * pw; idx += nthr) {
-          const int a = idx / pw, x = idx - a * pw;
-          const uint8_t* col = patch + a * pw + x;
-          float sc = 0.f, ss = 0.f;
-          for (int k = 0; k < L; ++k) {
-            const float p = (float)col[k * pw];
-            sc = __fmaf_rn(gc[k], p, sc);
-            ss = __fmaf_rn(gs[k], p, ss);
+    for (int s = 0; s < slots; ++s) {
+      const int id = rank + s * C;
+      if (id >= nt) break;
+      const int tr = id / ntc, tc = id - tr * ntc;
+
+      // Row pass: rows[a][x] = (sum_k gc[k] P[a+k][x], sum_k gs[k] P[a+k][x]), kR rows a thread.
+      const int ocol = kAligned ? ((c0 + tc * tw) & 15) : 0;
+      for (int it = tid; it < nbv * pw; it += kThreads) {
+        const int blk = it / pw, x = it - blk * pw;
+        const int a0 = blk * kR;
+        const uint8_t* col = patch + a0 * ly.pitch + ocol + x;
+        const int* sh = shifts + a0;
+        const int pitch = ly.pitch;
+        float ac[kR], as[kR];
+        blocked_taps<float>(tp, L, [&](int m) {
+          return (float)col[m * pitch + (kAligned ? 0 : sh[m])];
+        }, ac, as);
+#pragma unroll
+        for (int i = 0; i < kR; ++i) rows[(a0 + i) * ly.pitch2 + x] = make_float2(ac[i], as[i]);
+      }
+      __syncthreads();
+
+      const int nid = id + C;
+      if (s + 1 < slots && nid < nt) {
+        const int nr = nid / ntc, nc = nid - nr * ntc;
+        load_region<kAligned>(patch, shifts, frame, H, W, r0 + nr * th, ly.brows, c0 + nc * tw,
+                              pw, ly.pitch, fill, tid);
+        cp_async_commit();
+      }
+
+      // Column pass, kR columns a thread, each output inside the window kept in this CTA's
+      // running first maximum in column-major order (and in its response slot). Neighbouring
+      // threads take neighbouring column blocks of one row: float2 reads 7 pairs apart, which
+      // fall in distinct banks (a tile has too few rows to spread a warp along them).
+      for (int it = tid; it < th * nbh; it += kThreads) {
+        const int a = it / nbh, blk = it - a * nbh;
+        const int b0 = blk * kR;
+        const float2* rp = rows + a * ly.pitch2 + b0;
+        float rc[kR], rs[kR];
+        blocked_taps<float2>(tp, L, [&](int m) { return rp[m]; }, rc, rs);
+        const int gr = tr * th + a;
+#pragma unroll
+        for (int i = 0; i < kR; ++i) {
+          const int gc = tc * tw + b0 + i;
+          if (gr < wh && gc < ww) {
+            const float v = direction * (rc[i] - rs[i]);
+            if (out_off) rcur[(s * th + a) * tw + b0 + i] = v;
+            keep_better(v, gc * wh + gr, bv, bk);
           }
-          tmp_c[idx] = sc;
-          tmp_s[idx] = ss;
-        }
-        __syncthreads();
-        for (int idx = tid; idx < th * tw; idx += nthr) {
-          const int a = idx / tw, b = idx - a * tw;
-          const float* rc_row = tmp_c + a * pw + b;
-          const float* rs_row = tmp_s + a * pw + b;
-          float rc = 0.f, rs = 0.f;
-          for (int k = 0; k < L; ++k) {
-            rc = __fmaf_rn(gc[k], rc_row[k], rc);
-            rs = __fmaf_rn(gs[k], rs_row[k], rs);
-          }
-          keep_better(direction * (rc - rs), (tc + b) * wh + (tr + a), bv, bk);
         }
       }
+      cp_async_wait_all();  // the next tile's patch has landed (this thread's copies)
+      __syncthreads();      // ... and everyone's; the row sums are free again
     }
 
+    // This CTA's maximum, then the cluster's: every warp reads the C pairs through distributed
+    // shared memory after one cluster barrier. keep_better is a total order, so the result
+    // does not depend on which CTA held which tile.
     warp_argmax(bv, bk);
     if (lane == 0) {
       s_v[warp] = bv;
@@ -531,67 +624,88 @@ dog_scan_tiled_kernel(const uint8_t* __restrict__ frames, long long lane_stride,
     }
     __syncthreads();
     if (warp == 0) {
-      bv = lane < nwarps ? s_v[lane] : -INFINITY;
-      bk = lane < nwarps ? s_k[lane] : INT_MAX;
+      bv = lane < kWarps ? s_v[lane] : -INFINITY;
+      bk = lane < kWarps ? s_k[lane] : INT_MAX;
       warp_argmax(bv, bk);
       if (lane == 0) {
-        s_best_v = bv;
-        s_best_k = bk;
+        s_best_v[par] = bv;
+        s_best_k[par] = bk;
       }
     }
-    __syncthreads();
-    const int row = s_best_k % wh, col = s_best_k / wh;
+    cluster_sync();
+    bv = -INFINITY;
+    bk = INT_MAX;
+    if (lane < C) {
+      bv = dsmem_f32(dsmem_addr(&s_best_v[par], lane));
+      bk = dsmem_s32(dsmem_addr(&s_best_k[par], lane));
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      const int ok = __shfl_xor_sync(0xffffffffu, bk, o);
+      keep_better(ov, ok, bv, bk);
+    }
+    const int row = bk % wh, col = bk / wh;
+    const int ni = clampi(qi - ri + row, lo_i, hi_i);
+    const int nj = clampi(qj - rj + col, lo_j, hi_j);
 
-    if (out_off) {
-      // The four neighbours of the maximum, recomputed with the same FMA sequence as the
-      // tile passes, so they equal the response values the argmax saw bit for bit.
-      for (int idx = tid; idx < 4 * L; idx += nthr) {
-        const int n = idx / L, m = idx - n * L;
-        const int a = min(max(row + (n == 0 ? -1 : n == 1 ? 1 : 0), 0), wh - 1);
-        const int b = min(max(col + (n == 2 ? -1 : n == 3 ? 1 : 0), 0), ww - 1);
-        float sc = 0.f, ss = 0.f;
-        for (int k = 0; k < L; ++k) {
-          const float p = pixel(frame, H, W, r0 + a + k, c0 + b + m, fill);
-          sc = __fmaf_rn(gc[k], p, sc);
-          ss = __fmaf_rn(gs[k], p, ss);
-        }
-        nb[idx] = sc;
-        nb[4 * L + idx] = ss;
+    if (rank == 0 && warp == 0) {
+      float nv = 0.f;
+      if (out_off && lane < 4) {
+        // the four neighbours of the maximum, read from the response slots of the CTAs that
+        // own them: the values the argmax saw
+        const int a = lane == 0 ? max(row - 1, 0) : lane == 1 ? min(row + 1, wh - 1) : row;
+        const int b = lane == 2 ? max(col - 1, 0) : lane == 3 ? min(col + 1, ww - 1) : col;
+        const int tr = a / th, tc = b / tw, id = tr * ntc + tc;
+        const float* cell =
+            resp + ((par * slots + id / C) * th + (a - tr * th)) * tw + (b - tc * tw);
+        nv = dsmem_f32(dsmem_addr(cell, id % C));
       }
-      __syncthreads();
-      if (tid < 4) {
-        float rc = 0.f, rs = 0.f;
-        for (int m = 0; m < L; ++m) {
-          rc = __fmaf_rn(gc[m], nb[tid * L + m], rc);
-          rs = __fmaf_rn(gs[m], nb[4 * L + tid * L + m], rs);
+      const float rm = __shfl_sync(0xffffffffu, nv, 0), rp = __shfl_sync(0xffffffffu, nv, 1);
+      const float cm = __shfl_sync(0xffffffffu, nv, 2), cp = __shfl_sync(0xffffffffu, nv, 3);
+      if (lane == 0) {
+        out_pos[2 * t] = ni;
+        out_pos[2 * t + 1] = nj;
+        if (out_off) {
+          const float m0 = bv;
+          const float den_r = rm - 2.0f * m0 + rp;
+          const float den_c = cm - 2.0f * m0 + cp;
+          const bool int_r = row > 0 && row < wh - 1 && den_r < 0.f;
+          const bool int_c = col > 0 && col < ww - 1 && den_c < 0.f;
+          out_off[2 * t] = int_r ? 0.5f * (rm - rp) / den_r : 0.f;
+          out_off[2 * t + 1] = int_c ? 0.5f * (cm - cp) / den_c : 0.f;
         }
-        s_nb[tid] = direction * (rc - rs);
-      }
-      __syncthreads();
-    }
-
-    if (tid == 0) {
-      const int lo0 = lo ? lo[2 * t] : 0, lo1 = lo ? lo[2 * t + 1] : 0;
-      const int hi0 = hi ? hi[2 * t] : H - 1, hi1 = hi ? hi[2 * t + 1] : W - 1;
-      const int ni = min(max(pi - ri + row, lo0), hi0);
-      const int nj = min(max(pj - rj + col, lo1), hi1);
-      out_pos[2 * t] = ni;
-      out_pos[2 * t + 1] = nj;
-      s_pos[0] = ni;
-      s_pos[1] = nj;
-      if (out_off) {
-        const float m0 = s_best_v;
-        const float rm = s_nb[0], rp = s_nb[1], cm = s_nb[2], cp = s_nb[3];
-        const float den_r = rm - 2.0f * m0 + rp;
-        const float den_c = cm - 2.0f * m0 + cp;
-        const bool int_r = row > 0 && row < wh - 1 && den_r < 0.f;
-        const bool int_c = col > 0 && col < ww - 1 && den_c < 0.f;
-        out_off[2 * t] = int_r ? 0.5f * (rm - rp) / den_r : 0.f;
-        out_off[2 * t + 1] = int_c ? 0.5f * (cm - cp) / den_c : 0.f;
       }
     }
-    __syncthreads();
+    pi = ni;
+    pj = nj;
   }
+  cluster_sync();  // no CTA leaves while another may still read its shared memory
+}
+
+// Set dog_scan_tiled_kernel's attributes for `smem` bytes of dynamic shared memory and
+// clusters of `cluster` CTAs (a non-portable size above 8).
+template <class Kernel>
+cudaError_t tiled_attributes(Kernel kernel, long long smem, int cluster) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e == cudaSuccess && cluster > 8)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+void tiled_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int cluster, int B,
+                         long long smem, void* stream) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cluster, B, 1);
+  cfg->blockDim = dim3(kThreads, 1, 1);
+  cfg->dynamicSmemBytes = (size_t)smem;
+  cfg->stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
 }
 
 }  // namespace
@@ -601,13 +715,16 @@ extern "C" {
 // Dynamic shared memory of one dog_scan_kernel launch, in bytes (scan_layout above).
 long long dog_scan_smem_bytes(int L, int ri, int rj) { return scan_layout(L, ri, rj).bytes; }
 
-// Dynamic shared memory of one dog_scan_tiled_kernel launch, in bytes.
-long long dog_scan_tiled_smem_bytes(int L, int tile_h, int tile_w) {
-  const long long tpw = tile_w + L - 1;
-  return 4LL * (10LL * L + 2LL * tile_h * tpw) + (long long)(tile_h + L - 1) * tpw;
+// Dynamic shared memory of one CTA of a dog_scan_tiled_kernel launch, in bytes (tiled_layout
+// above): tiles of tile_h x tile_w, `cluster` CTAs a lane, the response kept with `subpixel`.
+long long dog_scan_tiled_smem_bytes(int L, int ri, int rj, int tile_h, int tile_w, int cluster,
+                                    int subpixel) {
+  const int nt = ((2 * ri + tile_h) / tile_h) * ((2 * rj + tile_w) / tile_w);
+  return tiled_layout(L, tile_h, tile_w, subpixel ? (nt + cluster - 1) / cluster : 0).bytes;
 }
 
-// Both launchers run B chains of T steps on `stream`, one CTA per lane. Device pointers:
+// Both launchers run B chains of T steps on `stream` (dog_scan one CTA a lane, dog_scan_tiled one
+// cluster a lane). Device pointers:
 // frames u8 contiguous, lane b's [T,H,W] at frames + b * lane_stride (lane_stride 0: all lanes
 // read the same frames), pos0 [B,2] i32, fills [B] u8, taps [2L] f32 (centre then surround),
 // out_pos [B,T,2] i32; deltas, lo and hi ([B,T,2] i32) and out_off ([B,T,2] f32) may be null.
@@ -633,24 +750,48 @@ int dog_scan_launch(const void* frames, long long lane_stride, int B, int T, int
   return (int)cudaGetLastError();
 }
 
-// dog_scan_tiled_kernel: any window, in output tiles of tile_h x tile_w.
+// How many clusters of `cluster` CTAs, each with `smem` bytes of dynamic shared memory, the card
+// runs at once (cudaOccupancyMaxActiveClusters), into *n_active; 0 means such a launch cannot be
+// scheduled. The wrapper picks the cluster size from it before it launches.
+int dog_scan_tiled_active_clusters(int cluster, long long smem, int* n_active) {
+  *n_active = 0;
+  if (cluster < 1 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
+  auto kernel = dog_scan_tiled_kernel<true>;
+  cudaError_t e = tiled_attributes(kernel, smem, cluster);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  tiled_config(&cfg, &attr, cluster, 1, smem, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(n_active, (const void*)kernel, &cfg);
+}
+
+// dog_scan_tiled_kernel: any window, one cluster of `cluster` CTAs a lane (grid (cluster, B)),
+// in output tiles of tile_h x tile_w (multiples of 7). A launch the card cannot schedule
+// returns its error; nothing runs in its place.
 int dog_scan_tiled_launch(const void* frames, long long lane_stride, int B, int T, int H, int W,
                           const void* pos0, const void* fills, const void* deltas,
                           const void* lo, const void* hi, const void* taps, int L, int ri,
                           int rj, float direction, void* out_pos, void* out_off, int tile_h,
-                          int tile_w, int threads, void* stream) {
-  if (threads <= 0 || threads > kTiledMaxThreads || threads % 32 != 0)
+                          int tile_w, int cluster, void* stream) {
+  if (B <= 0 || B > 65535 || lane_stride < 0) return (int)cudaErrorInvalidValue;
+  if (tile_h <= 0 || tile_w <= 0 || tile_h % kR != 0 || tile_w % kR != 0 || cluster < 1 ||
+      cluster > kMaxCluster)
     return (int)cudaErrorInvalidValue;
-  if (B <= 0 || lane_stride < 0) return (int)cudaErrorInvalidValue;
-  const long long smem = dog_scan_tiled_smem_bytes(L, tile_h, tile_w);
-  cudaError_t e = cudaFuncSetAttribute(dog_scan_tiled_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const long long smem =
+      dog_scan_tiled_smem_bytes(L, ri, rj, tile_h, tile_w, cluster, out_off != nullptr);
+  const bool aligned = reinterpret_cast<uintptr_t>(frames) % 16 == 0 && W % 16 == 0 &&
+                       lane_stride % 16 == 0;
+  auto kernel = aligned ? dog_scan_tiled_kernel<true> : dog_scan_tiled_kernel<false>;
+  cudaError_t e = tiled_attributes(kernel, smem, cluster);
   if (e != cudaSuccess) return (int)e;
-  dog_scan_tiled_kernel<<<B, threads, (size_t)smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)frames, lane_stride, T, H, W, (const int32_t*)pos0,
-      (const uint8_t*)fills, (const int32_t*)deltas, (const int32_t*)lo, (const int32_t*)hi,
-      (const float*)taps, L, ri, rj, direction, (int32_t*)out_pos, (float*)out_off, tile_h,
-      tile_w);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  tiled_config(&cfg, &attr, cluster, B, smem, stream);
+  e = cudaLaunchKernelEx(&cfg, kernel, (const uint8_t*)frames, lane_stride, T, H, W,
+                         (const int32_t*)pos0, (const uint8_t*)fills, (const int32_t*)deltas,
+                         (const int32_t*)lo, (const int32_t*)hi, (const float*)taps, L, ri, rj,
+                         direction, (int32_t*)out_pos, (float*)out_off, tile_h, tile_w);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

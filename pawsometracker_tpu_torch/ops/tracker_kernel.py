@@ -10,12 +10,14 @@ unbatched configurations:
 - either with ``subpixel=True``: plus per-step parabolic offsets ``[T,2] f32``.
 
 On a CUDA tensor it launches one of the two kernels of ``csrc/dog_scan.cu``
-(one CTA per chain, the step loop inside the kernel, see the note there) or
-raises; it never falls back. Which kernel is a matter of shape
+(the step loop inside the kernel, see the note there) or raises; it never
+falls back. Which kernel is a matter of shape
 (:func:`kernel_for`): ``dog_scan`` (register-blocked passes, the next patch
-prefetched) when its working set fits shared memory, ``dog_scan_tiled`` for
-larger windows such as the quarter-frame autodetect snap. On a CPU tensor it
-runs :func:`dog_scan_plain`, a Python loop over steps of the :mod:`.filters`
+prefetched) when its working set fits shared memory, ``dog_scan_tiled`` (one
+thread-block cluster a lane, the window's tiles spread over its CTAs,
+:func:`tile_plan`) for larger windows: the quarter-frame autodetect snap, and
+every chunk scan from ``target_width`` 39 up at the default window. On a CPU
+tensor it runs :func:`dog_scan_plain`, a Python loop over steps of the :mod:`.filters`
 ops, which is also what both kernels are held against on the card.
 :data:`launches` counts kernel launches (and only those).
 """
@@ -25,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from collections import Counter
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,8 +37,8 @@ from .filters import argmax_colmajor, separable_correlate_valid
 
 __all__ = ["dog_scan", "dog_scan_plain", "dog_scan_cuda", "dog_scan_batch",
            "dog_scan_batch_plain", "dog_scan_batch_cuda", "launches", "launches_by_config",
-           "launches_by_kernel", "reset_launches", "kernel_for", "tile_shape", "KERNELS",
-           "TILED_THREADS"]
+           "launches_by_kernel", "reset_launches", "kernel_for", "tile_plan", "TilePlan",
+           "KERNELS", "MAX_CLUSTER"]
 
 #: kernel launches since import (or the last :func:`reset_launches`)
 launches = 0
@@ -50,10 +53,11 @@ launches_by_kernel: Counter = Counter()
 KERNELS = ("dog_scan", "dog_scan_tiled")
 #: outputs per thread of dog_scan's register-blocked passes (kR in the source)
 SCAN_R = 7
-#: threads per CTA of dog_scan_tiled (a multiple of 32, at most its launch bound)
-TILED_THREADS = 512
-#: largest output tile (rows, cols) one pass of dog_scan_tiled covers
-MAX_TILE = (64, 128)
+#: largest thread-block cluster of dog_scan_tiled (above 8 a non-portable size)
+MAX_CLUSTER = 16
+#: when set, dog_scan_tiled launches clusters of exactly this many CTAs (timing and tests);
+#: None lets :func:`tile_plan` and the card pick
+tiled_cluster: int | None = None
 
 
 def reset_launches() -> None:
@@ -272,27 +276,87 @@ def _scan_smem_bytes(L: int, ri: int, rj: int) -> int:
     return 2 * brows * pitch + 8 * wh * pitch2 + 8 * L + 4 * wh * ww + 8 * brows
 
 
-def tile_shape(radii, L: int, smem_limit: int) -> tuple[int, int]:
-    """Output tile (rows, cols) for one pass of ``dog_scan_tiled``: the window
-    itself when it fits, else halved along its longer side until the tile, its
-    apron and the row-pass sums fit ``smem_limit`` bytes of shared memory."""
+class TilePlan(NamedTuple):
+    """How ``dog_scan_tiled`` covers a window: one cluster of ``cluster`` CTAs
+    a lane, output tiles of ``tile`` (rows, cols) on a ``tiles`` (rows, cols)
+    grid, CTA r owning tiles r, r + C, ... (at most ``slots``), ``smem`` bytes
+    of dynamic shared memory a CTA, and ``work``: the taps computed over the
+    window's direct taps (the column tiles' aprons recomputed by the row pass)."""
+
+    cluster: int
+    tile: tuple
+    tiles: tuple
+    slots: int
+    smem: int
+    work: float
+
+
+def tile_plan(radii, L: int, smem_limit: int, subpixel: bool = False,
+              max_cluster: int = MAX_CLUSTER, cluster: int | None = None) -> TilePlan:
+    """The tiles and cluster of one ``dog_scan_tiled`` launch (mirror of the
+    kernel's indexing in csrc/dog_scan.cu). Tiles are one register block of
+    rows (``SCAN_R``) by the window's width, or by the fewest column tiles
+    (widths a multiple of ``SCAN_R``) whose working set fits ``smem_limit``,
+    so that few apron columns are recomputed. C is the fewest CTAs that give
+    no CTA more tiles than spreading them over ``max_cluster`` CTAs would, or
+    exactly ``cluster`` when given (it may exceed the tile count)."""
     wh, ww = 2 * int(radii[0]) + 1, 2 * int(radii[1]) + 1
-    th, tw = min(wh, MAX_TILE[0]), min(ww, MAX_TILE[1])
-    while _tiled_smem_bytes(L, th, tw) > smem_limit:
-        if th == 1 and tw == 1:
-            raise ValueError(f"a DoG kernel of length {L} does not fit the card's "
-                             f"{smem_limit} bytes of shared memory per block")
-        if tw >= th:
-            tw = (tw + 1) // 2
+    th = SCAN_R
+    ntr = -(-wh // th)
+    for split in range(1, -(-ww // SCAN_R) + 1):
+        per = -(-ww // split)  # columns a tile, rounded up to whole register blocks
+        tw = SCAN_R * -(-per // SCAN_R)
+        ntc = -(-ww // tw)
+        nt = ntr * ntc
+        if cluster is not None:
+            c, slots = int(cluster), -(-nt // int(cluster))
         else:
-            th = (th + 1) // 2
-    return th, tw
+            slots = -(-nt // min(max_cluster, MAX_CLUSTER, nt))
+            c = -(-nt // slots)
+        smem = _tiled_smem_bytes(L, th, tw, slots if subpixel else 0)
+        if smem <= smem_limit:
+            work = nt * th * (2 * tw + L - 1) / (wh * (2 * ww + L - 1))
+            return TilePlan(c, (th, tw), (ntr, ntc), slots, smem, work)
+    raise ValueError(f"a DoG kernel of length {L} does not fit the card's {smem_limit} bytes "
+                     f"of shared memory per block")
 
 
-def _tiled_smem_bytes(L: int, th: int, tw: int) -> int:
-    # mirror of dog_scan_tiled_smem_bytes in csrc/dog_scan.cu
-    tpw = tw + L - 1
-    return 4 * (10 * L + 2 * th * tpw) + (th + L - 1) * tpw
+def _tiled_smem_bytes(L: int, th: int, tw: int, resp_slots: int) -> int:
+    # mirror of tiled_layout in csrc/dog_scan.cu
+    brows, pitch, pitch2 = th + L, 16 * ((tw + L + 29) // 16), (tw + L) | 1
+    return brows * pitch + 8 * th * pitch2 + 8 * L + 8 * resp_slots * th * tw + 4 * brows
+
+
+def _tiled_plan(radii, L: int, smem_limit: int, subpixel: bool, device_index: int) -> TilePlan:
+    """:func:`tile_plan` for the card: the largest cluster the card can
+    schedule at this shared-memory size (``cudaOccupancyMaxActiveClusters``),
+    or :data:`tiled_cluster` when set. Raises when no cluster fits."""
+    return _tiled_plan_cached((int(radii[0]), int(radii[1])), int(L), int(smem_limit),
+                              bool(subpixel), int(device_index), tiled_cluster)
+
+
+@functools.lru_cache(maxsize=256)
+def _tiled_plan_cached(radii, L, smem_limit, subpixel, device_index, forced):
+    max_cluster = MAX_CLUSTER
+    while True:
+        plan = tile_plan(radii, L, smem_limit, subpixel, max_cluster, forced)
+        if _active_clusters(plan.cluster, plan.smem, device_index) > 0:
+            return plan
+        if forced is not None or plan.cluster == 1:
+            raise RuntimeError(f"dog_scan_tiled: the card cannot run a cluster of {plan.cluster}"
+                               f" CTAs with {plan.smem} bytes of shared memory each")
+        max_cluster = plan.cluster - 1
+
+
+def _active_clusters(cluster: int, smem: int, device_index: int) -> int:
+    """Clusters of ``cluster`` CTAs with ``smem`` bytes each that the card runs at once."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _lib().dog_scan_tiled_active_clusters(cluster, smem, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"dog_scan_tiled: occupancy query failed: "
+                           f"{_lib().dog_scan_error_string(err).decode()}")
+    return n.value
 
 
 @functools.lru_cache(maxsize=1)
@@ -311,6 +375,9 @@ def _bind(lib):
     lib.dog_scan_launch.restype = i32
     lib.dog_scan_tiled_launch.argtypes = common + [i32, i32, i32, vp]
     lib.dog_scan_tiled_launch.restype = i32
+    lib.dog_scan_tiled_active_clusters.argtypes = [i32, ctypes.c_longlong,
+                                                   ctypes.POINTER(ctypes.c_int)]
+    lib.dog_scan_tiled_active_clusters.restype = i32
     lib.dog_scan_error_string.argtypes = [i32]
     lib.dog_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -370,8 +437,8 @@ def _launch(frames, lane_stride: int, B: int, T: int, pos0, fills, deltas, lo, h
         if kernel == "dog_scan":
             err = lib.dog_scan_launch(*args, stream)
         else:
-            err = lib.dog_scan_tiled_launch(*args, *tile_shape(radii, L, limit), TILED_THREADS,
-                                            stream)
+            plan = _tiled_plan(radii, L, limit, subpixel, dev.index or 0)
+            err = lib.dog_scan_tiled_launch(*args, *plan.tile, plan.cluster, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: {lib.dog_scan_error_string(err).decode()}")
     launches += 1
@@ -398,7 +465,7 @@ def dog_scan_cuda(frames: torch.Tensor, pos0: torch.Tensor, fill: int, *, radii,
 def dog_scan_batch_cuda(frames: torch.Tensor, pos0: torch.Tensor, fills: torch.Tensor, *, radii,
                         sigma: float, darker_target: bool, deltas=None, lo=None, hi=None,
                         subpixel: bool = False):
-    """Launch a kernel of ``csrc/dog_scan.cu`` with one CTA per lane on the current stream
+    """Launch a kernel of ``csrc/dog_scan.cu`` for B lanes on the current stream
     for CUDA tensors (uint8 ``fills``, int32 ``pos0``/``deltas``/``lo``/``hi``,
     contiguous). Shared ``frames [T, H, W]`` launch with a lane stride of 0.
     Raises on anything the kernel does not take and on a failed launch."""

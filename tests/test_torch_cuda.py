@@ -72,16 +72,155 @@ def test_kernel_equals_plain(card, cfg):
 
 @pytest.mark.parametrize("window", [(151, 301), (65, 129), (1, 1), (3, 200)])
 def test_tiled_windows_equal_plain(card, window):
-    """Windows larger than one output tile (64x128) are walked in tiles by
-    dog_scan_tiled when dog_scan's working set does not fit; the others take
-    dog_scan. Either way the kernel equals the plain version."""
-    h, w = 200, 360
+    """Windows whose dog_scan working set does not fit shared memory take
+    dog_scan_tiled (one cluster a lane); the others take dog_scan. Either way
+    a 6-step chain equals the plain version."""
+    h, w, T = 200, 360, 6
     spec = make_spec((h, w), window, 10, True)
     kernel = tk.kernel_for(spec.radii, spec.kernel_len, tk._smem_limit(0))
     assert (kernel == "dog_scan_tiled") == (window == (151, 301))
-    frames = ellipse_frames(h, w, [(90, 170)])
+    frames = ellipse_frames(h, w, [(90 + 2 * t, 170 - 3 * t) for t in range(T)])
     check(card, frames, (100, 180), spec.radii, spec.sigma, kernel=kernel)
     check(card, frames, (100, 180), spec.radii, spec.sigma, subpixel=True, kernel=kernel)
+
+
+# ---- dog_scan_tiled: one thread-block cluster a lane ----------------------------
+
+
+@pytest.fixture
+def tiled(card, monkeypatch):
+    """Send every launch to dog_scan_tiled, whatever the window, so that small
+    windows (and a cheap plain version) exercise its tiles and clusters."""
+    monkeypatch.setattr(tk, "kernel_for", lambda radii, L, limit: "dog_scan_tiled")
+    monkeypatch.setattr(tk, "tiled_cluster", None)
+    return card
+
+
+def random_bounds(rng, shape, h, w):
+    return {"deltas": rng.integers(-3, 4, shape), "lo": rng.integers(0, 8, shape),
+            "hi": np.array([h - 1, w - 1]) - rng.integers(0, 8, shape)}
+
+
+TILED_CFGS = ["unbounded", "bounded", "bounded+subpixel", "unbounded+subpixel"]
+
+
+@pytest.mark.parametrize("cfg", TILED_CFGS)
+@pytest.mark.parametrize("lanes", ["one chain", "4 lanes, own frames", "4 lanes, shared frames"])
+def test_tiled_chains_equal_plain(tiled, cfg, lanes):
+    """T = 12 chains through dog_scan_tiled in every configuration: a 41x61
+    window over 7x63 tiles, 6 tiles over a cluster of 6 CTAs."""
+    h, w, T, B = 150, 190, 12, 4
+    spec = make_spec((h, w), (41, 61), 10, True)
+    plan = tk.tile_plan(spec.radii, spec.kernel_len, tk._smem_limit(0), cfg.endswith("subpixel"))
+    assert plan.cluster == 6 and plan.tile == (7, 63)
+    rng = np.random.default_rng(7)
+    sub = cfg.endswith("subpixel")
+    paths = [[(50 + 8 * b + 2 * t, 60 + 10 * b + 3 * t) for t in range(T)] for b in range(B)]
+    if lanes == "one chain":
+        bounds = random_bounds(rng, (T, 2), h, w) if cfg.startswith("bounded") else None
+        check(tiled, ellipse_frames(h, w, paths[0]), paths[0][0], spec.radii, spec.sigma,
+              subpixel=sub, bounds=bounds, kernel="dog_scan_tiled")
+        return
+    bounds = random_bounds(rng, (B, T, 2), h, w) if cfg.startswith("bounded") else None
+    if lanes == "4 lanes, own frames":
+        frames = np.stack([ellipse_frames(h, w, p) for p in paths])
+        frames[2] = np.where(frames[2] == 128, 90, frames[2])  # another background
+    else:
+        frames = np.minimum.reduce([ellipse_frames(h, w, p) for p in paths])
+    starts = [p[0] for p in paths]
+    starts[3] = (-20, w + 15)  # a lane starting off the frame
+    check_batch(tiled, frames, starts, [128, 128, 90, 128], spec.radii, spec.sigma,
+                subpixel=sub, bounds=bounds)
+
+
+@pytest.mark.parametrize("window,cluster", [((7, 7), None), ((3, 40), None), ((21, 21), 16),
+                                            ((21, 21), 8), ((35, 49), 2)])
+def test_tiled_one_tile_and_fewer_tiles_than_cluster(tiled, window, cluster, monkeypatch):
+    """A window of one tile (a cluster of 1), and clusters larger than the
+    tile count (CTAs that own no tile still join every barrier) or smaller
+    (CTAs that own several tiles)."""
+    h, w, T = 90, 110, 8
+    spec = make_spec((h, w), window, 10, True)
+    monkeypatch.setattr(tk, "tiled_cluster", cluster)
+    plan = tk._tiled_plan(spec.radii, spec.kernel_len, tk._smem_limit(0), True, 0)
+    nt = plan.tiles[0] * plan.tiles[1]
+    if cluster is None:
+        assert nt == 1 and plan.cluster == 1
+    else:
+        assert plan.cluster == cluster
+    path = [(40 + t, 50 - 2 * t) for t in range(T)]
+    frames = ellipse_frames(h, w, path)
+    check(tiled, frames, path[0], spec.radii, spec.sigma, kernel="dog_scan_tiled")
+    check(tiled, frames, path[0], spec.radii, spec.sigma, subpixel=True, kernel="dog_scan_tiled")
+
+
+def test_tiled_clusters_in_waves(tiled, monkeypatch):
+    """More lanes than the clusters of 16 CTAs the card runs at once, so the
+    clusters run in waves; lanes read one frame stream, from random starts."""
+    h, w, T = 100, 120, 3
+    spec = make_spec((h, w), 41, 10, True)
+    monkeypatch.setattr(tk, "tiled_cluster", 16)
+    plan = tk._tiled_plan(spec.radii, spec.kernel_len, tk._smem_limit(0), False, 0)
+    at_once = tk._active_clusters(plan.cluster, plan.smem, 0)
+    assert at_once >= 1
+    B = at_once + 5
+    rng = np.random.default_rng(8)
+    frames = ellipse_frames(h, w, [(50 + t, 60 - t) for t in range(T)])
+    starts = np.stack([rng.integers(-10, h + 10, B), rng.integers(-10, w + 10, B)], 1)
+    check_batch(tiled, frames, starts, rng.integers(0, 256, B), spec.radii, spec.sigma)
+
+
+@pytest.mark.parametrize("shape", [(90, 201), (120, 1920)])
+def test_tiled_unaligned_widths_equal_plain(tiled, shape):
+    """A frame width that is not a multiple of 16, and a 16-aligned width read
+    at a lane base that is not 16-byte aligned: each patch row is read at its
+    own offset."""
+    h, w = shape
+    T = 5
+    path = [(h // 2 + 2 * t, w // 2 - 3 * t) for t in range(T)]
+    spec = make_spec((h, w), (29, 45), 10, True)
+    frames = ellipse_frames(h, w, path)
+    if w % 16 == 0:
+        flat = torch.zeros(frames.size + 3, dtype=torch.uint8, device=tiled)
+        flat[3:] = torch.from_numpy(frames.reshape(-1)).to(tiled)
+        frames = flat[3:].view(T, h, w)
+        assert frames.data_ptr() % 16 != 0
+    check(tiled, frames, path[0], spec.radii, spec.sigma, kernel="dog_scan_tiled")
+    check(tiled, frames, path[0], spec.radii, spec.sigma, subpixel=True, kernel="dog_scan_tiled")
+
+
+@pytest.mark.parametrize("cluster", [None, 3, 16])
+@pytest.mark.parametrize("field", ["flat", "plateaus"])
+def test_tiled_ties_across_ctas_equal_plain(tiled, field, cluster, monkeypatch):
+    """A flat field (every window cell ties) and integer plateaus (ties within
+    and across tiles owned by different CTAs): the cluster's maximum is the
+    first in column-major order, as the plain version's."""
+    h, w, T = 100, 130, 6
+    spec = make_spec((h, w), (35, 49), 10, True)
+    monkeypatch.setattr(tk, "tiled_cluster", cluster)
+    if field == "flat":
+        frames = np.full((T, h, w), 128, np.uint8)
+    else:
+        rng = np.random.default_rng(9)
+        blocks = rng.integers(0, 2, (T, h // 10 + 1, w // 10 + 1)).astype(np.uint8) * 60 + 100
+        frames = np.ascontiguousarray(blocks.repeat(10, 1).repeat(10, 2)[:, :h, :w])
+    check(tiled, frames, (50, 65), spec.radii, spec.sigma, kernel="dog_scan_tiled")
+    check(tiled, frames, (50, 65), spec.radii, spec.sigma, subpixel=True,
+          kernel="dog_scan_tiled")
+    check_batch(tiled, frames, [(50, 65), (10, 10), (90, 120)], [128, 100, 128], spec.radii,
+                spec.sigma)
+
+
+def test_tiled_launch_that_cannot_run_raises(tiled, monkeypatch):
+    """A cluster the kernel does not take raises; nothing runs in its place."""
+    spec = make_spec((60, 60), 21, 10, True)
+    monkeypatch.setattr(tk, "tiled_cluster", tk.MAX_CLUSTER + 1)
+    fr = torch.zeros((2, 60, 60), dtype=torch.uint8, device=tiled)
+    before = tk.launches
+    with pytest.raises(RuntimeError, match="dog_scan_tiled"):
+        tk.dog_scan(fr, torch.tensor([30, 30], dtype=torch.int32, device=tiled), 0,
+                    radii=spec.radii, sigma=spec.sigma, darker_target=True)
+    assert tk.launches == before
 
 
 def test_flat_field_ties(card):

@@ -240,21 +240,125 @@ def test_wrapper_rejects_bad_arguments():
         tk.dog_scan(frames.to("meta"), p0.to("meta"), 0, **kw)
 
 
-@pytest.mark.parametrize("radii,L", [((20, 20), 65), ((135, 240), 65), ((7, 7), 17),
-                                     ((5, 300), 129)])
-def test_tile_shape_fits_shared_memory(radii, L):
+def owners(plan, radii):
+    """Which CTA owns each output cell of the window, and in which slot, by
+    the kernel's indexing (csrc/dog_scan.cu, dog_scan_tiled_kernel): CTA r
+    takes tiles r, r + C, ... of the row-major tile grid. -1 where no CTA
+    does; a cell owned twice raises."""
+    wh, ww = 2 * radii[0] + 1, 2 * radii[1] + 1
+    (th, tw), (ntr, ntc), C = plan.tile, plan.tiles, plan.cluster
+    rank = np.full((wh, ww), -1)
+    slot = np.full((wh, ww), -1)
+    for r in range(C):
+        for s in range(plan.slots):
+            tile = r + s * C
+            if tile >= ntr * ntc:
+                break
+            tr, tc = divmod(tile, ntc)
+            cells = (slice(tr * th, min((tr + 1) * th, wh)), slice(tc * tw, min((tc + 1) * tw, ww)))
+            assert (rank[cells] == -1).all(), "a cell owned twice"
+            rank[cells], slot[cells] = r, s
+    return rank, slot
+
+
+PLAN_WINDOWS = [((135, 240), 65), ((34, 34), 97), ((34, 34), 101), ((52, 52), 149),
+                ((86, 86), 245), ((20, 20), 65), ((7, 7), 17), ((5, 300), 129), ((0, 0), 65),
+                ((3, 3), 9)]
+
+
+@pytest.mark.parametrize("subpixel", [False, True])
+@pytest.mark.parametrize("radii,L", PLAN_WINDOWS)
+def test_tile_shape_fits_shared_memory(radii, L, subpixel):
+    """tile_plan: the tile, its apron, the row sums and (with subpixel) the
+    response slots fit the limit; tiles are whole register blocks of rows and
+    columns; C is at most 16 and at most the tile count; every output cell of
+    the window is owned by exactly one CTA, and no CTA has more tiles than its
+    slots or none at all."""
     limit = 232448
-    th, tw = tk.tile_shape(radii, L, limit)
-    assert 1 <= th <= min(2 * radii[0] + 1, tk.MAX_TILE[0])
-    assert 1 <= tw <= min(2 * radii[1] + 1, tk.MAX_TILE[1])
-    assert tk._tiled_smem_bytes(L, th, tw) <= limit
-    if 2 * radii[0] + 1 <= tk.MAX_TILE[0] and 2 * radii[1] + 1 <= tk.MAX_TILE[1]:
-        assert (th, tw) == (2 * radii[0] + 1, 2 * radii[1] + 1)  # one tile per step
+    plan = tk.tile_plan(radii, L, limit, subpixel)
+    th, tw = plan.tile
+    assert th % tk.SCAN_R == 0 and tw % tk.SCAN_R == 0
+    assert plan.smem == tk._tiled_smem_bytes(L, th, tw, plan.slots if subpixel else 0) <= limit
+    nt = plan.tiles[0] * plan.tiles[1]
+    assert 1 <= plan.cluster <= min(tk.MAX_CLUSTER, nt)
+    assert plan.slots == -(-nt // plan.cluster) and (plan.slots - 1) * plan.cluster < nt
+    rank, slot = owners(plan, radii)
+    assert (rank >= 0).all() and (slot < plan.slots).all()
+    assert set(np.unique(rank)) == set(range(plan.cluster))
+    assert plan.work >= 1.0
+
+
+@pytest.mark.parametrize("cluster", [1, 3, 8, 16])
+def test_tile_plan_forced_cluster_owns_every_cell_once(cluster):
+    """A cluster size forced for timing or tests, even above the tile count
+    (some CTAs then own no tile), still covers the window once; the
+    subpixel neighbour lookup finds each cell at its owner and slot."""
+    radii, L = (17, 40), 65
+    plan = tk.tile_plan(radii, L, 232448, True, cluster=cluster)
+    assert plan.cluster == cluster
+    rank, slot = owners(plan, radii)
+    assert (rank >= 0).all()
+    (th, tw), ntc = plan.tile, plan.tiles[1]
+    for a in range(0, rank.shape[0], 5):
+        for b in range(0, rank.shape[1], 7):
+            tile = (a // th) * ntc + b // tw  # the kernel's lookup of a neighbour's owner
+            assert (tile % cluster, tile // cluster) == (rank[a, b], slot[a, b])
+
+
+def test_tile_plan_follows_the_cards_cluster_limit():
+    """A card that schedules only smaller clusters gets a plan within it, with
+    the tiles spread evenly (no CTA idle)."""
+    radii, L = (135, 240), 65  # quarter-frame snap at 1080p: 39 tiles of 7x483
+    assert tk.tile_plan(radii, L, 232448).cluster == 13  # 3 tiles each
+    plan = tk.tile_plan(radii, L, 232448, max_cluster=8)
+    assert (plan.cluster, plan.slots) == (8, 5)
+    plan = tk.tile_plan(radii, L, 232448, max_cluster=4)
+    assert (plan.cluster, plan.slots) == (4, 10)
+
+
+def test_tile_plan_keeps_the_apron_small():
+    """Tiles span the window's width while it fits, so the row pass
+    recomputes no apron columns; a window too wide for one tile is cut into
+    the fewest column tiles."""
+    assert tk.tile_plan((52, 52), 149, 232448).work == 1.0
+    assert tk.tile_plan((135, 240), 65, 232448).work < 1.02
+    wide = tk.tile_plan((20, 4000), 65, 232448)
+    assert wide.tiles[1] > 1 and wide.work < 1.05
+
+
+@pytest.mark.parametrize("field", ["flat (ties)", "noise", "plateaus"])
+@pytest.mark.parametrize("cluster", [None, 2, 5, 16])
+def test_cluster_argmax_equals_column_major_first_maximum(field, cluster, rng):
+    """The kernel's reduction, mirrored: each CTA keeps the first maximum in
+    column-major order of the cells it owns, then the C pairs are reduced
+    with the same rule. It equals the first maximum over the whole window,
+    exact ties across CTAs included, whatever the cluster size."""
+    radii = (10, 16)
+    wh, ww = 2 * radii[0] + 1, 2 * radii[1] + 1
+    if field == "flat (ties)":
+        resp = np.zeros((wh, ww), np.float32)
+    elif field == "noise":
+        resp = rng.standard_normal((wh, ww)).astype(np.float32)
+    else:
+        resp = rng.integers(0, 3, (wh, ww)).astype(np.float32)
+    plan = tk.tile_plan(radii, 65, 232448, cluster=cluster)
+    rank, _ = owners(plan, radii)
+
+    def keep_better(pairs):
+        return max(pairs, key=lambda vk: (vk[0], -vk[1]))
+
+    per_cta = []
+    for r in range(plan.cluster):
+        cells = [(resp[a, b], b * wh + a) for a, b in zip(*np.nonzero(rank == r))]
+        per_cta.append(keep_better(cells) if cells else (-np.inf, 2**31 - 1))
+    k = keep_better(per_cta)[1]
+    want = tk.argmax_colmajor(torch.from_numpy(resp)).numpy()
+    assert (k % wh, k // wh) == tuple(want)
 
 
 def test_tile_shape_rejects_oversized_kernel():
     with pytest.raises(ValueError, match="shared memory"):
-        tk.tile_shape((20, 20), 601, 232448)
+        tk.tile_plan((20, 20), 601, 232448)
 
 
 def test_smem_formula_matches_kernel_source():
@@ -263,9 +367,21 @@ def test_smem_formula_matches_kernel_source():
     import os
 
     src = open(os.path.join(os.path.dirname(tk.__file__), "..", "csrc", "dog_scan.cu")).read()
-    # dog_scan_tiled_kernel
-    assert "4LL * (10LL * L + 2LL * tile_h * tpw) + (long long)(tile_h + L - 1) * tpw" in src
-    assert tk._tiled_smem_bytes(65, 41, 41) == 4 * (650 + 2 * 41 * 105) + 105 * 105
+    # dog_scan_tiled_kernel: tiled_layout
+    for line in ("s.brows = th + L;",
+                 "s.pitch = 16 * ((tw + L + 29) / 16);",
+                 "s.pitch2 = (tw + L) | 1;",
+                 "s.off_rows = (long long)s.brows * s.pitch;",
+                 "s.off_taps = s.off_rows + 8LL * th * s.pitch2;",
+                 "s.off_resp = s.off_taps + 8LL * L;",
+                 "s.off_shift = s.off_resp + 8LL * resp_slots * th * tw;",
+                 "s.bytes = s.off_shift + 4LL * s.brows;",
+                 f"constexpr int kMaxCluster = {tk.MAX_CLUSTER};"):
+        assert line in src, line
+    # the quarter-frame snap's tile, 7x483 with L = 65, 3 response slots: a 72x576 u8 patch,
+    # 7x549 float2 row sums, 65 tap pairs, 2x3x7x483 f32 responses, 72 row offsets
+    assert tk._tiled_smem_bytes(65, 7, 483, 3) == (72 * 576 + 8 * 7 * 549 + 8 * 65
+                                                   + 8 * 3 * 7 * 483 + 4 * 72)
     # dog_scan_kernel: scan_layout
     assert f"constexpr int kR = {tk.SCAN_R};" in src
     for line in ("s.brows = 2 * ri + s.nbv * kR + L;",
@@ -299,7 +415,7 @@ def test_kernel_for_picks_by_shape(radii, L, want):
         assert tk._scan_smem_bytes(L, *radii) <= limit
     else:
         assert tk._scan_smem_bytes(L, *radii) > limit
-        assert tk._tiled_smem_bytes(L, *tk.tile_shape(radii, L, limit)) <= limit
+        assert tk.tile_plan(radii, L, limit, subpixel=True).smem <= limit
 
 
 def test_bench_shapes_dispatch():
@@ -311,6 +427,24 @@ def test_bench_shapes_dispatch():
     assert tk.kernel_for(spec.radii, spec.kernel_len, 232448) == "dog_scan"
     aspec = autodetect_spec(spec)
     assert tk.kernel_for(aspec.radii, aspec.kernel_len, 232448) == "dog_scan_tiled"
+
+
+@pytest.mark.parametrize("target_width,want", [(25, "dog_scan"), (38, "dog_scan"),
+                                               (39, "dog_scan_tiled"), (40, "dog_scan_tiled"),
+                                               (60, "dog_scan_tiled"), (100, "dog_scan_tiled")])
+def test_default_window_switches_kernel_between_target_width_38_and_39(target_width, want):
+    """At the default window (guess_window_size) the chunk scans leave
+    dog_scan for dog_scan_tiled between target_width 38 and 39: both windows
+    are 69x69, L goes from 93 to 97, and dog_scan's working set from 229884
+    to 234204 bytes, across the 232448 a block may use."""
+    from pawsometracker_tpu_torch.ops.dog_kernel import guess_window_size
+
+    spec = make_spec((1080, 1920), guess_window_size(target_width), target_width, True)
+    assert tk.kernel_for(spec.radii, spec.kernel_len, 232448) == want
+    if target_width in (38, 39):
+        assert spec.window_size == (69, 69)
+        assert (spec.kernel_len, tk._scan_smem_bytes(spec.kernel_len, *spec.radii)) == (
+            {38: (93, 229884), 39: (97, 234204)}[target_width])
 
 
 # ---- the batched configurations (grid over lanes) ---------------------------
