@@ -22,8 +22,11 @@ card; any failure exits non-zero:
    of ``target_width`` 40, 60 (T=12) and 100 (T=4): one chain unbounded,
    bounded and bounded+subpixel, 4 lanes with their own frames, 4 targets on
    shared frames, a lane starting off the frame, and (at 60) a flat field,
-   whose ties span tiles of different CTAs. Integer positions must be equal,
-   offsets within ``atol=1e-3``.
+   whose ties span tiles of different CTAs. The ROI pipeline's chunk scans:
+   bounded and bounded+subpixel at T=12 on the crops it cuts at 1080p, 185x185
+   (``dog_scan``) and 461x461 at ``target_width=60`` (``dog_scan_tiled``),
+   with the per-frame boxes and rebases it builds. Integer positions must be
+   equal, offsets within ``atol=1e-3``.
 2. The main paths, each driven with the launch counts set to 0 just before
    it and read just after:
    - ``track()`` on a synthetic 1080p, 480-frame clip (a dark disc of radius
@@ -39,6 +42,13 @@ card; any failure exits non-zero:
      window (105x105, L = 149), a disc of radius 30 on the same circle, 480
      frames, the same three ways; every launch must be ``dog_scan_tiled``,
      and the ``device="cpu"`` cross-check runs the first 33 frames.
+   These four stream full frames (``stream="full"``). Then ``track()`` through
+   ``stream="auto"``, which takes the speculative ROI pipeline at 1080p (as the
+   JAX package does when the crop is under half the frame): the bench clip
+   ("track ROI") and the large target ("track large target ROI"), the same
+   three ways each. Each ROI call must launch 1 + the pipeline's dispatches
+   (its snap, then one bounded launch a chunk, probe and replays included),
+   and equal the same call on ``stream="full"``.
    Each call must launch the kernel as often as its chunking says and never
    run the plain version, land within RMSE < 1 px of the drawn truth per
    video or target, equal the port's single-video ``track()`` of each video
@@ -55,7 +65,11 @@ card; any failure exits non-zero:
    cuDNN ``conv2d`` with the 2-D DoG kernel plus ``argmax`` as the snap's
    library yardstick; end-to-end frames/s of the four paths; and a
    ``torch.profiler`` busy share of one ``track()``, one ``track_batch`` and
-   one large-target ``track()``.
+   one large-target ``track()``; and for the ROI paths the chunk scans at
+   their crops (T=12), the wrapper's host microseconds a launch (launches
+   queued behind a sleep of the card), and per e2e run the pipeline's timer
+   sections (crop, upload, device, drain), the depth it settled at and its
+   replays, and a ``torch.profiler`` busy share.
 
 Prints the card's name and power limit, the build time and ``ptxas``'s
 registers, the kernels' configurations with their launch counts, one JSON
@@ -66,6 +80,7 @@ full record goes to ``build/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import re
@@ -104,6 +119,8 @@ MULTI_FRAMES = 160
 MULTI_CHUNK = 16  # track_multi's default chunk_size
 #: steps of the batched bounded phase-1 cases (the plain version takes ~30 ms a step)
 BOUNDED_T = 16
+#: ROI chunk length of stream="auto" in predict mode (the pipeline's default K)
+ROI_K = 12
 #: H100 SXM published peaks: f32 outside the tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -257,6 +274,57 @@ def profile_busy(fn):
             "device_busy_share": (busy / wall_us) if dev else None}
 
 
+class StatsLog(logging.Handler):
+    """Keeps the stats of the last ``track()``: the port logs them at debug
+    level as ``paws_stats`` (the stream, and on ROI the crop, K, dispatches,
+    replays, the depth it ended at and the timer sections)."""
+
+    def __init__(self):
+        super().__init__(logging.DEBUG)
+        self.last = None
+
+    def emit(self, record):
+        stats = getattr(record, "paws_stats", None)
+        if stats is not None:
+            self.last = stats
+
+
+def roi_chunk(frames, truth, spec, fill, dev, roi_geometry, crop_with_fill):
+    """One T=ROI_K chunk as the ROI pipeline builds it at chain start: frame
+    t+1 cropped (mode fill outside the frame) around the truth of frame t at
+    the predict-mode geometry, with the per-frame rebase ``deltas`` and clamp
+    box ``lo``/``hi`` in crop coordinates, and the start in frame 1's crop.
+    Returns ``(crops, pos0, bounds)`` on the card."""
+    import torch
+
+    ch, cw, margin = roi_geometry(spec, ROI_K, 7, "predict")
+    o = np.asarray(truth[:ROI_K], np.int64) - margin
+    crops = np.stack([crop_with_fill(frames[1 + i], o[i], ch, cw, fill) for i in range(ROI_K)])
+    deltas = np.zeros_like(o)
+    deltas[1:] = o[:-1] - o[1:]
+    bounds = {"deltas": deltas, "lo": np.maximum(-o, 0),
+              "hi": np.minimum([ch - 1, cw - 1], [H - 1, W - 1] - o)}
+    bounds = {k: torch.tensor(v, dtype=torch.int32, device=dev) for k, v in bounds.items()}
+    pos0 = torch.tensor(np.asarray(truth[0]) - o[0], dtype=torch.int32, device=dev)
+    return torch.from_numpy(crops).to(dev), pos0, bounds
+
+
+def host_us_per_launch(fn, n=200) -> float:
+    """Host microseconds a call of ``fn`` (a kernel wrapper) takes to return,
+    with the card asleep so the launches only queue."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return us
+
+
 def log_profile(name, prof):
     dev, wall_us = prof["device_us_by_name"], prof["wall_us"]
     if not dev:
@@ -283,6 +351,7 @@ def main() -> int:
         from pawsometracker_tpu_torch.ops import _build, tracker_kernel as tk
         from pawsometracker_tpu_torch.ops.dog_kernel import dog_kernel_2d, guess_window_size
         from pawsometracker_tpu_torch.ops.filters import mode_u8_host
+        from pawsometracker_tpu_torch.pipeline import _crop_with_fill, roi_geometry
     except ImportError as e:
         print(f"chip_smoke: the port's package is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -292,6 +361,10 @@ def main() -> int:
     record: dict = {"card": card_line(), "device": torch.cuda.get_device_name(0)}
     log(record["card"])  # as nvidia-smi gives it: name, power limit
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    stats_log = StatsLog()
+    port_logger = logging.getLogger("pawsometracker_tpu_torch")
+    port_logger.addHandler(stats_log)
+    port_logger.setLevel(logging.DEBUG)
 
     # the plain versions count their runs here, so phase 2 can show the main
     # paths never took them on the card
@@ -442,6 +515,19 @@ def main() -> int:
             cases[f"tiled tw={tw} flat field (ties across CTAs) +subpixel"] = (
                 tflat, centre, fill, tkw, {}, True, False)
 
+    # the ROI pipeline's chunk scans at the crops it cuts at 1080p: the bench
+    # shape (185x185, dog_scan) and the large target (461x461, dog_scan_tiled)
+    lspec = make_spec((H, W), guess_window_size(LARGE_TW), LARGE_TW, True)
+    lkw = dict(radii=lspec.radii, sigma=lspec.sigma, darker_target=True)
+    roi_cases = {}
+    for label, fr_np, tru, sp, skw in (("185x185", frames_np, truth, spec, kw),
+                                       ("tiled 461x461", large_np, large_truth, lspec, lkw)):
+        crops, rpos0, rbnd = roi_chunk(fr_np, tru, sp, fill, dev, roi_geometry, _crop_with_fill)
+        for sub in (False, True):
+            name = f"ROI {label} T={ROI_K} {'bounded+subpixel' if sub else 'bounded'}"
+            cases[name] = (crops, rpos0, fill, skw, rbnd, sub, False)
+            roi_cases[name] = "dog_scan_tiled" if label.startswith("tiled") else "dog_scan"
+
     def run_kernel(name):
         fr, p0, fl, k, b, sub, batched = cases[name]
         if batched:
@@ -480,6 +566,8 @@ def main() -> int:
             raise SystemExit(f"phase 1 {name}: kernel and plain version disagree")
         if name.startswith("tiled") and kernel_of(name) != "dog_scan_tiled":
             raise SystemExit(f"phase 1 {name}: took {kernel_of(name)}, not dog_scan_tiled")
+        if name in roi_cases and kernel_of(name) != roi_cases[name]:
+            raise SystemExit(f"phase 1 {name}: took {kernel_of(name)}, not {roi_cases[name]}")
     one = tk.dog_scan_batch_cuda(chunk[None], pos0[None], lane_fills[:1], **kw)
     one_ok = bool(torch.equal(one[0], tk.dog_scan_cuda(chunk, pos0, int(BATCH_FILLS[0]), **kw)))
     phase1["batched B=1 equals unbatched"] = {"kernel": "dog_scan", "T": CHUNK, "lanes": 1,
@@ -497,6 +585,9 @@ def main() -> int:
     # ---- phase 2: the main paths --------------------------------------------
     base = dict(fps=FPS, target_width=TARGET_WIDTH, window_size=WINDOW, stream="full")
     large = dict(fps=FPS, target_width=LARGE_TW, stream="full")  # the default window
+    # stream="auto": at 1080p the crop is under half the frame, so ROI
+    roi = dict(fps=FPS, target_width=TARGET_WIDTH, window_size=WINDOW)
+    large_roi = dict(fps=FPS, target_width=LARGE_TW)
     start0 = IJ(int(truth[0][0]), int(truth[0][1]))
     batch_locs = [IJ(int(t[0][0]), int(t[0][1])) for t in truths]
     multi_locs = [IJ(int(t[0][0]), int(t[0][1])) for t in multi_truths]
@@ -522,11 +613,16 @@ def main() -> int:
             "subpixel": dict(start_location=start0, subpixel=True),
         },
     }
+    roi_paths = {"track ROI": "track", "track large target ROI": "track large target"}
+    for path, full_path in roi_paths.items():
+        paths[path] = paths[full_path]
     entry = {
         "track": lambda **k: track(frames_np, **base, **k),
         "track_batch": lambda **k: track_batch(clips, **base, **k),
         "track_multi": lambda **k: track_multi(multi_np, **base, **k),
         "track large target": lambda **k: track(large_np, **large, **k),
+        "track ROI": lambda **k: track(frames_np, **roi, **k),
+        "track large target ROI": lambda **k: track(large_np, **large_roi, **k),
     }
     n_batch_scans = math.ceil((max(BATCH_LENS) - 1) / CHUNK)
     want_launches = {
@@ -538,19 +634,26 @@ def main() -> int:
         "track large target": {n: 1 + math.ceil((N_FRAMES - 1) / CHUNK)
                                for n in paths["track large target"]},
     }
-    results, main_counts = {}, {}
+    results, main_counts, roi_stats = {}, {}, {}
     for path, runs in paths.items():
         tk.reset_launches()  # counts to 0 just before the path, read just after
         plain_runs["n"] = 0
         for name, extra in runs.items():
             before, plain_before = tk.launches, plain_runs["n"]
             tiled_before = tk.launches_by_kernel["dog_scan_tiled"]
+            bounded_before = sum(n for c, n in tk.launches_by_config.items()
+                                 if c.split(": ")[1].startswith("bounded"))
+            stats_log.last = None
             t0 = time.perf_counter()
             out = entry[path](**extra)
             torch.cuda.synchronize()
             results[path, name] = (out, tk.launches - before, plain_runs["n"] - plain_before,
                                    time.perf_counter() - t0,
                                    tk.launches_by_kernel["dog_scan_tiled"] - tiled_before)
+            if path in roi_paths:
+                bounded = sum(n for c, n in tk.launches_by_config.items()
+                              if c.split(": ")[1].startswith("bounded")) - bounded_before
+                roi_stats[path, name] = dict(stats_log.last or {}, bounded_launches=bounded)
         main_counts[path] = {"total": tk.launches, "by_config": dict(tk.launches_by_config),
                              "by_kernel": dict(tk.launches_by_kernel),
                              "plain_runs": plain_runs["n"]}
@@ -563,9 +666,9 @@ def main() -> int:
         for name, extra in runs.items():
             out, n_launch, n_plain, wall, n_tiled = results[path, name]
             sub = bool(extra.get("subpixel"))
-            if path == "track":
+            if path in ("track", "track ROI"):
                 videos = [(out, truth, frames_np, extra)]
-            elif path == "track large target":
+            elif path in ("track large target", "track large target ROI"):
                 videos = [(out, large_truth, large_np, extra)]
             elif path == "track_batch":
                 videos = [(out[b], truths[b], clips[b],
@@ -585,34 +688,52 @@ def main() -> int:
                 if path in ("track_batch", "track_multi"):  # each alone through track()
                     ts_1, ij_1 = track(frames, **base, **single_kw)
                     equal_single &= same(ij, ij_1, sub) and np.array_equal(ts, ts_1)
-            equal_cpu = None
-            if path == "track large target":
+            equal_cpu, roi_ok, roi_note = None, True, ""
+            if path in ("track large target", "track large target ROI"):
                 # the plain version at this window is slow on the host: the first
                 # CPU_CHECK_FRAMES frames, against the same prefix of the card's run
-                ts_c, ij_c = track(large_np[:CPU_CHECK_FRAMES], **large, **extra, device="cpu")
+                ts_c, ij_c = track(large_np[:CPU_CHECK_FRAMES],
+                                   **(large if path == "track large target" else large_roi),
+                                   **extra, device="cpu")
                 equal_cpu = (same(out[1][:CPU_CHECK_FRAMES], ij_c, sub)
                              and np.array_equal(out[0][:CPU_CHECK_FRAMES], ts_c))
-            elif path == "track" or name in ("start_location", "start_locations"):
+            elif path in ("track", "track ROI") or name in ("start_location", "start_locations"):
                 cpu = entry[path](**extra, device="cpu")
                 pairs = [(out, cpu)] if path != "track_batch" else list(zip(out, cpu))
                 equal_cpu = all(same(a[1], c[1], sub) and np.array_equal(a[0], c[0])
                                 for a, c in pairs)
-            want_n = want_launches[path][name]
+            if path in roi_paths:
+                # ROI: one snap, then one bounded launch per dispatched chunk
+                # (probe and replays included); the same call on stream="full"
+                st = roi_stats[path, name]
+                want_n = 1 + st.get("dispatches", -1)
+                full = results[roi_paths[path], name][0]
+                equal_full = same(out[1], full[1], sub) and np.array_equal(out[0], full[0])
+                roi_ok = (st.get("stream") == "roi" and equal_full
+                          and st["bounded_launches"] == st.get("dispatches"))
+                roi_note = (f", stream={st.get('stream')} crop={st.get('crop')} K={st.get('K')}"
+                            f" dispatches={st.get('dispatches')} (bounded launches"
+                            f" {st['bounded_launches']}) replays={st.get('replays')}"
+                            f" depth={st.get('depth')}, equals stream='full'={equal_full}")
+            else:
+                want_n = want_launches[path][name]
             ok = (n_launch == want_n and n_plain == 0 and max(errs) < 1.0 and equal_single
-                  and equal_cpu is not False)
-            if path in ("track", "track large target"):
+                  and equal_cpu is not False and roi_ok)
+            if path in ("track", "track large target", *roi_paths):
                 ok = ok and len(out[1]) == N_FRAMES
-            if path == "track large target":  # every launch of this path is the tiled kernel
-                ok = ok and n_tiled == n_launch
+            if path in ("track large target", "track large target ROI"):
+                ok = ok and n_tiled == n_launch  # every launch is the tiled kernel
             phase2[f"{path} {name}"] = {"launches": n_launch, "want_launches": want_n,
                                         "tiled_launches": n_tiled,
                                         "plain_runs": n_plain, "rmse_px": errs,
                                         "equals_single_track": equal_single,
-                                        "equals_cpu_run": equal_cpu, "wall_s": wall, "ok": ok}
+                                        "equals_cpu_run": equal_cpu, "wall_s": wall, "ok": ok,
+                                        **({"roi": roi_stats[path, name]}
+                                           if path in roi_paths else {})}
             log(f"phase 2 {path}({name}): launches={n_launch} (want {want_n}, dog_scan_tiled"
                 f" {n_tiled}), plain runs={n_plain},"
                 f" rmse max={max(errs):.4f} px over {len(errs)}, equals single track()="
-                f"{equal_single}, equals device='cpu' run={equal_cpu}, {wall:.3f} s"
+                f"{equal_single}, equals device='cpu' run={equal_cpu}, {wall:.3f} s{roi_note}"
                 f" -> {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"phase 2 {path} {name} failed")
@@ -670,6 +791,8 @@ def main() -> int:
         "batched snap quarter-frame B=4": ("batched snap quarter-frame", True),
         # the plain version at the large-target path's shape only (~60 ms a step)
         **{n: (n, n == f"tiled tw={LARGE_TW} T=64 unbounded B=1") for n in large_cases},
+        # the ROI pipeline's chunk scans at its crops, as phase 1 checked them
+        **{n: (n, True) for n in roi_cases},
     }
     timing = {}
     for name, (case, with_plain) in timed.items():
@@ -700,6 +823,12 @@ def main() -> int:
             + f", bound {c['bound_ms']:.6f} ms ({c['bound_by']}, {100 * c['bound_ms'] / ms:.2f}%"
             f" of it reached), one chain on one SM {c['sm_bound_ms']:.4f} ms"
             f" ({100 * c['sm_bound_ms'] / ms:.1f}%){where}")
+    # what one ROI launch costs the host: the wrapper's checks, the taps and
+    # plan lookups, the output allocation and the ctypes call
+    wrapper_us = {n: host_us_per_launch(lambda n=n: run_kernel(n)) for n in roi_cases}
+    record["wrapper_host_us_per_launch"] = wrapper_us
+    for n, us in wrapper_us.items():
+        log(f"phase 3 wrapper host time, {n}: {us:.1f} us a launch (card asleep, launches queued)")
     for name in ("batched unbounded B=16", "unbounded T=1", "bounded+subpixel T=1",
                  "batched unbounded B=4 T=1", *large_cases):
         del cases[name]
@@ -733,19 +862,42 @@ def main() -> int:
             ("track", N_FRAMES, paths["track"]["start_location"]),
             ("track_batch", sum(BATCH_LENS), paths["track_batch"]["start_location"]),
             ("track_multi", MULTI_FRAMES, paths["track_multi"]["start_locations"]),
-            ("track large target", N_FRAMES, paths["track large target"]["start_location"])):
-        walls = []
+            ("track large target", N_FRAMES, paths["track large target"]["start_location"]),
+            ("track ROI", N_FRAMES, paths["track ROI"]["start_location"]),
+            ("track large target ROI", N_FRAMES, paths["track ROI"]["start_location"])):
+        walls, runs_stats = [], []
         for _ in range(3):
             torch.cuda.synchronize()
+            stats_log.last = None
             t0 = time.perf_counter()
             entry[path](**extra)
             walls.append(time.perf_counter() - t0)
+            runs_stats.append(stats_log.last)
         e2e[path] = {"frames_per_s": frames_per_call / statistics.median(walls),
                      "runs_s": walls, "frames": frames_per_call}
+        note = ""
+        if path in ("track", "track large target", *roi_paths):
+            # the call's own accounting of its median run: the timer sections
+            # and the wall outside them
+            med = sorted(range(3), key=walls.__getitem__)[1]
+            st = runs_stats[med]
+            sec = dict(st["sections"])
+            sec["outside the sections"] = walls[med] - sum(sec.values())
+            e2e[path]["stats"] = st
+            e2e[path]["ms_per_call"] = {k: 1e3 * v for k, v in sec.items()}
+            note = "; median run, ms a call: " + ", ".join(f"{k} {1e3 * v:.2f}"
+                                                           for k, v in sec.items())
+            if path in roi_paths:
+                n_disp = st["dispatches"]
+                per = {k: 1e6 * v / n_disp for k, v in sec.items() if k not in ("setup", "snap")}
+                e2e[path]["host_us_per_dispatch"] = per
+                note += (f"; {n_disp} dispatches, {st['replays']} replays, depth {st['depth']}"
+                         f" at the end, crop {st['crop']}, K={st['K']}; us a dispatch: "
+                         + ", ".join(f"{k} {v:.1f}" for k, v in per.items()))
         log(f"phase 3 e2e {path}: {e2e[path]['frames_per_s']:.1f} frames/s (median of"
             f" {len(walls)}, {frames_per_call} frames of {W}x{H}"
             + (", summed over 4 videos)" if path == "track_batch" else
-               ", clip frames with 4 targets)" if path == "track_multi" else ")"))
+               ", clip frames with 4 targets)" if path == "track_multi" else ")") + note)
     record["e2e_fps"] = e2e
     # where one chunk's time goes: the host copy into a pinned staging buffer,
     # the host-to-device copy, the kernel (above)
@@ -762,7 +914,9 @@ def main() -> int:
     record["profile"] = {}
     for path, extra in (("track", paths["track"]["start_location"]),
                         ("track_batch", paths["track_batch"]["start_location"]),
-                        ("track large target", paths["track large target"]["start_location"])):
+                        ("track large target", paths["track large target"]["start_location"]),
+                        ("track ROI", paths["track ROI"]["start_location"]),
+                        ("track large target ROI", paths["track ROI"]["start_location"])):
         record["profile"][path] = profile_busy(lambda: entry[path](**extra))
         log_profile(f"{path}()", record["profile"][path])
 

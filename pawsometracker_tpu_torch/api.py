@@ -25,7 +25,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from .diagnose import diagnose
+from .diagnose import Dont, diagnose
 from .io.decode import open_source
 from .models.dog_tracker import (
     autodetect_spec,
@@ -37,8 +37,13 @@ from .models.dog_tracker import (
 )
 from .ops.dog_kernel import fix_window_size, guess_window_size
 from .ops.filters import mode_u8_host
-from .pipeline import auto_depth_cap as _pipeline_auto_depth_cap
-from .pipeline import run_full_pipeline
+from .pipeline import (
+    AUTO_DEPTH_MAX,
+    auto_depth_cap,
+    roi_geometry,
+    run_full_pipeline,
+    run_roi_pipeline,
+)
 from .utils.profiling import Timer
 
 logger = logging.getLogger("pawsometracker_tpu_torch")
@@ -50,11 +55,13 @@ DEFAULT_MAX_DURATION_SECONDS = 86399.999
 #: device tracks the current one
 DEFAULT_CHUNK_SIZE = 64
 
-#: frames per ROI mini-chunk; None = auto (accepted for the JAX package's
-#: signature; the ROI pipeline is not ported yet)
+#: frames per ROI chunk; None = auto: 12 in predict mode, 8 in contain mode
+#: (shrinking with the depth to hold the crop size), see _resolve_roi_frames
 DEFAULT_ROI_FRAMES = None
 
-#: chunks the host may run ahead of the device
+#: chunks the host may run ahead of the device; "auto" adapts at run time
+#: from the measured drain latency (ROI) or takes the ring budget's cap (full
+#: frames), with the same positions at every depth
 DEFAULT_PIPELINE_DEPTH = "auto"
 
 __all__ = ["track", "IJ", "DEFAULT_MAX_DURATION_SECONDS"]
@@ -73,16 +80,17 @@ def _check_choice(name: str, value, allowed: tuple) -> None:
         raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
 
 
-def _check_stream(stream: str, roi_frames) -> None:
-    """The streaming choices: ``"auto"`` and ``"full"`` stream full frames
-    (the same positions as the JAX package's ROI streaming); ``"roi"`` raises
-    ``NotImplementedError`` until the ROI pipeline is ported."""
+def _check_stream(stream: str, roi_frames, entry: str = "track") -> None:
+    """The streaming choices: ``"auto"`` (ROI when the crop is under half the
+    frame), ``"roi"`` and ``"full"``. ``track_batch`` and ``track_multi``
+    stream full frames: ``"roi"`` raises ``NotImplementedError`` there until
+    their ROI engines are ported (``ROADMAP.md``, queue 1 #2)."""
     _check_choice("stream", stream, ("auto", "roi", "full"))
-    if stream == "roi":
+    if stream == "roi" and entry != "track":
         raise NotImplementedError(
-            "stream='roi' is not ported yet (the speculative ROI pipeline comes in a "
-            "later slice of the port); stream='auto' and 'full' stream full frames "
-            "with identical positions")
+            f"stream='roi' is not ported yet for {entry} (its ROI engine is ROADMAP.md "
+            "queue 1 #2); stream='auto' and 'full' stream full frames, with the same "
+            "positions")
     if roi_frames is not None and int(roi_frames) < 1:
         raise ValueError(f"roi_frames must be None or a positive frame count, got {roi_frames!r}")
 
@@ -127,6 +135,60 @@ def _scan_fn_for(spec, engine: str, device, subpixel: bool = False):
     return full_frame_sub_scan(fns.scan_sub, spec.frame_shape, device) if subpixel else fns.scan
 
 
+def _views_available() -> bool:
+    """True when the port's native layer serves zero-copy views of retained
+    frames (``pawsio_retained_ptr``), which the diagnostics-on retained-ring
+    path needs; probed before the open, so that a library without them never
+    gets a retention-sized ring it cannot use."""
+    from .io.native_io import _load
+
+    try:
+        return hasattr(_load(), "pawsio_retained_ptr")
+    except (OSError, AttributeError):  # a library that does not load
+        return False
+
+
+def _auto_ring_gate(file, roi_frames: int, depth_gate: int, zero_copy: bool = False) -> int:
+    """Memory-aware depth gate for ``pipeline_depth="auto"`` ring sizing: when
+    the frame size is known before the open (array input, or a native header
+    probe), clamp the gate so that the retained decode ring ((gate+2)*K
+    frames) keeps to ``PAWS_RING_BUDGET_MB``, the bound
+    :func:`.pipeline.auto_depth_cap` puts on the depth at run time. An input
+    that cannot be probed keeps the gate. ``zero_copy``: the input is an
+    array whose chunks are served as views (no ring), so nothing is bounded."""
+    if zero_copy:
+        return depth_gate
+    shape = None
+    if hasattr(file, "shape") and getattr(file, "ndim", 0) >= 3:
+        shape = (int(file.shape[1]), int(file.shape[2]))
+    else:
+        from .io.native_io import native_probe
+
+        try:
+            probed = native_probe(file)
+            if probed.height > 0 and probed.width > 0:
+                shape = (int(probed.height), int(probed.width))
+        except (OSError, RuntimeError, AttributeError):  # no native layer, or unreadable
+            shape = None
+    if shape is None:
+        return depth_gate
+    return min(depth_gate, auto_depth_cap(shape, roi_frames))
+
+
+def _resolve_roi_frames(roi_frames, pipeline_depth: int, speculate: str = "predict") -> int:
+    """The ROI chunk length K. ``depth == 0`` runs contain geometry whatever
+    ``speculate`` says (as the pipeline derives its mode), so callers pass
+    their raw arguments. Predict-mode crops grow with neither depth nor K, so
+    a longer chunk spreads the host's work per chunk: 12. In contain mode K
+    goes straight into the crop's size: 8, shrinking with the depth to hold
+    the crop size."""
+    if roi_frames is not None:
+        return int(roi_frames)
+    if speculate == "predict" and int(pipeline_depth) > 0:
+        return 12
+    return max(1, 8 // (int(pipeline_depth) + 1))
+
+
 def _track_one(
     file,
     start: float,
@@ -143,6 +205,8 @@ def _track_one(
     backend: str = "auto",
     chunk_size: int = DEFAULT_CHUNK_SIZE,
     engine: str = "auto",
+    stream: str = "auto",
+    roi_frames: int | None = DEFAULT_ROI_FRAMES,
     pipeline_depth: int | str = DEFAULT_PIPELINE_DEPTH,
     speculate: str = "predict",
     subpixel: bool = False,
@@ -152,7 +216,7 @@ def _track_one(
     input_fps: float | None = None,
 ):
     """Track one file (reference pipeline: src/PawsomeTracker.jl:148-174),
-    streaming full frames."""
+    streaming crops or full frames."""
     t = stop - start
     # length-based timestamp range: step = t/(n-1), slightly != 1/fps by design
     # (reference: src/PawsomeTracker.jl:149-152)
@@ -162,11 +226,27 @@ def _track_one(
     ts = np.linspace(start, stop, n)
 
     if pipeline_depth == "auto" and speculate == "contain":
+        # contain-mode crops grow with the depth: "auto" stays at depth 1
         pipeline_depth = 1
-    if pipeline_depth != "auto":
-        pipeline_depth = max(0, int(pipeline_depth))
+    if pipeline_depth == "auto":
+        depth_gate = AUTO_DEPTH_MAX
+    else:
+        pipeline_depth = depth_gate = max(0, int(pipeline_depth))
+    roi_frames = _resolve_roi_frames(roi_frames, depth_gate, speculate)
+    # size the native decode ring so the ROI pipeline can retain its chunks
+    # in flight for a replay: only where that path can run (ROI possible,
+    # predict mode, and with a diagnostic file a library serving views)
+    retention_possible = (
+        stream != "full" and depth_gate > 0 and speculate == "predict"
+        and (isinstance(dia, Dont) or _views_available())
+    )
+    zero_copy_input = (isinstance(file, np.ndarray) and file.ndim == 3
+                       and input_fps is None and start == 0.0)
+    if pipeline_depth == "auto" and stream != "full":
+        depth_gate = _auto_ring_gate(file, roi_frames, depth_gate, zero_copy=zero_copy_input)
+    ring = (depth_gate + 2) * roi_frames + 8 if retention_possible else None
     src = open_source(
-        file, start=start, stop=stop, fps=fps, backend=backend, prefetch=None,
+        file, start=start, stop=stop, fps=fps, backend=backend, prefetch=ring,
         workers=decode_workers, input_fps=input_fps, fast_decode=fast_decode,
     )
     prefetchers: list = []  # joined in finally BEFORE src.close()
@@ -186,28 +266,63 @@ def _track_one(
             def progress(done, _t, _cb=user_cb, _est=est_total):
                 _cb(done, _est)
 
-        frame0 = src.read()
-        if frame0 is None:
-            raise EOFError(f"no frames decoded from {file}")
-        frame_shape = frame0.shape
-        dia.update_ratio(frame_shape)
-
-        fill = mode_u8_host(frame0)  # mode of FIRST frame, used for all frames
-        spec = make_spec(frame_shape, window_size, target_width, darker_target)
-        guess = _resolve_guess(start_location, sar_val, frame_shape)
-        pos, off0 = _initial_position(frame0, guess, start_location is None, spec, fill,
-                                      subpixel, device=device, engine=engine)
+        timer = Timer()
+        with timer.section("setup"):
+            frame0 = src.read()
+            if frame0 is None:
+                raise EOFError(f"no frames decoded from {file}")
+            frame_shape = frame0.shape
+            dia.update_ratio(frame_shape)
+            fill = mode_u8_host(frame0)  # mode of FIRST frame, used for all frames
+            spec = make_spec(frame_shape, window_size, target_width, darker_target)
+            guess = _resolve_guess(start_location, sar_val, frame_shape)
+        with timer.section("snap"):
+            pos, off0 = _initial_position(frame0, guess, start_location is None, spec, fill,
+                                          subpixel, device=device, engine=engine)
 
         positions = [np.asarray(pos)]
         offsets = [off0.reshape(1, 2)]
         last_frame = 1
 
-        # The JAX package streams drift-bounded crops here for large frames
-        # (stream="auto" when the crop is under half the frame). The port
-        # streams full frames on every input until the ROI pipeline lands:
-        # positions are identical either way (docs/architecture.md).
-        timer = Timer()
-        if n > 1:
+        # ROI streaming for large frames: only a crop around the predicted
+        # position goes to the card per frame, and the positions equal the
+        # full-frame path's (the pipeline checks every window the scan read)
+        mode = speculate if depth_gate > 0 else "contain"
+        ch, cw, _ = roi_geometry(spec, roi_frames, depth_gate, mode)
+        use_roi = stream == "roi" or (
+            stream == "auto" and ch * cw * 2 < frame_shape[0] * frame_shape[1])
+
+        stats = {"stream": "roi" if use_roi else "full"}
+        if n > 1 and use_roi:
+            # with the native decoder the crops are cut in C++ from its ring,
+            # so full frames never enter Python; with diagnostics that needs
+            # views of retained frames too
+            native_roi = hasattr(src, "read_roi_chunk") and (
+                isinstance(dia, Dont) or getattr(src, "can_view_retained", False))
+            pos_blocks, off_blocks, tracked = run_roi_pipeline(
+                src,
+                spec,
+                np.asarray(pos),
+                fill,
+                n - 1,
+                roi_frames=roi_frames,
+                depth=pipeline_depth,
+                engine=engine,
+                subpixel=subpixel,
+                dia=dia,
+                timer=timer,
+                native_roi=native_roi,
+                prefetchers=prefetchers,
+                device=device,
+                speculate=speculate,
+                progress=progress,
+                auto_cap=depth_gate if pipeline_depth == "auto" else None,
+                stats=stats,
+            )
+            positions.extend(pos_blocks)
+            offsets.extend(off_blocks)
+            last_frame += tracked
+        elif n > 1:
             pos_blocks, off_blocks, tracked = run_full_pipeline(
                 src,
                 np.asarray(pos),
@@ -216,7 +331,7 @@ def _track_one(
                 chunk_size=chunk_size,
                 # full-frame chunks are memory-heavy: "auto" keeps this at
                 # most 3 deep, bounded by the ring budget (4K drops to 1)
-                depth=min(3, _pipeline_auto_depth_cap(frame_shape, chunk_size))
+                depth=min(3, auto_depth_cap(frame_shape, chunk_size))
                 if pipeline_depth == "auto" else pipeline_depth,
                 scan=_scan_fn_for(spec, engine, device, subpixel),
                 subpixel=subpixel,
@@ -229,11 +344,10 @@ def _track_one(
             positions.extend(pos_blocks)
             offsets.extend(off_blocks)
             last_frame += tracked
-        if timer.totals:
-            logger.debug(
-                "track %s: %d frames on %s, stream=full, sections=%s",
-                file, last_frame, device, {k: round(v, 3) for k, v in timer.totals.items()},
-            )
+        stats["sections"] = dict(timer.totals)
+        # the record carries the numbers as ``paws_stats`` for a handler
+        logger.debug("track %s: %d frames on %s, %s", file, last_frame, device, stats,
+                     extra={"paws_stats": stats})
     finally:
         for p in prefetchers:
             p.close()
@@ -297,12 +411,13 @@ def track(
 
     ``engine``: ``"auto"`` and ``"pallas"`` run the hand-written CUDA kernel
     on the card (the plain version on the CPU); ``"xla"`` runs the plain
-    PyTorch scan. ``stream``: this port streams full frames; ``"auto"`` does
-    so on every input, which gives the same positions as the JAX package's
-    ROI streaming, and ``"roi"`` raises ``NotImplementedError`` until the ROI
-    pipeline is ported. ``roi_frames``, ``pipeline_depth`` and ``speculate``
-    are accepted and checked; ``pipeline_depth`` also sets how many chunks
-    the host runs ahead of the card.
+    PyTorch scan. ``stream`` forces full-frame or ROI streaming (``"auto"``:
+    ROI when the crop is under half the frame, as in the JAX package);
+    ``roi_frames``, ``pipeline_depth`` and ``speculate`` tune the speculative
+    ROI pipeline (see :mod:`.pipeline`: depth 0 is synchronous, ``"auto"``
+    adapts at run time; the positions are the same either way), and
+    ``pipeline_depth`` sets how many chunks the host runs ahead of the card
+    on full frames too.
 
     ``device`` (keyword-only): where the tracker runs. ``None`` is the CUDA
     card and raises when there is none; ``"cpu"`` runs the plain PyTorch
@@ -324,7 +439,7 @@ def track(
     kw = dict(
         target_width=target_width, window_size=window_size, darker_target=darker_target,
         fps=fps, sar=sar, backend=backend, chunk_size=chunk_size, engine=engine,
-        pipeline_depth=pipeline_depth, speculate=speculate,
+        stream=stream, roi_frames=roi_frames, pipeline_depth=pipeline_depth, speculate=speculate,
         subpixel=subpixel, decode_workers=decode_workers, fast_decode=fast_decode,
         progress=progress, input_fps=input_fps, device=dev,
     )

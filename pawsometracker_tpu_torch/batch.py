@@ -9,10 +9,10 @@ decodes each video on its own prefetch thread and stages the chunks into the
 rows of one pinned ``[B, T, H, W]`` slot (:func:`..pipeline.run_batch_pipeline`).
 
 Full frames are streamed on every input: ``stream="roi"`` raises until the
-ROI pipeline is ported, and ``stream="auto"`` gives the same positions as the
-JAX package's ROI streaming (``docs/architecture.md``). ``mesh=None`` and
-``mesh="auto"`` run on the one card given by ``device``; any other ``mesh``
-raises until multi-GPU is ported.
+batch and multi ROI engines are ported, and ``stream="auto"`` gives the same
+positions as the JAX package's ROI streaming (``docs/architecture.md``).
+``mesh=None`` and ``mesh="auto"`` run on the one card given by ``device``;
+any other ``mesh`` raises until multi-GPU is ported.
 """
 
 from __future__ import annotations
@@ -131,7 +131,7 @@ def track_batch(
     """
     _check_choice("backend", backend, ("auto", "native", "opencv"))
     _check_choice("engine", engine, ("auto", "pallas", "xla"))
-    _check_stream(stream, roi_frames)
+    _check_stream(stream, roi_frames, "track_batch")
     _check_mesh(mesh)
     dev = resolve_device(device)
     files = list(files)

@@ -13,8 +13,8 @@ identity model: if two targets' search windows overlap on the same blob,
 both will lock onto it.
 
 Full frames are streamed on every input: ``stream="roi"`` raises until the
-ROI pipeline is ported, and ``stream="auto"`` gives the same positions as the
-JAX package's ROI streaming.
+batch and multi ROI engines are ported, and ``stream="auto"`` gives the same
+positions as the JAX package's ROI streaming.
 """
 
 from __future__ import annotations
@@ -115,7 +115,7 @@ def track_multi(
     stop = DEFAULT_MAX_DURATION_SECONDS if stop is None else float(stop)
     _check_choice("backend", backend, ("auto", "native", "opencv"))
     _check_choice("engine", engine, ("auto", "pallas", "xla"))
-    _check_stream(stream, roi_frames)
+    _check_stream(stream, roi_frames, "track_multi")
     dev = resolve_device(device)
     if window_size is None:
         window_size = guess_window_size(target_width)

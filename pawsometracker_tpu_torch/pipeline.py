@@ -1,6 +1,6 @@
-"""Full-frame streaming: chunks of whole frames through the tracker scan.
+"""Streaming pipelines: whole frames, or speculative crops around the target.
 
-The counterpart of the JAX package's ``run_full_pipeline``
+Full frames: the counterpart of the JAX package's ``run_full_pipeline``
 (``pawsometracker_tpu/pipeline.py``) and of the full-frame loop of its
 ``track_batch`` (``pawsometracker_tpu/batch.py:493-569``): each chunk's scan
 starts from the previous chunk's last position, read on the device, and the
@@ -13,9 +13,23 @@ copy's event has completed and after the scan that read it. A batch of videos
 stages one chunk per video into the rows of one slot and runs them in one
 launch.
 
-Also here: the ring-budget cap on the full-frame pipeline depth, and
-``_crop_with_fill``, which the parallel decoder imports. The speculative ROI
-pipeline is not ported yet.
+ROI streaming (``run_roi_pipeline``, one video and one target): the
+counterpart of the JAX package's speculative pipeline. Each chunk of K frames
+is cut into crops around where the target is predicted to be, and only the
+crops go to the card, through the bounded scan. The controller,
+:class:`SpeculativePipeline` (generic over lanes, as the reference's),
+chains the scans on the device, drains positions behind them, checks that
+every window a scan read lay inside its crop, and replays from retained
+frames at exact origins when one did not, so the positions always equal
+full-frame streaming. :class:`SingleVideoSource` delivers the crops (the
+native decoder's retained ring, its direct ROI reads, or prefetched chunks
+cropped here) and :class:`_SingleEngine` stages them and runs the scans.
+The reference's group dispatch (super-programs that coalesce TPU calls) and
+its dispatch thread are not ported: a CUDA launch returns at once, and the
+copy to the card runs on a side stream.
+
+Also here: the ring-budget cap on the pipeline depth, and ``_crop_with_fill``,
+which the parallel decoder imports.
 """
 
 from __future__ import annotations
@@ -23,16 +37,22 @@ from __future__ import annotations
 import functools
 import logging
 import os
+import time
 from collections import deque
 
 import numpy as np
 import torch
 
 from .io.decode import ChunkPrefetcher
+from .models.dog_tracker import make_spec, tracker_fns
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["auto_depth_cap", "run_full_pipeline", "run_batch_pipeline", "AUTO_DEPTH_MAX"]
+__all__ = ["auto_depth_cap", "run_full_pipeline", "run_batch_pipeline", "run_roi_pipeline",
+           "roi_geometry", "SpeculativePipeline", "SingleVideoSource", "AUTO_DEPTH_MAX"]
+
+#: mispredict replays since import (observability: tests and debugging)
+replay_count = 0
 
 #: cap for pipeline_depth="auto"
 AUTO_DEPTH_MAX = 7
@@ -69,6 +89,46 @@ def _warn_ring_budget(budget_mb, lanes, w, h, need_mb) -> None:
         "%d lane(s) of %dx%d frames (need ~%s MB); running at depth 1 "
         "beyond the budget", budget_mb, lanes, w, h, need_mb,
     )
+
+
+#: pipeline_depth="auto" deepens when the lagged drain blocks longer than this
+AUTO_DRAIN_BLOCK_S = 0.002
+
+#: sentinel: a chunk's frames live in the native decoder's retained ring
+RETAINED = "native-retained"
+
+
+def _predict_slack(k_frames: int, depth: int, r: int) -> int:
+    """Per-axis prediction-error budget (px) on top of the window and kernel
+    apron in predict mode: the only margin term, since per-frame crop origins
+    ride the predicted path. Deliberately independent of the depth, so that
+    depth only hides latency and the crop geometry is the same at every depth;
+    a finite budget costs replays, never positions. ``PAWS_PREDICT_SLACK``
+    overrides (px)."""
+    env = os.environ.get("PAWS_PREDICT_SLACK")
+    if env:
+        return max(1, int(env))
+    return max(24, 2 * r, k_frames)
+
+
+def roi_geometry(spec, k_frames: int, depth: int = 0, mode: str = "contain"):
+    """``(crop_h, crop_w, margin)`` for K-frame ROI scans at pipeline
+    ``depth`` (chunks the host may run ahead of the device).
+
+    predict mode: per-frame origins put each frame's expected window centre at
+    its crop's centre, so the margin is window radius + kernel apron + the
+    prediction slack. contain mode: one origin per chunk at the last known
+    position, the margin the worst-case drift over the whole (depth+1)*K
+    horizon: no speculation, no replays, larger crops."""
+    ri, rj = spec.radii
+    half = spec.kernel_len // 2
+    if mode == "predict":
+        mi = ri + half + _predict_slack(k_frames, depth, ri)
+        mj = rj + half + _predict_slack(k_frames, depth, rj)
+    else:
+        mi = (depth + 1) * k_frames * ri + half
+        mj = (depth + 1) * k_frames * rj + half
+    return 2 * mi + 1, 2 * mj + 1, (mi, mj)
 
 
 def _crop_with_fill(frame: np.ndarray, o, ch: int, cw: int, fill: int, out=None) -> np.ndarray:
@@ -366,3 +426,771 @@ def run_batch_pipeline(
     finally:
         eng.close()
     return positions, offsets, counts
+
+
+# ---------------------------------------------------------------------------
+# ROI streaming: the engine (device side), the source (frame delivery) and the
+# controller, then the single-video frontend
+# ---------------------------------------------------------------------------
+
+
+class _CropBuffer(np.ndarray):
+    """A crop buffer ``[L, K, ch, cw]`` u8 in pinned host memory, carrying the
+    :class:`_RoiSlot` through which its chunk goes to the card."""
+
+    slot = None
+
+
+class _RoiSlot:
+    """The card side of one crop buffer: the pinned crops ``host`` and their
+    device twin, the scan's int32 arguments ``args [4, K, 2]`` (deltas, lo,
+    hi, and in row 3 a chain start) and their twin, pinned buffers for the
+    positions (and offsets) coming back, the event that marks the copy to the
+    card done and the one that marks the scan that read the twins done."""
+
+    __slots__ = ("host", "dev", "args", "args_dev", "pos", "off", "copied", "consumed")
+
+    def __init__(self, shape, subpixel: bool, device):
+        K = shape[1]
+        self.host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+        self.dev = torch.empty(shape, dtype=torch.uint8, device=device)
+        self.args = torch.empty((4, K, 2), dtype=torch.int32, pin_memory=True)
+        self.args_dev = torch.empty((4, K, 2), dtype=torch.int32, device=device)
+        self.pos = torch.empty((K, 2), dtype=torch.int32, pin_memory=True)
+        self.off = torch.empty((K, 2), dtype=torch.float32, pin_memory=True) if subpixel else None
+        self.copied = None
+        self.consumed = None
+
+
+class _SingleEngine:
+    """Lane adapter for L = 1 over the unbatched bounded scan
+    ``scan(frames [K,ch,cw], pos0 [2], fill, deltas, lo, hi)``: the JAX
+    package's ``_SingleEngine`` without group dispatch.
+
+    It owns the chain on the device: a chunk's scan starts from a view of the
+    previous output's last real row, ``prev[prev_k - 1]``, which ``deltas[0]``
+    rebases into the new crop, so the host never waits for it; after
+    :meth:`reset` (a replay, or the start of a run) the first scan takes its
+    absolute start ``P - o[0]`` from the host.
+
+    On the card every crop buffer comes from :meth:`alloc`, pinned, with a
+    :class:`_RoiSlot`: the crops and the scan's arguments go to the device in
+    non-blocking copies on a side stream, the scan waits on their event, and
+    the positions come back into pinned buffers behind an event that
+    :meth:`ready` queries and :meth:`to_host` waits on. A buffer is refilled
+    only after :meth:`claim` (its last copy done), and its twins only after the
+    scan that read them. On the CPU the scan runs at dispatch."""
+
+    def __init__(self, scan, crop_shape, frame_shape, fill, subpixel, timer, device):
+        self.scan = scan
+        self.ch, self.cw = crop_shape
+        self.H, self.W = frame_shape
+        self.fill = int(fill)
+        self.subpixel = subpixel
+        self.timer = timer
+        self.device = device
+        self._cuda = device.type == "cuda"
+        if self._cuda:
+            self._copy_stream = torch.cuda.Stream(device)
+        self.reset()
+
+    def reset(self):
+        """Invalidate the chain on the device (replay, run start)."""
+        self._prev = None
+        self._prev_k = None
+        self._prev_origin = None
+
+    def alloc(self, shape):
+        """A new crop buffer ``shape = [1, K, ch, cw]``: a
+        :class:`_CropBuffer` on the card, a plain array on the CPU."""
+        if not self._cuda:
+            return np.empty(shape, np.uint8)
+        slot = _RoiSlot(shape, self.subpixel, self.device)
+        buf = slot.host.numpy().view(_CropBuffer)
+        buf.slot = slot
+        return buf
+
+    @staticmethod
+    def claim(buf):
+        """Wait until ``buf`` may be refilled: its last copy to the card is done."""
+        slot = getattr(buf, "slot", None)
+        if slot is not None and slot.copied is not None:
+            slot.copied.synchronize()
+
+    def _bounds(self, o):
+        """Per-frame clamp box: the frame's bounds in each frame's crop
+        coordinates. ``o`` is the chunk's per-frame origins ``[K, 2]``."""
+        lo = np.maximum(-o, 0)
+        hi = np.minimum([self.ch - 1, self.cw - 1], [self.H - 1, self.W - 1] - o)
+        return lo, hi
+
+    @staticmethod
+    def _deltas(o, prev_last):
+        """Per-frame rebase: ``d[0]`` maps the carried position from
+        ``prev_last`` (the previous chunk's last real frame origin, or this
+        chunk's own first origin at a chain start) into frame 0's crop;
+        ``d[i] = o[i-1] - o[i]`` thereafter."""
+        d = np.empty_like(o)
+        d[0] = prev_last - o[0]
+        d[1:] = o[:-1] - o[1:]
+        return d
+
+    def _stage(self, buf, args):
+        """The chunk's crops and arguments as tensors the scan reads: on the
+        card, copied from the pinned buffers on the side stream, with the
+        scan's stream waiting for them."""
+        if not self._cuda:
+            return torch.from_numpy(buf[0]), torch.from_numpy(args)
+        slot = buf.slot
+        slot.args.numpy()[...] = args
+        with torch.cuda.stream(self._copy_stream):
+            if slot.consumed is not None:
+                self._copy_stream.wait_event(slot.consumed)  # the last scan read the twins
+            slot.dev.copy_(slot.host, non_blocking=True)
+            slot.args_dev.copy_(slot.args, non_blocking=True)
+            slot.copied = torch.cuda.Event()
+            slot.copied.record(self._copy_stream)
+        torch.cuda.current_stream(self.device).wait_event(slot.copied)
+        return slot.dev[0], slot.args_dev
+
+    def dispatch(self, buf, origins, P_abs, valid=None):
+        """Start the scan of the chunk in ``buf`` (``[1, K, ch, cw]``, cropped
+        at per-frame ``origins [1, K, 2]``; ``valid[0]`` real frames) from the
+        chain, or from ``P_abs`` after a reset; returns a handle for
+        :meth:`ready` and :meth:`to_host`."""
+        o = np.asarray(origins[0], np.int64)
+        K = buf.shape[1]
+        k = K if valid is None else int(valid[0])
+        first = self._prev is None
+        args = np.zeros((4, K, 2), np.int32)
+        args[0] = self._deltas(o, o[0] if first else self._prev_origin)
+        args[1], args[2] = self._bounds(o)
+        if first:
+            args[3, 0] = np.asarray(P_abs[0], np.int64) - o[0]
+        with self.timer.section("upload"):
+            frames, a = self._stage(buf, args)
+        pos0 = a[3, 0] if first else self._prev[self._prev_k - 1]
+        with self.timer.section("device"):
+            out = self.scan(frames, pos0, self.fill, a[0], a[1], a[2])
+        pos, off = out if self.subpixel else (out, None)
+        # the chain continues from the last REAL row: its position, its frame
+        # count and the origin that row was cropped at
+        self._prev, self._prev_k, self._prev_origin = pos, max(k, 1), o[max(k - 1, 0)]
+        if not self._cuda:
+            return pos, off, None
+        slot = buf.slot
+        stream = torch.cuda.current_stream(self.device)
+        slot.consumed = torch.cuda.Event()
+        slot.consumed.record(stream)
+        slot.pos.copy_(pos, non_blocking=True)
+        if off is not None:
+            slot.off.copy_(off, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+        return slot.pos, slot.off if off is not None else None, done
+
+    @staticmethod
+    def ready(handle) -> bool:
+        """True when :meth:`to_host` will not block."""
+        return handle[2] is None or handle[2].query()
+
+    @staticmethod
+    def to_host(handle):
+        """The chunk's positions ``[1, K, 2]`` (and offsets) as numpy arrays."""
+        pos, off, done = handle
+        if done is not None:
+            done.synchronize()
+        return pos.numpy()[None].copy(), (None if off is None else off.numpy()[None].copy())
+
+    def close(self):
+        """Wait for the card's work on this engine's buffers before they go."""
+        if self._cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+            self._copy_stream.synchronize()
+
+
+class SingleVideoSource:
+    """One video, one target lane. Delivery: the native decoder's retained
+    ring (predict mode), its direct ROI reads (contain mode), or a prefetched
+    chunk cropped here (with per-frame diagnostics when asked). Fills
+    ``buf [1, K, ch, cw]`` at per-frame origins, re-crops retained frames for a
+    replay, and releases, recycles and diagnoses accepted frames."""
+
+    def __init__(self, src, *, K, ch, cw, fill, dia, mode, native_roi, depth, n_rest,
+                 prefetchers):
+        from .diagnose import Dont
+
+        self.src = src
+        self.K, self.ch, self.cw, self.fill = K, ch, cw, fill
+        self.dia = dia
+        self.mode = mode
+        self.keep_for_dia = not isinstance(dia, Dont)
+        # contain-mode native reads retain no frames, so diagnostics (which
+        # read each frame at accept time) take the prefetcher there
+        self.use_native_roi = native_roi and mode == "contain" and not self.keep_for_dia
+        # retained reads deadlock if the ring cannot hold the chunks in flight
+        # plus one decoding chunk; with diagnostics the ring must also serve
+        # zero-copy views of retained frames, which the overlay reads
+        self.use_native_retained = (
+            native_roi
+            and mode == "predict"
+            and hasattr(src, "read_roi_chunk_retained")
+            and getattr(src, "ring_frames", 0) >= (depth + 2) * K
+            and (not self.keep_for_dia or getattr(src, "can_view_retained", False))
+        )
+        self._pf = None
+        if not (self.use_native_roi or self.use_native_retained):
+            self._pf = ChunkPrefetcher(src, K, max_frames=n_rest)
+            prefetchers.append(self._pf)
+            self._it = iter(self._pf)
+
+    def acquire(self, remaining, origins, buf, timer):
+        o = origins[0]  # [K, 2] per-frame origins for this lane
+        if self.use_native_roi or self.use_native_retained:
+            reader = (self.src.read_roi_chunk_retained if self.use_native_retained
+                      else self.src.read_roi_chunk)
+            with timer.section("crop"):
+                got = reader(min(self.K, remaining), o, self.ch, self.cw, self.fill, out=buf[0])
+            k = got.shape[0]
+            if k == 0:
+                return None
+            buf[0, k:] = buf[0, k - 1]
+            return (RETAINED if self.use_native_retained else None, np.array([k]))
+        chunk = next(self._it, None)
+        if chunk is None or chunk.shape[0] == 0:
+            return None
+        k = chunk.shape[0]
+        with timer.section("crop"):
+            for i in range(k):
+                _crop_with_fill(chunk[i], o[i], self.ch, self.cw, self.fill, out=buf[0, i])
+        buf[0, k:] = buf[0, k - 1]
+        # predict mode retains the frames for an exact replay; diagnostics
+        # need them too; otherwise they go back to the prefetcher now
+        if not (self.mode == "predict" or self.keep_for_dia):
+            self._pf.recycle(chunk)
+            chunk = None
+        return (chunk, np.array([k]))
+
+    def recrop(self, tokens, valid, origins, rbuf, timer, base, off):
+        k = int(valid[0])
+        o = origins[0]  # [K, 2]
+        f0 = int(off[0])  # frame offset within tokens (split sub-chunks)
+        with timer.section("crop"):
+            if tokens is RETAINED:
+                # the entry's frames sit behind the re-dispatched chunks still
+                # in flight (unaccepted, hence unreleased): ``base`` is their
+                # frame count, the offset into the retained window
+                self.src.recrop(int(base[0]), k, o, self.ch, self.cw, self.fill, out=rbuf[0])
+            else:
+                for i in range(k):
+                    _crop_with_fill(tokens[f0 + i], o[i], self.ch, self.cw, self.fill,
+                                    out=rbuf[0, i])
+            rbuf[0, k:] = rbuf[0, k - 1]
+
+    def accept(self, tokens, valid, abs_pos, timer, off):
+        k = int(valid[0])
+        f0 = int(off[0])
+        if tokens is RETAINED:
+            if self.keep_for_dia:
+                # overlay straight from the ring (zero-copy views), then
+                # release: this chunk's frames are the oldest retained
+                with timer.section("diagnose"):
+                    for i in range(k):
+                        self.dia(self.src.retained_frame(i), abs_pos[0, i])
+            self.src.release(k)
+        elif tokens is not None:
+            with timer.section("diagnose"):
+                for i in range(k):
+                    self.dia(tokens[f0 + i], abs_pos[0, i])
+            if f0 + k == tokens.shape[0]:  # the last sub-chunk recycles the array
+                self._pf.recycle(tokens)
+
+
+#: converged auto depth per (lanes, K, crop, frame, mode) geometry and
+#: process, with the replay-learned soft cap: a later run of the same geometry
+#: starts where the last one settled instead of ramping from 1. Positions are
+#: the same at every depth, so this is only a warm start.
+_AUTO_DEPTH_MEMO: dict = {}
+
+
+class _Pending:
+    """One in-flight (or rewind-queued) chunk: the engine handle and what is
+    needed to validate, accept or re-dispatch it.
+
+    ``exact``: dispatched from the rewind queue with nothing in flight, so
+    aimed from the exact last accepted position (the replay's progress
+    candidate). ``blind``: aimed before any velocity estimate existed (the
+    run-start probe), so the error-gated depth controller does not learn from
+    its miss. ``off [L]``: this entry's frame offset within its ``tokens``
+    (non-zero only for the second half of a split)."""
+
+    __slots__ = ("handle", "origins", "valid", "tokens", "buf", "exact", "off", "blind")
+
+    def __init__(self, handle, origins, valid, tokens, buf, exact=False, off=None, blind=False):
+        self.handle = handle
+        self.origins = origins
+        self.valid = valid
+        self.tokens = tokens
+        self.buf = buf
+        self.exact = exact
+        self.off = np.zeros(len(valid), np.int64) if off is None else off
+        self.blind = blind
+
+
+class SpeculativePipeline:
+    """The speculative ROI pipeline, generic over ``L >= 1`` lanes (targets
+    or videos).
+
+    A lane *source* fills rotating ``[L, K, ch, cw]`` crop buffers (and can
+    re-crop retained frames exactly for a replay); a lane *engine* owns the
+    chain on the device and the scans; a *sink* takes the accepted absolute
+    positions. The controller aims the crops from the velocity (a
+    coordinated-turn prediction), keeps the pending chunks, drains them
+    behind the device (deepening the pipeline in ``depth="auto"`` when a drain
+    blocks longer than :data:`AUTO_DRAIN_BLOCK_S`), checks each lane's
+    windows against its crops, and on a miss replays the chunk and all after
+    it through the rewind queue (reference hot-loop drift bound:
+    src/PawsomeTracker.jl:55-62)."""
+
+    #: accepted chunks without a replay before the soft depth cap relaxes by one
+    CLEAN_RELAX_CHUNKS = 16
+
+    #: per-axis clamp (px/frame^2) of the quadratic aim term: secant noise on
+    #: erratic motion must not swing the aim through the horizon squared
+    ACCEL_CLAMP = 0.25
+
+    #: turn-rate clamp (rad/frame) of the coordinated-turn aim (a full turn in
+    #: ~63 frames); faster apparent turning is secant noise
+    OMEGA_CLAMP = 0.1
+
+    def __init__(self, *, L, K, crop_shape, margin, spec, mode, depth, engine, source, sink,
+                 timer, auto_cap=None):
+        self.L, self.K = L, K
+        self.ch, self.cw = crop_shape
+        self.margin = np.asarray(margin)
+        self.H, self.W = spec.frame_shape
+        # containment half-extent: window radii + kernel apron of the full
+        # spec (the windows the equivalent full-frame scan would read)
+        self.rh = np.array(spec.radii) + spec.kernel_len // 2
+        self.frame_max = np.array([self.H - 1, self.W - 1])
+        self.mode = mode
+        self.auto_depth = depth == "auto"
+        if self.auto_depth:
+            # the frontend's cap already holds the ring budget; without one
+            # the memory cap applies here
+            self.depth_max = (auto_cap if auto_cap is not None
+                              else auto_depth_cap(spec.frame_shape, K))
+        else:
+            self.depth_max = depth
+        self._memo_key = (L, K, crop_shape, spec.frame_shape, mode)
+        if self.auto_depth:
+            memo_depth, memo_cap = _AUTO_DEPTH_MEMO.get(self._memo_key, (1, AUTO_DEPTH_MAX))
+            self.depth_cur = min(memo_depth, self.depth_max)
+        else:
+            self.depth_cur = depth
+            memo_cap = AUTO_DEPTH_MAX
+        self.engine = engine
+        self.source = source
+        self.sink = sink
+        self.timer = timer
+        #: chunk dispatches and replays of this pipeline (the run's launches)
+        self.dispatches = 0
+        self.replays = 0
+        # rotating crop buffers: a buffer goes back to the pool only once its
+        # chunk is drained or re-dispatched; the cap bounds the growth from
+        # buffers allocated when the pool runs dry
+        self._pool_max = self.depth_max + 2
+        self._free = [self._new_buffer() for _ in range(self._pool_max)]
+        self._pending: deque = deque()  # of _Pending
+        self._rewind: deque = deque()  # replayed entries awaiting re-dispatch
+        # eager drain (PAWS_EAGER_DRAIN=0 disables): take results the moment
+        # they are ready instead of always ``depth`` chunks behind, so the aim
+        # is as fresh as the real latency allows; the positions are the same
+        self._ready = (getattr(engine, "ready", None)
+                       if os.environ.get("PAWS_EAGER_DRAIN", "1") != "0" else None)
+        # replay hysteresis (see _replay): a soft ceiling just below the depth
+        # that last mispredicted, relaxed after sustained clean chunks, warm
+        # started from the memo
+        self._depth_soft_cap = min(self.depth_max, memo_cap)
+        self._clean_since_replay = 0
+        # relaxing the soft cap re-probes a horizon that may replay: only
+        # after a drain blocked at the cap, and at a price that doubles with
+        # each failed exploration
+        self._cap_wanted = False
+        self._relax_need = self.CLEAN_RELAX_CHUNKS
+        # per-axis prediction-error budget: the slack part of the margin
+        self._slack = np.maximum(np.asarray(self.margin) - self.rh, 1)
+
+    # -- buffers ------------------------------------------------------------
+    def _new_buffer(self):
+        alloc = getattr(self.engine, "alloc", None)
+        shape = (self.L, self.K, self.ch, self.cw)
+        return np.empty(shape, np.uint8) if alloc is None else alloc(shape)
+
+    def _take_buffer(self):
+        """A crop buffer from the pool (a new one when it is dry), once the
+        engine says it may be refilled."""
+        buf = self._free.pop() if self._free else self._new_buffer()
+        claim = getattr(self.engine, "claim", None)
+        if claim is not None:
+            claim(buf)
+        return buf
+
+    def _give_buffer(self, buf):
+        if buf is not None and len(self._free) < self._pool_max:
+            self._free.append(buf)
+
+    # -- aiming -------------------------------------------------------------
+    def _aim(self):
+        """Per-lane per-frame crop origins ``[L, K, 2]``: frame ``i`` of the
+        next chunk is cropped at the predicted position of its own window
+        centre (the previous frame's position, horizon ``staleness + i``), so
+        the margin never has to cover in-chunk motion."""
+        if self.mode == "predict":
+            # per-lane staleness: frames in flight ahead of the newest drained position
+            stale = np.zeros(self.L, np.int64)
+            for ent in self._pending:
+                stale += ent.valid
+            h = (stale[:, None] + np.arange(self.K)[None, :]).astype(np.float64)
+            h = h[..., None]  # [L, K, 1]
+            # the chunk secant estimates the velocity at the chunk's midpoint:
+            # advance it to P's own frame with the measured curvature
+            vel = self.vel + self.accel * self._vel_lag[:, None]
+            # coordinated turn: rotate the velocity at the turn rate
+            # w = (v x a)/|v|^2 and integrate (exact on circular arcs); the
+            # acceleration's parallel part keeps its quadratic term, and the
+            # model decays to the quadratic one as w -> 0
+            v2 = np.sum(vel * vel, axis=-1)  # [L]
+            cross = vel[:, 0] * self.accel[:, 1] - vel[:, 1] * self.accel[:, 0]
+            omega = np.where(v2 > 1e-6, cross / np.maximum(v2, 1e-9), 0.0)
+            omega = np.clip(omega, -self.OMEGA_CLAMP, self.OMEGA_CLAMP)[:, None, None]
+            vdota = np.sum(vel * self.accel, axis=-1)
+            a_par = np.where(v2 > 1e-6, vdota / np.maximum(v2, 1e-9), 0.0)[:, None] * vel
+            th = omega * h  # [L, K, 1]
+            # the integral of R(ws) v over [0, h], with the small-w limits
+            # (sin(th)/w -> h, (1 - cos(th))/w -> w h^2 / 2)
+            small = np.abs(th) < 1e-4
+            with np.errstate(divide="ignore", invalid="ignore"):
+                s_w = np.where(small, h, np.sin(th) / np.where(small, 1.0, omega))
+                c_w = np.where(small, 0.5 * omega * h * h,
+                               (1.0 - np.cos(th)) / np.where(small, 1.0, omega))
+            vi = vel[:, None, 0:1]
+            vj = vel[:, None, 1:2]
+            # rotation convention: a = w z x v maps v = (i, j) to (-w j, +w i)
+            turn = np.concatenate([s_w * vi - c_w * vj, c_w * vi + s_w * vj], axis=-1)
+            pred = self.P[:, None, :] + turn + 0.5 * a_par[:, None, :] * h * h
+            return np.round(pred).astype(np.int64) - self.margin
+        return np.broadcast_to((self.P - self.margin)[:, None, :], (self.L, self.K, 2))
+
+    # -- validation ---------------------------------------------------------
+    def _contained(self, pos_np, origins, valid):
+        """Every window each lane's scan read lies inside its frame's crop
+        (reads past the true frame edge hit the same fill in the crop scan and
+        in a full-frame scan). Frame ``i``'s window is centred at the previous
+        position (``P`` for frame 0) and checked against ``origins[lane, i]``;
+        keeping the check per window is what makes a 1-frame rewind chunk at
+        the exact ``P - margin`` origin always pass."""
+        for lane in range(self.L):
+            k = int(valid[lane])
+            if k == 0:
+                continue
+            abs_ = pos_np[lane, :k].astype(np.int64) + origins[lane, :k]
+            seq = np.concatenate([self.P[lane][None].astype(np.int64), abs_[: k - 1]])
+            o = origins[lane, :k]
+            if not ((np.maximum(seq - self.rh, 0) >= o).all()
+                    and (np.minimum(seq + self.rh, self.frame_max)
+                         <= o + [self.ch - 1, self.cw - 1]).all()):
+                return False
+        return True
+
+    # -- accept / replay / drain -------------------------------------------
+    def _accept(self, pos_np, off_np, ent):
+        origins, valid = ent.origins, ent.valid
+        abs_pos = pos_np.astype(np.int64) + origins  # [L, K, 2]
+        self.sink(abs_pos, valid, off_np)
+        self.source.accept(ent.tokens, valid, abs_pos, self.timer, ent.off)
+        for lane in range(self.L):
+            k = int(valid[lane])
+            if k > 1:
+                self._vel_ready = True
+                new_vel = (abs_pos[lane, k - 1] - abs_pos[lane, 0]) / (k - 1)
+                if self._last_k[lane] > 1:
+                    # curvature from consecutive chunk secants (midpoints
+                    # ~(k_prev + k)/2 frames apart), clamped
+                    gap = 0.5 * (self._last_k[lane] + k)
+                    self.accel[lane] = np.clip((new_vel - self.vel[lane]) / gap,
+                                               -self.ACCEL_CLAMP, self.ACCEL_CLAMP)
+                self.vel[lane] = new_vel
+                self._last_k[lane] = k
+                self._vel_lag[lane] = 0.5 * (k - 1)  # secant midpoint lag
+            if k > 0:
+                self.P[lane] = abs_pos[lane, k - 1]
+        self.tracked += valid
+        if self.auto_depth and self.mode == "predict" and not ent.blind:
+            self._update_depth_from_error(abs_pos, origins, valid)
+        self._give_buffer(ent.buf)
+
+    def _update_depth_from_error(self, abs_pos, origins, valid):
+        """Error-aware depth control: each accepted chunk shows how far the
+        aim missed, so the controller stops deepening before the error
+        reaches the margin. A miss over 80% of the slack backs the pipeline
+        off a step and holds the cap there; over 45% holds; clean chunks earn
+        one cap step per ``_relax_need`` once a blocked drain asked for more."""
+        worst = 0.0
+        for lane in range(self.L):
+            k = int(valid[lane])
+            if k == 0:
+                continue
+            pred_center = origins[lane, :k] + self.margin
+            err = np.abs(abs_pos[lane, :k] - pred_center) / self._slack
+            worst = max(worst, float(err.max()))
+        if worst > 0.8:
+            self._depth_soft_cap = max(1, min(self._depth_soft_cap, self.depth_cur - 1))
+            self.depth_cur = min(self.depth_cur, self._depth_soft_cap)
+            self._clean_since_replay = 0
+        elif worst > 0.45:
+            self._clean_since_replay = 0
+        elif self._depth_soft_cap < self.depth_max and self._cap_wanted:
+            self._clean_since_replay += 1
+            if self._clean_since_replay >= self._relax_need:
+                self._clean_since_replay = 0
+                self._cap_wanted = False
+                self._depth_soft_cap += 1
+
+    def _replay(self, entries):
+        """Mispredict: put every undrained entry (oldest first) at the front
+        of the rewind queue; the main loop re-dispatches them through the
+        pipeline, re-cropped from retained frames at a fresh aim. The first
+        re-dispatches with nothing in flight, so its frame 0 is cropped at
+        exactly ``P - margin`` and its window is contained; a later frame that
+        still escapes splits the chunk (:meth:`_split_exact`) down to the
+        always-contained single frame, so every replay makes progress."""
+        global replay_count
+        replay_count += 1
+        self.replays += 1
+        if self.auto_depth:
+            # hysteresis: hold the re-ramp below the depth that mispredicted;
+            # a replay at the cap (a failed exploration) doubles the price of
+            # the next one; halve the depth rather than reset it to 1
+            if self.depth_cur >= self._depth_soft_cap:
+                self._relax_need = min(self._relax_need * 2, 8 * self.CLEAN_RELAX_CHUNKS)
+            self._depth_soft_cap = max(1, self.depth_cur - 1)
+            self._clean_since_replay = 0
+            self.depth_cur = max(1, self.depth_cur // 2)
+        # the curvature estimate failed: zero it and the secant history, so
+        # two fresh chunks establish a new pair
+        self.accel[:] = 0.0
+        self._last_k[:] = 0
+        self.engine.reset()  # the chain on the device past this point is invalid
+        # prepend: the queue may still hold later chunks of the same cascade,
+        # and frames must be re-dispatched in order
+        self._rewind.extendleft(reversed(entries))
+
+    def _split_exact(self, ent):
+        """An exact-origin rewind chunk still escaped its crops: halve it
+        (the first half keeps the buffer). Its frame 0 is contained by
+        construction, so halving ends at an accepted 1-frame chunk."""
+        k = int(ent.valid.max())
+        if k <= 1:
+            # impossible by construction: fail loudly rather than replay forever
+            raise RuntimeError("1-frame exact rewind chunk failed containment")
+        j = max(1, k // 2)
+        v1 = np.minimum(ent.valid, j)
+        v2 = ent.valid - v1
+        first = _Pending(None, ent.origins, v1, ent.tokens, ent.buf, off=ent.off)
+        if v2.max() <= 0:
+            return [first]
+        return [first, _Pending(None, ent.origins, v2, ent.tokens, None, off=ent.off + v1)]
+
+    def _dispatch_rewind(self):
+        """Re-dispatch the oldest replayed chunk. Its frames are not the
+        oldest retained while earlier re-dispatched chunks are in flight, so
+        the source gets their frame counts as the ``base`` offset."""
+        ent = self._rewind.popleft()
+        exact = not self._pending  # frame 0's aim degenerates to P - margin
+        with self.timer.section("aim"):
+            origins = self._aim()
+        base = np.zeros(self.L, np.int64)
+        for p in self._pending:
+            base += p.valid
+        buf = self._take_buffer()
+        self.source.recrop(ent.tokens, ent.valid, origins, buf, self.timer, base, ent.off)
+        handle = self.engine.dispatch(buf, origins, self.P, ent.valid)
+        self.dispatches += 1
+        self._pending.append(_Pending(handle, origins, ent.valid, ent.tokens, buf, exact=exact,
+                                      off=ent.off))
+        self._give_buffer(ent.buf)
+
+    def _drain_one(self):
+        entry = self._pending.popleft()
+        with self.timer.section("drain"):
+            t0 = time.perf_counter()
+            pos_np, off_np = self.engine.to_host(entry.handle)
+            blocked = time.perf_counter() - t0
+        if self.auto_depth and blocked > AUTO_DRAIN_BLOCK_S:
+            if self.depth_cur < min(self.depth_max, self._depth_soft_cap):
+                # the lagged drain still blocked: add a chunk of slack (up to
+                # the replay-learned soft cap)
+                self.depth_cur += 1
+            elif self._depth_soft_cap < self.depth_max:
+                self._cap_wanted = True  # blocked at the cap: may explore it
+        if self.mode == "predict" and not self._contained(pos_np, entry.origins, entry.valid):
+            head = self._split_exact(entry) if entry.exact else [entry]
+            rest = list(self._pending)
+            self._pending.clear()
+            self._replay(head + rest)
+            return
+        self._accept(pos_np, off_np, entry)
+
+    # -- main loop ----------------------------------------------------------
+    def run(self, pos0_abs, n_rest: int):
+        """Track up to ``n_rest`` frames per lane from absolute start
+        positions ``pos0_abs [L, 2]``. Returns per-lane tracked counts."""
+        self.P = np.asarray(pos0_abs, np.int64).reshape(self.L, 2).copy()
+        self.vel = np.zeros((self.L, 2))
+        self.accel = np.zeros((self.L, 2))
+        self._last_k = np.zeros(self.L, np.int64)
+        self._vel_lag = np.zeros(self.L)
+        self._vel_ready = False
+        self.tracked = np.zeros(self.L, np.int64)
+        self.engine.reset()
+        try:
+            remaining = n_rest
+            eof = False
+            while True:
+                # evidence-proportional horizon (auto depth only; a pinned
+                # depth is honoured): no velocity yet means a standing-still
+                # guess (drain the probe at once), and a velocity measured
+                # over N frames says little about 5N frames out
+                if self.mode != "predict" or not self.auto_depth:
+                    depth_eff = self.depth_cur
+                elif not self._vel_ready:
+                    depth_eff = 0
+                else:
+                    evidence = int(self.tracked.max()) // max(self.K, 1)
+                    depth_eff = min(self.depth_cur, max(1, evidence))
+                while len(self._pending) > depth_eff:
+                    self._drain_one()
+                if self._ready is not None:
+                    # finished results cost nothing to take and freshen the
+                    # aim; a replay clears _pending, which ends this loop
+                    while self._pending and self._ready(self._pending[0].handle):
+                        self._drain_one()
+                if self._rewind:
+                    # replayed chunks re-enter ahead of fresh frames, in order
+                    self._dispatch_rewind()
+                    continue
+                if remaining <= 0 or eof:
+                    if self._pending:
+                        # one at a time: a containment failure refills the
+                        # rewind queue, which the next iteration re-dispatches
+                        self._drain_one()
+                        continue
+                    break
+                with self.timer.section("aim"):
+                    origins = self._aim()
+                buf = self._take_buffer()
+                take = remaining
+                if self.mode == "predict" and not self._vel_ready:
+                    # no velocity yet: a short probe chunk learns it (the scan
+                    # runs all K rows; the extra ones are discarded)
+                    take = min(remaining, max(2, self.K // 4))
+                got = self.source.acquire(take, origins, buf, self.timer)
+                if got is None:
+                    self._free.append(buf)
+                    eof = True
+                    continue
+                tokens, valid = got
+                handle = self.engine.dispatch(buf, origins, self.P, valid)
+                self.dispatches += 1
+                self._pending.append(_Pending(handle, origins, valid, tokens, buf,
+                                              blind=not self._vel_ready))
+                remaining -= int(valid.max())
+            if self.auto_depth:
+                # recorded on a clean finish only
+                _AUTO_DEPTH_MEMO[self._memo_key] = (self.depth_cur, self._depth_soft_cap)
+        finally:
+            close = getattr(self.engine, "close", None)
+            if close is not None:
+                close()
+        return self.tracked
+
+
+def run_roi_pipeline(
+    src,
+    spec,
+    pos0_abs,
+    fill: int,
+    n_rest: int,
+    *,
+    roi_frames: int,
+    depth,
+    engine: str,
+    subpixel: bool,
+    dia,
+    timer,
+    native_roi: bool,
+    prefetchers: list,
+    device,
+    speculate: str = "predict",
+    progress=None,
+    auto_cap: int | None = None,
+    stats: dict | None = None,
+):
+    """Track ``n_rest`` frames of ``src`` by speculative ROI streaming (one
+    video, one target: :class:`SpeculativePipeline` with L = 1 over
+    :class:`_SingleEngine`). ``engine`` ``"auto"`` and ``"pallas"`` scan with
+    the CUDA kernel on the card (the plain version on the CPU), ``"xla"`` with
+    the plain version.
+
+    Returns ``(position blocks, offset blocks, frames tracked)``, each
+    position block an absolute int ``[k, 2]``. ``prefetchers`` collects any
+    prefetcher made here, so the caller joins it before closing ``src``.
+    ``stats``, when given, receives the crop shape, K, the depth the run
+    ended at, and its dispatch and replay counts.
+
+    ``depth="auto"`` starts at 1 (or where the last run of this geometry
+    settled) and deepens while the lagged drain blocks; a replay backs it
+    off. Positions are the same at every depth."""
+    K = roi_frames
+    if depth == "auto":
+        depth_max = auto_depth_cap(spec.frame_shape, K)
+        if auto_cap is not None:
+            depth_max = min(depth_max, auto_cap)
+    else:
+        depth_max = depth
+    mode = speculate if depth_max > 0 else "contain"
+    ch, cw, margin = roi_geometry(spec, K, depth_max, mode)
+    roi_spec = make_spec((ch, cw), spec.window_size, spec.target_width, spec.darker_target)
+    fns = tracker_fns(roi_spec, device, engine)
+
+    positions: list[np.ndarray] = []
+    offsets: list[np.ndarray] = []
+    done = 0
+
+    def sink(abs_pos, valid, off_np):
+        nonlocal done
+        k = int(valid[0])
+        positions.append(abs_pos[0, :k])
+        if off_np is not None:
+            offsets.append(off_np[0, :k])
+        done += k
+        if progress is not None:
+            progress(done, n_rest)
+
+    pipe = SpeculativePipeline(
+        L=1, K=K, crop_shape=(ch, cw), margin=margin, spec=spec, mode=mode, depth=depth,
+        auto_cap=depth_max if depth == "auto" else None,
+        engine=_SingleEngine(fns.scan_sub if subpixel else fns.scan_bounded, (ch, cw),
+                             spec.frame_shape, fill, subpixel, timer, device),
+        source=SingleVideoSource(src, K=K, ch=ch, cw=cw, fill=fill, dia=dia, mode=mode,
+                                 native_roi=native_roi, depth=depth_max, n_rest=n_rest,
+                                 prefetchers=prefetchers),
+        sink=sink,
+        timer=timer,
+    )
+    tracked = pipe.run(np.asarray(pos0_abs).reshape(1, 2), n_rest)
+    if stats is not None:
+        stats.update(crop=(ch, cw), K=K, mode=mode, depth=pipe.depth_cur,
+                     dispatches=pipe.dispatches, replays=pipe.replays)
+    return positions, offsets, int(tracked[0])

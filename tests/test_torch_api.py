@@ -134,11 +134,12 @@ def test_diagnostic_overlay_matches_jax(tmp_path):
 
 def test_stream_choices():
     frames, _ = clip(n=24)
-    with pytest.raises(NotImplementedError, match="stream='roi'"):
-        port.track(frames, start_location=port.IJ(50, 50), target_width=10, stream="roi",
-                   device="cpu")
+    roi = port.track(frames, start_location=port.IJ(50, 50), target_width=10, stream="roi",
+                     device="cpu")
     a = port.track(frames, start_location=port.IJ(50, 50), target_width=10, stream="full",
                    device="cpu")
+    np.testing.assert_array_equal(roi[1], a[1])
+    np.testing.assert_array_equal(roi[0], a[0])
     b = port.track(frames, start_location=port.IJ(50, 50), target_width=10, stream="auto",
                    engine="xla", device="cpu")
     np.testing.assert_array_equal(a[1], b[1])

@@ -5,6 +5,8 @@ with the card and without JAX:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -477,3 +479,122 @@ def test_one_step_140_lanes_on_shared_frames_equal_plain(card, field):
     check_batch(card, shared, starts, fills, spec.radii, spec.sigma)
     check_batch(card, shared, starts, fills, spec.radii, spec.sigma, subpixel=True)
     check_batch(card, own, starts, fills, spec.radii, spec.sigma)
+
+
+# ---- the speculative ROI pipeline on the card --------------------------------------
+
+
+def _roi_stats(caplog):
+    """The stats the last track() logged (``paws_stats`` on its debug record)."""
+    recs = [r for r in caplog.records if hasattr(r, "paws_stats")]
+    assert recs, "track() logged no stats"
+    return recs[-1].paws_stats
+
+
+def _roi_clip(T=48, h=160, w=160, erratic=False):
+    """A disc of radius 4 on 128-gray: a smooth arc, or an erratic walk of
+    near-radius steps (which defeats the velocity prediction)."""
+    rng = np.random.default_rng(11)
+    if erratic:
+        path = [np.array([80, 80])]
+        for _ in range(T - 1):
+            path.append(np.clip(path[-1] + rng.integers(-9, 10, 2), 12, [h - 13, w - 13]))
+    else:
+        path = [np.array([80 + 40 * np.sin(t / 12), 80 + 40 * np.cos(t / 12)]).round()
+                for t in range(T)]
+    path = [tuple(int(v) for v in p) for p in path]
+    return ellipse_frames(h, w, path, ry=4, rx=4), path
+
+
+@pytest.mark.parametrize("subpixel", [False, True])
+@pytest.mark.parametrize("depth", [0, 2, "auto"])
+def test_roi_on_card_equals_cpu(card, caplog, subpixel, depth):
+    """track(stream="roi") on the card: positions (offsets within 1e-3) equal to
+    the device="cpu" run and to stream="full"; every chunk launch is the
+    bounded configuration, one a dispatch, and the plain version never runs."""
+    caplog.set_level(logging.DEBUG, logger="pawsometracker_tpu_torch")
+    frames, path = _roi_clip()
+    kw = dict(fps=24, start_location=IJ(*path[0]), target_width=8, window_size=21,
+              subpixel=subpixel, pipeline_depth=depth, roi_frames=4)
+    tk.reset_launches()
+    ts, ij = track(frames, stream="roi", **kw)
+    stats = _roi_stats(caplog)
+    cfg = "bounded+subpixel" if subpixel else "bounded"
+    assert stats["stream"] == "roi" and stats["dispatches"] > 0
+    assert tk.launches == 1 + stats["dispatches"]
+    assert tk.launches_by_config[f"dog_scan: {cfg}"] == stats["dispatches"]
+    ts_c, ij_c = track(frames, stream="roi", device="cpu", **kw)
+    ts_f, ij_f = track(frames, stream="full", **kw)
+    np.testing.assert_array_equal(ts, ts_c)
+    for other in (ij_c, ij_f):
+        if subpixel:
+            np.testing.assert_allclose(ij, other, rtol=0, atol=1e-3)
+        else:
+            np.testing.assert_array_equal(ij, other)
+
+
+def test_roi_mispredict_replays_on_card(card, caplog, monkeypatch):
+    """An erratic path with a slim prediction slack: the pipeline replays (and
+    splits) on the card and still gives the CPU run's positions."""
+    from pawsometracker_tpu_torch import pipeline
+
+    caplog.set_level(logging.DEBUG, logger="pawsometracker_tpu_torch")
+    monkeypatch.setenv("PAWS_PREDICT_SLACK", "8")
+    frames, path = _roi_clip(erratic=True)
+    kw = dict(fps=24, start_location=IJ(*path[0]), target_width=8, window_size=21,
+              stream="roi", roi_frames=8, pipeline_depth=3)
+    before = pipeline.replay_count
+    tk.reset_launches()
+    _, ij = track(frames, **kw)
+    stats = _roi_stats(caplog)
+    assert pipeline.replay_count > before and stats["replays"] > 0
+    assert tk.launches == 1 + stats["dispatches"]
+    np.testing.assert_array_equal(ij, track(frames, device="cpu", **kw)[1])
+
+
+def test_roi_buffers_wait_for_copy_and_scan(card, monkeypatch):
+    """A pool of 2 crop buffers at depth 3, with the side stream's copies and
+    the scans both held back by sleeps on the card, through replays: a buffer
+    refilled before its copy or its scan had finished would change the
+    positions."""
+    from pawsometracker_tpu_torch import pipeline
+
+    monkeypatch.setenv("PAWS_PREDICT_SLACK", "8")
+    init, stage = pipeline.SpeculativePipeline.__init__, pipeline._SingleEngine._stage
+
+    def small_pool(self, *a, **k):
+        init(self, *a, **k)
+        self._pool_max = 2
+        del self._free[2:]
+
+    def slow_stage(self, buf, args):
+        if self._cuda:  # (the device="cpu" run below has no streams)
+            with torch.cuda.stream(self._copy_stream):
+                torch.cuda._sleep(200_000)  # the copy lags the host
+            torch.cuda._sleep(200_000)  # and so does the scan
+        return stage(self, buf, args)
+
+    monkeypatch.setattr(pipeline.SpeculativePipeline, "__init__", small_pool)
+    monkeypatch.setattr(pipeline._SingleEngine, "_stage", slow_stage)
+    frames, path = _roi_clip(erratic=True)
+    kw = dict(fps=24, start_location=IJ(*path[0]), target_width=8, window_size=21,
+              stream="roi", roi_frames=4, pipeline_depth=3)
+    before = pipeline.replay_count
+    _, ij = track(frames, **kw)
+    assert pipeline.replay_count > before
+    np.testing.assert_array_equal(ij, track(frames, device="cpu", **kw)[1])
+
+
+def test_roi_large_target_takes_tiled_bounded(card, caplog):
+    """At a window too large for dog_scan every ROI chunk launch is
+    dog_scan_tiled's bounded configuration."""
+    caplog.set_level(logging.DEBUG, logger="pawsometracker_tpu_torch")
+    frames, path = _roi_clip(T=12, h=400, w=400)
+    kw = dict(fps=24, start_location=IJ(*path[0]), target_width=8, window_size=(151, 151),
+              stream="roi", roi_frames=4, pipeline_depth=1)
+    tk.reset_launches()
+    _, ij = track(frames, **kw)
+    stats = _roi_stats(caplog)
+    assert tk.launches_by_config["dog_scan_tiled: bounded"] == stats["dispatches"]
+    assert tk.launches == 1 + stats["dispatches"]
+    np.testing.assert_array_equal(ij, track(frames, device="cpu", **kw)[1])
