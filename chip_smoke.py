@@ -25,8 +25,11 @@ card; any failure exits non-zero:
    whose ties span tiles of different CTAs. The ROI pipeline's chunk scans:
    bounded and bounded+subpixel at T=12 on the crops it cuts at 1080p, 185x185
    (``dog_scan``) and 461x461 at ``target_width=60`` (``dog_scan_tiled``),
-   with the per-frame boxes and rebases it builds. Integer positions must be
-   equal, offsets within ``atol=1e-3``.
+   with the per-frame boxes and rebases it builds; and the batch and multi ROI
+   engines' batched bounded chunk scans (T=12) at both crop sizes: B = 4
+   videos' crops with lane 2 pure fill (a video past its end), bounded and
+   bounded+subpixel, and the crops of 4 targets cut from one frame stream.
+   Integer positions must be equal, offsets within ``atol=1e-3``.
 2. The main paths, each driven with the launch counts set to 0 just before
    it and read just after:
    - ``track()`` on a synthetic 1080p, 480-frame clip (a dark disc of radius
@@ -42,13 +45,16 @@ card; any failure exits non-zero:
      window (105x105, L = 149), a disc of radius 30 on the same circle, 480
      frames, the same three ways; every launch must be ``dog_scan_tiled``,
      and the ``device="cpu"`` cross-check runs the first 33 frames.
-   These four stream full frames (``stream="full"``). Then ``track()`` through
-   ``stream="auto"``, which takes the speculative ROI pipeline at 1080p (as the
-   JAX package does when the crop is under half the frame): the bench clip
-   ("track ROI") and the large target ("track large target ROI"), the same
-   three ways each. Each ROI call must launch 1 + the pipeline's dispatches
-   (its snap, then one bounded launch a chunk, probe and replays included),
-   and equal the same call on ``stream="full"``.
+   These four stream full frames (``stream="full"``). Then each entry point
+   through ``stream="auto"``, which takes the speculative ROI pipeline at
+   1080p (as the JAX package does when the crops are under half the frame):
+   ``track()`` on the bench clip ("track ROI") and the large target ("track
+   large target ROI"), ``track_batch`` on its four clips ("track_batch ROI",
+   one lane a video) and ``track_multi`` on its clip ("track_multi ROI", one
+   lane a target), the same three ways each. Each ROI call must report
+   ``stream="roi"``, launch its snaps (two where a batch lane autodetects)
+   plus the pipeline's dispatches, every chunk a bounded launch (probe and
+   replays included), and equal the same call on ``stream="full"``.
    Each call must launch the kernel as often as its chunking says and never
    run the plain version, land within RMSE < 1 px of the drawn truth per
    video or target, equal the port's single-video ``track()`` of each video
@@ -69,7 +75,9 @@ card; any failure exits non-zero:
    their crops (T=12), the wrapper's host microseconds a launch (launches
    queued behind a sleep of the card), and per e2e run the pipeline's timer
    sections (crop, upload, device, drain), the depth it settled at and its
-   replays, and a ``torch.profiler`` busy share.
+   replays, and a ``torch.profiler`` busy share; the same for the batch and
+   multi ROI paths beside their ``stream="full"`` figures; and a cuDNN
+   ``conv2d`` + ``argmax`` yardstick for the snaps at the bench window.
 
 Prints the card's name and power limit, the build time and ``ptxas``'s
 registers, the kernels' configurations with their launch counts, one JSON
@@ -309,6 +317,38 @@ def roi_chunk(frames, truth, spec, fill, dev, roi_geometry, crop_with_fill):
     return torch.from_numpy(crops).to(dev), pos0, bounds
 
 
+def roi_lanes(lane_frames, truths, fills, spec, dev, roi_geometry, crop_with_fill):
+    """One T=ROI_K chunk of L lanes as the batch and multi ROI engines build
+    it at chain start: lane b's frames t+1 cropped around its truth of frame
+    t, the per-frame rebase with ``deltas[:, 0] = 0`` (the chain rebases the
+    carry instead), the lane's box, and its start in its frame-1 crop. A lane
+    whose frames are None holds pure fill, as a lane past its video's end
+    does. Returns ``(crops [L,K,ch,cw], pos0 [L,2], fills [L], bounds)`` on
+    the card."""
+    import torch
+
+    ch, cw, margin = roi_geometry(spec, ROI_K, 7, "predict")
+    crops, pos0, bounds = [], [], {"deltas": [], "lo": [], "hi": []}
+    for frames, truth, fill in zip(lane_frames, truths, fills):
+        o = np.asarray(truth[:ROI_K], np.int64) - margin
+        if frames is None:
+            crops.append(np.full((ROI_K, ch, cw), fill, np.uint8))
+        else:
+            crops.append(np.stack([crop_with_fill(frames[1 + i], o[i], ch, cw, fill)
+                                   for i in range(ROI_K)]))
+        deltas = np.zeros_like(o)
+        deltas[1:] = o[:-1] - o[1:]
+        bounds["deltas"].append(deltas)
+        bounds["lo"].append(np.maximum(-o, 0))
+        bounds["hi"].append(np.minimum([ch - 1, cw - 1], [H - 1, W - 1] - o))
+        pos0.append(np.asarray(truth[0]) - o[0])
+    bounds = {k: torch.tensor(np.stack(v), dtype=torch.int32, device=dev)
+              for k, v in bounds.items()}
+    return (torch.from_numpy(np.stack(crops)).to(dev),
+            torch.tensor(np.stack(pos0), dtype=torch.int32, device=dev),
+            torch.tensor(fills, dtype=torch.uint8, device=dev), bounds)
+
+
 def host_us_per_launch(fn, n=200) -> float:
     """Host microseconds a call of ``fn`` (a kernel wrapper) takes to return,
     with the card asleep so the launches only queue."""
@@ -527,6 +567,32 @@ def main() -> int:
             name = f"ROI {label} T={ROI_K} {'bounded+subpixel' if sub else 'bounded'}"
             cases[name] = (crops, rpos0, fill, skw, rbnd, sub, False)
             roi_cases[name] = "dog_scan_tiled" if label.startswith("tiled") else "dog_scan"
+    # the batch and multi ROI engines' chunk scans (batched bounded, each lane
+    # reading its own crops) at both crop sizes: in the batch, lane 2 is pure
+    # fill, as a video past its end is; the 4 targets' crops are cut from one
+    # frame stream
+    tiled_truths = [circle_path(ROI_K + 1, b * np.pi / 2) for b in range(B)]
+    tiled_multi = draw_discs(np.full((ROI_K + 1, H, W), 128, np.uint8), tiled_truths,
+                             LARGE_DISC_R)
+    for label, sp, skw, lane_frames, lane_truths, fills_b, stream, stream_truths in (
+            ("185x185", spec, kw, clips, truths, BATCH_FILLS, multi_np, multi_truths),
+            ("tiled 461x461", lspec, lkw, [tiled_multi] * B, tiled_truths, (128,) * B,
+             tiled_multi, tiled_truths)):
+        kernel = "dog_scan_tiled" if label.startswith("tiled") else "dog_scan"
+        lane_frames = [None if b == 2 else f for b, f in enumerate(lane_frames)]
+        bcrops, bpos0, bfills, bbnd = roi_lanes(lane_frames, lane_truths, fills_b, sp, dev,
+                                                roi_geometry, _crop_with_fill)
+        for sub in (False, True):
+            name = (f"ROI batch {label} B={B} T={ROI_K}"
+                    f" {'bounded+subpixel' if sub else 'bounded'} (lane 2 fill)")
+            cases[name] = (bcrops, bpos0, bfills, skw, bbnd, sub, True)
+            roi_cases[name] = kernel
+        mcrops, mpos0, mfills, mbnd = roi_lanes([stream] * B, stream_truths, (128,) * B, sp, dev,
+                                                roi_geometry, _crop_with_fill)
+        name = f"ROI multi {label} {B} targets of one stream T={ROI_K} bounded"
+        cases[name] = (mcrops, mpos0, mfills, skw, mbnd, False, True)
+        roi_cases[name] = kernel
+    del tiled_multi
 
     def run_kernel(name):
         fr, p0, fl, k, b, sub, batched = cases[name]
@@ -613,7 +679,9 @@ def main() -> int:
             "subpixel": dict(start_location=start0, subpixel=True),
         },
     }
-    roi_paths = {"track ROI": "track", "track large target ROI": "track large target"}
+    # each ROI path and the full-frame path it is held equal to
+    roi_paths = {"track ROI": "track", "track large target ROI": "track large target",
+                 "track_batch ROI": "track_batch", "track_multi ROI": "track_multi"}
     for path, full_path in roi_paths.items():
         paths[path] = paths[full_path]
     entry = {
@@ -623,6 +691,8 @@ def main() -> int:
         "track large target": lambda **k: track(large_np, **large, **k),
         "track ROI": lambda **k: track(frames_np, **roi, **k),
         "track large target ROI": lambda **k: track(large_np, **large_roi, **k),
+        "track_batch ROI": lambda **k: track_batch(clips, **roi, **k),
+        "track_multi ROI": lambda **k: track_multi(multi_np, **roi, **k),
     }
     n_batch_scans = math.ceil((max(BATCH_LENS) - 1) / CHUNK)
     want_launches = {
@@ -634,6 +704,11 @@ def main() -> int:
         "track large target": {n: 1 + math.ceil((N_FRAMES - 1) / CHUNK)
                                for n in paths["track large target"]},
     }
+    def bounded_launches():
+        # "<kernel>: [batched ]bounded[+subpixel]"
+        return sum(n for c, n in tk.launches_by_config.items()
+                   if c.split(": ")[1].removeprefix("batched ").startswith("bounded"))
+
     results, main_counts, roi_stats = {}, {}, {}
     for path, runs in paths.items():
         tk.reset_launches()  # counts to 0 just before the path, read just after
@@ -641,8 +716,7 @@ def main() -> int:
         for name, extra in runs.items():
             before, plain_before = tk.launches, plain_runs["n"]
             tiled_before = tk.launches_by_kernel["dog_scan_tiled"]
-            bounded_before = sum(n for c, n in tk.launches_by_config.items()
-                                 if c.split(": ")[1].startswith("bounded"))
+            bounded_before = bounded_launches()
             stats_log.last = None
             t0 = time.perf_counter()
             out = entry[path](**extra)
@@ -651,9 +725,8 @@ def main() -> int:
                                    time.perf_counter() - t0,
                                    tk.launches_by_kernel["dog_scan_tiled"] - tiled_before)
             if path in roi_paths:
-                bounded = sum(n for c, n in tk.launches_by_config.items()
-                              if c.split(": ")[1].startswith("bounded")) - bounded_before
-                roi_stats[path, name] = dict(stats_log.last or {}, bounded_launches=bounded)
+                roi_stats[path, name] = dict(stats_log.last or {},
+                                             bounded_launches=bounded_launches() - bounded_before)
         main_counts[path] = {"total": tk.launches, "by_config": dict(tk.launches_by_config),
                              "by_kernel": dict(tk.launches_by_kernel),
                              "plain_runs": plain_runs["n"]}
@@ -663,14 +736,15 @@ def main() -> int:
     detected = global_detect_peaks(spec, 4)(torch.from_numpy(multi_np[0]).to(dev), 128)
     detected = [IJ(int(i), int(j)) for i, j in detected.cpu().numpy()]
     for path, runs in paths.items():
+        kind = roi_paths.get(path, path)  # the entry point and clip of the path
         for name, extra in runs.items():
             out, n_launch, n_plain, wall, n_tiled = results[path, name]
             sub = bool(extra.get("subpixel"))
-            if path in ("track", "track ROI"):
+            if kind == "track":
                 videos = [(out, truth, frames_np, extra)]
-            elif path in ("track large target", "track large target ROI"):
+            elif kind == "track large target":
                 videos = [(out, large_truth, large_np, extra)]
-            elif path == "track_batch":
+            elif kind == "track_batch":
                 videos = [(out[b], truths[b], clips[b],
                            dict(extra, start_location=extra["start_location"][b]))
                           for b in range(B)]
@@ -685,11 +759,11 @@ def main() -> int:
             errs, equal_single = [], True
             for (ts, ij), tru, frames, single_kw in videos:
                 errs.append(rmse(ij, tru))
-                if path in ("track_batch", "track_multi"):  # each alone through track()
+                if kind in ("track_batch", "track_multi"):  # each alone through track()
                     ts_1, ij_1 = track(frames, **base, **single_kw)
                     equal_single &= same(ij, ij_1, sub) and np.array_equal(ts, ts_1)
             equal_cpu, roi_ok, roi_note = None, True, ""
-            if path in ("track large target", "track large target ROI"):
+            if kind == "track large target":
                 # the plain version at this window is slow on the host: the first
                 # CPU_CHECK_FRAMES frames, against the same prefix of the card's run
                 ts_c, ij_c = track(large_np[:CPU_CHECK_FRAMES],
@@ -697,18 +771,22 @@ def main() -> int:
                                    **extra, device="cpu")
                 equal_cpu = (same(out[1][:CPU_CHECK_FRAMES], ij_c, sub)
                              and np.array_equal(out[0][:CPU_CHECK_FRAMES], ts_c))
-            elif path in ("track", "track ROI") or name in ("start_location", "start_locations"):
+            elif kind == "track" or name in ("start_location", "start_locations"):
                 cpu = entry[path](**extra, device="cpu")
-                pairs = [(out, cpu)] if path != "track_batch" else list(zip(out, cpu))
+                pairs = [(out, cpu)] if kind != "track_batch" else list(zip(out, cpu))
                 equal_cpu = all(same(a[1], c[1], sub) and np.array_equal(a[0], c[0])
                                 for a, c in pairs)
             if path in roi_paths:
-                # ROI: one snap, then one bounded launch per dispatched chunk
-                # (probe and replays included); the same call on stream="full"
+                # ROI: the snap (two where a lane of the batch autodetects), then
+                # one bounded launch per dispatched chunk (probe and replays
+                # included); the same call on stream="full"
                 st = roi_stats[path, name]
-                want_n = 1 + st.get("dispatches", -1)
-                full = results[roi_paths[path], name][0]
-                equal_full = same(out[1], full[1], sub) and np.array_equal(out[0], full[0])
+                want_n = (2 if "autodetect" in name and kind == "track_batch" else 1) \
+                    + st.get("dispatches", -1)
+                full = results[kind, name][0]
+                pairs = [(out, full)] if kind != "track_batch" else list(zip(out, full))
+                equal_full = all(same(a[1], f[1], sub) and np.array_equal(a[0], f[0])
+                                 for a, f in pairs)
                 roi_ok = (st.get("stream") == "roi" and equal_full
                           and st["bounded_launches"] == st.get("dispatches"))
                 roi_note = (f", stream={st.get('stream')} crop={st.get('crop')} K={st.get('K')}"
@@ -719,9 +797,13 @@ def main() -> int:
                 want_n = want_launches[path][name]
             ok = (n_launch == want_n and n_plain == 0 and max(errs) < 1.0 and equal_single
                   and equal_cpu is not False and roi_ok)
-            if path in ("track", "track large target", *roi_paths):
+            if kind in ("track", "track large target"):
                 ok = ok and len(out[1]) == N_FRAMES
-            if path in ("track large target", "track large target ROI"):
+            elif kind == "track_batch":
+                ok = ok and [len(o[1]) for o in out] == list(BATCH_LENS)
+            else:
+                ok = ok and out[1].shape[:2] == (MULTI_FRAMES, B)
+            if kind == "track large target":
                 ok = ok and n_tiled == n_launch  # every launch is the tiled kernel
             phase2[f"{path} {name}"] = {"launches": n_launch, "want_launches": want_n,
                                         "tiled_launches": n_tiled,
@@ -806,6 +888,7 @@ def main() -> int:
         c = cost(k["radii"], case_L, steps, sub, bool(b), lanes=n_lanes)
         timing[name] = {"kernel": kernel_of(case), "config": tk._config_name(bool(b), sub, batched),
                         "T": steps, "lanes": n_lanes, "L": case_L, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": None,
                         **c, "us_per_step": 1e3 * ms / steps, "sm_bound_share": c["sm_bound_ms"] / ms,
                         "card_bound_share": c["bound_ms"] / ms}
         where = ""
@@ -833,28 +916,46 @@ def main() -> int:
                  "batched unbounded B=4 T=1", *large_cases):
         del cases[name]
     del tframes, box
-    # the library yardstick of the snap's response: one cuDNN conv2d of the
-    # quarter-frame patch with the 2-D DoG kernel (TF32 off), then argmax. Two
-    # calls, and not bit-equal to the kernel (cuDNN sums in its own order)
-    k2d, kl = dog_kernel_2d(aspec.sigma, True)
-    pi_, pj_ = aspec.radii[0] + kl // 2, aspec.radii[1] + kl // 2
+    # the library yardstick of a snap's response: one cuDNN conv2d of the
+    # window's patch (one per lane) with the 2-D DoG kernel (TF32 off), then
+    # argmax. Two calls, and not bit-equal to the kernel (cuDNN sums in its
+    # own order)
+    def library_snap(sp, frames, centres):
+        k2d, kl = dog_kernel_2d(sp.sigma, True)
+        pi_, pj_ = sp.radii[0] + kl // 2, sp.radii[1] + kl // 2
+        patches = torch.stack([f[i - pi_:i + pi_ + 1, j - pj_:j + pj_ + 1]
+                               for f, (i, j) in zip(frames, centres)]).float()[:, None]
+        weight = torch.from_numpy(k2d).to(dev)[None, None]
+
+        def run():
+            return torch.nn.functional.conv2d(patches, weight).flatten(1).argmax(1)
+
+        ms = cuda_time_ms(run, reps=20)
+        k, (i, j) = int(run()[0]), centres[0]
+        ww = 2 * sp.radii[1] + 1
+        return ms, [i - sp.radii[0] + k // ww, j - sp.radii[1] + k % ww]
+
     ci, cj = int(centre[0]), int(centre[1])
-    snap_patch = frame0[0, ci - pi_:ci + pi_ + 1, cj - pj_:cj + pj_ + 1].float()[None, None]
-    weight = torch.from_numpy(k2d).to(dev)[None, None]
-
-    def library_snap():
-        return torch.nn.functional.conv2d(snap_patch, weight).flatten().argmax()
-
-    library_ms = cuda_time_ms(library_snap, reps=20)
-    lib_k = int(library_snap())
+    library_ms, lib_ij = library_snap(aspec, frame0, [(ci, cj)])
     kernel_ij = tk.dog_scan_cuda(frame0, centre, fill, **kwa)[0].cpu().numpy()
-    lib_ij = [ci - aspec.radii[0] + lib_k // (2 * aspec.radii[1] + 1),
-              cj - aspec.radii[1] + lib_k % (2 * aspec.radii[1] + 1)]
     record["snap_library"] = {"ms": library_ms, "call": "torch.nn.functional.conv2d + argmax",
                               "argmax_ij": lib_ij, "kernel_ij": kernel_ij.tolist()}
     log(f"phase 3 snap library yardstick (cuDNN conv2d with the 2-D DoG kernel, TF32 off, +"
         f" argmax; two calls, not bit-equal): {library_ms:.4f} ms, its maximum at {lib_ij}"
         f" (the kernel's: {kernel_ij.tolist()})")
+    lane_centres = [tuple(int(v) for v in p) for p in lane_pos0.cpu().numpy()]
+    yardsticks = {
+        "snap quarter-frame": library_ms,
+        "batched snap quarter-frame B=4": library_snap(aspec, lanes0[:, 0], [(ci, cj)] * B)[0],
+        "unbounded T=1": library_snap(spec, chunk[:1], [tuple(int(v) for v in truth[0])])[0],
+        "batched unbounded B=4 T=1": library_snap(spec, lanes[:, 0], lane_centres)[0],
+    }
+    yardsticks["bounded+subpixel T=1"] = yardsticks["unbounded T=1"]
+    for name, ms in yardsticks.items():
+        timing[name]["library_ms"] = ms
+        log(f"phase 3 library yardstick of {name} (conv2d + argmax, one call for"
+            f" {timing[name]['lanes']} lane(s)): {ms:.4f} ms against the kernel's"
+            f" {timing[name]['ms']:.4f} ms")
     record["timing"] = timing
 
     e2e = {}
@@ -864,7 +965,9 @@ def main() -> int:
             ("track_multi", MULTI_FRAMES, paths["track_multi"]["start_locations"]),
             ("track large target", N_FRAMES, paths["track large target"]["start_location"]),
             ("track ROI", N_FRAMES, paths["track ROI"]["start_location"]),
-            ("track large target ROI", N_FRAMES, paths["track ROI"]["start_location"])):
+            ("track large target ROI", N_FRAMES, paths["track ROI"]["start_location"]),
+            ("track_batch ROI", sum(BATCH_LENS), paths["track_batch"]["start_location"]),
+            ("track_multi ROI", MULTI_FRAMES, paths["track_multi"]["start_locations"])):
         walls, runs_stats = [], []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -876,11 +979,11 @@ def main() -> int:
         e2e[path] = {"frames_per_s": frames_per_call / statistics.median(walls),
                      "runs_s": walls, "frames": frames_per_call}
         note = ""
-        if path in ("track", "track large target", *roi_paths):
+        med = sorted(range(3), key=walls.__getitem__)[1]
+        st = runs_stats[med]
+        if st is not None:
             # the call's own accounting of its median run: the timer sections
             # and the wall outside them
-            med = sorted(range(3), key=walls.__getitem__)[1]
-            st = runs_stats[med]
             sec = dict(st["sections"])
             sec["outside the sections"] = walls[med] - sum(sec.values())
             e2e[path]["stats"] = st
@@ -889,15 +992,17 @@ def main() -> int:
                                                            for k, v in sec.items())
             if path in roi_paths:
                 n_disp = st["dispatches"]
-                per = {k: 1e6 * v / n_disp for k, v in sec.items() if k not in ("setup", "snap")}
+                per = {k: 1e6 * v / n_disp for k, v in sec.items()
+                       if k not in ("setup", "snap", "buffers")}  # once a call
                 e2e[path]["host_us_per_dispatch"] = per
                 note += (f"; {n_disp} dispatches, {st['replays']} replays, depth {st['depth']}"
                          f" at the end, crop {st['crop']}, K={st['K']}; us a dispatch: "
                          + ", ".join(f"{k} {v:.1f}" for k, v in per.items()))
+        kind = roi_paths.get(path, path)
         log(f"phase 3 e2e {path}: {e2e[path]['frames_per_s']:.1f} frames/s (median of"
             f" {len(walls)}, {frames_per_call} frames of {W}x{H}"
-            + (", summed over 4 videos)" if path == "track_batch" else
-               ", clip frames with 4 targets)" if path == "track_multi" else ")") + note)
+            + (", summed over 4 videos)" if kind == "track_batch" else
+               ", clip frames with 4 targets)" if kind == "track_multi" else ")") + note)
     record["e2e_fps"] = e2e
     # where one chunk's time goes: the host copy into a pinned staging buffer,
     # the host-to-device copy, the kernel (above)
@@ -914,9 +1019,12 @@ def main() -> int:
     record["profile"] = {}
     for path, extra in (("track", paths["track"]["start_location"]),
                         ("track_batch", paths["track_batch"]["start_location"]),
+                        ("track_multi", paths["track_multi"]["start_locations"]),
                         ("track large target", paths["track large target"]["start_location"]),
                         ("track ROI", paths["track ROI"]["start_location"]),
-                        ("track large target ROI", paths["track ROI"]["start_location"])):
+                        ("track large target ROI", paths["track ROI"]["start_location"]),
+                        ("track_batch ROI", paths["track_batch"]["start_location"]),
+                        ("track_multi ROI", paths["track_multi"]["start_locations"])):
         record["profile"][path] = profile_busy(lambda: entry[path](**extra))
         log_profile(f"{path}()", record["profile"][path])
 
@@ -956,7 +1064,6 @@ def main() -> int:
             # the kernel's timed cases, each with its configuration's launches
             # on the main paths
             "configs": [{"case": n, "launches": by_config.get(f"{kname}: {t['config']}", 0),
-                         "library_ms": library_ms if n.startswith("snap quarter") else None,
                          **{k: v for k, v in t.items() if k not in ("flops", "bytes", "kernel")}}
                         for n, t in timing.items() if t["kernel"] == kname],
         })

@@ -80,17 +80,12 @@ def _check_choice(name: str, value, allowed: tuple) -> None:
         raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
 
 
-def _check_stream(stream: str, roi_frames, entry: str = "track") -> None:
-    """The streaming choices: ``"auto"`` (ROI when the crop is under half the
-    frame), ``"roi"`` and ``"full"``. ``track_batch`` and ``track_multi``
-    stream full frames: ``"roi"`` raises ``NotImplementedError`` there until
-    their ROI engines are ported (``ROADMAP.md``, queue 1 #2)."""
+def _check_stream(stream: str, roi_frames) -> None:
+    """The streaming choices of ``track``, ``track_batch`` and ``track_multi``:
+    ``"auto"`` (ROI when the crops are under half the frame, the same rule as
+    the JAX package's), ``"roi"`` and ``"full"``; and a positive
+    ``roi_frames`` or ``None``."""
     _check_choice("stream", stream, ("auto", "roi", "full"))
-    if stream == "roi" and entry != "track":
-        raise NotImplementedError(
-            f"stream='roi' is not ported yet for {entry} (its ROI engine is ROADMAP.md "
-            "queue 1 #2); stream='auto' and 'full' stream full frames, with the same "
-            "positions")
     if roi_frames is not None and int(roi_frames) < 1:
         raise ValueError(f"roi_frames must be None or a positive frame count, got {roi_frames!r}")
 
@@ -148,18 +143,25 @@ def _views_available() -> bool:
         return False
 
 
-def _auto_ring_gate(file, roi_frames: int, depth_gate: int, zero_copy: bool = False) -> int:
+def _auto_ring_gate(file, roi_frames: int, depth_gate: int, lanes: int = 1, info=None,
+                    zero_copy: bool = False) -> int:
     """Memory-aware depth gate for ``pipeline_depth="auto"`` ring sizing: when
-    the frame size is known before the open (array input, or a native header
-    probe), clamp the gate so that the retained decode ring ((gate+2)*K
-    frames) keeps to ``PAWS_RING_BUDGET_MB``, the bound
-    :func:`.pipeline.auto_depth_cap` puts on the depth at run time. An input
-    that cannot be probed keeps the gate. ``zero_copy``: the input is an
-    array whose chunks are served as views (no ring), so nothing is bounded."""
+    the frame size is known before the open (array input, the caller's probe
+    ``info``, or a native header probe), clamp the gate so that the retained
+    decode rings ((gate+2)*K frames each, one per lane of ``lanes`` videos)
+    keep to ``PAWS_RING_BUDGET_MB``, the bound :func:`.pipeline.auto_depth_cap`
+    puts on the depth at run time. An input that cannot be probed keeps the
+    gate. ``info``: a :class:`~.io.decode.VideoInfo` the caller has already
+    probed (``track_batch`` probes each input once), so the file is not read
+    again. ``zero_copy``: the input is an array whose chunks are served as
+    views (no ring), so nothing is bounded."""
     if zero_copy:
         return depth_gate
     shape = None
-    if hasattr(file, "shape") and getattr(file, "ndim", 0) >= 3:
+    if info is not None:
+        if info.height > 0 and info.width > 0:
+            shape = (int(info.height), int(info.width))
+    elif hasattr(file, "shape") and getattr(file, "ndim", 0) >= 3:
         shape = (int(file.shape[1]), int(file.shape[2]))
     else:
         from .io.native_io import native_probe
@@ -172,7 +174,7 @@ def _auto_ring_gate(file, roi_frames: int, depth_gate: int, zero_copy: bool = Fa
             shape = None
     if shape is None:
         return depth_gate
-    return min(depth_gate, auto_depth_cap(shape, roi_frames))
+    return min(depth_gate, auto_depth_cap(shape, roi_frames, lanes=lanes))
 
 
 def _resolve_roi_frames(roi_frames, pipeline_depth: int, speculate: str = "predict") -> int:

@@ -4,15 +4,19 @@
 JAX package's ``track_batch`` (``pawsometracker_tpu/batch.py``), plus a
 keyword-only ``device``. Every file is an independent video. The per-video
 scan is sequential but independent across videos, so B videos run in one
-launch of the CUDA kernel per chunk, one CTA (one SM) per video. The host
-decodes each video on its own prefetch thread and stages the chunks into the
-rows of one pinned ``[B, T, H, W]`` slot (:func:`..pipeline.run_batch_pipeline`).
+launch of the CUDA kernel per chunk, one CTA (one SM, or one cluster for a
+large window) per video.
 
-Full frames are streamed on every input: ``stream="roi"`` raises until the
-batch and multi ROI engines are ported, and ``stream="auto"`` gives the same
-positions as the JAX package's ROI streaming (``docs/architecture.md``).
-``mesh=None`` and ``mesh="auto"`` run on the one card given by ``device``;
-any other ``mesh`` raises until multi-GPU is ported.
+Streaming is the JAX package's: ``stream="auto"`` sends only drift-bounded
+crops of each video to the card when a crop is under half the frame (1080p,
+but not small test clips), through the speculative ROI pipeline with one
+lane per video (:class:`..pipeline.PerVideoSource`,
+:class:`..pipeline._BatchedEngine`); ``"roi"`` forces it and ``"full"``
+streams whole frames, decoded on one prefetch thread per video and staged
+into the rows of one pinned ``[B, T, H, W]`` slot
+(:func:`..pipeline.run_batch_pipeline`). The positions are the same either
+way. ``mesh=None`` and ``mesh="auto"`` run on the one card given by
+``device``; any other ``mesh`` raises until multi-GPU is ported.
 """
 
 from __future__ import annotations
@@ -26,9 +30,12 @@ from .api import (
     DEFAULT_CHUNK_SIZE,
     DEFAULT_MAX_DURATION_SECONDS,
     IJ,
+    _auto_ring_gate,
     _check_choice,
     _check_stream,
     _resolve_guess,
+    _resolve_roi_frames,
+    _views_available,
 )
 from .diagnose import Diagnose, Dont
 from .io.decode import ChunkPrefetcher, open_source
@@ -36,7 +43,15 @@ from .models.dog_tracker import full_frame_sub_scan, make_spec, resolve_device
 from .ops.dog_kernel import fix_window_size, guess_window_size
 from .ops.filters import mode_u8_host
 from .parallel.mesh import MULTI_GPU, ShardedBatchTracker
-from .pipeline import auto_depth_cap, run_batch_pipeline
+from .pipeline import (
+    AUTO_DEPTH_MAX,
+    PerVideoSource,
+    SpeculativePipeline,
+    _BatchedEngine,
+    auto_depth_cap,
+    roi_geometry,
+    run_batch_pipeline,
+)
 from .utils.profiling import Timer
 
 __all__ = ["track_batch"]
@@ -131,7 +146,7 @@ def track_batch(
     """
     _check_choice("backend", backend, ("auto", "native", "opencv"))
     _check_choice("engine", engine, ("auto", "pallas", "xla"))
-    _check_stream(stream, roi_frames, "track_batch")
+    _check_stream(stream, roi_frames)
     _check_mesh(mesh)
     dev = resolve_device(device)
     files = list(files)
@@ -185,6 +200,7 @@ def track_batch(
     for k, idxs in buckets.items():
         sub = _track_batch_uniform(
             [files[i] for i in idxs],
+            infos=[infos[i] for i in idxs],
             start=[starts_in[i] for i in idxs],
             stop=[stops_in[i] for i in idxs],
             target_width=tws[idxs[0]],
@@ -195,6 +211,8 @@ def track_batch(
             sar=sar,
             backend=backend,
             chunk_size=chunk_size,
+            stream=stream,
+            roi_frames=roi_frames,
             pipeline_depth=pipeline_depth,
             diagnostic_files=[dias_in[i] for i in idxs],
             engine=engine,
@@ -215,6 +233,7 @@ def track_batch(
 def _track_batch_uniform(
     files,
     *,
+    infos,
     start,
     stop,
     target_width: float,
@@ -225,6 +244,8 @@ def _track_batch_uniform(
     sar: float | None,
     backend: str,
     chunk_size: int,
+    stream: str,
+    roi_frames: int | None,
     pipeline_depth: int | str,
     diagnostic_files,
     engine: str,
@@ -236,8 +257,9 @@ def _track_batch_uniform(
     device: torch.device,
 ):
     """One-bucket core of :func:`track_batch`: all videos share a resolution
-    and tracker configuration (``start``, ``stop``, ``start_location`` and
-    ``diagnostic_files`` are per-video lists)."""
+    and tracker configuration (``infos`` are the videos' probes, and
+    ``start``, ``stop``, ``start_location`` and ``diagnostic_files`` are
+    per-video lists)."""
     B = len(files)
     starts = [0.0 if s is None else float(s) for s in start]
     stops = [DEFAULT_MAX_DURATION_SECONDS if s is None else float(s) for s in stop]
@@ -245,89 +267,172 @@ def _track_batch_uniform(
         window_size = guess_window_size(target_width)
     window_size = fix_window_size(window_size)
 
+    auto_depth = pipeline_depth == "auto"
+    depth_gate = AUTO_DEPTH_MAX if auto_depth else max(0, int(pipeline_depth))
+    mode = "predict" if depth_gate > 0 else "contain"
+    roi_frames = _resolve_roi_frames(roi_frames, depth_gate, "predict")
+    # the retained native path is gated once: the ring is sized here, and
+    # each source's capability is checked once it is open. Overlays ride the
+    # ring too (views of retained frames), where the native layer serves them
+    retention_possible = (
+        stream != "full" and mode == "predict"
+        and (all(p is None for p in diagnostic_files) or _views_available()))
+    if auto_depth:
+        # each video opens its own ring, so the budget is shared by the B
+        # lanes; the shapes come from the caller's probes (no second read)
+        depth_gate = min(
+            (_auto_ring_gate(f, roi_frames, depth_gate, lanes=B, info=i,
+                             zero_copy=(isinstance(f, np.ndarray) and f.ndim == 3
+                                        and input_fps is None and t0 == 0.0))
+             for f, i, t0 in zip(files, infos, starts)),
+            default=depth_gate)
+    ring = (depth_gate + 2) * roi_frames + 8 if retention_possible else None
+
     sources, prefetchers, dias = [], [], []
+    timer = Timer()
     try:
-        for f, t0, t1 in zip(files, starts, stops):
-            sources.append(
-                open_source(f, start=t0, stop=t1, fps=fps, backend=backend, prefetch=None,
-                            workers=decode_workers, input_fps=input_fps,
-                            fast_decode=fast_decode)
+        with timer.section("setup"):
+            for f, t0, t1 in zip(files, starts, stops):
+                sources.append(
+                    open_source(f, start=t0, stop=t1, fps=fps, backend=backend, prefetch=ring,
+                                workers=decode_workers, input_fps=input_fps,
+                                fast_decode=fast_decode)
+                )
+
+            shapes = {s.info.frame_shape for s in sources}
+            if len(shapes) != 1:
+                raise ValueError(f"all videos in a batch must share one resolution, got {shapes}")
+            frame_shape = shapes.pop()
+
+            ns = [int(np.round(fps * (t1 - t0))) for t0, t1 in zip(starts, stops)]
+            frames0 = []
+            for f, s in zip(files, sources):
+                fr = s.read()
+                if fr is None:
+                    raise EOFError(f"no frames decoded from {f}")
+                frames0.append(fr)
+            frames0 = np.stack(frames0)
+            fills = np.array([mode_u8_host(f) for f in frames0], np.uint8)
+
+            spec = make_spec(frame_shape, window_size, target_width, darker_target)
+            tracker = ShardedBatchTracker(spec, None, engine, device=device)
+
+            guesses = np.array(
+                [
+                    _resolve_guess(loc, sar if sar is not None else s.info.sar, frame_shape)
+                    for loc, s in zip(start_location, sources)
+                ],
+                np.int32,
             )
+            auto = np.array([loc is None for loc in start_location])
 
-        shapes = {s.info.frame_shape for s in sources}
-        if len(shapes) != 1:
-            raise ValueError(f"all videos in a batch must share one resolution, got {shapes}")
-        frame_shape = shapes.pop()
+        with timer.section("snap"):
+            f0 = tracker.shard_chunk(frames0)
+            fills_dev = tracker.shard_chunk(fills)
+            g_dev = tracker.shard_chunk(guesses)
+            # where any lane auto-detects, every lane snaps both ways and each
+            # takes its own (the JAX package's rule)
+            auto_col = tracker.shard_chunk(auto)[:, None]
+            if subpixel:
+                pos, off = tracker.snap_sub(f0, g_dev, fills_dev)
+                if auto.any():
+                    pos_det, off_det = tracker.snap_detect_sub(f0, g_dev, fills_dev)
+                    pos = torch.where(auto_col, pos_det, pos)
+                    off = torch.where(auto_col, off_det, off)
+                off0 = off.cpu().numpy()
+            else:
+                pos = tracker.snap(f0, g_dev, fills_dev)
+                if auto.any():
+                    pos = torch.where(auto_col, tracker.snap_detect(f0, g_dev, fills_dev), pos)
+                off0 = np.zeros((B, 2), np.float32)
+            pos_host = pos.cpu().numpy()
 
-        ns = [int(np.round(fps * (t1 - t0))) for t0, t1 in zip(starts, stops)]
-        frames0 = []
-        for f, s in zip(files, sources):
-            fr = s.read()
-            if fr is None:
-                raise EOFError(f"no frames decoded from {f}")
-            frames0.append(fr)
-        frames0 = np.stack(frames0)
-        fills = np.array([mode_u8_host(f) for f in frames0], np.uint8)
+        with timer.section("setup"):
+            for p, fr0 in zip(diagnostic_files, frames0):
+                d = Dont() if p is None else Diagnose(p, darker_target, fps)
+                d.update_ratio(fr0.shape)
+                dias.append(d)
 
-        spec = make_spec(frame_shape, window_size, target_width, darker_target)
-        tracker = ShardedBatchTracker(spec, None, engine, device=device)
+        # ROI streaming, as the JAX package decides it: only drift-bounded
+        # crops of each video go to the card, B lanes of one launch a chunk,
+        # through the speculative pipeline (see .pipeline)
+        ch, cw, margin = roi_geometry(spec, roi_frames, depth_gate, mode)
+        use_roi = stream == "roi" or (
+            stream == "auto" and ch * cw * 2 < frame_shape[0] * frame_shape[1])
+        # on the native retained ring every source crops (and replays) in C++,
+        # so full frames never enter Python for the whole batch
+        nat_retained = use_roi and retention_possible and all(
+            hasattr(s, "read_roi_chunk_retained")
+            and getattr(s, "ring_frames", 0) >= (depth_gate + 2) * roi_frames
+            and (p is None or getattr(s, "can_view_retained", False))
+            for s, p in zip(sources, diagnostic_files))
+        if use_roi:
+            chunk_size = roi_frames
+        if not nat_retained:
+            prefetchers = [ChunkPrefetcher(s, chunk_size, max_frames=n - 1)
+                           for s, n in zip(sources, ns)]
+        stats = {"stream": "roi" if use_roi else "full"}
+        if use_roi:
+            counts = np.zeros(B, np.int64)
+            pos_blocks = [[] for _ in range(B)]
+            off_blocks = [[] for _ in range(B)]
 
-        guesses = np.array(
-            [
-                _resolve_guess(loc, sar if sar is not None else s.info.sar, frame_shape)
-                for loc, s in zip(start_location, sources)
-            ],
-            np.int32,
-        )
-        auto = np.array([loc is None for loc in start_location])
+            def sink(abs_pos, valid, off_np):
+                for b in range(B):
+                    k = int(valid[b])
+                    if k > 0:
+                        pos_blocks[b].append(abs_pos[b, :k])
+                        if off_np is not None:
+                            off_blocks[b].append(off_np[b, :k])
+                        counts[b] += k
+                if progress is not None:
+                    progress(int(counts.sum()))
 
-        f0 = tracker.shard_chunk(frames0)
-        fills_dev = tracker.shard_chunk(fills)
-        g_dev = tracker.shard_chunk(guesses)
-        # where any lane auto-detects, every lane snaps both ways and each
-        # takes its own (the JAX package's rule)
-        auto_col = tracker.shard_chunk(auto)[:, None]
-        if subpixel:
-            pos, off = tracker.snap_sub(f0, g_dev, fills_dev)
-            if auto.any():
-                pos_det, off_det = tracker.snap_detect_sub(f0, g_dev, fills_dev)
-                pos = torch.where(auto_col, pos_det, pos)
-                off = torch.where(auto_col, off_det, off)
-            off0 = off.cpu().numpy()
+            roi_engine = ShardedBatchTracker(
+                make_spec((ch, cw), window_size, target_width, darker_target), None, engine,
+                device=device)
+            auto_cap = None
+            if auto_depth:
+                # the ring gate, bounded again by the decoded size (an input
+                # that could not be probed kept the gate); view-serving arrays
+                # retain no copies, so there is nothing to bound
+                auto_cap = depth_gate
+                if not all(getattr(s, "serves_views", False) for s in sources):
+                    auto_cap = min(depth_gate, auto_depth_cap(frame_shape, roi_frames, lanes=B))
+            scan = roi_engine.scan_sub if subpixel else roi_engine.scan_bounded
+            with timer.section("buffers"):  # the controller, its pinned crop buffers
+                pipe = SpeculativePipeline(
+                    L=B, K=roi_frames, crop_shape=(ch, cw), margin=margin, spec=spec, mode=mode,
+                    depth="auto" if auto_depth else depth_gate, auto_cap=auto_cap,
+                    engine=_BatchedEngine(scan, (ch, cw), frame_shape, fills, subpixel, timer,
+                                          device),
+                    source=PerVideoSource(sources, K=roi_frames, ch=ch, cw=cw, fills=fills,
+                                          dias=dias, ns=ns, nat_retained=nat_retained,
+                                          prefetcher_objs=prefetchers),
+                    sink=sink,
+                    timer=timer,
+                )
+            pipe.run(pos_host.astype(np.int64), max(ns) - 1)
+            pipe.report(stats)
+            counts = counts.tolist()
         else:
-            pos = tracker.snap(f0, g_dev, fills_dev)
-            if auto.any():
-                pos = torch.where(auto_col, tracker.snap_detect(f0, g_dev, fills_dev), pos)
-            off0 = np.zeros((B, 2), np.float32)
-        pos_host = pos.cpu().numpy()
-
-        for p, fr0 in zip(diagnostic_files, frames0):
-            d = Dont() if p is None else Diagnose(p, darker_target, fps)
-            d.update_ratio(fr0.shape)
-            dias.append(d)
-
-        prefetchers = [ChunkPrefetcher(s, chunk_size, max_frames=n - 1)
-                       for s, n in zip(sources, ns)]
-        if pipeline_depth == "auto":
-            # full-frame chunks are memory-heavy: at most 3 deep, bounded by
-            # the ring budget shared by the B lanes
-            depth = min(3, auto_depth_cap(frame_shape, chunk_size, lanes=B))
-        else:
-            depth = max(0, int(pipeline_depth))
-        timer = Timer()
-        scan = (full_frame_sub_scan(tracker.scan_sub, frame_shape, tracker.device)
-                if subpixel else tracker.scan)
-        pos_blocks, off_blocks, counts = run_batch_pipeline(
-            prefetchers, pos, fills_dev, chunk_size=chunk_size, depth=depth, scan=scan,
-            subpixel=subpixel, dias=dias, timer=timer, device=tracker.device,
-            progress=progress,
-        )
-        if timer.totals:
-            logger.debug(
-                "track_batch B=%d: %d frames on %s, stream=full, sections=%s",
-                B, sum(counts) + B, tracker.device,
-                {k: round(v, 3) for k, v in timer.totals.items()},
+            if pipeline_depth == "auto":
+                # full-frame chunks are memory-heavy: at most 3 deep, bounded
+                # by the ring budget shared by the B lanes
+                depth = min(3, auto_depth_cap(frame_shape, chunk_size, lanes=B))
+            else:
+                depth = max(0, int(pipeline_depth))
+            scan = (full_frame_sub_scan(tracker.scan_sub, frame_shape, tracker.device)
+                    if subpixel else tracker.scan)
+            pos_blocks, off_blocks, counts = run_batch_pipeline(
+                prefetchers, pos, fills_dev, chunk_size=chunk_size, depth=depth, scan=scan,
+                subpixel=subpixel, dias=dias, timer=timer, device=tracker.device,
+                progress=progress,
             )
+        stats["sections"] = dict(timer.totals)
+        # the record carries the numbers as ``paws_stats`` for a handler
+        logger.debug("track_batch B=%d: %d frames on %s, %s", B, sum(counts) + B,
+                     tracker.device, stats, extra={"paws_stats": stats})
     finally:
         for p in prefetchers:
             p.close()  # join decode threads BEFORE destroying the sources

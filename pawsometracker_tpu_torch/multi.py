@@ -2,19 +2,23 @@
 
 ``track_multi(file, ...)`` has the signature, defaults and outputs of the JAX
 package's ``track_multi`` (``pawsometracker_tpu/multi.py``), plus a
-keyword-only ``device``. The frame is decoded and staged once per step and
-each chunk runs as one launch of the CUDA kernel with one lane per target,
-all lanes reading the same frames; so tracking N targets costs one decode
-plus N window correlations on N SMs. Targets share the tracker
-configuration (target_width, window_size, polarity).
+keyword-only ``device``. The frame is decoded once per step and each chunk
+runs as one launch of the CUDA kernel with one lane per target (on full
+frames all lanes read the same frames, on ROI each its own crops); so
+tracking N targets costs one decode plus N window correlations on N SMs.
+Targets share the tracker configuration (target_width, window_size,
+polarity).
 
 Limitation (inherent to the matched-filter design): the trackers carry no
 identity model: if two targets' search windows overlap on the same blob,
 both will lock onto it.
 
-Full frames are streamed on every input: ``stream="roi"`` raises until the
-batch and multi ROI engines are ported, and ``stream="auto"`` gives the same
-positions as the JAX package's ROI streaming.
+Streaming is the JAX package's: ``stream="auto"`` sends N drift-bounded
+crops a frame (one per target) to the card when together they are under half
+the frame, through the speculative ROI pipeline with one lane per target
+(:func:`..pipeline.run_multi_roi_pipeline`, one batched bounded launch a
+chunk); ``"roi"`` forces it and ``"full"`` streams whole frames. The
+positions are the same either way.
 """
 
 from __future__ import annotations
@@ -24,14 +28,28 @@ import logging
 import numpy as np
 import torch
 
-from .api import DEFAULT_MAX_DURATION_SECONDS, _check_choice, _check_stream, _resolve_guess
+from .api import (
+    DEFAULT_MAX_DURATION_SECONDS,
+    _auto_ring_gate,
+    _check_choice,
+    _check_stream,
+    _resolve_guess,
+    _resolve_roi_frames,
+    _views_available,
+)
 from .diagnose import Diagnose, Dont
 from .io.decode import open_source
 from .models.dog_tracker import make_spec, resolve_device, tracker_fns
 from .ops.dog_kernel import fix_window_size, guess_window_size
 from .ops.filters import mode_u8_host
 from .parallel.mesh import global_detect_peaks
-from .pipeline import auto_depth_cap, run_full_pipeline
+from .pipeline import (
+    AUTO_DEPTH_MAX,
+    auto_depth_cap,
+    roi_geometry,
+    run_full_pipeline,
+    run_multi_roi_pipeline,
+)
 from .utils.profiling import Timer
 
 __all__ = ["track_multi"]
@@ -115,7 +133,7 @@ def track_multi(
     stop = DEFAULT_MAX_DURATION_SECONDS if stop is None else float(stop)
     _check_choice("backend", backend, ("auto", "native", "opencv"))
     _check_choice("engine", engine, ("auto", "pallas", "xla"))
-    _check_stream(stream, roi_frames, "track_multi")
+    _check_stream(stream, roi_frames)
     dev = resolve_device(device)
     if window_size is None:
         window_size = guess_window_size(target_width)
@@ -127,21 +145,38 @@ def track_multi(
         raise ValueError(f"no frames to track in [{start}, {stop}] at fps={fps}")
     ts = np.linspace(start, stop, n)
 
+    if pipeline_depth == "auto":
+        depth_gate = AUTO_DEPTH_MAX
+    else:
+        pipeline_depth = depth_gate = max(0, int(pipeline_depth))
+    roi_frames = _resolve_roi_frames(roi_frames, depth_gate, "predict")
+    if pipeline_depth == "auto":
+        depth_gate = _auto_ring_gate(file, roi_frames, depth_gate)
+    # the fan-out crops each target from the native ring at every depth
+    # (contain mode included), so the ring is sized wherever ROI streaming is
+    # possible; with a diagnostic file only if the native layer serves views
+    # of retained frames (else the source takes the prefetcher, and a large
+    # ring would be dead memory)
+    ring_ok = stream != "full" and (diagnostic_file is None or _views_available())
+    ring = (depth_gate + 2) * roi_frames + 8 if ring_ok else None
     src = open_source(
-        file, start=start, stop=stop, fps=fps, backend=backend, prefetch=None,
+        file, start=start, stop=stop, fps=fps, backend=backend, prefetch=ring,
         workers=decode_workers, input_fps=input_fps, fast_decode=fast_decode,
     )
     prefetchers: list = []  # joined in finally BEFORE src.close()
     dia = None  # made INSIDE the try, so a failed open leaves no encoder behind; closed last
+    timer = Timer()
     try:
-        # one shared overlay video, N markers/trails per frame
-        dia = Dont() if diagnostic_file is None else Diagnose(diagnostic_file, darker_target, fps)
-        sar_val = float(sar) if sar is not None else src.info.sar
-        frame0 = src.read()
-        if frame0 is None:
-            raise EOFError(f"no frames decoded from {file}")
-        frame_shape = frame0.shape
-        dia.update_ratio(frame_shape)  # frame 1 sets the scale only
+        with timer.section("setup"):
+            # one shared overlay video, N markers/trails per frame
+            dia = (Dont() if diagnostic_file is None
+                   else Diagnose(diagnostic_file, darker_target, fps))
+            sar_val = float(sar) if sar is not None else src.info.sar
+            frame0 = src.read()
+            if frame0 is None:
+                raise EOFError(f"no frames decoded from {file}")
+            frame_shape = frame0.shape
+            dia.update_ratio(frame_shape)  # frame 1 sets the scale only
         if progress is not None:
             est = n - 1
             fc = getattr(src.info, "frame_count", 0) or 0
@@ -153,39 +188,70 @@ def track_multi(
             def progress(done, _t, _cb=user_cb, _est=est_total):
                 _cb(done, _est)
 
-        fill = mode_u8_host(frame0)
-        spec = make_spec(frame_shape, window_size, target_width, darker_target)
-        fns = tracker_fns(spec, dev, engine)
-        frame0_dev = torch.from_numpy(np.ascontiguousarray(frame0)).to(dev)
+        with timer.section("setup"):
+            fill = mode_u8_host(frame0)
+            spec = make_spec(frame_shape, window_size, target_width, darker_target)
+            fns = tracker_fns(spec, dev, engine)
+            frame0_dev = torch.from_numpy(np.ascontiguousarray(frame0)).to(dev)
 
-        if autodetect:
-            peaks = global_detect_peaks(spec, int(n_targets), min_distance)
-            guesses = peaks(frame0_dev, fill).cpu().numpy()
-            # exhausted suppression repeats the last peak: reject instead of
-            # seeding duplicate trackers pinned to the same blob
-            if len({tuple(g) for g in guesses}) < len(guesses):
-                raise ValueError(
-                    f"auto-detect found fewer than n_targets={n_targets} "
-                    "separable peaks (frame too small for min_distance, or "
-                    "fewer targets present): lower n_targets/min_distance "
-                    "or pass explicit start_locations"
+        with timer.section("snap"):
+            if autodetect:
+                peaks = global_detect_peaks(spec, int(n_targets), min_distance)
+                guesses = peaks(frame0_dev, fill).cpu().numpy()
+                # exhausted suppression repeats the last peak: reject instead of
+                # seeding duplicate trackers pinned to the same blob
+                if len({tuple(g) for g in guesses}) < len(guesses):
+                    raise ValueError(
+                        f"auto-detect found fewer than n_targets={n_targets} "
+                        "separable peaks (frame too small for min_distance, or "
+                        "fewer targets present): lower n_targets/min_distance "
+                        "or pass explicit start_locations"
+                    )
+            else:
+                guesses = np.array(
+                    [_resolve_guess(loc, sar_val, frame_shape) for loc in start_locations],
+                    np.int32,
                 )
-        else:
-            guesses = np.array(
-                [_resolve_guess(loc, sar_val, frame_shape) for loc in start_locations],
-                np.int32,
-            )
-        if subpixel:
-            pos, off0 = fns.snap_multi_sub(frame0_dev, guesses, fill)
-            offs = [off0.cpu().numpy()[None]]
-        else:
-            pos = fns.snap_multi(frame0_dev, guesses, fill)
-            offs = []
+            if subpixel:
+                pos, off0 = fns.snap_multi_sub(frame0_dev, guesses, fill)
+                offs = [off0.cpu().numpy()[None]]
+            else:
+                pos = fns.snap_multi(frame0_dev, guesses, fill)
+                offs = []
 
         out = [pos.cpu().numpy()[None]]
         last_frame = 1
-        if n > 1:
-            timer = Timer()
+        # ROI streaming where the JAX package takes it: N crops a frame under
+        # half the frame
+        N = guesses.shape[0]
+        mode = "predict" if depth_gate > 0 else "contain"
+        ch, cw, _ = roi_geometry(spec, roi_frames, depth_gate, mode)
+        use_roi = stream == "roi" or (
+            stream == "auto" and N * ch * cw * 2 < frame_shape[0] * frame_shape[1])
+        stats = {"stream": "roi" if use_roi else "full"}
+        if n > 1 and use_roi:
+            pos_blocks, off_blocks, tracked = run_multi_roi_pipeline(
+                src,
+                spec,
+                out[0][0],
+                fill,
+                n - 1,
+                roi_frames=roi_frames,
+                depth=pipeline_depth,
+                timer=timer,
+                prefetchers=prefetchers,
+                device=dev,
+                engine=engine,
+                subpixel=subpixel,
+                dia=dia,
+                progress=progress,
+                auto_cap=depth_gate if pipeline_depth == "auto" else None,
+                stats=stats,
+            )
+            out.extend(pos_blocks)
+            offs.extend(off_blocks)
+            last_frame += tracked
+        elif n > 1:
             pos_blocks, off_blocks, tracked = run_full_pipeline(
                 src,
                 pos,
@@ -205,12 +271,10 @@ def track_multi(
             out.extend(pos_blocks)
             offs.extend(off_blocks)
             last_frame += tracked
-            if timer.totals:
-                logger.debug(
-                    "track_multi %s: N=%d, %d frames on %s, stream=full, sections=%s",
-                    file, len(guesses), tracked, dev,
-                    {k: round(v, 3) for k, v in timer.totals.items()},
-                )
+        stats["sections"] = dict(timer.totals)
+        # the record carries the numbers as ``paws_stats`` for a handler
+        logger.debug("track_multi %s: N=%d, %d frames on %s, %s", file, N, last_frame, dev,
+                     stats, extra={"paws_stats": stats})
     finally:
         for p in prefetchers:
             p.close()

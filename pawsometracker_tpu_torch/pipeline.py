@@ -13,17 +13,25 @@ copy's event has completed and after the scan that read it. A batch of videos
 stages one chunk per video into the rows of one slot and runs them in one
 launch.
 
-ROI streaming (``run_roi_pipeline``, one video and one target): the
-counterpart of the JAX package's speculative pipeline. Each chunk of K frames
-is cut into crops around where the target is predicted to be, and only the
-crops go to the card, through the bounded scan. The controller,
-:class:`SpeculativePipeline` (generic over lanes, as the reference's),
-chains the scans on the device, drains positions behind them, checks that
-every window a scan read lay inside its crop, and replays from retained
-frames at exact origins when one did not, so the positions always equal
-full-frame streaming. :class:`SingleVideoSource` delivers the crops (the
-native decoder's retained ring, its direct ROI reads, or prefetched chunks
-cropped here) and :class:`_SingleEngine` stages them and runs the scans.
+ROI streaming: the counterpart of the JAX package's speculative pipeline.
+Each chunk of K frames is cut into crops around where each lane's target is
+predicted to be, and only the crops go to the card, through the bounded scan.
+The controller, :class:`SpeculativePipeline` (generic over L lanes, as the
+reference's), chains the scans on the device, drains positions behind them,
+checks that every window a scan read lay inside its crop, and replays from
+retained frames at exact origins when one did not, so the positions always
+equal full-frame streaming. A lane source delivers the crops (the native
+decoder's retained ring, its direct ROI reads, or prefetched chunks cropped
+here) and a lane engine stages them and runs the scans:
+
+- ``run_roi_pipeline``, one video and one target (``track``):
+  :class:`SingleVideoSource` and :class:`_SingleEngine`, the unbatched scan;
+- ``run_multi_roi_pipeline``, N targets of one video (``track_multi``):
+  :class:`FanoutSource` and :class:`_BatchedEngine`, one batched launch a
+  chunk;
+- B videos (``track_batch``, which builds the controller itself):
+  :class:`PerVideoSource` and :class:`_BatchedEngine`.
+
 The reference's group dispatch (super-programs that coalesce TPU calls) and
 its dispatch thread are not ported: a CUDA launch returns at once, and the
 copy to the card runs on a side stream.
@@ -39,17 +47,21 @@ import logging
 import os
 import time
 from collections import deque
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .io.decode import ChunkPrefetcher
 from .models.dog_tracker import make_spec, tracker_fns
+from .parallel.mesh import ShardedBatchTracker
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["auto_depth_cap", "run_full_pipeline", "run_batch_pipeline", "run_roi_pipeline",
-           "roi_geometry", "SpeculativePipeline", "SingleVideoSource", "AUTO_DEPTH_MAX"]
+           "run_multi_roi_pipeline", "roi_geometry", "chain_batch", "last_rows",
+           "SpeculativePipeline", "SingleVideoSource", "FanoutSource", "PerVideoSource",
+           "AUTO_DEPTH_MAX"]
 
 #: mispredict replays since import (observability: tests and debugging)
 replay_count = 0
@@ -442,50 +454,44 @@ class _CropBuffer(np.ndarray):
 
 
 class _RoiSlot:
-    """The card side of one crop buffer: the pinned crops ``host`` and their
-    device twin, the scan's int32 arguments ``args [4, K, 2]`` (deltas, lo,
-    hi, and in row 3 a chain start) and their twin, pinned buffers for the
-    positions (and offsets) coming back, the event that marks the copy to the
-    card done and the one that marks the scan that read the twins done."""
+    """The card side of one crop buffer ``[L, K, ch, cw]``: the pinned crops
+    ``host`` and their device twin, the scan's int32 arguments ``args`` (one
+    flat buffer, laid out by the engine) and their twin, pinned buffers for
+    the positions ``[L, K, 2]`` (and offsets) coming back, the event that
+    marks the copy to the card done and the one that marks the scan that read
+    the twins done."""
 
     __slots__ = ("host", "dev", "args", "args_dev", "pos", "off", "copied", "consumed")
 
-    def __init__(self, shape, subpixel: bool, device):
-        K = shape[1]
+    def __init__(self, shape, n_args: int, subpixel: bool, device):
+        lanes_steps = tuple(shape[:2]) + (2,)
         self.host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
         self.dev = torch.empty(shape, dtype=torch.uint8, device=device)
-        self.args = torch.empty((4, K, 2), dtype=torch.int32, pin_memory=True)
-        self.args_dev = torch.empty((4, K, 2), dtype=torch.int32, device=device)
-        self.pos = torch.empty((K, 2), dtype=torch.int32, pin_memory=True)
-        self.off = torch.empty((K, 2), dtype=torch.float32, pin_memory=True) if subpixel else None
+        self.args = torch.empty(n_args, dtype=torch.int32, pin_memory=True)
+        self.args_dev = torch.empty(n_args, dtype=torch.int32, device=device)
+        self.pos = torch.empty(lanes_steps, dtype=torch.int32, pin_memory=True)
+        self.off = (torch.empty(lanes_steps, dtype=torch.float32, pin_memory=True)
+                    if subpixel else None)
         self.copied = None
         self.consumed = None
 
 
-class _SingleEngine:
-    """Lane adapter for L = 1 over the unbatched bounded scan
-    ``scan(frames [K,ch,cw], pos0 [2], fill, deltas, lo, hi)``: the JAX
-    package's ``_SingleEngine`` without group dispatch.
-
-    It owns the chain on the device: a chunk's scan starts from a view of the
-    previous output's last real row, ``prev[prev_k - 1]``, which ``deltas[0]``
-    rebases into the new crop, so the host never waits for it; after
-    :meth:`reset` (a replay, or the start of a run) the first scan takes its
-    absolute start ``P - o[0]`` from the host.
+class _RoiEngine:
+    """What the lane engines share: the staging of a chunk's crops and
+    arguments, and the way its positions come back.
 
     On the card every crop buffer comes from :meth:`alloc`, pinned, with a
-    :class:`_RoiSlot`: the crops and the scan's arguments go to the device in
-    non-blocking copies on a side stream, the scan waits on their event, and
-    the positions come back into pinned buffers behind an event that
-    :meth:`ready` queries and :meth:`to_host` waits on. A buffer is refilled
-    only after :meth:`claim` (its last copy done), and its twins only after the
-    scan that read them. On the CPU the scan runs at dispatch."""
+    :class:`_RoiSlot`: the crops and the scan's int32 arguments go to the
+    device in one non-blocking copy each on a side stream, the scan waits on
+    their event, and the positions come back into pinned buffers behind an
+    event that :meth:`ready` queries and :meth:`to_host` waits on. A buffer is
+    refilled only after :meth:`claim` (its last copy done), and its twins only
+    after the scan that read them. On the CPU the scan runs at dispatch."""
 
-    def __init__(self, scan, crop_shape, frame_shape, fill, subpixel, timer, device):
+    def __init__(self, scan, crop_shape, frame_shape, subpixel, timer, device):
         self.scan = scan
         self.ch, self.cw = crop_shape
-        self.H, self.W = frame_shape
-        self.fill = int(fill)
+        self.frame_max = np.array([frame_shape[0] - 1, frame_shape[1] - 1])
         self.subpixel = subpixel
         self.timer = timer
         self.device = device
@@ -494,18 +500,12 @@ class _SingleEngine:
             self._copy_stream = torch.cuda.Stream(device)
         self.reset()
 
-    def reset(self):
-        """Invalidate the chain on the device (replay, run start)."""
-        self._prev = None
-        self._prev_k = None
-        self._prev_origin = None
-
     def alloc(self, shape):
-        """A new crop buffer ``shape = [1, K, ch, cw]``: a
+        """A new crop buffer ``shape = [L, K, ch, cw]``: a
         :class:`_CropBuffer` on the card, a plain array on the CPU."""
         if not self._cuda:
             return np.empty(shape, np.uint8)
-        slot = _RoiSlot(shape, self.subpixel, self.device)
+        slot = _RoiSlot(shape, self._n_args(*shape[:2]), self.subpixel, self.device)
         buf = slot.host.numpy().view(_CropBuffer)
         buf.slot = slot
         return buf
@@ -519,28 +519,17 @@ class _SingleEngine:
 
     def _bounds(self, o):
         """Per-frame clamp box: the frame's bounds in each frame's crop
-        coordinates. ``o`` is the chunk's per-frame origins ``[K, 2]``."""
+        coordinates, for per-frame origins ``o`` (``[K, 2]`` or ``[L, K, 2]``)."""
         lo = np.maximum(-o, 0)
-        hi = np.minimum([self.ch - 1, self.cw - 1], [self.H - 1, self.W - 1] - o)
+        hi = np.minimum([self.ch - 1, self.cw - 1], self.frame_max - o)
         return lo, hi
 
-    @staticmethod
-    def _deltas(o, prev_last):
-        """Per-frame rebase: ``d[0]`` maps the carried position from
-        ``prev_last`` (the previous chunk's last real frame origin, or this
-        chunk's own first origin at a chain start) into frame 0's crop;
-        ``d[i] = o[i-1] - o[i]`` thereafter."""
-        d = np.empty_like(o)
-        d[0] = prev_last - o[0]
-        d[1:] = o[:-1] - o[1:]
-        return d
-
     def _stage(self, buf, args):
-        """The chunk's crops and arguments as tensors the scan reads: on the
-        card, copied from the pinned buffers on the side stream, with the
-        scan's stream waiting for them."""
+        """The chunk's crops ``[L, K, ch, cw]`` and flat arguments as tensors
+        the scan reads: on the card, copied from the pinned buffers on the side
+        stream, with the scan's stream waiting for them."""
         if not self._cuda:
-            return torch.from_numpy(buf[0]), torch.from_numpy(args)
+            return torch.from_numpy(buf), torch.from_numpy(args)
         slot = buf.slot
         slot.args.numpy()[...] = args
         with torch.cuda.stream(self._copy_stream):
@@ -551,31 +540,13 @@ class _SingleEngine:
             slot.copied = torch.cuda.Event()
             slot.copied.record(self._copy_stream)
         torch.cuda.current_stream(self.device).wait_event(slot.copied)
-        return slot.dev[0], slot.args_dev
+        return slot.dev, slot.args_dev
 
-    def dispatch(self, buf, origins, P_abs, valid=None):
-        """Start the scan of the chunk in ``buf`` (``[1, K, ch, cw]``, cropped
-        at per-frame ``origins [1, K, 2]``; ``valid[0]`` real frames) from the
-        chain, or from ``P_abs`` after a reset; returns a handle for
-        :meth:`ready` and :meth:`to_host`."""
-        o = np.asarray(origins[0], np.int64)
-        K = buf.shape[1]
-        k = K if valid is None else int(valid[0])
-        first = self._prev is None
-        args = np.zeros((4, K, 2), np.int32)
-        args[0] = self._deltas(o, o[0] if first else self._prev_origin)
-        args[1], args[2] = self._bounds(o)
-        if first:
-            args[3, 0] = np.asarray(P_abs[0], np.int64) - o[0]
-        with self.timer.section("upload"):
-            frames, a = self._stage(buf, args)
-        pos0 = a[3, 0] if first else self._prev[self._prev_k - 1]
-        with self.timer.section("device"):
-            out = self.scan(frames, pos0, self.fill, a[0], a[1], a[2])
-        pos, off = out if self.subpixel else (out, None)
-        # the chain continues from the last REAL row: its position, its frame
-        # count and the origin that row was cropped at
-        self._prev, self._prev_k, self._prev_origin = pos, max(k, 1), o[max(k - 1, 0)]
+    def _finish(self, buf, pos, off):
+        """The handle of a dispatched chunk whose scan gave ``pos [L, K, 2]``
+        (and ``off``): on the card, marks the twins consumed once the work
+        queued so far has run, and starts the copy of the results into the
+        slot's pinned buffers behind an event."""
         if not self._cuda:
             return pos, off, None
         slot = buf.slot
@@ -596,17 +567,203 @@ class _SingleEngine:
 
     @staticmethod
     def to_host(handle):
-        """The chunk's positions ``[1, K, 2]`` (and offsets) as numpy arrays."""
+        """The chunk's positions ``[L, K, 2]`` (and offsets) as numpy arrays."""
         pos, off, done = handle
         if done is not None:
             done.synchronize()
-        return pos.numpy()[None].copy(), (None if off is None else off.numpy()[None].copy())
+        return pos.numpy().copy(), (None if off is None else off.numpy().copy())
 
     def close(self):
         """Wait for the card's work on this engine's buffers before they go."""
         if self._cuda:
             torch.cuda.current_stream(self.device).synchronize()
             self._copy_stream.synchronize()
+
+
+class _SingleEngine(_RoiEngine):
+    """Lane adapter for L = 1 over the unbatched bounded scan
+    ``scan(frames [K,ch,cw], pos0 [2], fill, deltas, lo, hi)``: the JAX
+    package's ``_SingleEngine`` without group dispatch.
+
+    It owns the chain on the device: a chunk's scan starts from a view of the
+    previous output's last real row, ``prev[prev_k - 1]``, which ``deltas[0]``
+    rebases into the new crop, so the host never waits for it; after
+    :meth:`reset` (a replay, or the start of a run) the first scan takes its
+    absolute start ``P - o[0]`` from the host. Its arguments are ``[4, K, 2]``:
+    deltas, lo, hi, and in row 3 a chain start."""
+
+    def __init__(self, scan, crop_shape, frame_shape, fill, subpixel, timer, device):
+        self.fill = int(fill)
+        super().__init__(scan, crop_shape, frame_shape, subpixel, timer, device)
+
+    def reset(self):
+        """Invalidate the chain on the device (replay, run start)."""
+        self._prev = None
+        self._prev_k = None
+        self._prev_origin = None
+
+    @staticmethod
+    def _n_args(lanes, K):
+        return 4 * K * 2
+
+    @staticmethod
+    def _deltas(o, prev_last):
+        """Per-frame rebase: ``d[0]`` maps the carried position from
+        ``prev_last`` (the previous chunk's last real frame origin, or this
+        chunk's own first origin at a chain start) into frame 0's crop;
+        ``d[i] = o[i-1] - o[i]`` thereafter."""
+        d = np.empty_like(o)
+        d[0] = prev_last - o[0]
+        d[1:] = o[:-1] - o[1:]
+        return d
+
+    def dispatch(self, buf, origins, P_abs, valid=None):
+        """Start the scan of the chunk in ``buf`` (``[1, K, ch, cw]``, cropped
+        at per-frame ``origins [1, K, 2]``; ``valid[0]`` real frames) from the
+        chain, or from ``P_abs`` after a reset; returns a handle for
+        :meth:`ready` and :meth:`to_host`."""
+        o = np.asarray(origins[0], np.int64)
+        K = buf.shape[1]
+        k = K if valid is None else int(valid[0])
+        first = self._prev is None
+        args = np.zeros((4, K, 2), np.int32)
+        args[0] = self._deltas(o, o[0] if first else self._prev_origin)
+        args[1], args[2] = self._bounds(o)
+        if first:
+            args[3, 0] = np.asarray(P_abs[0], np.int64) - o[0]
+        with self.timer.section("upload"):
+            frames, a = self._stage(buf, args.reshape(-1))
+        a = a.view(4, K, 2)
+        pos0 = a[3, 0] if first else self._prev[self._prev_k - 1]
+        with self.timer.section("device"):
+            out = self.scan(frames[0], pos0, self.fill, a[0], a[1], a[2])
+        pos, off = out if self.subpixel else (out, None)
+        # the chain continues from the last REAL row: its position, its frame
+        # count and the origin that row was cropped at
+        self._prev, self._prev_k, self._prev_origin = pos, max(k, 1), o[max(k - 1, 0)]
+        return self._finish(buf, pos[None], None if off is None else off[None])
+
+
+class _BatchArgs(NamedTuple):
+    """Views of :class:`_BatchedEngine`'s flat int32 arguments (a numpy array
+    on the host, its tensor twin on the device), each contiguous: the scan's
+    ``deltas``, ``lo``, ``hi`` ``[L, K, 2]``; per lane the first and last real
+    frame's crop origin and the chain's seed ``[L, 2]``; the real frame count
+    ``ks [L]`` and ``last_row [L]``, the row of each lane's last real step in
+    the positions seen as ``[L*K, 2]``."""
+
+    deltas: object
+    lo: object
+    hi: object
+    origin0: object
+    origin_last: object
+    seed: object
+    ks: object
+    last_row: object
+
+
+def _batch_args(flat, lanes: int, K: int) -> _BatchArgs:
+    n, o = 2 * lanes * K, 6 * lanes * K
+    pair = (lanes, 2)
+    return _BatchArgs(
+        flat[:n].reshape(lanes, K, 2), flat[n:2 * n].reshape(lanes, K, 2),
+        flat[2 * n:o].reshape(lanes, K, 2), flat[o:o + 2 * lanes].reshape(pair),
+        flat[o + 2 * lanes:o + 4 * lanes].reshape(pair),
+        flat[o + 4 * lanes:o + 6 * lanes].reshape(pair),
+        flat[o + 6 * lanes:o + 7 * lanes], flat[o + 7 * lanes:o + 8 * lanes])
+
+
+def last_rows(ks, K: int) -> np.ndarray:
+    """Per lane, the row of its last real step in a ``[L*K, 2]`` view of the
+    positions (row ``b*K``, a lane's first, when it has none)."""
+    ks = np.asarray(ks, np.int64)
+    return np.arange(ks.shape[0]) * K + np.maximum(ks - 1, 0)
+
+
+def chain_batch(scan, frames, carry, ks, last_row, origin0, origin_last, fills, deltas, lo, hi):
+    """One chained scan of L lanes: the JAX package's ``make_chained_batch``
+    (``pawsometracker_tpu/pipeline.py:248-277``) as tensor ops beside the
+    kernel, with no host sync.
+
+    The chain's state is an absolute per-lane carry ``[L, 2]`` int32 on the
+    device. The scan starts at ``carry - origin0`` (so ``deltas[:, 0]`` is
+    zero: the chunk-to-chunk shift is this rebase), and the next carry is
+    ``positions[b, ks[b]-1] + origin_last[b]`` (read through ``last_row``, see
+    :func:`last_rows`), or the carry itself for a lane with ``ks == 0``: a
+    short video past its end, or a split remainder, whose rows are argmaxes
+    over fill. Returns ``(scan output, new carry)``."""
+    out = scan(frames, carry - origin0, fills, deltas, lo, hi)
+    pos = out[0] if isinstance(out, tuple) else out
+    last = pos.reshape(-1, 2).index_select(0, last_row)
+    return out, torch.where(ks[:, None] > 0, last + origin_last, carry)
+
+
+class _BatchedEngine(_RoiEngine):
+    """Lane adapter for L lanes (B videos, or N targets of one video) over
+    the batched bounded scan ``scan(frames [L,K,ch,cw], pos0 [L,2], fills
+    [L], deltas, lo, hi [L,K,2])``, one launch a chunk: the JAX package's
+    ``_BatchedEngine`` without group dispatch.
+
+    The chain is :func:`chain_batch`'s absolute carry on the device; after
+    :meth:`reset` (a replay, or the start of a run) the next chunk seeds it
+    from the controller's ``P_abs``, which travels in the staged arguments.
+    The arguments are one flat int32 buffer (:func:`_batch_args`), copied to
+    the card in one piece beside the crops."""
+
+    def __init__(self, scan, crop_shape, frame_shape, fills, subpixel, timer, device):
+        self.fills = torch.as_tensor(np.asarray(fills, np.uint8)).to(device)
+        super().__init__(scan, crop_shape, frame_shape, subpixel, timer, device)
+
+    def reset(self):
+        """Invalidate the chain on the device (replay, run start)."""
+        self._carry = None
+
+    @staticmethod
+    def _n_args(lanes, K):
+        return 6 * lanes * K + 8 * lanes
+
+    @staticmethod
+    def _deltas(origins):
+        """Per-lane per-frame rebase ``[L, K, 2]``; ``d[:, 0]`` is zero: the
+        chunk-to-chunk shift is the carry rebase inside the chain."""
+        d = np.zeros_like(origins)
+        d[:, 1:] = origins[:, :-1] - origins[:, 1:]
+        return d
+
+    @staticmethod
+    def _last_origin(origins, ks):
+        """Per-lane origin of the last REAL frame: ``origins[b, ks[b]-1]``."""
+        idx = np.maximum(np.asarray(ks) - 1, 0)
+        return origins[np.arange(origins.shape[0]), idx]
+
+    def dispatch(self, buf, origins, P_abs, valid=None):
+        """Start the scan of the chunk in ``buf`` (``[L, K, ch, cw]``, cropped
+        at per-frame ``origins [L, K, 2]``; ``valid[b]`` real frames in lane
+        b) from the carry, or from ``P_abs [L, 2]`` after a reset; returns a
+        handle for :meth:`ready` and :meth:`to_host`."""
+        L, K = buf.shape[:2]
+        o = np.asarray(origins, np.int64)
+        ks = np.full(L, K, np.int64) if valid is None else np.asarray(valid, np.int64)
+        first = self._carry is None
+        args = np.zeros(self._n_args(L, K), np.int32)
+        a = _batch_args(args, L, K)
+        a.deltas[...] = self._deltas(o)
+        a.lo[...], a.hi[...] = self._bounds(o)
+        a.origin0[...] = o[:, 0]
+        a.origin_last[...] = self._last_origin(o, ks)
+        a.ks[...] = ks
+        a.last_row[...] = last_rows(ks, K)
+        if first:
+            a.seed[...] = np.asarray(P_abs, np.int64).reshape(L, 2)
+        with self.timer.section("upload"):
+            frames, flat = self._stage(buf, args)
+        d = _batch_args(flat, L, K)
+        with self.timer.section("device"):
+            out, self._carry = chain_batch(
+                self.scan, frames, d.seed if first else self._carry, d.ks, d.last_row,
+                d.origin0, d.origin_last, self.fills, d.deltas, d.lo, d.hi)
+        pos, off = out if self.subpixel else (out, None)
+        return self._finish(buf, pos, off)
 
 
 class SingleVideoSource:
@@ -704,6 +861,203 @@ class SingleVideoSource:
                     self.dia(tokens[f0 + i], abs_pos[0, i])
             if f0 + k == tokens.shape[0]:  # the last sub-chunk recycles the array
                 self._pf.recycle(tokens)
+
+
+class FanoutSource:
+    """One video stream, N target lanes: each decoded chunk gives N crops,
+    each lane's at its own per-frame origins. Delivery: the native decoder's
+    retained ring (``advance_retained``, then ``recrop`` per lane, at every
+    depth, contain mode included: its gate is the ring's size), or a shared
+    prefetched chunk cropped here. The shared overlay is drawn at accept time
+    with all N positions of a frame."""
+
+    def __init__(self, src, *, N, K, ch, cw, fill, mode, depth, n_rest, prefetchers, dia=None):
+        from .diagnose import Dont
+
+        self.src = src
+        self.N, self.K, self.ch, self.cw, self.fill = N, K, ch, cw, fill
+        self.mode = mode
+        self.dia = dia
+        self.keep_for_dia = dia is not None and not isinstance(dia, Dont)
+        # diagnostics ride the ring too when it serves zero-copy views of
+        # retained frames (the rule of SingleVideoSource)
+        self.native = (
+            hasattr(src, "read_roi_chunk_retained")
+            and getattr(src, "ring_frames", 0) >= (depth + 2) * K
+            and (not self.keep_for_dia or getattr(src, "can_view_retained", False))
+        )
+        self._retained = 0  # frames advanced into the ring and not yet released
+        self._pf = None
+        if not self.native:
+            self._pf = ChunkPrefetcher(src, K, max_frames=n_rest)
+            prefetchers.append(self._pf)
+            self._it = iter(self._pf)
+
+    def _crop_lanes(self, frames, k, origins, buf, base, timer, f0=0):
+        with timer.section("crop"):
+            for t in range(self.N):
+                o = origins[t]  # [K, 2] per-frame origins for this lane
+                if frames is RETAINED:
+                    self.src.recrop(base, k, o, self.ch, self.cw, self.fill, out=buf[t])
+                else:
+                    for i in range(k):
+                        _crop_with_fill(frames[f0 + i], o[i], self.ch, self.cw, self.fill,
+                                        out=buf[t, i])
+                buf[t, k:] = buf[t, k - 1]
+
+    def acquire(self, remaining, origins, buf, timer):
+        if self.native:
+            base = self._retained
+            k = self.src.advance_retained(min(self.K, remaining))
+            if not k:
+                return None
+            self._retained += k
+            self._crop_lanes(RETAINED, k, origins, buf, base, timer)
+            return (RETAINED, np.full(self.N, k, np.int64))
+        chunk = next(self._it, None)
+        if chunk is None or chunk.shape[0] == 0:
+            return None
+        k = chunk.shape[0]
+        self._crop_lanes(chunk, k, origins, buf, 0, timer)
+        return (chunk, np.full(self.N, k, np.int64))
+
+    def recrop(self, tokens, valid, origins, rbuf, timer, base, off):
+        # the lanes share one stream, so the offset into the retained window
+        # is their (equal) in-flight frame count
+        self._crop_lanes(tokens, int(valid[0]), origins, rbuf, int(base[0]), timer,
+                         f0=int(off[0]))
+
+    def accept(self, tokens, valid, abs_pos, timer, off):
+        k = int(valid[0])
+        f0 = int(off[0])
+        if tokens is RETAINED:
+            if self.keep_for_dia:
+                with timer.section("diagnose"):
+                    for i in range(k):
+                        self.dia(self.src.retained_frame(i), abs_pos[:, i])
+            self.src.release(k)
+            self._retained -= k
+        elif tokens is not None:
+            if self.keep_for_dia:
+                with timer.section("diagnose"):
+                    for i in range(k):
+                        self.dia(tokens[f0 + i], abs_pos[:, i])
+            if f0 + k == tokens.shape[0]:  # the last sub-chunk recycles the array
+                self._pf.recycle(tokens)
+
+
+class PerVideoSource:
+    """B videos, one lane each: per-lane end of stream, fill values and
+    diagnostics. A lane's delivery is its native decoder's retained ring
+    (``nat_retained``, decided for all lanes by the caller) or its own
+    prefetcher, cropped here. A lane with no frames in a chunk gets a crop of
+    pure fill: its steps are discarded and its chain carry stays put."""
+
+    def __init__(self, sources, *, K, ch, cw, fills, dias, ns, nat_retained, prefetcher_objs):
+        from .diagnose import Dont
+
+        B = len(sources)
+        self.sources = sources
+        self.B, self.K, self.ch, self.cw = B, K, ch, cw
+        self.fills = fills
+        self.dias = dias
+        self.keeps = [d is not None and not isinstance(d, Dont) for d in dias]
+        self.nat_retained = nat_retained
+        self.active = [True] * B
+        if nat_retained:
+            self._left = [n - 1 for n in ns]  # frames still to track per video
+            self._retained = [0] * B
+            self._pf = None
+        else:
+            self._pf = prefetcher_objs
+            self._its = [iter(p) for p in prefetcher_objs]
+
+    def acquire(self, remaining, origins, buf, timer):
+        valid = np.zeros(self.B, np.int64)
+        tokens = [None] * self.B
+        with timer.section("crop"):
+            for b in range(self.B):
+                k = 0
+                if self.active[b]:
+                    fill = int(self.fills[b])
+                    if self.nat_retained:
+                        base = self._retained[b]
+                        want = min(self.K, self._left[b], max(int(remaining), 1))
+                        k = self.sources[b].advance_retained(want)
+                        if k == 0:
+                            self.active[b] = False
+                        else:
+                            self._retained[b] += k
+                            self._left[b] -= k
+                            # short of the request means the decoder's end
+                            # (a probe short of K by request is not)
+                            if k < want or self._left[b] == 0:
+                                self.active[b] = False
+                            tokens[b] = RETAINED
+                            self.sources[b].recrop(base, k, origins[b], self.ch, self.cw,
+                                                   fill, out=buf[b])
+                    else:
+                        chunk = next(self._its[b], None)
+                        if chunk is None or chunk.shape[0] == 0:
+                            self.active[b] = False
+                        else:
+                            k = chunk.shape[0]
+                            tokens[b] = chunk
+                            if k < self.K:
+                                self.active[b] = False
+                            o = origins[b]  # [K, 2]
+                            for i in range(k):
+                                _crop_with_fill(chunk[i], o[i], self.ch, self.cw, fill,
+                                                out=buf[b, i])
+                if k > 0:
+                    valid[b] = k
+                    buf[b, k:] = buf[b, k - 1]
+                else:
+                    buf[b] = self.fills[b]
+        if valid.sum() == 0:
+            return None
+        return (tokens, valid)
+
+    def recrop(self, tokens, valid, origins, rbuf, timer, base, off):
+        with timer.section("crop"):
+            for b in range(self.B):
+                k = int(valid[b])
+                if k > 0:
+                    o = origins[b]  # [K, 2]
+                    f0 = int(off[b])
+                    fill = int(self.fills[b])
+                    if tokens[b] is RETAINED:
+                        # the offset into this lane's retained window is its
+                        # own in-flight frame count
+                        self.sources[b].recrop(int(base[b]), k, o, self.ch, self.cw, fill,
+                                               out=rbuf[b])
+                    else:
+                        for i in range(k):
+                            _crop_with_fill(tokens[b][f0 + i], o[i], self.ch, self.cw, fill,
+                                            out=rbuf[b, i])
+                    rbuf[b, k:] = rbuf[b, k - 1]
+                else:
+                    rbuf[b] = self.fills[b]
+
+    def accept(self, tokens, valid, abs_pos, timer, off):
+        for b in range(self.B):
+            k = int(valid[b])
+            f0 = int(off[b])
+            if k > 0:
+                if tokens[b] is RETAINED:
+                    if self.keeps[b]:
+                        with timer.section("diagnose"):
+                            for i in range(k):
+                                self.dias[b](self.sources[b].retained_frame(i), abs_pos[b, i])
+                    self.sources[b].release(k)
+                    self._retained[b] -= k
+                else:
+                    with timer.section("diagnose"):
+                        for i in range(k):
+                            self.dias[b](tokens[b][f0 + i], abs_pos[b, i])
+            if (tokens[b] is not None and tokens[b] is not RETAINED
+                    and f0 + k == tokens[b].shape[0]):
+                self._pf[b].recycle(tokens[b])
 
 
 #: converged auto depth per (lanes, K, crop, frame, mode) geometry and
@@ -1115,6 +1469,12 @@ class SpeculativePipeline:
                 close()
         return self.tracked
 
+    def report(self, stats: dict) -> None:
+        """Add the run's crop shape, K, mode, final depth, and dispatch and
+        replay counts to ``stats``."""
+        stats.update(crop=(self.ch, self.cw), K=self.K, mode=self.mode, depth=self.depth_cur,
+                     dispatches=self.dispatches, replays=self.replays)
+
 
 def run_roi_pipeline(
     src,
@@ -1178,19 +1538,94 @@ def run_roi_pipeline(
         if progress is not None:
             progress(done, n_rest)
 
-    pipe = SpeculativePipeline(
-        L=1, K=K, crop_shape=(ch, cw), margin=margin, spec=spec, mode=mode, depth=depth,
-        auto_cap=depth_max if depth == "auto" else None,
-        engine=_SingleEngine(fns.scan_sub if subpixel else fns.scan_bounded, (ch, cw),
-                             spec.frame_shape, fill, subpixel, timer, device),
-        source=SingleVideoSource(src, K=K, ch=ch, cw=cw, fill=fill, dia=dia, mode=mode,
-                                 native_roi=native_roi, depth=depth_max, n_rest=n_rest,
-                                 prefetchers=prefetchers),
-        sink=sink,
-        timer=timer,
-    )
+    with timer.section("buffers"):  # the controller, its pinned crop buffers
+        pipe = SpeculativePipeline(
+            L=1, K=K, crop_shape=(ch, cw), margin=margin, spec=spec, mode=mode, depth=depth,
+            auto_cap=depth_max if depth == "auto" else None,
+            engine=_SingleEngine(fns.scan_sub if subpixel else fns.scan_bounded, (ch, cw),
+                                 spec.frame_shape, fill, subpixel, timer, device),
+            source=SingleVideoSource(src, K=K, ch=ch, cw=cw, fill=fill, dia=dia, mode=mode,
+                                     native_roi=native_roi, depth=depth_max, n_rest=n_rest,
+                                     prefetchers=prefetchers),
+            sink=sink,
+            timer=timer,
+        )
     tracked = pipe.run(np.asarray(pos0_abs).reshape(1, 2), n_rest)
     if stats is not None:
-        stats.update(crop=(ch, cw), K=K, mode=mode, depth=pipe.depth_cur,
-                     dispatches=pipe.dispatches, replays=pipe.replays)
+        pipe.report(stats)
+    return positions, offsets, int(tracked[0])
+
+
+def run_multi_roi_pipeline(
+    src,
+    spec,
+    pos0_abs,
+    fill: int,
+    n_rest: int,
+    *,
+    roi_frames: int,
+    depth,
+    timer,
+    prefetchers: list,
+    device,
+    engine: str = "auto",
+    subpixel: bool = False,
+    dia=None,
+    progress=None,
+    auto_cap: int | None = None,
+    stats: dict | None = None,
+):
+    """Track N targets in one stream by speculative ROI streaming
+    (:class:`SpeculativePipeline` with L = N over :class:`_BatchedEngine` and
+    :class:`FanoutSource`): each decoded frame gives N crops, aimed per
+    target and scanned in one batched bounded launch a chunk, validated and
+    replayed as for one target. With the native decoder the crops are cut in
+    C++ from its retained ring. ``engine`` as in :func:`run_roi_pipeline`;
+    ``stats`` as there.
+
+    Returns ``(position blocks, offset blocks, frames tracked)``, each
+    position block an absolute int ``[k, N, 2]`` (offsets ``[k, N, 2]``, an
+    empty list unless ``subpixel``)."""
+    K = roi_frames
+    if depth == "auto":
+        depth_max = auto_depth_cap(spec.frame_shape, K)
+        if auto_cap is not None:
+            depth_max = min(depth_max, auto_cap)
+    else:
+        depth_max = depth
+    mode = "predict" if depth_max > 0 else "contain"
+    ch, cw, margin = roi_geometry(spec, K, depth_max, mode)
+    roi_spec = make_spec((ch, cw), spec.window_size, spec.target_width, spec.darker_target)
+    N = int(np.asarray(pos0_abs).shape[0])
+    tracker = ShardedBatchTracker(roi_spec, None, engine, device=device)
+
+    positions: list[np.ndarray] = []
+    offsets: list[np.ndarray] = []
+    done = 0
+
+    def sink(abs_pos, valid, off_np):
+        nonlocal done
+        k = int(valid[0])  # one stream: every lane has the chunk's length
+        positions.append(np.transpose(abs_pos[:, :k], (1, 0, 2)))
+        if off_np is not None:
+            offsets.append(np.transpose(off_np[:, :k], (1, 0, 2)))
+        done += k
+        if progress is not None:
+            progress(done, n_rest)
+
+    with timer.section("buffers"):  # the controller, its pinned crop buffers
+        pipe = SpeculativePipeline(
+            L=N, K=K, crop_shape=(ch, cw), margin=margin, spec=spec, mode=mode, depth=depth,
+            auto_cap=depth_max if depth == "auto" else None,
+            engine=_BatchedEngine(tracker.scan_sub if subpixel else tracker.scan_bounded, (ch, cw),
+                                  spec.frame_shape, np.full(N, fill, np.uint8), subpixel, timer,
+                                  device),
+            source=FanoutSource(src, N=N, K=K, ch=ch, cw=cw, fill=fill, mode=mode, depth=depth_max,
+                                n_rest=n_rest, prefetchers=prefetchers, dia=dia),
+            sink=sink,
+            timer=timer,
+        )
+    tracked = pipe.run(np.asarray(pos0_abs, np.int64), n_rest)
+    if stats is not None:
+        pipe.report(stats)
     return positions, offsets, int(tracked[0])

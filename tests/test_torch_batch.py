@@ -230,10 +230,18 @@ def test_opens_each_input_once(monkeypatch):
 
 
 def test_stream_and_mesh_rules():
+    """stream="roi" gives the positions of stream="full"; a mesh raises until
+    multi-GPU; the engine and stream choices are checked."""
     clips = [clip(20, 19)[0]] * 2
     kw = dict(target_width=10, start_location=port.IJ(50, 50))
-    with pytest.raises(NotImplementedError, match="stream='roi'"):
-        port.track_batch(clips, stream="roi", device="cpu", **kw)
+    roi = port.track_batch(clips, stream="roi", device="cpu", **kw)
+    full = port.track_batch(clips, stream="full", device="cpu", **kw)
+    for (tr, ir), (tf, i_f) in zip(roi, full):
+        np.testing.assert_array_equal(tr, tf)
+        np.testing.assert_array_equal(ir, i_f)
+    for bad in (dict(stream="crops"), dict(stream="roi", roi_frames=0)):
+        with pytest.raises(ValueError):
+            port.track_batch(clips, device="cpu", **bad, **kw)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         port.track_batch(clips, mesh=object(), device="cpu", **kw)
     a = port.track_batch(clips, mesh=None, device="cpu", **kw)

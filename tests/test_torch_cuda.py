@@ -598,3 +598,124 @@ def test_roi_large_target_takes_tiled_bounded(card, caplog):
     assert tk.launches_by_config["dog_scan_tiled: bounded"] == stats["dispatches"]
     assert tk.launches == 1 + stats["dispatches"]
     np.testing.assert_array_equal(ij, track(frames, device="cpu", **kw)[1])
+
+
+# ---- the batch and multi ROI engines on the card ----------------------------------
+
+
+def _lane_clips():
+    """Four lanes for track_batch on ROI: the smooth arc, the same arc ending
+    after 24 frames, the erratic walk, and the arc mirrored left to right on
+    another background; with their start locations."""
+    smooth, path = _roi_clip()
+    short, short_path = _roi_clip(T=24)
+    erratic, erratic_path = _roi_clip(erratic=True)
+    mirrored = np.ascontiguousarray(smooth[:, :, ::-1])
+    mirrored[mirrored == 128] = 100
+    w = smooth.shape[2]
+    return ([smooth, short, erratic, mirrored],
+            [IJ(*path[0]), IJ(*short_path[0]), IJ(*erratic_path[0]),
+             IJ(path[0][0], w - 1 - path[0][1])])
+
+
+def _two_targets(T=48, h=160, w=160):
+    """Two discs in one clip, each on an arc of radius 25, one above the
+    other (never nearer than 20 rows)."""
+    paths = [[(int(round(c + 25 * np.sin(t / 12 + c))), int(round(80 + 25 * np.cos(t / 12 + c))))
+              for t in range(T)] for c in (50, 120)]
+    frames = np.minimum(ellipse_frames(h, w, paths[0], ry=4, rx=4),
+                        ellipse_frames(h, w, paths[1], ry=4, rx=4))
+    return frames, [IJ(*p[0]) for p in paths]
+
+
+@pytest.mark.parametrize("subpixel", [False, True])
+@pytest.mark.parametrize("depth", [0, 2, "auto"])
+def test_batch_and_multi_roi_on_card_equal_cpu(card, caplog, subpixel, depth):
+    """track_batch and track_multi on ROI on the card: positions (offsets
+    within 1e-3) equal to the device="cpu" run; one snap, then every chunk one
+    batched bounded launch, and the plain version never runs."""
+    from pawsometracker_tpu_torch import track_batch, track_multi
+
+    caplog.set_level(logging.DEBUG, logger="pawsometracker_tpu_torch")
+    cfg = "batched bounded+subpixel" if subpixel else "batched bounded"
+    kw = dict(fps=24, target_width=8, window_size=21, subpixel=subpixel, pipeline_depth=depth,
+              roi_frames=4, stream="roi")
+    clips, locs = _lane_clips()
+    frames, targets = _two_targets()
+    for run, args in ((track_batch, (clips[:2],)), (track_multi, (frames, targets))):
+        extra = {"start_location": locs[:2]} if run is track_batch else {}
+        tk.reset_launches()
+        got = run(*args, **extra, **kw)
+        stats = _roi_stats(caplog)
+        assert stats["stream"] == "roi" and stats["dispatches"] > 0
+        assert tk.launches == 1 + stats["dispatches"]
+        assert tk.launches_by_config[f"dog_scan: {cfg}"] == stats["dispatches"]
+        want = run(*args, **extra, **kw, device="cpu")
+        pairs = list(zip(got, want)) if run is track_batch else [(got, want)]
+        for (ts, ij), (ts_c, ij_c) in pairs:
+            np.testing.assert_array_equal(ts, ts_c)
+            if subpixel:
+                np.testing.assert_allclose(ij, ij_c, rtol=0, atol=1e-3)
+            else:
+                np.testing.assert_array_equal(ij, ij_c)
+
+
+def test_batch_roi_short_and_erratic_lanes_on_card(card, caplog, monkeypatch):
+    """Four lanes, one ending after 24 frames (then fill-only crops while the
+    others go on) and one erratic under an 8 px prediction slack: the batch
+    replays on the card and still gives the CPU run's positions, each lane
+    equal to track() of its video."""
+    from pawsometracker_tpu_torch import pipeline, track_batch
+
+    caplog.set_level(logging.DEBUG, logger="pawsometracker_tpu_torch")
+    monkeypatch.setenv("PAWS_PREDICT_SLACK", "8")
+    clips, locs = _lane_clips()
+    kw = dict(fps=24, target_width=8, window_size=21, stream="roi", roi_frames=8,
+              pipeline_depth=3)
+    before = pipeline.replay_count
+    tk.reset_launches()
+    got = track_batch(clips, start_location=locs, **kw)
+    stats = _roi_stats(caplog)
+    assert pipeline.replay_count > before and stats["replays"] > 0
+    assert tk.launches == 1 + stats["dispatches"]
+    assert [len(ij) for _, ij in got] == [48, 24, 48, 48]
+    for (ts, ij), (ts_c, ij_c), clip, loc in zip(got, track_batch(clips, start_location=locs,
+                                                                  device="cpu", **kw),
+                                                 clips, locs):
+        np.testing.assert_array_equal(ts, ts_c)
+        np.testing.assert_array_equal(ij, ij_c)
+        np.testing.assert_array_equal(ij, track(clip, start_location=loc, fps=24, target_width=8,
+                                                window_size=21, stream="full")[1])
+
+
+def test_batch_roi_buffers_wait_for_copy_and_scan(card, monkeypatch):
+    """test_roi_buffers_wait_for_copy_and_scan at B = 4 with a short lane: a
+    pool of 2 crop buffers at depth 3, copies and scans held back by sleeps
+    on the card, through replays."""
+    from pawsometracker_tpu_torch import pipeline, track_batch
+
+    monkeypatch.setenv("PAWS_PREDICT_SLACK", "8")
+    init, stage = pipeline.SpeculativePipeline.__init__, pipeline._BatchedEngine._stage
+
+    def small_pool(self, *a, **k):
+        init(self, *a, **k)
+        self._pool_max = 2
+        del self._free[2:]
+
+    def slow_stage(self, buf, args):
+        if self._cuda:  # (the device="cpu" run below has no streams)
+            with torch.cuda.stream(self._copy_stream):
+                torch.cuda._sleep(200_000)  # the copy lags the host
+            torch.cuda._sleep(200_000)  # and so does the scan
+        return stage(self, buf, args)
+
+    monkeypatch.setattr(pipeline.SpeculativePipeline, "__init__", small_pool)
+    monkeypatch.setattr(pipeline._BatchedEngine, "_stage", slow_stage)
+    clips, locs = _lane_clips()
+    kw = dict(fps=24, target_width=8, window_size=21, stream="roi", roi_frames=4,
+              pipeline_depth=3, start_location=locs)
+    before = pipeline.replay_count
+    got = track_batch(clips, **kw)
+    assert pipeline.replay_count > before
+    for (_, ij), (_, ij_c) in zip(got, track_batch(clips, device="cpu", **kw)):
+        np.testing.assert_array_equal(ij, ij_c)

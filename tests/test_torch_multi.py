@@ -199,8 +199,17 @@ def test_loud_failures_match_jax():
 
 
 def test_stream_and_engine_rules():
+    """stream="roi" gives the positions of stream="full"; the engine and
+    stream choices are checked."""
     frames = np.full((5, 64, 96), 128, np.uint8)
-    with pytest.raises(NotImplementedError, match="stream='roi'"):
-        port.track_multi(frames, [port.IJ(30, 40)], stream="roi", device="cpu")
+    frames[:, 27:38, 43:54] = 0
+    locs = [port.IJ(30, 40), port.IJ(34, 50)]
+    roi = port.track_multi(frames, locs, stream="roi", device="cpu")
+    full = port.track_multi(frames, locs, stream="full", device="cpu")
+    np.testing.assert_array_equal(roi[0], full[0])
+    np.testing.assert_array_equal(roi[1], full[1])
+    for bad in (dict(stream="crops"), dict(stream="roi", roi_frames=0)):
+        with pytest.raises(ValueError):
+            port.track_multi(frames, locs, device="cpu", **bad)
     with pytest.raises(ValueError, match="must be one of"):
         port.track_multi(frames, [port.IJ(30, 40)], engine="cuda", device="cpu")

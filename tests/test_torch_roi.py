@@ -451,11 +451,20 @@ def test_roi_segments_and_progress():
 
 
 def test_batch_and_multi_still_raise_on_roi():
+    """track_batch and track_multi take stream="roi" (their ROI engines,
+    tested in tests/test_torch_roi_lanes.py) and still raise on a bad ROI
+    chunk length, as track does."""
     frames = np.stack([helpers.render_frame(60, 60, (30, 30), 10, True)] * 4)
-    with pytest.raises(NotImplementedError, match="stream='roi'.*track_batch"):
-        port.track_batch([frames], stream="roi", device="cpu")
-    with pytest.raises(NotImplementedError, match="stream='roi'.*track_multi"):
-        port.track_multi(frames, [port.IJ(30, 30)], stream="roi", device="cpu")
+    (ts, ij), = port.track_batch([frames], stream="roi", device="cpu")
+    np.testing.assert_array_equal(ij, port.track(frames, stream="roi", device="cpu")[1])
+    _, pos = port.track_multi(frames, [port.IJ(30, 30)], stream="roi", device="cpu")
+    np.testing.assert_array_equal(pos[:, 0], port.track(frames, start_location=port.IJ(30, 30),
+                                                        stream="roi", device="cpu")[1])
+    for run in (lambda: port.track_batch([frames], stream="roi", roi_frames=0, device="cpu"),
+                lambda: port.track_multi(frames, [port.IJ(30, 30)], stream="roi", roi_frames=0,
+                                         device="cpu")):
+        with pytest.raises(ValueError, match="roi_frames"):
+            run()
 
 
 # ---- the controller's units ----------------------------------------------------
