@@ -60,6 +60,20 @@ card; any failure exits non-zero:
    video or target, equal the port's single-video ``track()`` of each video
    or target on the card, and (the first call of each path) equal the
    port's own ``device="cpu"`` run.
+   Then ``track_resumable`` of the bench clip ("track_resumable ROI",
+   ``stream="auto"``, 120-frame slices, so 4): interrupted after 2 slices
+   and resumed, uninterrupted, and with ``subpixel=True``; each must equal
+   "track ROI"'s uninterrupted ``track()`` (offsets within ``atol=1e-3``,
+   ``ts`` exactly), leave a done checkpoint, and launch per slice its snap
+   plus one bounded launch a dispatch. And the CLI ("CLI"): the first 96
+   frames of the bench clip and of two ``track_batch`` clips as ``.npy``
+   files, ``python -m pawsometracker_tpu_torch --format json`` with no
+   ``--device`` (so on the card) in fresh processes, single-file, ``--batch``
+   on the two files and ``--checkpoint``, each equal to the in-process
+   ``track``, ``track_batch`` and ``track_resumable``; one more fresh process
+   runs the single-file command through the CLI's ``main`` with its parts
+   timed and its launches counted (the path's counts), and must find the
+   kernel library in the build cache.
 3. Timing with CUDA events: each kernel per launch at T=64 (one chain:
    unbounded, bounded, bounded+subpixel, the snap; lanes: B = 1, 4 and 16,
    and four targets on shared frames; bounded and bounded+subpixel lanes at
@@ -76,8 +90,12 @@ card; any failure exits non-zero:
    queued behind a sleep of the card), and per e2e run the pipeline's timer
    sections (crop, upload, device, drain), the depth it settled at and its
    replays, and a ``torch.profiler`` busy share; the same for the batch and
-   multi ROI paths beside their ``stream="full"`` figures; and a cuDNN
-   ``conv2d`` + ``argmax`` yardstick for the snaps at the bench window.
+   multi ROI paths beside their ``stream="full"`` figures; a cuDNN
+   ``conv2d`` + ``argmax`` yardstick for the snaps at the bench window;
+   ``track_resumable`` ROI frames/s over the 4-slice call beside "track ROI",
+   with its per-slice set-up and snap; and the CLI's wall time a process,
+   split into process start, imports, CUDA initialisation, the kernel
+   library's load (a build-cache hit or not) and tracking.
 
 Prints the card's name and power limit, the build time and ``ptxas``'s
 registers, the kernels' configurations with their launch counts, one JSON
@@ -95,6 +113,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -129,6 +148,10 @@ MULTI_CHUNK = 16  # track_multi's default chunk_size
 BOUNDED_T = 16
 #: ROI chunk length of stream="auto" in predict mode (the pipeline's default K)
 ROI_K = 12
+#: track_resumable's slices: 5 s at 24 fps, 120 frames, so 4 over the clip
+CHECKPOINT_EVERY = 5.0
+#: frames of each clip that the CLI phase writes as .npy and tracks
+CLI_FRAMES = 96
 #: H100 SXM published peaks: f32 outside the tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -290,11 +313,69 @@ class StatsLog(logging.Handler):
     def __init__(self):
         super().__init__(logging.DEBUG)
         self.last = None
+        self.all: list = []  # every call's, until cleared
 
     def emit(self, record):
         stats = getattr(record, "paws_stats", None)
         if stats is not None:
             self.last = stats
+            self.all.append(stats)
+
+
+def count_plain_runs(*modules) -> dict:
+    """Wrap the plain versions in ``modules`` so that each run adds one to
+    the returned count: the main paths must never take them on the card."""
+    runs = {"n": 0}
+
+    def counted(fn):
+        def wrapper(*a, **k):
+            runs["n"] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    for mod in modules:
+        mod.dog_scan_plain = counted(mod.dog_scan_plain)
+        mod.dog_scan_batch_plain = counted(mod.dog_scan_batch_plain)
+    return runs
+
+
+def cli_probe(args) -> int:
+    """The CLI in this fresh process, as ``python -m pawsometracker_tpu_torch``
+    runs it, with its parts timed: ``args`` is the parent's ``time.time()``
+    at the spawn, then the CLI's arguments. The CLI prints its output on
+    stdout; the last line of stderr is one JSON object with the seconds of
+    the process start, the imports, CUDA's initialisation, the kernel
+    library's load (and whether the build cache had it) and the CLI's
+    ``main``, and the launches, plain runs and pipeline stats of that run."""
+    start_s = time.time() - float(args[0])
+    t0 = time.perf_counter()
+    import torch
+
+    from pawsometracker_tpu_torch.__main__ import main
+    from pawsometracker_tpu_torch.models import dog_tracker
+    from pawsometracker_tpu_torch.ops import _build, tracker_kernel as tk
+    t1 = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tk._lib()
+    t3 = time.perf_counter()
+    plain_runs = count_plain_runs(tk, dog_tracker)
+    stats_log = StatsLog()
+    port_logger = logging.getLogger("pawsometracker_tpu_torch")
+    port_logger.addHandler(stats_log)
+    port_logger.setLevel(logging.DEBUG)
+    tk.reset_launches()
+    rc = main(args[1:])
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    print(json.dumps({"process_start_s": start_s, "imports_s": t1 - t0, "cuda_init_s": t2 - t1,
+                      "library_load_s": t3 - t2, "cache_hit": "dog_scan" not in _build.build_log,
+                      "main_s": t4 - t3, "launches": tk.launches,
+                      "by_config": dict(tk.launches_by_config),
+                      "by_kernel": dict(tk.launches_by_kernel), "plain_runs": plain_runs["n"],
+                      "stats": stats_log.all}, default=str), file=sys.stderr)
+    return rc
 
 
 def roi_chunk(frames, truth, spec, fill, dev, roi_geometry, crop_with_fill):
@@ -385,7 +466,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
-        from pawsometracker_tpu_torch import IJ, global_detect_peaks, track, track_batch, track_multi
+        from pawsometracker_tpu_torch import (IJ, global_detect_peaks, load_checkpoint, track,
+                                              track_batch, track_multi, track_resumable)
         from pawsometracker_tpu_torch.models import dog_tracker
         from pawsometracker_tpu_torch.models.dog_tracker import autodetect_spec, make_spec
         from pawsometracker_tpu_torch.ops import _build, tracker_kernel as tk
@@ -398,6 +480,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    wall_start = time.perf_counter()
+    phase_wall: dict = {}  # seconds of each part of this run, in order
+
+    def phase_done(label):
+        phase_wall[label] = time.perf_counter() - wall_start - sum(phase_wall.values())
     record: dict = {"card": card_line(), "device": torch.cuda.get_device_name(0)}
     log(record["card"])  # as nvidia-smi gives it: name, power limit
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -408,17 +495,7 @@ def main() -> int:
 
     # the plain versions count their runs here, so phase 2 can show the main
     # paths never took them on the card
-    plain_runs = {"n": 0}
-
-    def counted(fn):
-        def wrapper(*a, **k):
-            plain_runs["n"] += 1
-            return fn(*a, **k)
-        return wrapper
-
-    for mod in (tk, dog_tracker):
-        mod.dog_scan_plain = counted(mod.dog_scan_plain)
-        mod.dog_scan_batch_plain = counted(mod.dog_scan_batch_plain)
+    plain_runs = count_plain_runs(tk, dog_tracker)
 
     t0 = time.perf_counter()
     tk._lib()
@@ -448,6 +525,7 @@ def main() -> int:
     kwa = dict(radii=aspec.radii, sigma=aspec.sigma, darker_target=True)
     B = len(clips)
 
+    phase_done("set-up and build")
     # ---- phase 1: the kernel against its plain version, on the card -------
     rng = np.random.default_rng(SEED)
     chunk = torch.from_numpy(frames_np[1:1 + CHUNK]).to(dev)
@@ -648,6 +726,7 @@ def main() -> int:
     del flat, mirror, narrow, own, tshared, tflat
     record["phase1"] = phase1
 
+    phase_done("phase 1")
     # ---- phase 2: the main paths --------------------------------------------
     base = dict(fps=FPS, target_width=TARGET_WIDTH, window_size=WINDOW, stream="full")
     large = dict(fps=FPS, target_width=LARGE_TW, stream="full")  # the default window
@@ -821,6 +900,139 @@ def main() -> int:
                 raise SystemExit(f"phase 2 {path} {name} failed")
     record["phase2"] = phase2
 
+    phase_done("phase 2, earlier paths")
+    # track_resumable of the bench clip on ROI, in 4 slices of 120 frames:
+    # each run equals track ROI's uninterrupted track() and launches, per
+    # slice, its snap and one bounded launch a dispatch
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
+    resumable_kw = dict(roi, checkpoint_every=CHECKPOINT_EVERY)
+
+    def run_resumable(cp, **k):
+        if os.path.exists(cp):
+            os.remove(cp)
+        if k.pop("interrupt", False):
+            track_resumable(frames_np, checkpoint_path=cp, start_location=start0, _max_slices=2,
+                            **resumable_kw, **k)
+            if load_checkpoint(cp)["done"]:
+                raise SystemExit("phase 2 track_resumable: done after 2 of 4 slices")
+            return track_resumable(frames_np, checkpoint_path=cp, **resumable_kw, **k)
+        return track_resumable(frames_np, checkpoint_path=cp, start_location=start0,
+                               **resumable_kw, **k)
+
+    path = "track_resumable ROI"
+    n_slices = math.ceil(N_FRAMES / (CHECKPOINT_EVERY * FPS))
+    tk.reset_launches()  # counts to 0 just before the path, read just after
+    plain_runs["n"] = 0
+    for name, extra, want_name in (("interrupted and resumed", {"interrupt": True},
+                                    "start_location"),
+                                   ("uninterrupted", {}, "start_location"),
+                                   ("subpixel", {"subpixel": True}, "subpixel")):
+        cp = os.path.join(work.name, f"resumable {name}.npz")
+        before, plain_before, bounded_before = tk.launches, plain_runs["n"], bounded_launches()
+        stats_log.all.clear()
+        t0 = time.perf_counter()
+        ts_r, ij_r = run_resumable(cp, **extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch, n_plain = tk.launches - before, plain_runs["n"] - plain_before
+        slices = list(stats_log.all)
+        dispatches = sum(st.get("dispatches", 0) for st in slices)
+        want_n = len(slices) + dispatches  # a snap each slice, a launch a dispatch
+        sub = bool(extra.get("subpixel"))
+        ts_t, ij_t = results["track ROI", want_name][0]
+        equal = same(ij_r, ij_t, sub) and np.array_equal(ts_r, ts_t)
+        done = bool(load_checkpoint(cp)["done"])
+        ok = (equal and done and len(slices) == n_slices and n_launch == want_n and n_plain == 0
+              and bounded_launches() - bounded_before == dispatches
+              and all(st.get("stream") == "roi" for st in slices) and len(ij_r) == N_FRAMES)
+        phase2[f"{path} {name}"] = {"launches": n_launch, "want_launches": want_n,
+                                    "slices": len(slices), "dispatches": dispatches,
+                                    "plain_runs": n_plain, "equals_track": equal,
+                                    "checkpoint_done": done, "wall_s": wall, "ok": ok}
+        log(f"phase 2 {path}({name}): {len(slices)} slices (want {n_slices}), launches={n_launch}"
+            f" (want {want_n}: a snap a slice + {dispatches} dispatches, all bounded), plain"
+            f" runs={n_plain}, equals track ROI's track()={equal}, checkpoint done={done},"
+            f" {wall:.3f} s -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase 2 {path} {name} failed")
+    main_counts[path] = {"total": tk.launches, "by_config": dict(tk.launches_by_config),
+                         "by_kernel": dict(tk.launches_by_kernel), "plain_runs": plain_runs["n"]}
+
+    # the CLI in fresh processes with no --device, so on the card: each loads
+    # the kernel library that this process built from the build cache
+    cli_files = {"single": os.path.join(work.name, "bench.npy"),
+                 "batch 0": os.path.join(work.name, "batch0.npy"),
+                 "batch 2": os.path.join(work.name, "batch2.npy")}
+    cli_frames = {"single": frames_np[:CLI_FRAMES], "batch 0": clips[0][:CLI_FRAMES],
+                  "batch 2": clips[2][:CLI_FRAMES]}  # both start in the autodetect window
+    for k, f in cli_files.items():
+        np.save(f, cli_frames[k])
+    cli_kw = dict(fps=FPS, target_width=TARGET_WIDTH, window_size=WINDOW)
+    common = ["--fps", str(FPS), "--target-width", str(TARGET_WIDTH), "--window-size",
+              str(WINDOW), "--format", "json"]
+    at = ["--start-ij", str(start0.i), str(start0.j)]
+
+    def as_json(ts, ij):
+        return {"ts": [float(t) for t in ts], "ij": [[int(a), int(b)] for a, b in ij]}
+
+    batch_files = [cli_files["batch 0"], cli_files["batch 2"]]
+    cli_modes = {  # name: (arguments, the in-process result as the CLI prints it)
+        "single-file": ([cli_files["single"], *at, *common],
+                        as_json(*track(cli_frames["single"], start_location=start0, **cli_kw))),
+        "batch": ([*batch_files, "--batch", *common],
+                  [dict(file=f, **as_json(*r)) for f, r in zip(batch_files, track_batch(
+                      [cli_frames["batch 0"], cli_frames["batch 2"]], **cli_kw))]),
+        "checkpoint": ([cli_files["single"], *at, *common, "--checkpoint",
+                        os.path.join(work.name, "cli.npz")],
+                       as_json(*track_resumable(cli_frames["single"], start_location=start0,
+                                                checkpoint_path=os.path.join(work.name,
+                                                                             "in-process.npz"),
+                                                **cli_kw))),
+    }
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    cli_record = {}
+    for name, (argv, want) in cli_modes.items():
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "pawsometracker_tpu_torch", *argv], cwd=ROOT,
+                           env=env, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        equal = r.returncode == 0 and json.loads(r.stdout) == want
+        cli_record[name] = {"rc": r.returncode, "wall_s": wall, "equals_in_process": equal}
+        log(f"phase 2 CLI({name}): python -m pawsometracker_tpu_torch exit {r.returncode},"
+            f" equals the in-process result={equal}, {wall:.2f} s a process"
+            f" -> {'ok' if equal else 'FAIL'}")
+        if not equal:
+            raise SystemExit(f"phase 2 CLI {name} failed:\n{r.stderr[-4000:]}")
+    # the single-file command once more, through the CLI's main in a fresh
+    # process with its parts timed and its launches counted (the path's counts)
+    argv = cli_modes["single-file"][0]
+    probe_code = "import sys, chip_smoke; sys.exit(chip_smoke.cli_probe(sys.argv[1:]))"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", probe_code, repr(time.time()), *argv], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise SystemExit(f"phase 2 CLI probe failed:\n{r.stderr[-4000:]}")
+    probe = json.loads(r.stderr.strip().splitlines()[-1])
+    dispatches = sum(st.get("dispatches", 0) for st in probe["stats"])
+    want_n = len(probe["stats"]) + dispatches
+    ok = (json.loads(r.stdout) == cli_modes["single-file"][1] and probe["cache_hit"]
+          and probe["launches"] == want_n and probe["plain_runs"] == 0
+          and [st.get("stream") for st in probe["stats"]] == ["roi"])
+    probe.update(wall_s=wall, ok=ok)
+    cli_record["probe"] = probe
+    phase2["CLI"] = cli_record
+    main_counts["CLI"] = {"total": probe["launches"], "by_config": probe["by_config"],
+                          "by_kernel": probe["by_kernel"], "plain_runs": probe["plain_runs"]}
+    log(f"phase 2 CLI(single-file, timed, in a fresh process): launches={probe['launches']}"
+        f" (want {want_n}: the snap + {dispatches} dispatches), plain runs={probe['plain_runs']},"
+        f" kernel library from the build cache={probe['cache_hit']}, output equals the"
+        f" in-process track()={json.loads(r.stdout) == cli_modes['single-file'][1]}"
+        f" -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 2 CLI probe failed")
+
+    phase_done("phase 2, track_resumable and CLI")
     # ---- phase 3: timing ------------------------------------------------------
     cases["batched unbounded B=1"] = (lanes[:1], lane_pos0[:1], lane_fills[:1], kw, {}, False,
                                       True)
@@ -1003,7 +1215,42 @@ def main() -> int:
             f" {len(walls)}, {frames_per_call} frames of {W}x{H}"
             + (", summed over 4 videos)" if kind == "track_batch" else
                ", clip frames with 4 targets)" if kind == "track_multi" else ")") + note)
+    # track_resumable on ROI over its 4 slices, beside track ROI in this call:
+    # the gap is each slice's set-up (its frame 1 and that frame's mode) and snap
+    walls, runs_slices = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        stats_log.all.clear()
+        t0 = time.perf_counter()
+        run_resumable(os.path.join(work.name, "timed.npz"))
+        walls.append(time.perf_counter() - t0)
+        runs_slices.append(list(stats_log.all))
+    med = sorted(range(3), key=walls.__getitem__)[1]
+    per_slice = {sec: [1e3 * st["sections"].get(sec, 0.0) for st in runs_slices[med]]
+                 for sec in ("setup", "snap")}
+    e2e["track_resumable ROI"] = {"frames_per_s": N_FRAMES / statistics.median(walls),
+                                  "runs_s": walls, "frames": N_FRAMES,
+                                  "slices": len(runs_slices[med]), "ms_per_slice": per_slice}
+    log(f"phase 3 e2e track_resumable ROI: {e2e['track_resumable ROI']['frames_per_s']:.1f}"
+        f" frames/s (median of {len(walls)}, {N_FRAMES} frames of {W}x{H} in"
+        f" {len(runs_slices[med])} slices), against track ROI's"
+        f" {e2e['track ROI']['frames_per_s']:.1f} in this call; median run, ms a slice: setup "
+        + ", ".join(f"{v:.2f}" for v in per_slice["setup"]) + "; snap "
+        + ", ".join(f"{v:.2f}" for v in per_slice["snap"]))
     record["e2e_fps"] = e2e
+    # the CLI's wall time a process: the three modes, and the parts of the
+    # timed single-file process
+    pr = cli_record["probe"]
+    parts = {"process start": pr["process_start_s"], "imports": pr["imports_s"],
+             "CUDA initialisation": pr["cuda_init_s"], "kernel library load": pr["library_load_s"],
+             "CLI main (load the .npy, track, print)": pr["main_s"]}
+    parts["the rest (interpreter exit)"] = pr["wall_s"] - sum(parts.values())
+    record["cli"] = cli_record
+    log("phase 3 CLI wall a process: "
+        + ", ".join(f"{n} {cli_record[n]['wall_s']:.2f} s" for n in cli_modes)
+        + f"; the timed single-file process {pr['wall_s']:.2f} s: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items())
+        + f" (the library {'from the build cache' if pr['cache_hit'] else 'built'})")
     # where one chunk's time goes: the host copy into a pinned staging buffer,
     # the host-to-device copy, the kernel (above)
     pinned = torch.empty((CHUNK, H, W), dtype=torch.uint8, pin_memory=True)
@@ -1078,6 +1325,10 @@ def main() -> int:
     for k in kernels:
         if k["launches"] <= 0:
             raise SystemExit(f"the main paths never launched {k['name']}")
+    phase_done("phase 3")
+    record["phase_wall_s"] = phase_wall
+    log(f"chip_smoke wall: {time.perf_counter() - wall_start:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in phase_wall.items()) + ")")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,10 @@ evaluated in a search window around the previous position. Host decode feeds
 chunks of uint8 frames to a hand-written CUDA kernel that carries the whole
 per-frame recurrence of a chunk in one launch (``csrc/dog_scan.cu``), one
 CTA per chain: ``track`` runs one chain, ``track_batch`` one per video and
-``track_multi`` one per target of one video. The same step in plain PyTorch
-runs on the CPU (``device="cpu"``).
+``track_multi`` one per target of one video; ``track_resumable`` tracks
+a long recording in checkpointed slices, and ``python -m
+pawsometracker_tpu_torch`` is the command line. The same step in plain
+PyTorch runs on the CPU (``device="cpu"``).
 
 This package imports neither JAX nor the JAX package, and importing it has no
 side effects: the kernel is built at first use.
@@ -15,6 +17,7 @@ side effects: the kernel is built at first use.
 
 from .api import DEFAULT_MAX_DURATION_SECONDS, IJ, track
 from .batch import track_batch
+from .checkpoint import load_checkpoint, track_resumable
 from .diagnose import Diagnose, Dont, diagnose
 from .models.dog_tracker import (
     TrackerSpec,
@@ -39,6 +42,8 @@ __all__ = [
     "track",
     "track_batch",
     "track_multi",
+    "track_resumable",
+    "load_checkpoint",
     "IJ",
     "DEFAULT_MAX_DURATION_SECONDS",
     "TrackerSpec",

@@ -2,10 +2,11 @@
 
 Each ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with :mod:`ctypes`. The
-build happens at first use, into ``build/kernels/`` beside the package (or
-``$PAWS_KERNEL_BUILD_DIR``), under a name that carries a hash of the source and
-flags, so an edited source is rebuilt and an unchanged one is loaded as it is.
-Nothing here runs at import time.
+build happens at first use, into ``build/kernels/`` beside the package, or the
+per-user cache where that cannot be written (see :func:`build_dir`), under a
+name that carries a hash of the source and flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+from ..utils.compilecache import default_cache_dir
 
 __all__ = ["kernel_library", "nvcc_path", "build_dir", "CSRC"]
 
@@ -30,12 +33,19 @@ build_log: dict[str, str] = {}
 
 
 def build_dir() -> str:
-    """Where the libraries go: ``$PAWS_KERNEL_BUILD_DIR`` or ``<checkout>/build/kernels``."""
+    """Where the libraries go: ``$PAWS_KERNEL_BUILD_DIR``; else
+    ``<checkout>/build/kernels`` when it can be created and written; else the
+    per-user cache (:func:`..utils.compilecache.default_cache_dir`), as for
+    an installed package in a read-only ``site-packages``."""
     env = os.environ.get("PAWS_KERNEL_BUILD_DIR")
     if env:
         return env
-    root = os.path.dirname(os.path.dirname(CSRC))
-    return os.path.join(root, "build", "kernels")
+    local = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "kernels")
+    try:
+        os.makedirs(local, exist_ok=True)
+    except OSError:  # read-only, or a file where a directory would go
+        return default_cache_dir()
+    return local if os.access(local, os.W_OK) else default_cache_dir()
 
 
 def nvcc_path() -> str:

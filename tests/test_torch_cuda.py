@@ -719,3 +719,47 @@ def test_batch_roi_buffers_wait_for_copy_and_scan(card, monkeypatch):
     assert pipeline.replay_count > before
     for (_, ij), (_, ij_c) in zip(got, track_batch(clips, device="cpu", **kw)):
         np.testing.assert_array_equal(ij, ij_c)
+
+
+@pytest.mark.parametrize("subpixel", [False, True])
+def test_track_resumable_on_card_equals_track(card, caplog, tmp_path, monkeypatch, subpixel):
+    """track_resumable on a 1080p array at stream="auto" (the ROI pipeline),
+    interrupted after 2 of 4 slices and resumed: positions (offsets within
+    1e-3) and timestamps equal to one uninterrupted track() on the card; each
+    slice launches its snap and one bounded launch a dispatch, and the plain
+    version never runs."""
+    from pawsometracker_tpu_torch import load_checkpoint, track_resumable
+    from pawsometracker_tpu_torch.models import dog_tracker
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran on the card's path")
+
+    for mod in (tk, dog_tracker):
+        monkeypatch.setattr(mod, "dog_scan_plain", no_plain)
+        monkeypatch.setattr(mod, "dog_scan_batch_plain", no_plain)
+    caplog.set_level(logging.DEBUG, logger="pawsometracker_tpu_torch")
+    n, h, w = 96, 1080, 1920
+    path = [(540 + round(200 * np.sin(t / 40)), 960 + round(200 * np.cos(t / 40)))
+            for t in range(n)]
+    frames = np.full((n, h, w), 128, np.uint8)
+    yy, xx = np.mgrid[-12:13, -12:13]
+    for t, (i, j) in enumerate(path):
+        frames[t, i - 12:i + 13, j - 12:j + 13][yy ** 2 + xx ** 2 <= 144] = 30
+    kw = dict(fps=24, target_width=25, window_size=41, subpixel=subpixel)
+    ts, ij = track(frames, start_location=IJ(*path[0]), **kw)
+    cp = str(tmp_path / "cp.npz")
+    tk.reset_launches()
+    caplog.clear()
+    track_resumable(frames, checkpoint_path=cp, checkpoint_every=1.0,
+                    start_location=IJ(*path[0]), _max_slices=2, **kw)
+    assert not load_checkpoint(cp)["done"]
+    ts_r, ij_r = track_resumable(frames, checkpoint_path=cp, checkpoint_every=1.0, **kw)
+    stats = [r.paws_stats for r in caplog.records if hasattr(r, "paws_stats")]
+    assert len(stats) == 4 and all(s["stream"] == "roi" for s in stats)
+    assert tk.launches == sum(1 + s["dispatches"] for s in stats)
+    np.testing.assert_array_equal(ts_r, ts)
+    if subpixel:
+        np.testing.assert_allclose(ij_r, ij, rtol=0, atol=1e-3)
+    else:
+        np.testing.assert_array_equal(ij_r, ij)
+    assert load_checkpoint(cp)["done"]

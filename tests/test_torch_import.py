@@ -38,6 +38,8 @@ def test_import_leaves_jax_out():
         "import pawsometracker_tpu_torch.ops.tracker_kernel\n"
         "import pawsometracker_tpu_torch.batch, pawsometracker_tpu_torch.multi\n"
         "import pawsometracker_tpu_torch.parallel.mesh\n"
+        "import pawsometracker_tpu_torch.checkpoint, pawsometracker_tpu_torch.__main__\n"
+        "import pawsometracker_tpu_torch.utils.compilecache, pawsometracker_tpu_torch.ops._build\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pawsometracker_tpu' or m.startswith('pawsometracker_tpu.')]\n"
         "assert not bad, bad\n"
@@ -76,7 +78,9 @@ def test_source_scan_covers_the_package():
                  "pawsometracker_tpu_torch/io/parallel_decode.py",
                  "pawsometracker_tpu_torch/batch.py", "pawsometracker_tpu_torch/multi.py",
                  "pawsometracker_tpu_torch/parallel/mesh.py",
-                 "pawsometracker_tpu_torch/parallel/__init__.py"):
+                 "pawsometracker_tpu_torch/parallel/__init__.py",
+                 "pawsometracker_tpu_torch/checkpoint.py", "pawsometracker_tpu_torch/__main__.py",
+                 "pawsometracker_tpu_torch/utils/compilecache.py"):
         assert must in rel
 
 
