@@ -29,6 +29,13 @@ card; any failure exits non-zero:
    engines' batched bounded chunk scans (T=12) at both crop sizes: B = 4
    videos' crops with lane 2 pure fill (a video past its end), bounded and
    bounded+subpixel, and the crops of 4 targets cut from one frame stream.
+   The mesh: ``sharded_pallas_bounded`` (one batched bounded launch a data
+   shard) on those batch ROI chunks at both crop sizes, against its plain
+   version (``interpret=True``), with one launch a shard, on each mesh of the
+   machine: ``make_mesh()`` (every card), 2 and 4 shards on cuda:0, and 2
+   cards where there are two or more; and the space-sharded whole-frame
+   detector (2 data x 2 space on cuda:0, and 1 x 2 over two cards) against
+   the unsharded one at 1080p, B = 4.
    Integer positions must be equal, offsets within ``atol=1e-3``.
 2. The main paths, each driven with the launch counts set to 0 just before
    it and read just after:
@@ -74,6 +81,11 @@ card; any failure exits non-zero:
    runs the single-file command through the CLI's ``main`` with its parts
    timed and its launches counted (the path's counts), and must find the
    kernel library in the build cache.
+   Then the mesh ("track_batch mesh=<mesh>", "track_batch ROI mesh=<mesh>"):
+   ``track_batch`` over each mesh of phase 1, on full frames and on ROI, the
+   same three ways as track_batch, each equal to its ``mesh=None`` run above
+   and launching once a data shard for each of that run's launches (the
+   snap(s), then each chunk or dispatch), with no plain run.
 3. Timing with CUDA events: each kernel per launch at T=64 (one chain:
    unbounded, bounded, bounded+subpixel, the snap; lanes: B = 1, 4 and 16,
    and four targets on shared frames; bounded and bounded+subpixel lanes at
@@ -95,7 +107,11 @@ card; any failure exits non-zero:
    ``track_resumable`` ROI frames/s over the 4-slice call beside "track ROI",
    with its per-slice set-up and snap; and the CLI's wall time a process,
    split into process start, imports, CUDA initialisation, the kernel
-   library's load (a build-cache hit or not) and tracking.
+   library's load (a build-cache hit or not) and tracking; and the mesh:
+   ``sharded_pallas_bounded`` a call on each mesh (card time by CUDA events
+   where every shard is on cuda:0, wall time a call, the host's time) beside
+   the unsharded launch, and e2e frames/s of each mesh path beside
+   ``mesh=None`` in the same call, with a profile of each mesh's ROI call.
 
 Prints the card's name and power limit, the build time and ``ptxas``'s
 registers, the kernels' configurations with their launch counts, one JSON
@@ -231,6 +247,35 @@ def card_line() -> str:
     if r.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {r.stderr.strip()}")
     return r.stdout.strip().splitlines()[0]
+
+
+def mesh_list(make_mesh, lanes) -> dict:
+    """The meshes the mesh part drives, by label: every card (``make_mesh()``,
+    or the most cards whose count divides ``lanes``), 2 and 4 data shards on
+    cuda:0, and 2 cards where the machine has them."""
+    import torch
+
+    n = torch.cuda.device_count()
+    k = n
+    while lanes % k:
+        k -= 1
+    meshes = {("make_mesh()" if k == n else f"make_mesh({k})"): make_mesh(k)}
+    meshes["cuda:0 x2"] = make_mesh(devices=["cuda:0"] * 2)
+    meshes["cuda:0 x4"] = make_mesh(devices=["cuda:0"] * 4)
+    if n >= 2 and k != 2:
+        meshes["2 cards"] = make_mesh(2)
+    return meshes
+
+
+def space_meshes(make_mesh) -> dict:
+    """The meshes of the space-sharded detector: 2 data x 2 space on cuda:0,
+    and 1 x 2 over two cards where the machine has them."""
+    import torch
+
+    meshes = {"cuda:0 x4, space 2": make_mesh(devices=["cuda:0"] * 4, space=2)}
+    if torch.cuda.device_count() >= 2:
+        meshes["2 cards, space 2"] = make_mesh(2, space=2)
+    return meshes
 
 
 def cost(radii, L, T, subpixel=False, bounded=False, lanes=1):
@@ -466,8 +511,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
-        from pawsometracker_tpu_torch import (IJ, global_detect_peaks, load_checkpoint, track,
-                                              track_batch, track_multi, track_resumable)
+        from pawsometracker_tpu_torch import (IJ, global_detect_peaks, load_checkpoint,
+                                              make_mesh, track, track_batch, track_multi,
+                                              track_resumable)
+        from pawsometracker_tpu_torch.parallel.mesh import (global_detect_batch,
+                                                            sharded_pallas_bounded)
         from pawsometracker_tpu_torch.models import dog_tracker
         from pawsometracker_tpu_torch.models.dog_tracker import autodetect_spec, make_spec
         from pawsometracker_tpu_torch.ops import _build, tracker_kernel as tk
@@ -721,6 +769,59 @@ def main() -> int:
     log(f"phase 1 batched B=1 equals unbatched: T={CHUNK} -> {'ok' if one_ok else 'FAIL'}")
     if not one_ok:
         raise SystemExit("phase 1: a one-lane batched launch differs from the unbatched one")
+    # the mesh: sharded_pallas_bounded (one batched bounded launch a data shard)
+    # against its plain version (interpret=True) on the batch ROI engine's
+    # chunk scans at both crop sizes, and the space-sharded whole-frame
+    # detector against the unsharded one, on each mesh of this card (or cards)
+    meshes = mesh_list(make_mesh, B)
+    log(f"phase 1 meshes ({torch.cuda.device_count()} card(s) on this machine): "
+        + ", ".join(f"{k} {dict(m.shape)}" for k, m in meshes.items()))
+    sharded_cases = {}
+    for label, sp in (("185x185", spec), ("tiled 461x461", lspec)):
+        ch, cw, _ = roi_geometry(sp, ROI_K, 7, "predict")
+        rspec = make_spec((ch, cw), sp.window_size, sp.target_width, True)
+        for sub in (False, True):
+            case = (f"ROI batch {label} B={B} T={ROI_K}"
+                    f" {'bounded+subpixel' if sub else 'bounded'} (lane 2 fill)")
+            for mlabel, mesh in meshes.items():
+                sharded_cases[f"sharded_pallas_bounded {mlabel}: {case}"] = (rspec, mesh, sub, case)
+    for name, (rspec, mesh, sub, case) in sharded_cases.items():
+        fr, p0, fl, _, b, _, _ = cases[case]
+        before = tk.launches
+        bnds = (b["deltas"], b["lo"], b["hi"])
+        got = sharded_pallas_bounded(rspec, mesh, subpixel=sub)(fr, p0, fl, *bnds)
+        n_launch = tk.launches - before
+        want = sharded_pallas_bounded(rspec, mesh, interpret=True, subpixel=sub)(fr, p0, fl,
+                                                                                 *bnds)
+        torch.cuda.synchronize()
+        got, want = (got, want) if sub else ((got,), (want,))
+        gp, wp = torch.from_numpy(np.asarray(got[0])), torch.from_numpy(np.asarray(want[0]))
+        pos_equal = bool(torch.equal(gp, wp))
+        err = float((gp - wp).abs().max())
+        if sub:
+            err = max(err, float(np.abs(np.asarray(got[1]) - np.asarray(want[1])).max()))
+        shards = mesh.shape["data"]
+        ok = pos_equal and err <= (OFFSET_ATOL if sub else 0) and n_launch == shards
+        phase1[name] = {"kernel": kernel_of(case), "T": ROI_K, "lanes": B, "shards": shards,
+                        "launches": n_launch, "positions_equal": pos_equal, "max_abs_err": err,
+                        "ok": ok}
+        log(f"phase 1 {name} ({kernel_of(case)}): {shards} shard(s), launches={n_launch}"
+            f" (want {shards}), positions equal={pos_equal} max_abs_err={err:.3g}"
+            f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase 1 {name}: the sharded scan and its plain version disagree")
+    detect_frames = lanes0[:, 0].contiguous()
+    unsharded = global_detect_batch(spec)(detect_frames, lane_fills).cpu().numpy()
+    for label, mesh in space_meshes(make_mesh).items():
+        got = np.asarray(global_detect_batch(spec, mesh)(detect_frames, lane_fills))
+        ok = bool(np.array_equal(got, unsharded))
+        phase1[f"global_detect_batch {label}"] = {"kernel": None, "lanes": B,
+                                                  "positions_equal": ok, "max_abs_err": None,
+                                                  "ok": ok}
+        log(f"phase 1 space-sharded global_detect_batch {label} {dict(mesh.shape)}: 1080p,"
+            f" B={B}, equals the unsharded detector={ok} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase 1 global_detect_batch {label}: differs from unsharded")
     for name in [n for n in cases if n.startswith("tiled ")]:
         del cases[name]
     del flat, mirror, narrow, own, tshared, tflat
@@ -901,6 +1002,57 @@ def main() -> int:
     record["phase2"] = phase2
 
     phase_done("phase 2, earlier paths")
+    # the mesh: track_batch over each mesh, on full frames and on ROI, the same
+    # three ways as track_batch; each equal to its mesh=None run above, with
+    # one launch a data shard for each launch of that run, and no plain run
+    mesh_paths = {}
+    for label, mesh in meshes.items():
+        for full_path, kw_stream in (("track_batch", base), ("track_batch ROI", roi)):
+            path = f"{full_path} mesh={label}"
+            mesh_paths[path] = full_path
+            entry[path] = (lambda m, k0: lambda **k: track_batch(clips, mesh=m, **k0, **k))(
+                mesh, kw_stream)
+            shards = mesh.shape["data"]
+            tk.reset_launches()  # counts to 0 just before the path, read just after
+            plain_runs["n"] = 0
+            for name, extra in paths["track_batch"].items():
+                before, plain_before = tk.launches, plain_runs["n"]
+                bounded_before = bounded_launches()
+                stats_log.last = None
+                t0 = time.perf_counter()
+                out = entry[path](**extra)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                n_launch, n_plain = tk.launches - before, plain_runs["n"] - plain_before
+                st = stats_log.last or {}
+                sub = bool(extra.get("subpixel"))
+                want_out = results[full_path, name][0]
+                equal = all(same(a[1], w[1], sub) and np.array_equal(a[0], w[0])
+                            for a, w in zip(out, want_out))
+                snaps = 2 if "autodetect" in name else 1
+                if full_path == "track_batch ROI":
+                    want_n = shards * (snaps + st.get("dispatches", -1))
+                    counted = bounded_launches() - bounded_before == shards * st.get("dispatches")
+                else:
+                    want_n = shards * want_launches["track_batch"][name]
+                    counted = True
+                ok = (equal and n_launch == want_n and n_plain == 0 and counted
+                      and st.get("shards") == shards
+                      and [len(o[1]) for o in out] == list(BATCH_LENS))
+                phase2[f"{path} {name}"] = {"launches": n_launch, "want_launches": want_n,
+                                            "shards": shards, "plain_runs": n_plain,
+                                            "equals_mesh_none": equal, "wall_s": wall,
+                                            "stats": st, "ok": ok}
+                log(f"phase 2 {path}({name}): {shards} shard(s), launches={n_launch} (want"
+                    f" {want_n}), plain runs={n_plain}, stream={st.get('stream')},"
+                    f" dispatches={st.get('dispatches')}, equals mesh=None={equal},"
+                    f" {wall:.3f} s -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"phase 2 {path} {name} failed")
+            main_counts[path] = {"total": tk.launches, "by_config": dict(tk.launches_by_config),
+                                 "by_kernel": dict(tk.launches_by_kernel),
+                                 "plain_runs": plain_runs["n"]}
+    phase_done("phase 2, mesh")
     # track_resumable of the bench clip on ROI, in 4 slices of 120 frames:
     # each run equals track ROI's uninterrupted track() and launches, per
     # slice, its snap and one bounded launch a dispatch
@@ -1124,6 +1276,39 @@ def main() -> int:
     record["wrapper_host_us_per_launch"] = wrapper_us
     for n, us in wrapper_us.items():
         log(f"phase 3 wrapper host time, {n}: {us:.1f} us a launch (card asleep, launches queued)")
+    # sharded_pallas_bounded a call: one launch a data shard, in turn on the
+    # host; shards on cuda:0 queue on its one stream, so their times add. Card
+    # time by CUDA events where every shard is on cuda:0 (else not measured);
+    # wall time a call with every card synchronised; the wrapper's host time
+    sharded_timing = {}
+    for name, (rspec, mesh, sub, case) in sharded_cases.items():
+        fr, p0, fl, _, b, _, _ = cases[case]
+        fn = sharded_pallas_bounded(rspec, mesh, subpixel=sub)
+        one_card = all(d == dev for d in mesh.data_devices())
+        bnds = (b["deltas"], b["lo"], b["hi"])
+        ms = cuda_time_ms(lambda: fn(fr, p0, fl, *bnds), reps=20) if one_card else None
+        n_calls = 50
+        for d in set(mesh.data_devices()):
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            fn(fr, p0, fl, *bnds)
+        for d in set(mesh.data_devices()):
+            torch.cuda.synchronize(d)
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n_calls
+        host_us = host_us_per_launch(lambda: fn(fr, p0, fl, *bnds), n=50)
+        shards = mesh.shape["data"]
+        sharded_timing[name] = {"kernel": kernel_of(case), "case": case, "shards": shards,
+                                "ms": ms, "wall_ms": wall_ms, "host_us_per_call": host_us,
+                                "unsharded_ms": timing[case]["ms"],
+                                "bound_ms": timing[case]["bound_ms"],
+                                "bound_by": timing[case]["bound_by"]}
+        log(f"phase 3 {name}: {shards} shard(s), card "
+            + (f"{ms:.4f} ms a call" if ms is not None else "time not measured (two cards)")
+            + f", wall {wall_ms:.4f} ms a call (every card synchronised), host"
+            f" {host_us:.1f} us a call; one unsharded B={B} launch {timing[case]['ms']:.4f} ms,"
+            f" bound {timing[case]['bound_ms']:.6f} ms ({timing[case]['bound_by']})")
+    record["sharded_pallas_bounded"] = sharded_timing
     for name in ("batched unbounded B=16", "unbounded T=1", "bounded+subpixel T=1",
                  "batched unbounded B=4 T=1", *large_cases):
         del cases[name]
@@ -1179,7 +1364,9 @@ def main() -> int:
             ("track ROI", N_FRAMES, paths["track ROI"]["start_location"]),
             ("track large target ROI", N_FRAMES, paths["track ROI"]["start_location"]),
             ("track_batch ROI", sum(BATCH_LENS), paths["track_batch"]["start_location"]),
-            ("track_multi ROI", MULTI_FRAMES, paths["track_multi"]["start_locations"])):
+            ("track_multi ROI", MULTI_FRAMES, paths["track_multi"]["start_locations"]),
+            *((p, sum(BATCH_LENS), paths["track_batch"]["start_location"])
+              for p in mesh_paths)):
         walls, runs_stats = [], []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -1202,7 +1389,7 @@ def main() -> int:
             e2e[path]["ms_per_call"] = {k: 1e3 * v for k, v in sec.items()}
             note = "; median run, ms a call: " + ", ".join(f"{k} {1e3 * v:.2f}"
                                                            for k, v in sec.items())
-            if path in roi_paths:
+            if "dispatches" in st:
                 n_disp = st["dispatches"]
                 per = {k: 1e6 * v / n_disp for k, v in sec.items()
                        if k not in ("setup", "snap", "buffers")}  # once a call
@@ -1210,7 +1397,8 @@ def main() -> int:
                 note += (f"; {n_disp} dispatches, {st['replays']} replays, depth {st['depth']}"
                          f" at the end, crop {st['crop']}, K={st['K']}; us a dispatch: "
                          + ", ".join(f"{k} {v:.1f}" for k, v in per.items()))
-        kind = roi_paths.get(path, path)
+        kind = mesh_paths.get(path, path)
+        kind = roi_paths.get(kind, kind)
         log(f"phase 3 e2e {path}: {e2e[path]['frames_per_s']:.1f} frames/s (median of"
             f" {len(walls)}, {frames_per_call} frames of {W}x{H}"
             + (", summed over 4 videos)" if kind == "track_batch" else
@@ -1271,7 +1459,9 @@ def main() -> int:
                         ("track ROI", paths["track ROI"]["start_location"]),
                         ("track large target ROI", paths["track ROI"]["start_location"]),
                         ("track_batch ROI", paths["track_batch"]["start_location"]),
-                        ("track_multi ROI", paths["track_multi"]["start_locations"])):
+                        ("track_multi ROI", paths["track_multi"]["start_locations"]),
+                        *((p, paths["track_batch"]["start_location"]) for p in mesh_paths
+                          if p.startswith("track_batch ROI"))):
         record["profile"][path] = profile_busy(lambda: entry[path](**extra))
         log_profile(f"{path}()", record["profile"][path])
 
@@ -1308,6 +1498,10 @@ def main() -> int:
             "launches_by_config": {c: n for c, n in by_config.items()
                                    if c.startswith(kname + ":")},
             "launches_by_path": {p: c["by_kernel"].get(kname, 0) for p, c in main_counts.items()},
+            # the mesh paths count one launch a data shard; sharded_pallas_bounded,
+            # the launch wrapper over the mesh, with its shards' times
+            "sharded_pallas_bounded": {n: t for n, t in sharded_timing.items()
+                                       if t["kernel"] == kname},
             # the kernel's timed cases, each with its configuration's launches
             # on the main paths
             "configs": [{"case": n, "launches": by_config.get(f"{kname}: {t['config']}", 0),

@@ -6,7 +6,8 @@ evaluated in a search window around the previous position. Host decode feeds
 chunks of uint8 frames to a hand-written CUDA kernel that carries the whole
 per-frame recurrence of a chunk in one launch (``csrc/dog_scan.cu``), one
 CTA per chain: ``track`` runs one chain, ``track_batch`` one per video and
-``track_multi`` one per target of one video; ``track_resumable`` tracks
+``track_multi`` one per target of one video, and ``track_batch(mesh=...)``
+spreads the videos over several cards (``make_mesh``); ``track_resumable`` tracks
 a long recording in checkpointed slices, and ``python -m
 pawsometracker_tpu_torch`` is the command line. The same step in plain
 PyTorch runs on the CPU (``device="cpu"``).
@@ -34,7 +35,13 @@ from .ops.dog_kernel import (
     get_sigma,
     guess_window_size,
 )
-from .parallel import ShardedBatchTracker, global_detect_batch, global_detect_peaks
+from .parallel import (
+    ShardedBatchTracker,
+    batch_sharding,
+    global_detect_batch,
+    global_detect_peaks,
+    make_mesh,
+)
 
 __version__ = "0.1.0"
 
@@ -60,6 +67,8 @@ __all__ = [
     "Dont",
     "diagnose",
     "ShardedBatchTracker",
+    "make_mesh",
+    "batch_sharding",
     "global_detect_batch",
     "global_detect_peaks",
     "__version__",

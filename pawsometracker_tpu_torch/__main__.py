@@ -52,9 +52,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "on the device (track_batch) instead of consecutive "
                         "segments of one recording")
     p.add_argument("--mesh", default="none", choices=["none", "auto"],
-                   help="with --batch: 'auto' spreads the batch over the local "
-                        "devices (today the one card given by --device); "
-                        "'none' runs single-device")
+                   help="with --batch: 'auto' shards the batch across all "
+                        "local cards (a device mesh); 'none' runs "
+                        "single-device")
     p.add_argument("--n-targets", type=int, default=None,
                    help="auto-detect and track N targets in one video (track_multi)")
     p.add_argument("--diagnostic-file", default=None, help="write a 640x360 overlay video here")

@@ -15,8 +15,10 @@ lane per video (:class:`..pipeline.PerVideoSource`,
 streams whole frames, decoded on one prefetch thread per video and staged
 into the rows of one pinned ``[B, T, H, W]`` slot
 (:func:`..pipeline.run_batch_pipeline`). The positions are the same either
-way. ``mesh=None`` and ``mesh="auto"`` run on the one card given by
-``device``; any other ``mesh`` raises until multi-GPU is ported.
+way. ``mesh`` shards the videos over a device mesh
+(:func:`..parallel.mesh.make_mesh`), one launch per data shard on its device,
+as the JAX package shards them over its chips; ``mesh="auto"`` builds such a
+mesh over the local cards whenever there are several.
 """
 
 from __future__ import annotations
@@ -42,12 +44,13 @@ from .io.decode import ChunkPrefetcher, open_source
 from .models.dog_tracker import full_frame_sub_scan, make_spec, resolve_device
 from .ops.dog_kernel import fix_window_size, guess_window_size
 from .ops.filters import mode_u8_host
-from .parallel.mesh import MULTI_GPU, ShardedBatchTracker
+from .parallel.mesh import Mesh, Sharded, ShardedBatchTracker, make_mesh, mesh_device
 from .pipeline import (
     AUTO_DEPTH_MAX,
     PerVideoSource,
     SpeculativePipeline,
     _BatchedEngine,
+    _select_sharded_bounded,
     auto_depth_cap,
     roi_geometry,
     run_batch_pipeline,
@@ -69,12 +72,47 @@ def _broadcast(x, n, default):
     return [x] * n
 
 
-def _check_mesh(mesh) -> None:
-    """The port runs a batch on one card: ``None`` and ``"auto"`` (which the
-    JAX package resolves to a data-parallel mesh, with equal results) both
-    mean the card given by ``device``. Any other mesh raises."""
-    if not (mesh is None or (isinstance(mesh, str) and mesh == "auto")):
-        raise NotImplementedError(MULTI_GPU)
+def _call_device(mesh, device) -> torch.device:
+    """The device of a call: with a :class:`~.parallel.mesh.Mesh`, ``device``
+    if it is one of the mesh's (``None``: the mesh's first), else raises
+    ``ValueError``; with ``None`` or ``"auto"``, ``device`` as
+    :func:`~.models.dog_tracker.resolve_device` gives it. Any other ``mesh``
+    raises ``TypeError``."""
+    if isinstance(mesh, Mesh):
+        return mesh_device(mesh, device)
+    if mesh is None or (isinstance(mesh, str) and mesh == "auto"):
+        return resolve_device(device)
+    raise TypeError(f"mesh must be a Mesh (see make_mesh), 'auto' or None, got {mesh!r}")
+
+
+def _resolve_mesh(mesh, B: int, device: torch.device):
+    """Resolve ``mesh="auto"`` for a bucket of ``B`` videos (the JAX
+    package's rule, ``pawsometracker_tpu/batch.py:39-58``): a pure
+    data-parallel mesh over the most local cards whose count divides ``B``
+    (sharding the leading batch axis needs exact divisibility). One device
+    (``device`` on the CPU counts as one), or no usable divisor, means
+    single-device execution (None), which is always correct; results are
+    identical either way."""
+    if not (isinstance(mesh, str) and mesh == "auto"):
+        return mesh
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    n = min(n, B)
+    while n > 1 and B % n:
+        n -= 1
+    if n < 2:
+        return None
+    return make_mesh(n)
+
+
+def _per_lane(mask, a, b):
+    """Per lane, ``a`` where ``mask`` (a host bool array) is true, else
+    ``b``: tensors on one device, or :class:`~.parallel.mesh.Sharded` shard by
+    shard on each shard's device."""
+    if isinstance(a, Sharded):
+        sl = a.sharding.lanes(len(mask))
+        return Sharded([_per_lane(mask[s], x, y) for s, x, y in zip(sl, a.shards, b.shards)],
+                       a.sharding)
+    return torch.where(torch.as_tensor(mask, device=a.device)[:, None], a, b)
 
 
 def _is_single_location(x):
@@ -132,23 +170,28 @@ def track_batch(
     per-file lists; ``start_location`` entries follow the same kinds as
     :func:`.api.track` (None / IJ / (x, y)).
 
-    ``mesh``: ``None`` or ``"auto"``, one card (a device mesh needs
-    multi-GPU, which is not ported). ``diagnostic_files``: optional per-file
-    overlay video paths (None entries disable). ``subpixel=True`` returns
+    ``mesh``: a :class:`~.parallel.mesh.Mesh` (:func:`~.parallel.mesh.make_mesh`)
+    to shard the batch over its devices (the batch of each bucket must divide
+    its data axis), or ``"auto"`` to build a data-parallel mesh over the local
+    cards whenever more than one is present (each bucket uses the most cards
+    whose count divides its batch; None = one device).
+    ``diagnostic_files``: optional per-file overlay video paths (None entries
+    disable). ``subpixel=True`` returns
     float positions (integer recurrence + parabolic response-peak refinement,
     exactly like :func:`.api.track`). ``engine``, ``stream``, ``roi_frames``
     and ``pipeline_depth`` are as in :func:`.api.track`. ``progress`` is an
     optional ``callback(frames_done, frames_expected)`` over the whole batch.
     ``device`` (keyword-only): ``None`` is the CUDA card and raises when there
-    is none; ``"cpu"`` runs the plain PyTorch version on the host.
+    is none; ``"cpu"`` runs the plain PyTorch version on the host. With a
+    mesh, ``None`` means the mesh's devices, and any other device must be one
+    of them.
 
     Returns a list of ``(ts, positions)``.
     """
     _check_choice("backend", backend, ("auto", "native", "opencv"))
     _check_choice("engine", engine, ("auto", "pallas", "xla"))
     _check_stream(stream, roi_frames)
-    _check_mesh(mesh)
-    dev = resolve_device(device)
+    dev = _call_device(mesh, device)
     files = list(files)
     B = len(files)
     if B == 0:
@@ -209,6 +252,7 @@ def track_batch(
             darker_target=darks[idxs[0]],
             fps=fps,
             sar=sar,
+            mesh=mesh,
             backend=backend,
             chunk_size=chunk_size,
             stream=stream,
@@ -242,6 +286,7 @@ def _track_batch_uniform(
     darker_target: bool,
     fps: float,
     sar: float | None,
+    mesh,
     backend: str,
     chunk_size: int,
     stream: str,
@@ -261,6 +306,16 @@ def _track_batch_uniform(
     ``start``, ``stop``, ``start_location`` and ``diagnostic_files`` are
     per-video lists)."""
     B = len(files)
+    mesh = _resolve_mesh(mesh, B, device)
+    tracker_engine = engine
+    if mesh is not None:
+        # the work goes to the mesh's devices (track_batch checked an explicit
+        # one against the mesh; "auto" spans every card). The kernel is the
+        # engine of "auto" and "pallas" alike; the mesh tracker refuses
+        # "pallas" (as the JAX package's does), and the ROI path selects its
+        # sharded engine by the caller's choice below
+        device = None
+        tracker_engine = "xla" if engine == "xla" else "auto"
     starts = [0.0 if s is None else float(s) for s in start]
     stops = [DEFAULT_MAX_DURATION_SECONDS if s is None else float(s) for s in stop]
     if window_size is None:
@@ -315,7 +370,7 @@ def _track_batch_uniform(
             fills = np.array([mode_u8_host(f) for f in frames0], np.uint8)
 
             spec = make_spec(frame_shape, window_size, target_width, darker_target)
-            tracker = ShardedBatchTracker(spec, None, engine, device=device)
+            tracker = ShardedBatchTracker(spec, mesh, tracker_engine, device=device)
 
             guesses = np.array(
                 [
@@ -332,18 +387,17 @@ def _track_batch_uniform(
             g_dev = tracker.shard_chunk(guesses)
             # where any lane auto-detects, every lane snaps both ways and each
             # takes its own (the JAX package's rule)
-            auto_col = tracker.shard_chunk(auto)[:, None]
             if subpixel:
                 pos, off = tracker.snap_sub(f0, g_dev, fills_dev)
                 if auto.any():
                     pos_det, off_det = tracker.snap_detect_sub(f0, g_dev, fills_dev)
-                    pos = torch.where(auto_col, pos_det, pos)
-                    off = torch.where(auto_col, off_det, off)
+                    pos = _per_lane(auto, pos_det, pos)
+                    off = _per_lane(auto, off_det, off)
                 off0 = off.cpu().numpy()
             else:
                 pos = tracker.snap(f0, g_dev, fills_dev)
                 if auto.any():
-                    pos = torch.where(auto_col, tracker.snap_detect(f0, g_dev, fills_dev), pos)
+                    pos = _per_lane(auto, tracker.snap_detect(f0, g_dev, fills_dev), pos)
                 off0 = np.zeros((B, 2), np.float32)
             pos_host = pos.cpu().numpy()
 
@@ -371,7 +425,8 @@ def _track_batch_uniform(
         if not nat_retained:
             prefetchers = [ChunkPrefetcher(s, chunk_size, max_frames=n - 1)
                            for s, n in zip(sources, ns)]
-        stats = {"stream": "roi" if use_roi else "full"}
+        stats = {"stream": "roi" if use_roi else "full",
+                 "shards": 1 if mesh is None else mesh.shape["data"]}
         if use_roi:
             counts = np.zeros(B, np.int64)
             pos_blocks = [[] for _ in range(B)]
@@ -388,9 +443,8 @@ def _track_batch_uniform(
                 if progress is not None:
                     progress(int(counts.sum()))
 
-            roi_engine = ShardedBatchTracker(
-                make_spec((ch, cw), window_size, target_width, darker_target), None, engine,
-                device=device)
+            roi_spec = make_spec((ch, cw), window_size, target_width, darker_target)
+            roi_engine = ShardedBatchTracker(roi_spec, mesh, tracker_engine, device=device)
             auto_cap = None
             if auto_depth:
                 # the ring gate, bounded again by the decoded size (an input
@@ -399,7 +453,11 @@ def _track_batch_uniform(
                 auto_cap = depth_gate
                 if not all(getattr(s, "serves_views", False) for s in sources):
                     auto_cap = min(depth_gate, auto_depth_cap(frame_shape, roi_frames, lanes=B))
-            scan = roi_engine.scan_sub if subpixel else roi_engine.scan_bounded
+            if mesh is None:
+                scan = roi_engine.scan_sub if subpixel else roi_engine.scan_bounded
+            else:  # one kernel launch a shard where the batch divides the data axis
+                scan = _select_sharded_bounded(roi_engine, roi_spec, roi_frames, B,
+                                               int(fills[0]), engine, mesh, subpixel=subpixel)
             with timer.section("buffers"):  # the controller, its pinned crop buffers
                 pipe = SpeculativePipeline(
                     L=B, K=roi_frames, crop_shape=(ch, cw), margin=margin, spec=spec, mode=mode,
@@ -422,8 +480,12 @@ def _track_batch_uniform(
                 depth = min(3, auto_depth_cap(frame_shape, chunk_size, lanes=B))
             else:
                 depth = max(0, int(pipeline_depth))
-            scan = (full_frame_sub_scan(tracker.scan_sub, frame_shape, tracker.device)
-                    if subpixel else tracker.scan)
+            scan = tracker.scan
+            if subpixel and mesh is None:
+                scan = full_frame_sub_scan(tracker.scan_sub, frame_shape, tracker.device)
+            elif subpixel:
+                scan = tracker.scan_sub.map(
+                    lambda fn, dev: full_frame_sub_scan(fn, frame_shape, dev))
             pos_blocks, off_blocks, counts = run_batch_pipeline(
                 prefetchers, pos, fills_dev, chunk_size=chunk_size, depth=depth, scan=scan,
                 subpixel=subpixel, dias=dias, timer=timer, device=tracker.device,

@@ -1,3 +1,12 @@
-"""Batch tracking on one card, and the whole-frame detectors."""
+"""Batch tracking on one card or over a device mesh, and the whole-frame detectors."""
 
-from .mesh import ShardedBatchTracker, global_detect_batch, global_detect_peaks
+from .mesh import (
+    Mesh,
+    Sharded,
+    ShardedBatchTracker,
+    batch_sharding,
+    global_detect_batch,
+    global_detect_peaks,
+    make_mesh,
+    sharded_pallas_bounded,
+)

@@ -32,6 +32,13 @@ here) and a lane engine stages them and runs the scans:
 - B videos (``track_batch``, which builds the controller itself):
   :class:`PerVideoSource` and :class:`_BatchedEngine`.
 
+Under a device mesh (``track_batch(mesh=...)``) the lanes split into data
+shards, one a row of the mesh: the full-frame engine and the batched lane
+engine copy each shard's lanes of the one pinned buffer to its device on that
+device's side stream, run one launch a shard in that device's context, keep
+the chain per shard on its device, and gather the positions into one pinned
+buffer behind an event a shard.
+
 The reference's group dispatch (super-programs that coalesce TPU calls) and
 its dispatch thread are not ported: a CUDA launch returns at once, and the
 copy to the card runs on a side stream.
@@ -54,7 +61,7 @@ import torch
 
 from .io.decode import ChunkPrefetcher
 from .models.dog_tracker import make_spec, tracker_fns
-from .parallel.mesh import ShardedBatchTracker
+from .parallel.mesh import BatchSharding, Sharded, ShardedBatchTracker, ShardedFn, on_device
 
 logger = logging.getLogger(__name__)
 
@@ -157,78 +164,175 @@ def _crop_with_fill(frame: np.ndarray, o, ch: int, cw: int, fill: int, out=None)
     return out
 
 
+def _lane_shards(scan, lanes, device) -> list:
+    """Per data shard of an engine's lanes: ``(lane slice, device, scan)``.
+    A :class:`~.parallel.mesh.ShardedFn` scan (a mesh) gives one shard a row
+    of its mesh, each with its own single-device scan; any other scan one
+    shard of every lane on ``device``."""
+    if isinstance(scan, ShardedFn):
+        return list(zip(BatchSharding(scan.mesh, 1).lanes(lanes), scan.devices, scan.fns))
+    return [(slice(None), device, scan)]
+
+
+def _parts(x, shards) -> list:
+    """``x`` split as ``shards`` split the lanes: a :class:`Sharded`'s own
+    shards, else slices of ``x`` (``x`` itself for one shard)."""
+    if isinstance(x, Sharded):
+        return list(x.shards)
+    if len(shards) == 1:
+        return [x]
+    t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+    return [t[sl] for sl, _, _ in shards]
+
+
+def _record(stream):
+    """A new event recorded on ``stream``."""
+    event = torch.cuda.Event()
+    event.record(stream)
+    return event
+
+
+class _ShardedEngine:
+    """What the engines share: their lanes split into data shards
+    (:func:`_lane_shards`), on the card a side stream a device for the copies
+    to the card (shards on one device share it), and results that come back
+    into one pinned buffer behind an event a shard."""
+
+    def __init__(self, scan, lanes, device):
+        self.shards = _lane_shards(scan, lanes, device)
+        self._cuda = self.shards[0][1].type == "cuda"
+        if self._cuda:
+            self._copy_streams = {dev: torch.cuda.Stream(dev) for _, dev, _ in self.shards}
+            # the first shard's (the only one without a mesh)
+            self._copy_stream = self._copy_streams[self.shards[0][1]]
+
+    def _copy_in(self, slot, copies):
+        """Per shard i, on its device's side stream and after the scan that
+        last read ``slot``'s twins, start the ``(dst, src)`` copies
+        ``copies[i]`` and record ``slot.copied[i]``; the shard's scan stream
+        waits for them."""
+        for i, (_, dev, _) in enumerate(self.shards):
+            stream = self._copy_streams[dev]
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                if slot.consumed[i] is not None:
+                    stream.wait_event(slot.consumed[i])  # the last scan read the twins
+                for dst, src in copies[i]:
+                    dst.copy_(src, non_blocking=True)
+                slot.copied[i] = _record(stream)
+            torch.cuda.current_stream(dev).wait_event(slot.copied[i])
+
+    def _results(self, slot, outs, pos_h, off_h):
+        """The handle of a dispatched chunk whose scans gave, per shard,
+        ``(positions, offsets or None)`` with lanes first: on the CPU their
+        concatenation; on the card, after marking each shard's twins in
+        ``slot`` consumed once the work queued so far has run, the copies of
+        its results into its lanes of the pinned ``pos_h`` (``off_h``), each
+        behind an event."""
+        if not self._cuda:
+            if len(outs) == 1:
+                return outs[0] + (None,)
+            return (torch.cat([p for p, _ in outs]),
+                    None if outs[0][1] is None else torch.cat([o for _, o in outs]), None)
+        done = []
+        for i, ((sl, dev, _), (pos, off)) in enumerate(zip(self.shards, outs)):
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev)
+                slot.consumed[i] = _record(stream)
+                pos_h[sl].copy_(pos, non_blocking=True)
+                if off is not None:
+                    off_h[sl].copy_(off, non_blocking=True)
+                done.append(_record(stream))
+        return pos_h, off_h, done
+
+    @staticmethod
+    def ready(handle) -> bool:
+        """True when :meth:`to_host` will not block."""
+        return handle[2] is None or all(e.query() for e in handle[2])
+
+    @staticmethod
+    def to_host(handle):
+        """The chunk's positions (and offsets) as numpy arrays."""
+        pos, off, done = handle
+        for e in done or ():
+            e.synchronize()
+        return pos.numpy().copy(), (None if off is None else off.numpy().copy())
+
+    def close(self):
+        """Wait for the card's work on this engine's buffers before they go."""
+        if self._cuda:
+            for dev, stream in self._copy_streams.items():
+                torch.cuda.current_stream(dev).synchronize()
+                stream.synchronize()
+
+
 class _Slot:
     """One staging slot: a host buffer (pinned when the scan runs on the
-    card), its device twin (the same tensor on the CPU), the event that marks
-    the host-to-device copy done and the event that marks the scan that read
-    the device buffer done."""
+    card), and per shard its device twin of the shard's lanes (a view of the
+    host buffer on the CPU), the event that marks its host-to-device copy
+    done and the event that marks the scan that read it done."""
 
     __slots__ = ("host", "dev", "copied", "consumed")
 
-    def __init__(self, shape, device):
-        cuda = device.type == "cuda"
+    def __init__(self, shape, shards):
+        cuda = shards[0][1].type == "cuda"
         self.host = torch.empty(shape, dtype=torch.uint8, pin_memory=cuda)
-        self.dev = torch.empty(shape, dtype=torch.uint8, device=device) if cuda else self.host
-        self.copied = None
-        self.consumed = None
+        self.dev = [torch.empty(self.host[sl].shape, dtype=torch.uint8, device=dev) if cuda
+                    else self.host[sl] for sl, dev, _ in shards]
+        self.copied = [None] * len(shards)
+        self.consumed = [None] * len(shards)
 
 
-class _FullFrameEngine:
+class _FullFrameEngine(_ShardedEngine):
     """Runs the chunk scans of one frame stream, or of ``lanes`` streams in
-    one launch, chaining each chunk's start positions on the device.
-    ``scan(frames, pos0, fill)`` takes ``frames [T,H,W]`` (one stream, any
-    number of targets in ``pos0``) or ``[lanes,T,H,W]`` and returns positions
-    (steps first for one stream, ``[lanes,T,2]`` for lanes), or ``(positions,
-    offsets)`` with ``subpixel``.
+    one launch (one launch a data shard under a mesh), chaining each chunk's
+    start positions on the device. ``scan(frames, pos0, fill)`` takes
+    ``frames [T,H,W]`` (one stream, any number of targets in ``pos0``) or
+    ``[lanes,T,H,W]`` and returns positions (steps first for one stream,
+    ``[lanes,T,2]`` for lanes), or ``(positions, offsets)`` with
+    ``subpixel``; a :class:`~.parallel.mesh.ShardedFn` runs each shard's lanes
+    on its device, the chain kept per shard.
 
     Every chunk is copied once, into a staging slot: on the CPU the scan then
     runs at once; on the card the slot is one of a ring of ``slots``
-    :class:`_Slot` s, and the dispatch returns before the scan ends, the
-    results coming back through pinned buffers and an event that
+    :class:`_Slot` s, each shard's lanes go to its device on that device's
+    side stream, and the dispatch returns before the scans end, the results
+    coming back into one pinned buffer behind an event a shard that
     :meth:`to_host` waits on."""
 
     def __init__(self, scan, pos0, fill, subpixel, timer, device, slots: int, lanes=None):
-        self.scan = scan
-        self.device = device
-        self.pos0 = torch.as_tensor(pos0).to(device=device, dtype=torch.int32)
-        self.fill = fill
+        super().__init__(scan, lanes, device)
+        self.pos0 = [torch.as_tensor(p).to(device=dev, dtype=torch.int32)
+                     for p, (_, dev, _) in zip(_parts(pos0, self.shards), self.shards)]
+        self.fill = _parts(fill, self.shards)
         self.subpixel = subpixel
         self.timer = timer
         self.lanes = lanes
-        self._cuda = device.type == "cuda"
         self._n_slots = max(2, int(slots)) if self._cuda else 1
         self._slots: list[_Slot] = []
         self._next = 0
-        if self._cuda:
-            self._copy_stream = torch.cuda.Stream(device)
 
     def _stage(self, chunks, T: int) -> _Slot:
         """Copy one chunk per stream (``None`` for a lane past its end) into
         the next slot, each padded to ``T`` steps by repeating its last frame,
-        and on the card on to the device; returns the slot."""
+        and on the card on to each shard's device; returns the slot."""
         frame_shape = next(c.shape[1:] for c in chunks if c is not None)
         lead = (T,) if self.lanes is None else (self.lanes, T)
         if len(self._slots) < self._n_slots:
-            self._slots.append(_Slot(lead + tuple(frame_shape), self.device))
+            self._slots.append(_Slot(lead + tuple(frame_shape), self.shards))
         slot = self._slots[self._next]
         self._next = (self._next + 1) % self._n_slots
-        if slot.copied is not None:
-            slot.copied.synchronize()  # the pinned buffer is free once its copy is done
+        for copied in slot.copied:
+            if copied is not None:
+                copied.synchronize()  # the pinned buffer is free once its copies are done
         host = slot.host.numpy()
         for row, chunk in zip([host] if self.lanes is None else host, chunks):
             # a lane past its end keeps whatever its row holds: its steps are discarded
             if chunk is not None:
                 row[:len(chunk)] = chunk
                 row[len(chunk):] = chunk[-1]
-        if not self._cuda:
-            return slot
-        with torch.cuda.stream(self._copy_stream):
-            if slot.consumed is not None:
-                self._copy_stream.wait_event(slot.consumed)  # the last scan read it
-            slot.dev.copy_(slot.host, non_blocking=True)
-            slot.copied = torch.cuda.Event()
-            slot.copied.record(self._copy_stream)
-        torch.cuda.current_stream(self.device).wait_event(slot.copied)
+        if self._cuda:
+            self._copy_in(slot, [[(dev, slot.host[sl])]
+                                 for dev, (sl, _, _) in zip(slot.dev, self.shards)])
         return slot
 
     def _chain(self, pos0, pos, valid, T: int):
@@ -245,46 +349,29 @@ class _FullFrameEngine:
         """Start the scan of one chunk per stream (``[chunk]`` for one stream;
         ``None`` for a lane past its end), padded to ``T`` steps; returns a
         handle for :meth:`ready` and :meth:`to_host`."""
-        pos0 = self.pos0
         with self.timer.section("upload"):
             slot = self._stage(chunks, T)
+        valid = [0 if c is None else len(c) for c in chunks]
+        outs = []
         with self.timer.section("device"):
-            out = self.scan(slot.dev, pos0, self.fill)
-        pos, off = out if self.subpixel else (out, None)
-        self.pos0 = self._chain(pos0, pos, [0 if c is None else len(c) for c in chunks], T)
-        if not self._cuda:
-            return pos, off, None
-        slot.consumed = torch.cuda.Event()
-        slot.consumed.record(torch.cuda.current_stream(self.device))
-        pos_h = torch.empty(pos.shape, dtype=pos.dtype, pin_memory=True)
-        pos_h.copy_(pos, non_blocking=True)
-        off_h = None
-        if off is not None:
-            off_h = torch.empty(off.shape, dtype=off.dtype, pin_memory=True)
-            off_h.copy_(off, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
-        return pos_h, off_h, done
-
-    @staticmethod
-    def ready(handle) -> bool:
-        """True when :meth:`to_host` will not block."""
-        return handle[2] is None or handle[2].query()
-
-    @staticmethod
-    def to_host(handle):
-        """The chunk's positions (and offsets) as numpy arrays."""
-        pos, off, done = handle
-        if done is not None:
-            done.synchronize()
-        return pos.numpy().copy(), (None if off is None else off.numpy().copy())
+            for i, (sl, dev, scan) in enumerate(self.shards):
+                with on_device(dev):
+                    out = scan(slot.dev[i], self.pos0[i], self.fill[i])
+                    pos = out[0] if self.subpixel else out
+                    self.pos0[i] = self._chain(self.pos0[i], pos, valid[sl], T)
+                outs.append(out if self.subpixel else (out, None))
+        pos_h = off_h = None
+        if self._cuda:
+            first = outs[0][0]
+            shape = first.shape if len(outs) == 1 else (self.lanes,) + tuple(first.shape[1:])
+            pos_h = torch.empty(shape, dtype=first.dtype, pin_memory=True)
+            if self.subpixel:
+                off_h = torch.empty(shape, dtype=torch.float32, pin_memory=True)
+        return self._results(slot, outs, pos_h, off_h)
 
     def close(self):
-        """Wait for the card's work on this engine's buffers before they go."""
-        if self._cuda:
-            torch.cuda.current_stream(self.device).synchronize()
-            self._copy_stream.synchronize()
-            self._slots.clear()
+        super().close()
+        self._slots.clear()
 
 
 def run_full_pipeline(
@@ -446,6 +533,29 @@ def run_batch_pipeline(
 # ---------------------------------------------------------------------------
 
 
+def _select_sharded_bounded(tracker, roi_spec, k_frames: int, batch: int, fill: int,
+                            engine: str, mesh, subpixel: bool = False):
+    """The batched bounded scan of the batch ROI path under a mesh (the JAX
+    package's ``_select_sharded_bounded``, ``pawsometracker_tpu/pipeline.py:576-598``):
+    for ``"auto"`` and ``"pallas"``, when the batch divides the mesh's
+    ``data`` axis, :func:`~.parallel.mesh.sharded_pallas_bounded` (one kernel
+    launch a shard); otherwise the tracker's own scan (``engine="xla"``: the
+    plain version a shard). The card has one bounded engine, so ``"auto"``
+    measures nothing (``k_frames`` and ``fill`` are the JAX signature's).
+    ``engine="pallas"`` with a batch the data axis does not divide raises."""
+    from .parallel.mesh import sharded_pallas_bounded
+
+    data_size = mesh.shape["data"]
+    if engine == "pallas" and batch % data_size:
+        raise ValueError(
+            f"engine='pallas' under a mesh needs the batch ({batch}) divisible "
+            f"by the mesh data axis ({data_size})"
+        )
+    if engine in ("auto", "pallas") and batch % data_size == 0:
+        return sharded_pallas_bounded(roi_spec, mesh, subpixel=subpixel)
+    return tracker.scan_sub if subpixel else tracker.scan_bounded
+
+
 class _CropBuffer(np.ndarray):
     """A crop buffer ``[L, K, ch, cw]`` u8 in pinned host memory, carrying the
     :class:`_RoiSlot` through which its chunk goes to the card."""
@@ -455,67 +565,76 @@ class _CropBuffer(np.ndarray):
 
 class _RoiSlot:
     """The card side of one crop buffer ``[L, K, ch, cw]``: the pinned crops
-    ``host`` and their device twin, the scan's int32 arguments ``args`` (one
-    flat buffer, laid out by the engine) and their twin, pinned buffers for
-    the positions ``[L, K, 2]`` (and offsets) coming back, the event that
-    marks the copy to the card done and the one that marks the scan that read
-    the twins done."""
+    ``host`` and the scan's int32 arguments ``args`` (one flat buffer, laid
+    out by the engine, a span a shard), per shard their device twins of the
+    shard's lanes, pinned buffers for the positions ``[L, K, 2]`` (and
+    offsets) coming back, and per shard the event that marks its copy to the
+    card done and the one that marks the scan that read its twins done."""
 
     __slots__ = ("host", "dev", "args", "args_dev", "pos", "off", "copied", "consumed")
 
-    def __init__(self, shape, n_args: int, subpixel: bool, device):
+    def __init__(self, shape, spans, subpixel: bool, shards):
         lanes_steps = tuple(shape[:2]) + (2,)
         self.host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
-        self.dev = torch.empty(shape, dtype=torch.uint8, device=device)
-        self.args = torch.empty(n_args, dtype=torch.int32, pin_memory=True)
-        self.args_dev = torch.empty(n_args, dtype=torch.int32, device=device)
+        self.dev = [torch.empty(self.host[sl].shape, dtype=torch.uint8, device=dev)
+                    for sl, dev, _ in shards]
+        self.args = torch.empty(spans[-1][1], dtype=torch.int32, pin_memory=True)
+        self.args_dev = [torch.empty(a1 - a0, dtype=torch.int32, device=dev)
+                         for (a0, a1), (_, dev, _) in zip(spans, shards)]
         self.pos = torch.empty(lanes_steps, dtype=torch.int32, pin_memory=True)
         self.off = (torch.empty(lanes_steps, dtype=torch.float32, pin_memory=True)
                     if subpixel else None)
-        self.copied = None
-        self.consumed = None
+        self.copied = [None] * len(shards)
+        self.consumed = [None] * len(shards)
 
 
-class _RoiEngine:
+class _RoiEngine(_ShardedEngine):
     """What the lane engines share: the staging of a chunk's crops and
     arguments, and the way its positions come back.
 
-    On the card every crop buffer comes from :meth:`alloc`, pinned, with a
-    :class:`_RoiSlot`: the crops and the scan's int32 arguments go to the
-    device in one non-blocking copy each on a side stream, the scan waits on
-    their event, and the positions come back into pinned buffers behind an
-    event that :meth:`ready` queries and :meth:`to_host` waits on. A buffer is
-    refilled only after :meth:`claim` (its last copy done), and its twins only
-    after the scan that read them. On the CPU the scan runs at dispatch."""
+    The lanes split into data shards (:func:`_lane_shards`): one on the
+    engine's device, or under a mesh one a row of it, each on its device with
+    its own scan. On the card every crop buffer comes from :meth:`alloc`,
+    pinned, with a :class:`_RoiSlot`: each shard's crops and int32 arguments
+    go to its device in one non-blocking copy each on that device's side
+    stream, its scan waits on their event, and the positions come back into
+    one pinned buffer behind an event a shard that :meth:`ready` queries and
+    :meth:`to_host` waits on. A buffer is refilled only after :meth:`claim`
+    (its last copies done), and its twins only after the scan that read them.
+    On the CPU the scans run at dispatch."""
 
-    def __init__(self, scan, crop_shape, frame_shape, subpixel, timer, device):
-        self.scan = scan
+    def __init__(self, scan, crop_shape, frame_shape, subpixel, timer, device, lanes: int):
         self.ch, self.cw = crop_shape
         self.frame_max = np.array([frame_shape[0] - 1, frame_shape[1] - 1])
         self.subpixel = subpixel
         self.timer = timer
-        self.device = device
-        self._cuda = device.type == "cuda"
-        if self._cuda:
-            self._copy_stream = torch.cuda.Stream(device)
+        super().__init__(scan, lanes, device)
+        self.lanes = [len(range(lanes)[sl]) for sl, _, _ in self.shards]
         self.reset()
+
+    def _spans(self, K: int) -> list:
+        """Per shard, the ``(start, stop)`` of its arguments in the flat buffer."""
+        ends = np.cumsum([self._n_args(n, K) for n in self.lanes]).tolist()
+        return list(zip([0] + ends[:-1], ends))
 
     def alloc(self, shape):
         """A new crop buffer ``shape = [L, K, ch, cw]``: a
         :class:`_CropBuffer` on the card, a plain array on the CPU."""
         if not self._cuda:
             return np.empty(shape, np.uint8)
-        slot = _RoiSlot(shape, self._n_args(*shape[:2]), self.subpixel, self.device)
+        slot = _RoiSlot(shape, self._spans(shape[1]), self.subpixel, self.shards)
         buf = slot.host.numpy().view(_CropBuffer)
         buf.slot = slot
         return buf
 
     @staticmethod
     def claim(buf):
-        """Wait until ``buf`` may be refilled: its last copy to the card is done."""
+        """Wait until ``buf`` may be refilled: its last copies to the card are done."""
         slot = getattr(buf, "slot", None)
-        if slot is not None and slot.copied is not None:
-            slot.copied.synchronize()
+        if slot is not None:
+            for copied in slot.copied:
+                if copied is not None:
+                    copied.synchronize()
 
     def _bounds(self, o):
         """Per-frame clamp box: the frame's bounds in each frame's crop
@@ -526,58 +645,26 @@ class _RoiEngine:
 
     def _stage(self, buf, args):
         """The chunk's crops ``[L, K, ch, cw]`` and flat arguments as tensors
-        the scan reads: on the card, copied from the pinned buffers on the side
-        stream, with the scan's stream waiting for them."""
+        the scans read, per shard ``(its crops, its argument span)``: on the
+        card, copied from the pinned buffers on the shard's side stream, with
+        the shard's scan stream waiting for them."""
+        spans = self._spans(buf.shape[1])
         if not self._cuda:
-            return torch.from_numpy(buf), torch.from_numpy(args)
+            return [(torch.from_numpy(buf[sl]), torch.from_numpy(args[a0:a1]))
+                    for (sl, _, _), (a0, a1) in zip(self.shards, spans)]
         slot = buf.slot
         slot.args.numpy()[...] = args
-        with torch.cuda.stream(self._copy_stream):
-            if slot.consumed is not None:
-                self._copy_stream.wait_event(slot.consumed)  # the last scan read the twins
-            slot.dev.copy_(slot.host, non_blocking=True)
-            slot.args_dev.copy_(slot.args, non_blocking=True)
-            slot.copied = torch.cuda.Event()
-            slot.copied.record(self._copy_stream)
-        torch.cuda.current_stream(self.device).wait_event(slot.copied)
-        return slot.dev, slot.args_dev
+        self._copy_in(slot, [[(dev, slot.host[sl]), (args_dev, slot.args[a0:a1])]
+                             for dev, args_dev, (sl, _, _), (a0, a1)
+                             in zip(slot.dev, slot.args_dev, self.shards, spans)])
+        return list(zip(slot.dev, slot.args_dev))
 
-    def _finish(self, buf, pos, off):
-        """The handle of a dispatched chunk whose scan gave ``pos [L, K, 2]``
-        (and ``off``): on the card, marks the twins consumed once the work
-        queued so far has run, and starts the copy of the results into the
-        slot's pinned buffers behind an event."""
+    def _finish(self, buf, outs):
+        """The handle of a dispatched chunk whose scans gave, per shard,
+        ``(pos [L_i, K, 2], off)``, through the slot's pinned buffers."""
         if not self._cuda:
-            return pos, off, None
-        slot = buf.slot
-        stream = torch.cuda.current_stream(self.device)
-        slot.consumed = torch.cuda.Event()
-        slot.consumed.record(stream)
-        slot.pos.copy_(pos, non_blocking=True)
-        if off is not None:
-            slot.off.copy_(off, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
-        return slot.pos, slot.off if off is not None else None, done
-
-    @staticmethod
-    def ready(handle) -> bool:
-        """True when :meth:`to_host` will not block."""
-        return handle[2] is None or handle[2].query()
-
-    @staticmethod
-    def to_host(handle):
-        """The chunk's positions ``[L, K, 2]`` (and offsets) as numpy arrays."""
-        pos, off, done = handle
-        if done is not None:
-            done.synchronize()
-        return pos.numpy().copy(), (None if off is None else off.numpy().copy())
-
-    def close(self):
-        """Wait for the card's work on this engine's buffers before they go."""
-        if self._cuda:
-            torch.cuda.current_stream(self.device).synchronize()
-            self._copy_stream.synchronize()
+            return self._results(None, outs, None, None)
+        return self._results(buf.slot, outs, buf.slot.pos, buf.slot.off)
 
 
 class _SingleEngine(_RoiEngine):
@@ -594,7 +681,8 @@ class _SingleEngine(_RoiEngine):
 
     def __init__(self, scan, crop_shape, frame_shape, fill, subpixel, timer, device):
         self.fill = int(fill)
-        super().__init__(scan, crop_shape, frame_shape, subpixel, timer, device)
+        self.scan = scan
+        super().__init__(scan, crop_shape, frame_shape, subpixel, timer, device, lanes=1)
 
     def reset(self):
         """Invalidate the chain on the device (replay, run start)."""
@@ -632,7 +720,7 @@ class _SingleEngine(_RoiEngine):
         if first:
             args[3, 0] = np.asarray(P_abs[0], np.int64) - o[0]
         with self.timer.section("upload"):
-            frames, a = self._stage(buf, args.reshape(-1))
+            [(frames, a)] = self._stage(buf, args.reshape(-1))
         a = a.view(4, K, 2)
         pos0 = a[3, 0] if first else self._prev[self._prev_k - 1]
         with self.timer.section("device"):
@@ -641,16 +729,16 @@ class _SingleEngine(_RoiEngine):
         # the chain continues from the last REAL row: its position, its frame
         # count and the origin that row was cropped at
         self._prev, self._prev_k, self._prev_origin = pos, max(k, 1), o[max(k - 1, 0)]
-        return self._finish(buf, pos[None], None if off is None else off[None])
+        return self._finish(buf, [(pos[None], None if off is None else off[None])])
 
 
 class _BatchArgs(NamedTuple):
-    """Views of :class:`_BatchedEngine`'s flat int32 arguments (a numpy array
-    on the host, its tensor twin on the device), each contiguous: the scan's
-    ``deltas``, ``lo``, ``hi`` ``[L, K, 2]``; per lane the first and last real
-    frame's crop origin and the chain's seed ``[L, 2]``; the real frame count
-    ``ks [L]`` and ``last_row [L]``, the row of each lane's last real step in
-    the positions seen as ``[L*K, 2]``."""
+    """Views of :class:`_BatchedEngine`'s flat int32 arguments of one shard
+    (a numpy array on the host, its tensor twin on the device), each
+    contiguous: the scan's ``deltas``, ``lo``, ``hi`` ``[L, K, 2]``; per lane
+    the first and last real frame's crop origin and the chain's seed ``[L,
+    2]``; the real frame count ``ks [L]`` and ``last_row [L]``, the row of
+    each lane's last real step in the positions seen as ``[L*K, 2]``."""
 
     deltas: object
     lo: object
@@ -701,21 +789,25 @@ def chain_batch(scan, frames, carry, ks, last_row, origin0, origin_last, fills, 
 class _BatchedEngine(_RoiEngine):
     """Lane adapter for L lanes (B videos, or N targets of one video) over
     the batched bounded scan ``scan(frames [L,K,ch,cw], pos0 [L,2], fills
-    [L], deltas, lo, hi [L,K,2])``, one launch a chunk: the JAX package's
-    ``_BatchedEngine`` without group dispatch.
+    [L], deltas, lo, hi [L,K,2])``, one launch a chunk (one a data shard
+    when ``scan`` is a :class:`~.parallel.mesh.ShardedFn`): the JAX
+    package's ``_BatchedEngine`` without group dispatch.
 
-    The chain is :func:`chain_batch`'s absolute carry on the device; after
-    :meth:`reset` (a replay, or the start of a run) the next chunk seeds it
-    from the controller's ``P_abs``, which travels in the staged arguments.
-    The arguments are one flat int32 buffer (:func:`_batch_args`), copied to
-    the card in one piece beside the crops."""
+    The chain is :func:`chain_batch`'s absolute carry on the device, one a
+    shard on its device; after :meth:`reset` (a replay, or the start of a
+    run) the next chunk seeds every shard's from the controller's ``P_abs``,
+    which travels in the staged arguments. The arguments are one flat int32
+    buffer, a :func:`_batch_args` span a shard, each copied to its device in
+    one piece beside its crops."""
 
     def __init__(self, scan, crop_shape, frame_shape, fills, subpixel, timer, device):
-        self.fills = torch.as_tensor(np.asarray(fills, np.uint8)).to(device)
-        super().__init__(scan, crop_shape, frame_shape, subpixel, timer, device)
+        fills = np.asarray(fills, np.uint8)
+        super().__init__(scan, crop_shape, frame_shape, subpixel, timer, device,
+                         lanes=len(fills))
+        self.fills = [torch.as_tensor(fills[sl]).to(dev) for sl, dev, _ in self.shards]
 
     def reset(self):
-        """Invalidate the chain on the device (replay, run start)."""
+        """Invalidate the chain on the device (replay, run start): every shard's carry."""
         self._carry = None
 
     @staticmethod
@@ -745,25 +837,34 @@ class _BatchedEngine(_RoiEngine):
         o = np.asarray(origins, np.int64)
         ks = np.full(L, K, np.int64) if valid is None else np.asarray(valid, np.int64)
         first = self._carry is None
-        args = np.zeros(self._n_args(L, K), np.int32)
-        a = _batch_args(args, L, K)
-        a.deltas[...] = self._deltas(o)
-        a.lo[...], a.hi[...] = self._bounds(o)
-        a.origin0[...] = o[:, 0]
-        a.origin_last[...] = self._last_origin(o, ks)
-        a.ks[...] = ks
-        a.last_row[...] = last_rows(ks, K)
-        if first:
-            a.seed[...] = np.asarray(P_abs, np.int64).reshape(L, 2)
+        seed = np.asarray(P_abs, np.int64).reshape(L, 2) if first else None
+        spans = self._spans(K)
+        args = np.zeros(spans[-1][1], np.int32)
+        for (sl, _, _), n, (a0, a1) in zip(self.shards, self.lanes, spans):
+            a = _batch_args(args[a0:a1], n, K)
+            a.deltas[...] = self._deltas(o[sl])
+            a.lo[...], a.hi[...] = self._bounds(o[sl])
+            a.origin0[...] = o[sl, 0]
+            a.origin_last[...] = self._last_origin(o[sl], ks[sl])
+            a.ks[...] = ks[sl]
+            a.last_row[...] = last_rows(ks[sl], K)
+            if first:
+                a.seed[...] = seed[sl]
         with self.timer.section("upload"):
-            frames, flat = self._stage(buf, args)
-        d = _batch_args(flat, L, K)
+            staged = self._stage(buf, args)
+        outs, carry = [], []
         with self.timer.section("device"):
-            out, self._carry = chain_batch(
-                self.scan, frames, d.seed if first else self._carry, d.ks, d.last_row,
-                d.origin0, d.origin_last, self.fills, d.deltas, d.lo, d.hi)
-        pos, off = out if self.subpixel else (out, None)
-        return self._finish(buf, pos, off)
+            for i, ((_, dev, scan), n, (frames, flat)) in enumerate(
+                    zip(self.shards, self.lanes, staged)):
+                d = _batch_args(flat, n, K)
+                with on_device(dev):
+                    out, c = chain_batch(scan, frames, d.seed if first else self._carry[i],
+                                         d.ks, d.last_row, d.origin0, d.origin_last,
+                                         self.fills[i], d.deltas, d.lo, d.hi)
+                outs.append(out if self.subpixel else (out, None))
+                carry.append(c)
+        self._carry = carry
+        return self._finish(buf, outs)
 
 
 class SingleVideoSource:

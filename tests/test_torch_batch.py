@@ -230,8 +230,9 @@ def test_opens_each_input_once(monkeypatch):
 
 
 def test_stream_and_mesh_rules():
-    """stream="roi" gives the positions of stream="full"; a mesh raises until
-    multi-GPU; the engine and stream choices are checked."""
+    """stream="roi" gives the positions of stream="full"; a mesh of two CPU
+    entries gives the positions of mesh=None, and an object that is no mesh
+    raises TypeError; the engine and stream choices are checked."""
     clips = [clip(20, 19)[0]] * 2
     kw = dict(target_width=10, start_location=port.IJ(50, 50))
     roi = port.track_batch(clips, stream="roi", device="cpu", **kw)
@@ -242,9 +243,13 @@ def test_stream_and_mesh_rules():
     for bad in (dict(stream="crops"), dict(stream="roi", roi_frames=0)):
         with pytest.raises(ValueError):
             port.track_batch(clips, device="cpu", **bad, **kw)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="mesh must be"):
         port.track_batch(clips, mesh=object(), device="cpu", **kw)
     a = port.track_batch(clips, mesh=None, device="cpu", **kw)
+    two = port.track_batch(clips, mesh=port.make_mesh(devices=["cpu"] * 2), **kw)
+    for (ta, ia), (tb, ib) in zip(a, two):
+        np.testing.assert_array_equal(ta, tb)
+        np.testing.assert_array_equal(ia, ib)
     b = port.track_batch(clips, mesh="auto", engine="xla", device="cpu", **kw)
     for (ta, ia), (tb, ib) in zip(a, b):
         np.testing.assert_array_equal(ta, tb)
@@ -263,7 +268,9 @@ def jx(*arrays):
 
 def test_sharded_batch_tracker_snaps_match_jax(rng):
     """ShardedBatchTracker's snaps (the tracker's and the quarter-frame
-    autodetect's, plain and subpixel) equal the JAX package's."""
+    autodetect's, plain and subpixel) equal the JAX package's, and the same
+    snaps over a CPU mesh equal the single-device ones; an object that is no
+    mesh raises TypeError."""
     from pawsometracker_tpu.parallel.mesh import ShardedBatchTracker as RefTracker
 
     h, w, B = 90, 100, 3
@@ -284,8 +291,17 @@ def test_sharded_batch_tracker_snaps_match_jax(rng):
         np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=0, atol=1e-3)
     placed = pt.shard_chunk(frames)
     assert isinstance(placed, torch.Tensor) and placed.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="mesh must be"):
         ShardedBatchTracker(make_spec((h, w), 21, 8, True), mesh=object(), device="cpu")
+    # B = 3 lanes on a 3-entry CPU mesh: each snap equals the single-device one
+    mt = ShardedBatchTracker(make_spec((h, w), 21, 8, True),
+                             mesh=port.make_mesh(devices=["cpu"] * 3))
+    for name in ("snap", "snap_detect", "snap_sub", "snap_detect_sub"):
+        got = getattr(mt, name)(frames, guesses, fills)
+        want = getattr(pt, name)(frames, guesses, fills)
+        for g, w_ in zip(got if isinstance(got, tuple) else (got,),
+                         want if isinstance(want, tuple) else (want,)):
+            np.testing.assert_array_equal(np.asarray(g), w_.numpy())
 
 
 def test_global_detect_batch_matches_jax():

@@ -763,3 +763,95 @@ def test_track_resumable_on_card_equals_track(card, caplog, tmp_path, monkeypatc
     else:
         np.testing.assert_array_equal(ij_r, ij)
     assert load_checkpoint(cp)["done"]
+
+
+# ---- track_batch over a device mesh ---------------------------------------------
+
+
+def _mesh(name):
+    """A mesh of the card(s) by name: every card, 2 or 4 shards on cuda:0,
+    or the first two cards; None where the machine has too few cards."""
+    from pawsometracker_tpu_torch import make_mesh
+
+    n = torch.cuda.device_count()
+    if name == "all cards":
+        return make_mesh() if 4 % n == 0 else None
+    if name == "two cards":
+        return make_mesh(2) if n >= 2 else None
+    return make_mesh(devices=["cuda:0"] * int(name.split("x")[1]))
+
+
+@pytest.mark.parametrize("subpixel", [False, True])
+@pytest.mark.parametrize("stream", ["full", "roi"])
+@pytest.mark.parametrize("mesh_name", ["all cards", "cuda:0 x2", "cuda:0 x4", "two cards"])
+def test_track_batch_mesh_on_card_equals_none(card, caplog, monkeypatch, mesh_name, stream,
+                                              subpixel):
+    """track_batch over a mesh of the card(s) equals mesh=None, offsets
+    included, with one launch a data shard for each launch of mesh=None (the
+    snap, then each chunk or dispatch), and never the plain version."""
+    from pawsometracker_tpu_torch import track_batch
+    from pawsometracker_tpu_torch.models import dog_tracker
+
+    mesh = _mesh(mesh_name)
+    if mesh is None:
+        pytest.skip(f"{mesh_name}: {torch.cuda.device_count()} card(s) on this machine")
+    caplog.set_level(logging.DEBUG, logger="pawsometracker_tpu_torch")
+    clips, locs = _lane_clips()
+    kw = dict(fps=24, target_width=8, window_size=21, stream=stream, subpixel=subpixel,
+              start_location=locs, chunk_size=16, roi_frames=4)
+    want = track_batch(clips, **kw)
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran on the card's path")
+
+    for mod in (tk, dog_tracker):
+        monkeypatch.setattr(mod, "dog_scan_plain", no_plain)
+        monkeypatch.setattr(mod, "dog_scan_batch_plain", no_plain)
+    caplog.clear()
+    tk.reset_launches()
+    got = track_batch(clips, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    stats = _roi_stats(caplog)
+    shards = mesh.shape["data"]
+    assert stats["shards"] == shards and stats["stream"] == stream
+    chunks = stats["dispatches"] if stream == "roi" else -(-47 // 16)
+    assert tk.launches == shards * (1 + chunks)
+    for (ts, ij), (ts_w, ij_w) in zip(got, want):
+        np.testing.assert_array_equal(ts, ts_w)
+        np.testing.assert_array_equal(ij, ij_w)
+
+
+def test_sharded_pallas_bounded_on_card_equals_plain(card):
+    """sharded_pallas_bounded on 2 and 4 shards of cuda:0 equals its plain
+    version (interpret=True) and the unsharded batched launch, one launch a
+    shard; the space-sharded whole-frame detector equals the unsharded one."""
+    from pawsometracker_tpu_torch import make_mesh
+    from pawsometracker_tpu_torch.parallel.mesh import global_detect_batch, sharded_pallas_bounded
+
+    h, w, B, T = 120, 150, 4, 12
+    paths = [[(40 + t, 30 + 20 * b + 2 * t) for t in range(T)] for b in range(B)]
+    frames = torch.from_numpy(np.stack([ellipse_frames(h, w, p) for p in paths])).to(card)
+    pos0 = torch.tensor([p[0] for p in paths], dtype=torch.int32, device=card)
+    fills = torch.full((B,), 128, dtype=torch.uint8, device=card)
+    rng = np.random.default_rng(8)
+    b = {k: torch.from_numpy(v.astype(np.int32)).to(card) for k, v in
+         random_bounds(rng, (B, T, 2), h, w).items()}
+    spec = make_spec((h, w), 21, 10, True)
+    for n in (2, 4):
+        mesh = make_mesh(devices=["cuda:0"] * n)
+        for sub in (False, True):
+            before = tk.launches
+            got = sharded_pallas_bounded(spec, mesh, subpixel=sub)(
+                frames, pos0, fills, b["deltas"], b["lo"], b["hi"])
+            assert tk.launches == before + n
+            plain = sharded_pallas_bounded(spec, mesh, interpret=True, subpixel=sub)(
+                frames, pos0, fills, b["deltas"], b["lo"], b["hi"])
+            assert tk.launches == before + n
+            got, plain = (got, plain) if sub else ((got,), (plain,))
+            for g, p in zip(got, plain):
+                np.testing.assert_array_equal(np.asarray(g), np.asarray(p))
+        frames0 = frames[:, 0].contiguous()
+        space = make_mesh(devices=["cuda:0"] * n, space=2)
+        np.testing.assert_array_equal(
+            np.asarray(global_detect_batch(spec, space)(frames0, fills)),
+            global_detect_batch(spec)(frames0, fills).cpu().numpy())
