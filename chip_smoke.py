@@ -35,7 +35,13 @@ card; any failure exits non-zero:
    machine: ``make_mesh()`` (every card), 2 and 4 shards on cuda:0, and 2
    cards where there are two or more; and the space-sharded whole-frame
    detector (2 data x 2 space on cuda:0, and 1 x 2 over two cards) against
-   the unsharded one at 1080p, B = 4.
+   the unsharded one at 1080p, B = 4. Segments (group dispatch: S chunk scans
+   a lane in one launch of either kernel, chained as the JAX package's
+   super-programs chain them), S = 2 and 4, each one launch against its plain
+   version: one chain at both ROI crop sizes by the ks rule (a short chunk),
+   4 lanes with the carry in the launch (a lane with no real frame and a
+   short one in chunk 1; positions and carry), and 1080p 64-frame chunks from
+   the last step.
    Integer positions must be equal, offsets within ``atol=1e-3``.
 2. The main paths, each driven with the launch counts set to 0 just before
    it and read just after:
@@ -86,6 +92,12 @@ card; any failure exits non-zero:
    same three ways as track_batch, each equal to its ``mesh=None`` run above
    and launching once a data shard for each of that run's launches (the
    snap(s), then each chunk or dispatch), with no plain run.
+   Then group dispatch ("<path> pin 2", "<path> pin 4"): ``track`` on full
+   frames, the three ROI cells and "track_batch ROI mesh=cuda:0 x4" under
+   ``PAWS_DISPATCH_GROUP``, each equal to its unpinned run and launching the
+   snap plus one launch a group (once a data shard), fewer than its chunks,
+   with no plain run (the segmented plain versions and the batched chain's
+   tensor ops counted too).
 3. Timing with CUDA events: each kernel per launch at T=64 (one chain:
    unbounded, bounded, bounded+subpixel, the snap; lanes: B = 1, 4 and 16,
    and four targets on shared frames; bounded and bounded+subpixel lanes at
@@ -111,7 +123,12 @@ card; any failure exits non-zero:
    ``sharded_pallas_bounded`` a call on each mesh (card time by CUDA events
    where every shard is on cuda:0, wall time a call, the host's time) beside
    the unsharded launch, and e2e frames/s of each mesh path beside
-   ``mesh=None`` in the same call, with a profile of each mesh's ROI call.
+   ``mesh=None`` in the same call, with a profile of each mesh's ROI call;
+   and group dispatch: each segmented launch of phase 1 at S = 1, 2 and 4
+   beside S times its S = 1 launch (the plain version at S = 2, the
+   wrapper's host time a launch), and e2e frames/s of the group paths of
+   phase 2 unpinned and under pins 1, 2 and 4, in turns, with their timer
+   sections a chunk and their launches.
 
 Prints the card's name and power limit, the build time and ``ptxas``'s
 registers, the kernels' configurations with their launch counts, one JSON
@@ -168,6 +185,10 @@ ROI_K = 12
 CHECKPOINT_EVERY = 5.0
 #: frames of each clip that the CLI phase writes as .npy and tracks
 CLI_FRAMES = 96
+#: the PAWS_DISPATCH_GROUP pins the group-dispatch phases drive: phase 2's
+#: checks, and phase 3's end-to-end timing (None: unpinned)
+PINS = (2, 4)
+GROUP_E2E_PINS = (None, 1, 2, 4)
 #: H100 SXM published peaks: f32 outside the tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -368,7 +389,8 @@ class StatsLog(logging.Handler):
 
 
 def count_plain_runs(*modules) -> dict:
-    """Wrap the plain versions in ``modules`` so that each run adds one to
+    """Wrap the plain versions in ``modules`` (the chunk scans, the segmented
+    scans, and the batched chain's tensor ops) so that each run adds one to
     the returned count: the main paths must never take them on the card."""
     runs = {"n": 0}
 
@@ -379,8 +401,10 @@ def count_plain_runs(*modules) -> dict:
         return wrapper
 
     for mod in modules:
-        mod.dog_scan_plain = counted(mod.dog_scan_plain)
-        mod.dog_scan_batch_plain = counted(mod.dog_scan_batch_plain)
+        for name in ("dog_scan_plain", "dog_scan_batch_plain", "dog_scan_segments_plain",
+                     "dog_scan_batch_segments_plain", "chain_batch"):
+            if hasattr(mod, name):
+                setattr(mod, name, counted(getattr(mod, name)))
     return runs
 
 
@@ -475,6 +499,67 @@ def roi_lanes(lane_frames, truths, fills, spec, dev, roi_geometry, crop_with_fil
             torch.tensor(fills, dtype=torch.uint8, device=dev), bounds)
 
 
+def roi_segments(lane_frames, truths, fills, spec, dev, roi_geometry, crop_with_fill, ks):
+    """S chunks of ROI_K crops a lane as the ROI engines build them, for one
+    segmented launch: lane b's frames cropped around its truth one frame
+    back, chunk s holding ``ks[s, b]`` real frames (the rest repeat its last
+    crop at its last origin; a lane with none holds fill, as a video past its
+    end does), the next chunk going on from the frame after. Returns on the
+    card ``crops [S,L,K,ch,cw]``, the per-frame boxes, the single engine's
+    rebases (``deltas[s][0]`` from the last real row of chunk s-1, for L = 1)
+    and the batched engine's (``deltas[:, :, 0] = 0``, with ``origin0``,
+    ``origin_last`` and the absolute ``carry``), the start in the first
+    crop, ``ks`` and ``fills``."""
+    import torch
+
+    S, L = ks.shape
+    ch, cw, margin = roi_geometry(spec, ROI_K, 7, "predict")
+    crops = np.empty((S, L, ROI_K, ch, cw), np.uint8)
+    o = np.zeros((S, L, ROI_K, 2), np.int64)
+    for b, (frames, truth, fill) in enumerate(zip(lane_frames, truths, fills)):
+        f = 0  # frames of the lane tracked before chunk s
+        for s in range(S):
+            k = int(ks[s, b])
+            last = np.asarray(truth[f], np.int64) - margin
+            for t in range(ROI_K):
+                if t < k:
+                    last = np.asarray(truth[f + t], np.int64) - margin
+                    crops[s, b, t] = crop_with_fill(frames[f + t + 1], last, ch, cw, fill)
+                elif t == 0:
+                    crops[s, b, t] = fill
+                else:
+                    crops[s, b, t] = crops[s, b, t - 1]
+                o[s, b, t] = last
+            f += k
+    lo = np.maximum(-o, 0)
+    hi = np.minimum([ch - 1, cw - 1], [H - 1, W - 1] - o)
+    batch_d = np.zeros_like(o)
+    batch_d[:, :, 1:] = o[:, :, :-1] - o[:, :, 1:]
+    single_d = batch_d.copy()
+    pre = np.stack([np.asarray(t[0], np.int64) - margin for t in truths])
+    for s in range(S):
+        prev = pre if s == 0 else o[s - 1, np.arange(L), np.maximum(ks[s - 1] - 1, 0)]
+        single_d[s, :, 0] = prev - o[s, :, 0]
+    origin_last = o[np.arange(S)[:, None], np.arange(L)[None, :], np.maximum(ks - 1, 0)]
+
+    # the per-segment arguments as the engines stage them: views of one
+    # [S, n] int32 buffer, one segment a row, so the launch reads them as they lie
+    per_segment = {"single_deltas": single_d, "deltas": batch_d, "lo": lo, "hi": hi,
+                   "origin0": o[:, :, 0], "origin_last": origin_last, "ks": ks}
+    flat = np.concatenate([np.asarray(v).reshape(S, -1) for v in per_segment.values()], axis=1)
+    flat = torch.tensor(flat, dtype=torch.int32, device=dev)
+    out, at = {}, 0
+    for k, v in per_segment.items():
+        n = int(np.prod(np.shape(v)[1:]))
+        out[k] = flat[:, at:at + n].view(np.shape(v))
+        at += n
+    starts = np.stack([np.asarray(t[0]) for t in truths])
+    return dict(out, crops=torch.from_numpy(crops).to(dev),
+                carry=torch.tensor(starts, dtype=torch.int32, device=dev),
+                pos0=torch.tensor(starts - pre, dtype=torch.int32, device=dev),
+                fills=torch.tensor(fills, dtype=torch.uint8, device=dev))
+
+
 def host_us_per_launch(fn, n=200) -> float:
     """Host microseconds a call of ``fn`` (a kernel wrapper) takes to return,
     with the card asleep so the launches only queue."""
@@ -521,7 +606,8 @@ def main() -> int:
         from pawsometracker_tpu_torch.ops import _build, tracker_kernel as tk
         from pawsometracker_tpu_torch.ops.dog_kernel import dog_kernel_2d, guess_window_size
         from pawsometracker_tpu_torch.ops.filters import mode_u8_host
-        from pawsometracker_tpu_torch.pipeline import _crop_with_fill, roi_geometry
+        from pawsometracker_tpu_torch.pipeline import (_AUTO_DEPTH_MEMO, _crop_with_fill,
+                                                       roi_geometry)
     except ImportError as e:
         print(f"chip_smoke: the port's package is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -550,12 +636,13 @@ def main() -> int:
     record["build_s"] = time.perf_counter() - t0
     log(f"build: dog_scan.cu in {record['build_s']:.2f} s")
     for line in _build.build_log.get("dog_scan", "").splitlines():
-        entry = re.search(r"Compiling entry function .*\d(dog_scan(?:_tiled)?_kernel)(ILb([01]))?",
-                          line)
+        entry = re.search(r"Compiling entry function .*\d(dog_scan(?:_tiled)?_kernel)"
+                          r"(ILb([01])ELb([01]))?", line)
         if entry:
             log(f"  ptxas: {entry.group(1)}"
-                + ({"0": "<per-row offsets>", "1": "<aligned>"}[entry.group(3)]
-                   if entry.group(3) else ""))
+                + (f"<{'aligned' if entry.group(3) == '1' else 'per-row offsets'},"
+                   f" {'segments' if entry.group(4) == '1' else 'one chunk'}>"
+                   if entry.group(2) else ""))
         elif "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
@@ -822,6 +909,83 @@ def main() -> int:
             f" B={B}, equals the unsharded detector={ok} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"phase 1 global_detect_batch {label}: differs from unsharded")
+    # segments: S chunk scans a lane in one launch (group dispatch) against
+    # their plain versions, at the ROI crops (one chain by the ks rule with a
+    # short chunk; 4 lanes by the carry, lane 2 with no real frame and lane 3 a
+    # short one in chunk 1) and at the 1080p full-frame chunk (each segment
+    # from the last step), S = 2 and 4
+    seg_ks = {"one chain": np.array([[ROI_K], [5], [ROI_K], [ROI_K]]),
+              "4 lanes": np.array([[ROI_K] * 4, [ROI_K, ROI_K, 0, 5], [ROI_K] * 4,
+                                   [ROI_K] * 4])}
+    seg_data = {
+        "185x185": (kw, roi_segments([frames_np], [truth], [fill], spec, dev, roi_geometry,
+                                     _crop_with_fill, seg_ks["one chain"]),
+                    roi_segments(clips, truths, BATCH_FILLS, spec, dev, roi_geometry,
+                                 _crop_with_fill, seg_ks["4 lanes"])),
+        "tiled 461x461": (lkw, roi_segments([large_np], [large_truth], [fill], lspec, dev,
+                                            roi_geometry, _crop_with_fill, seg_ks["one chain"]),
+                          roi_segments([large_np] * B, [circle_path(N_FRAMES)] * B, (128,) * B,
+                                       lspec, dev, roi_geometry, _crop_with_fill,
+                                       seg_ks["4 lanes"])),
+    }
+    full_segments = torch.from_numpy(frames_np[1:1 + 4 * CHUNK]).to(dev).view(4, CHUNK, H, W)
+    seg_cases = {}  # name: (kind, data, spec kwargs, S, subpixel)
+    for label, (skw, one_d, lanes_d) in seg_data.items():
+        for S, sub in ((2, False), (4, False), (4, True)):
+            tail = f"S={S}" + (" +subpixel" if sub else "")
+            seg_cases[f"segments ROI {label} one chain T={ROI_K} {tail}"] = ("one", one_d, skw, S,
+                                                                          sub)
+            seg_cases[f"segments ROI {label} B={B} carry T={ROI_K} {tail}"] = ("carry", lanes_d,
+                                                                            skw, S, sub)
+    for S in (2, 4):
+        seg_cases[f"segments full 1080p T={CHUNK} S={S}"] = ("full", full_segments, kw, S, False)
+
+    def run_segments(name, plain=False, carry_out=None):
+        kind, d, skw, S, sub = seg_cases[name]
+        one = tk.dog_scan_segments_plain if plain else tk.dog_scan_segments_cuda
+        batch = tk.dog_scan_batch_segments_plain if plain else tk.dog_scan_batch_segments_cuda
+        if kind == "full":
+            return one(d[:S], pos0, fill, subpixel=sub, **skw)
+        if kind == "one":
+            return one(d["crops"][:S, 0], d["pos0"][0], fill, deltas=d["single_deltas"][:S, 0],
+                       lo=d["lo"][:S, 0], hi=d["hi"][:S, 0], ks=d["ks"][:S, 0], subpixel=sub,
+                       **skw)
+        return batch(d["crops"][:S], None, d["fills"], deltas=d["deltas"][:S], lo=d["lo"][:S],
+                     hi=d["hi"][:S], ks=d["ks"][:S], origin0=d["origin0"][:S],
+                     origin_last=d["origin_last"][:S], carry=d["carry"], carry_out=carry_out,
+                     subpixel=sub, **skw)
+
+    def seg_kernel(name):
+        k = seg_cases[name][2]
+        return tk.kernel_for(k["radii"], tk._taps(k["sigma"], True, dev)[2], smem_limit)
+
+    for name, (kind, _, _, S, sub) in seg_cases.items():
+        before = tk.launches
+        got = run_segments(name)
+        n_launch = tk.launches - before
+        want = run_segments(name, plain=True)
+        torch.cuda.synchronize()
+        if kind == "carry":
+            (got, got_c), (want, want_c) = got, want
+            carry_equal = bool(torch.equal(got_c, want_c))
+        else:
+            carry_equal = True
+        gp, wp = (got[0], want[0]) if sub else (got, want)
+        pos_equal = bool(torch.equal(gp, wp)) and carry_equal
+        err = float((gp - wp).abs().max())
+        if sub:
+            err = max(err, float((got[1] - want[1]).abs().max()))
+        ok = pos_equal and err <= (OFFSET_ATOL if sub else 0) and n_launch == 1
+        lanes_n = B if kind == "carry" else 1
+        phase1[name] = {"kernel": seg_kernel(name), "T": int(gp.shape[-2]), "segments": S,
+                        "lanes": lanes_n, "launches": n_launch, "positions_equal": pos_equal,
+                        "max_abs_err": err, "ok": ok}
+        log(f"phase 1 {name} ({seg_kernel(name)}): {S} segments of T={gp.shape[-2]}, lanes="
+            f"{lanes_n}, one launch={n_launch == 1}, positions"
+            + (" and carry" if kind == "carry" else "") + f" equal={pos_equal}"
+            f" max_abs_err={err:.3g} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase 1 {name}: the segmented kernel and its plain version disagree")
     for name in [n for n in cases if n.startswith("tiled ")]:
         del cases[name]
     del flat, mirror, narrow, own, tshared, tflat
@@ -962,13 +1126,14 @@ def main() -> int:
                 # included); the same call on stream="full"
                 st = roi_stats[path, name]
                 want_n = (2 if "autodetect" in name and kind == "track_batch" else 1) \
-                    + st.get("dispatches", -1)
+                    + st.get("groups", -1)
                 full = results[kind, name][0]
                 pairs = [(out, full)] if kind != "track_batch" else list(zip(out, full))
                 equal_full = all(same(a[1], f[1], sub) and np.array_equal(a[0], f[0])
                                  for a, f in pairs)
+                # unpinned, a group is one chunk: one launch a dispatch
                 roi_ok = (st.get("stream") == "roi" and equal_full
-                          and st["bounded_launches"] == st.get("dispatches"))
+                          and st["bounded_launches"] == st.get("groups") == st.get("dispatches"))
                 roi_note = (f", stream={st.get('stream')} crop={st.get('crop')} K={st.get('K')}"
                             f" dispatches={st.get('dispatches')} (bounded launches"
                             f" {st['bounded_launches']}) replays={st.get('replays')}"
@@ -1053,6 +1218,65 @@ def main() -> int:
                                  "by_kernel": dict(tk.launches_by_kernel),
                                  "plain_runs": plain_runs["n"]}
     phase_done("phase 2, mesh")
+    # group dispatch: track on full frames, the ROI cells and track_batch ROI
+    # over 4 shards of cuda:0 under PAWS_DISPATCH_GROUP 2 and 4; each equal to
+    # its unpinned run above, launching the snap(s) and then one launch a
+    # group (once a data shard), fewer than its chunks, with no plain run
+    pinned_paths = {"track": paths["track"], "track ROI": paths["track ROI"],
+                    "track_batch ROI": paths["track_batch ROI"],
+                    "track_multi ROI": paths["track_multi ROI"],
+                    "track_batch ROI mesh=cuda:0 x4": paths["track_batch"]}
+    for pin in PINS:
+        for path, runs in pinned_paths.items():
+            kind = roi_paths.get(mesh_paths.get(path, path), mesh_paths.get(path, path))
+            label = f"{path} pin {pin}"
+            tk.reset_launches()  # counts to 0 just before the path, read just after
+            plain_runs["n"] = 0
+            for name in ("start_location" if kind != "track_multi" else "start_locations",
+                         "subpixel"):
+                extra = runs[name]
+                before, plain_before = tk.launches, plain_runs["n"]
+                stats_log.last = None
+                os.environ["PAWS_DISPATCH_GROUP"] = str(pin)
+                try:
+                    t0 = time.perf_counter()
+                    out = entry[path](**extra)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                finally:
+                    del os.environ["PAWS_DISPATCH_GROUP"]
+                n_launch, n_plain = tk.launches - before, plain_runs["n"] - plain_before
+                st = stats_log.last or {}
+                sub = bool(extra.get("subpixel"))
+                want_out = results[mesh_paths.get(path, path), name][0]
+                pairs = list(zip(out, want_out)) if kind == "track_batch" else [(out, want_out)]
+                equal = all(same(a[1], w[1], sub) and np.array_equal(a[0], w[0])
+                            for a, w in pairs)
+                shards = st.get("shards", 1)
+                groups = st.get("groups", -1)
+                want_n = shards * (1 + groups)
+                chunks = st.get("dispatches", math.ceil((N_FRAMES - 1) / CHUNK))
+                ok = (equal and n_launch == want_n and n_plain == 0 and 0 < groups < chunks
+                      and st.get("group", pin) == pin)
+                phase2[f"{label} {name}"] = {"launches": n_launch, "want_launches": want_n,
+                                             "groups": groups, "chunks": chunks,
+                                             "shards": shards, "plain_runs": n_plain,
+                                             "equals_unpinned": equal, "wall_s": wall,
+                                             "stats": st, "ok": ok}
+                log(f"phase 2 {label}({name}): launches={n_launch} (want {want_n}: {shards}"
+                    f" shard(s) x (the snap + {groups} groups of {chunks} chunks)), plain runs="
+                    f"{n_plain}, equals unpinned={equal}, {wall:.3f} s"
+                    f" -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"phase 2 {label} {name} failed")
+            main_counts[label] = {"total": tk.launches, "by_config": dict(tk.launches_by_config),
+                                  "by_kernel": dict(tk.launches_by_kernel),
+                                  "plain_runs": plain_runs["n"]}
+    # the auto-depth memo keeps the group a pinned run ended at, and an unpinned run of the
+    # same geometry would start from it (as in the JAX package): the paths after this one
+    # start unpinned
+    _AUTO_DEPTH_MEMO.clear()
+    phase_done("phase 2, group dispatch")
     # track_resumable of the bench clip on ROI, in 4 slices of 120 frames:
     # each run equals track ROI's uninterrupted track() and launches, per
     # slice, its snap and one bounded launch a dispatch
@@ -1309,6 +1533,43 @@ def main() -> int:
             f" {host_us:.1f} us a call; one unsharded B={B} launch {timing[case]['ms']:.4f} ms,"
             f" bound {timing[case]['bound_ms']:.6f} ms ({timing[case]['bound_by']})")
     record["sharded_pallas_bounded"] = sharded_timing
+    # segmented launches (group dispatch): card ms at S = 1, 2 and 4 beside S
+    # times the S = 1 launch, at the ROI crops (one chain by the ks rule; 4
+    # lanes with the carry in the launch) and at the 1080p 64-frame chunk; the
+    # plain version at S = 2; the wrapper's host time a launch
+    seg_timed = {}
+    for seg_base in [n.rsplit(" S=", 1)[0] for n in seg_cases if n.endswith(" S=2")]:
+        kind, d, skw, _, _ = seg_cases[f"{seg_base} S=2"]
+        for S in (1, 2, 4):
+            seg_cases[f"{seg_base} S={S}"] = (kind, d, skw, S, False)
+            seg_timed[f"{seg_base} S={S}"] = seg_base
+    seg_timing = {}
+    for name, seg_base in seg_timed.items():
+        kind, d, skw, S, sub = seg_cases[name]
+        steps = CHUNK if kind == "full" else ROI_K
+        n_lanes = B if kind == "carry" else 1
+        ms = cuda_time_ms(lambda: run_segments(name), reps=20)
+        plain_ms = cuda_time_ms(lambda: run_segments(name, plain=True), reps=1, warmup=0) \
+            if S == 2 else None
+        host_us = host_us_per_launch(lambda: run_segments(name), n=100)
+        case_L = tk._taps(skw["sigma"], True, dev)[2]
+        c = cost(skw["radii"], case_L, S * steps, sub, kind != "full", lanes=n_lanes)
+        one = seg_timing.get(f"{seg_base} S=1", {}).get("ms", ms)
+        seg_timing[name] = timing[name] = {
+            "kernel": seg_kernel(name),
+            "config": tk._config_name(kind != "full", sub, kind == "carry", segmented=True),
+            "T": steps, "segments": S, "lanes": n_lanes, "L": case_L, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, **c,
+            "us_per_step": 1e3 * ms / (S * steps), "sm_bound_share": c["sm_bound_ms"] / ms,
+            "card_bound_share": c["bound_ms"] / ms, "ms_per_segment": ms / S,
+            "s_times_one_ms": S * one, "ratio_to_s_times_one": ms / (S * one),
+            "host_us_per_launch": host_us}
+        log(f"phase 3 {name} ({seg_kernel(name)}): {S} segments of T={steps}, lanes={n_lanes}:"
+            f" kernel {ms:.4f} ms/launch ({ms / S:.4f} ms a segment; S x the S=1 launch"
+            f" {S * one:.4f} ms, ratio {ms / (S * one):.4f}), plain "
+            + (f"{plain_ms:.3f} ms" if plain_ms is not None else "not measured")
+            + f", bound {c['bound_ms']:.6f} ms ({c['bound_by']}), host {host_us:.1f} us a launch")
+    record["segmented"] = seg_timing
     for name in ("batched unbounded B=16", "unbounded T=1", "bounded+subpixel T=1",
                  "batched unbounded B=4 T=1", *large_cases):
         del cases[name]
@@ -1403,6 +1664,55 @@ def main() -> int:
             f" {len(walls)}, {frames_per_call} frames of {W}x{H}"
             + (", summed over 4 videos)" if kind == "track_batch" else
                ", clip frames with 4 targets)" if kind == "track_multi" else ")") + note)
+    # group dispatch end to end: track (full frames), the ROI cells and
+    # track_batch ROI over 4 shards of cuda:0, unpinned and under pins 1, 2 and
+    # 4, in turns, 3 runs each; the median run's timer sections a dispatch. Each
+    # run starts with the auto-depth memo cleared, as a fresh process does, so
+    # that no run starts from the depth or group another left
+    group_e2e = {}
+    group_paths = (("track", N_FRAMES, paths["track"]["start_location"]),
+                   ("track ROI", N_FRAMES, paths["track ROI"]["start_location"]),
+                   ("track_batch ROI", sum(BATCH_LENS), paths["track_batch"]["start_location"]),
+                   ("track_multi ROI", MULTI_FRAMES, paths["track_multi"]["start_locations"]),
+                   ("track_batch ROI mesh=cuda:0 x4", sum(BATCH_LENS),
+                    paths["track_batch"]["start_location"]))
+    pin_runs = {(p, pin): ([], []) for p, _, _ in group_paths for pin in GROUP_E2E_PINS}
+    for _ in range(3):
+        for path, _, extra in group_paths:
+            for pin in GROUP_E2E_PINS:
+                if pin is not None:
+                    os.environ["PAWS_DISPATCH_GROUP"] = str(pin)
+                try:
+                    _AUTO_DEPTH_MEMO.clear()
+                    torch.cuda.synchronize()
+                    stats_log.last = None
+                    t0 = time.perf_counter()
+                    entry[path](**extra)
+                    pin_runs[path, pin][0].append(time.perf_counter() - t0)
+                    pin_runs[path, pin][1].append(stats_log.last)
+                finally:
+                    os.environ.pop("PAWS_DISPATCH_GROUP", None)
+    for path, frames_per_call, _ in group_paths:
+        group_e2e[path] = {}
+        for pin in GROUP_E2E_PINS:
+            walls, sts = pin_runs[path, pin]
+            med = sorted(range(len(walls)), key=walls.__getitem__)[len(walls) // 2]
+            st = sts[med] or {}
+            sec = dict(st.get("sections", {}))
+            sec["outside the sections"] = walls[med] - sum(sec.values())
+            n_disp = st.get("dispatches", math.ceil((N_FRAMES - 1) / CHUNK))
+            per = {k: 1e6 * v / n_disp for k, v in sec.items()
+                   if k not in ("setup", "snap", "buffers")}
+            key = "unpinned" if pin is None else f"pin {pin}"
+            group_e2e[path][key] = {
+                "frames_per_s": frames_per_call / statistics.median(walls), "runs_s": walls,
+                "dispatches": n_disp, "groups": st.get("groups"), "group": st.get("group"),
+                "depth": st.get("depth"), "host_us_per_dispatch": per}
+            log(f"phase 3 e2e {path} {key}: {frames_per_call / statistics.median(walls):.1f}"
+                f" frames/s (median of {len(walls)}, in turns), {n_disp} chunks in"
+                f" {st.get('groups')} launches a shard, depth {st.get('depth')}; us a chunk: "
+                + ", ".join(f"{k} {v:.1f}" for k, v in per.items()))
+    record["group_e2e"] = group_e2e
     # track_resumable on ROI over its 4 slices, beside track ROI in this call:
     # the gap is each slice's set-up (its frame 1 and that frame's mode) and snap
     walls, runs_slices = [], []
@@ -1502,6 +1812,8 @@ def main() -> int:
             # the launch wrapper over the mesh, with its shards' times
             "sharded_pallas_bounded": {n: t for n, t in sharded_timing.items()
                                        if t["kernel"] == kname},
+            # the segmented launches (group dispatch) at S = 1, 2, 4
+            "segmented": {n: t for n, t in seg_timing.items() if t["kernel"] == kname},
             # the kernel's timed cases, each with its configuration's launches
             # on the main paths
             "configs": [{"case": n, "launches": by_config.get(f"{kname}: {t['config']}", 0),

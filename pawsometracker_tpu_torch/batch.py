@@ -23,6 +23,7 @@ mesh over the local cards whenever there are several.
 
 from __future__ import annotations
 
+import functools
 import logging
 
 import numpy as np
@@ -41,7 +42,7 @@ from .api import (
 )
 from .diagnose import Diagnose, Dont
 from .io.decode import ChunkPrefetcher, open_source
-from .models.dog_tracker import full_frame_sub_scan, make_spec, resolve_device
+from .models.dog_tracker import full_frame_sub_scan, make_spec, resolve_device, tracker_fns
 from .ops.dog_kernel import fix_window_size, guess_window_size
 from .ops.filters import mode_u8_host
 from .parallel.mesh import Mesh, Sharded, ShardedBatchTracker, make_mesh, mesh_device
@@ -453,8 +454,12 @@ def _track_batch_uniform(
                 auto_cap = depth_gate
                 if not all(getattr(s, "serves_views", False) for s in sources):
                     auto_cap = min(depth_gate, auto_depth_cap(frame_shape, roi_frames, lanes=B))
+            segments = None  # a ShardedFn scan brings its own
             if mesh is None:
                 scan = roi_engine.scan_sub if subpixel else roi_engine.scan_bounded
+                segments = functools.partial(
+                    tracker_fns(roi_spec, roi_engine.device, tracker_engine)
+                    .scan_bounded_batch_super, subpixel=subpixel)
             else:  # one kernel launch a shard where the batch divides the data axis
                 scan = _select_sharded_bounded(roi_engine, roi_spec, roi_frames, B,
                                                int(fills[0]), engine, mesh, subpixel=subpixel)
@@ -463,7 +468,7 @@ def _track_batch_uniform(
                     L=B, K=roi_frames, crop_shape=(ch, cw), margin=margin, spec=spec, mode=mode,
                     depth="auto" if auto_depth else depth_gate, auto_cap=auto_cap,
                     engine=_BatchedEngine(scan, (ch, cw), frame_shape, fills, subpixel, timer,
-                                          device),
+                                          device, segments=segments),
                     source=PerVideoSource(sources, K=roi_frames, ch=ch, cw=cw, fills=fills,
                                           dias=dias, ns=ns, nat_retained=nat_retained,
                                           prefetcher_objs=prefetchers),

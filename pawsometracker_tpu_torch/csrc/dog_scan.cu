@@ -80,6 +80,26 @@
 // picks C from the tile count and cudaOccupancyMaxActiveClusters before the launch; a launch
 // that cannot be scheduled fails and raises.
 //
+// Segments: a launch may run S chunk scans of T steps each, one after the other in every lane,
+// as the JAX package's group dispatch runs S scans in one program (pawsometracker_tpu/
+// pipeline.py: make_super_chain :199-230, make_chained_batch :248-277, make_super_chain_batch
+// :280-309, make_super_full :2173-2190). Segment s of lane b reads its frames at
+// s * frame_stride + b * lane_stride and its deltas, lo, hi, ks and origins at s * arg_stride;
+// its outputs go to [s][b]. Between segments the lane's start is, as SegmentChain says: where
+// the last step left it (no ks: the full-frame chain), the position of the segment's step
+// max(ks-1, 0) (ks without a carry: the single-lane chain, which the next segment's deltas[0]
+// rebases), or carry - origin0 of the next segment, the absolute carry becoming the position
+// of step ks-1 plus origin_last at the end of each segment with ks > 0 (a carry: the batched
+// chain; with S = 1 that is make_chained_batch). The chain lives in registers: every thread
+// computes every step's position (dog_scan_tiled: from the cluster's exchange of maxima), so
+// every thread holds the same chain and the host sees no position between segments. A step's
+// arithmetic does not change. In dog_scan the prefetch of a segment's first patch is the
+// superset over the last step's outcomes shifted by the rebase, or the exact patch where the
+// chain already holds the start (a segment with ks < T). Both kernels are compiled twice: a
+// launch of one segment without a chain takes the instantiation without segments (kSeg
+// false), so a chunk scan carries no segment state in its registers; dog_scan sits at the
+// register cap of its 640 threads, where that state cost 4% a step.
+//
 // Summation order decides argmax ties, so the plain PyTorch version
 // (ops/filters.py::separable_correlate_valid) emulates this FMA sequence exactly; both kernels
 // agree with it bit for bit on any input, lane by lane, however the window is tiled. Keep them
@@ -113,6 +133,88 @@ __device__ __forceinline__ void warp_argmax(float& bv, int& bk) {
 }
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) { return min(max(x, lo), hi); }
+
+// A launch's segments (see the note above). S = 1 with no ks and no carry is a plain chunk scan.
+struct Segments {
+  int S;                   // segments of T steps each lane runs, one after the other
+  long long frame_stride;  // bytes from one segment's frames to the next's
+  long long arg_stride;    // int32 elements from one segment's deltas, lo, hi, ks, origins to
+                           // the next's
+  const int32_t* ks;       // [S][B] real steps of each segment, or null (the full-frame chain)
+  const int32_t* origin0;      // [S][B][2] with a carry: each segment's first crop origin
+  const int32_t* origin_last;  // [S][B][2] with a carry: the origin of its step ks-1
+  const int32_t* carry_in;     // [B][2] absolute carry at the launch, or null
+  int32_t* carry_out;          // [B][2] absolute carry after the last segment (may alias
+                               // carry_in), or null
+};
+
+// One lane's chain from a segment to the next, kept alike by every thread. The launch's
+// Segments stay in the kernel's parameter space; each call reads what it needs.
+struct SegmentChain {
+  int lane, T;
+  int cap;     // the segment's step whose position the chain keeps, -1 for none
+  int ci, cj;  // that position (ks without a carry), or the absolute carry
+
+  __device__ __forceinline__ SegmentChain(const Segments& sg, int lane_, int T_)
+      : lane(lane_), T(T_), cap(-1), ci(0), cj(0) {
+    if (sg.carry_in) {
+      ci = sg.carry_in[2 * lane];
+      cj = sg.carry_in[2 * lane + 1];
+    }
+  }
+  // Enter segment s: set what it captures and, with a carry or past segment 0 without one,
+  // its start p (before deltas[0]); without ks p stays where the last step left it.
+  __device__ __forceinline__ void begin(const Segments& sg, int s, int& pi, int& pj) {
+    if (!sg.ks) return;
+    const long long a = s * sg.arg_stride;
+    const int k = min(sg.ks[a + lane], T);
+    if (sg.carry_in) {
+      cap = k > 0 ? k - 1 : -1;
+      pi = ci - sg.origin0[a + 2 * lane];
+      pj = cj - sg.origin0[a + 2 * lane + 1];
+    } else {
+      cap = max(k - 1, 0);
+      if (s > 0) {
+        pi = ci;
+        pj = cj;
+      }
+    }
+  }
+  // Step t of segment s ended at (ni, nj). (origin_last is read here, not kept: dog_scan
+  // runs at its register cap.)
+  __device__ __forceinline__ void step(const Segments& sg, int s, int t, int ni, int nj) {
+    if (t != cap) return;
+    const long long a = s * sg.arg_stride + 2 * lane;
+    ci = ni + (sg.carry_in ? sg.origin_last[a] : 0);
+    cj = nj + (sg.carry_in ? sg.origin_last[a + 1] : 0);
+  }
+  // At the last step of segment s (s + 1 < S): true with the next segment's start in (fi, fj)
+  // when the chain already holds it; else the start is this step's position plus (oi, oj).
+  __device__ __forceinline__ bool next_start(const Segments& sg, int s, int& fi, int& fj,
+                                             int& oi, int& oj) const {
+    oi = oj = 0;
+    if (!sg.ks) return false;
+    int bi = 0, bj = 0;
+    if (sg.carry_in) {
+      const long long a = (s + 1) * sg.arg_stride;
+      bi = -sg.origin0[a + 2 * lane];
+      bj = -sg.origin0[a + 2 * lane + 1];
+    }
+    if (cap == T - 1) {
+      if (sg.carry_in) {
+        const long long a = s * sg.arg_stride + 2 * lane;
+        bi += sg.origin_last[a];
+        bj += sg.origin_last[a + 1];
+      }
+      oi = bi;
+      oj = bj;
+      return false;
+    }
+    fi = ci + bi;
+    fj = cj + bj;
+    return true;
+  }
+};
 
 // ---- dog_scan_kernel: register-blocked passes, prefetched next patch -------------------------
 
@@ -247,27 +349,40 @@ __device__ __forceinline__ void blocked_taps(const float2* tp, int L, Load load,
   }
 }
 
-template <bool kAligned>
+template <bool kAligned, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T, int H, int W,
                 const int32_t* __restrict__ pos0, const uint8_t* __restrict__ fills,
                 const int32_t* __restrict__ deltas, const int32_t* __restrict__ lo,
                 const int32_t* __restrict__ hi, const float* __restrict__ taps, int L, int ri,
                 int rj, float direction, int32_t* __restrict__ out_pos,
-                float* __restrict__ out_off) {
+                float* __restrict__ out_off, Segments sg) {
   extern __shared__ __align__(16) unsigned char smem[];
-  // this CTA's lane: its frames [T,H,W] at chain * lane_stride, pos0 [2], fill, and
-  // deltas, lo, hi, out_pos and out_off [T,2]
-  const int chain = blockIdx.x;
-  const long long lane_steps = 2LL * T * chain;
+  // this CTA's lane: in segment s its frames [T,H,W] at s * frame_stride + chain * lane_stride,
+  // its rows [T,2] of deltas, lo, hi at s * arg_stride + chain * 2T and of out_pos and out_off
+  // at (s * B + chain) * 2T; pos0 [2] and its fill. Without kSeg (a chunk scan: S = 1, no
+  // chain) s stays 0 and the segment terms compile away.
+  const int chain = blockIdx.x, B = gridDim.x;
+  const long long lane_rows = 2LL * T * chain;
   frames += chain * lane_stride;
-  pos0 += 2 * chain;
   const int fill = fills[chain];
-  if (deltas) deltas += lane_steps;
-  if (lo) lo += lane_steps;
-  if (hi) hi += lane_steps;
-  out_pos += lane_steps;
-  if (out_off) out_off += lane_steps;
+  const int G = kSeg ? sg.S * T : T;  // the lane's steps, segment after segment
+  // step (s, t)'s row of deltas, lo and hi, of the outputs, and its frame; and the step after
+  auto arg_row = [&](int s, int t) {
+    return (kSeg ? s * sg.arg_stride : 0LL) + lane_rows + 2 * t;
+  };
+  auto out_row = [&](int s, int t) {
+    return 2LL * T * ((kSeg ? (long long)s * B : 0LL) + chain) + 2 * t;
+  };
+  auto frame_of = [&](int s, int t) {
+    return frames + (kSeg ? s * sg.frame_stride : 0LL) + (size_t)t * H * W;
+  };
+  auto next = [&](int& s, int& t) {
+    if (++t == T) {
+      t = 0;
+      ++s;
+    }
+  };
 
   const ScanLayout ly = scan_layout(L, ri, rj);
   const int wh = 2 * ri + 1, ww = 2 * rj + 1;
@@ -288,59 +403,81 @@ dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T
     for (int k = tid; k < 2 * ly.brows; k += kThreads) shifts[k] = 0;
   __syncthreads();
 
-  // Every thread carries the position and this step's box in registers: p, deltas[t], lo[t],
-  // hi[t] and deltas[t+1] (the prefetch needs it), the next step's read one step ahead.
-  int pi = pos0[0], pj = pos0[1];
+  // Every thread carries the position and this step's box in registers: p, deltas[g], lo[g],
+  // hi[g] and deltas[g+1] (the prefetch needs it), the next step's read one step ahead; and
+  // the chain between segments.
+  SegmentChain sc(sg, chain, T);
+  int pi = 0, pj = 0;
+  if (pos0) {
+    pi = pos0[2 * chain];
+    pj = pos0[2 * chain + 1];
+  }
+  if constexpr (kSeg) sc.begin(sg, 0, pi, pj);
   int d0i = 0, d0j = 0, d1i = 0, d1j = 0;
   int lo_i = 0, lo_j = 0, hi_i = H - 1, hi_j = W - 1;
   if (deltas) {
-    d0i = deltas[0];
-    d0j = deltas[1];
-    if (T > 1) {
-      d1i = deltas[2];
-      d1j = deltas[3];
+    int s1 = 0, t1 = 0;
+    next(s1, t1);
+    d0i = deltas[arg_row(0, 0)];
+    d0j = deltas[arg_row(0, 0) + 1];
+    if (G > 1) {
+      d1i = deltas[arg_row(s1, t1)];
+      d1j = deltas[arg_row(s1, t1) + 1];
     }
-    lo_i = lo[0];
-    lo_j = lo[1];
-    hi_i = hi[0];
-    hi_j = hi[1];
+    lo_i = lo[arg_row(0, 0)];
+    lo_j = lo[arg_row(0, 0) + 1];
+    hi_i = hi[arg_row(0, 0)];
+    hi_j = hi[arg_row(0, 0) + 1];
   }
 
   // step 0's patch, loaded synchronously; (sr0, sc0) is where the current buffer's region
   // starts in the frame
   int sr0 = clampi(pi + d0i, 0, H - 1) - pad_i, sc0 = clampi(pj + d0j, 0, W - 1) - pad_j;
-  load_region<kAligned>(bufs, shifts, frames, H, W, sr0, ph, sc0, pw, ly.pitch, fill, tid);
+  load_region<kAligned>(bufs, shifts, frame_of(0, 0), H, W, sr0, ph, sc0, pw, ly.pitch, fill,
+                        tid);
   cp_async_wait_all();
   __syncthreads();
 
-  for (int t = 0; t < T; ++t) {
-    const int cur = t & 1;
+  int s = 0, t = 0;  // this step's segment and step in it
+  for (int g = 0; g < G; ++g) {
+    int sn = s, tn = t;  // step g+1's
+    next(sn, tn);
+    const int cur = g & 1;
     const uint8_t* bcur = bufs + cur * buf_bytes;
     const int* shcur = shifts + cur * ly.brows;
     const int qi = pi + d0i, qj = pj + d0j;  // p
     const int oi = clampi(qi, 0, H - 1) - pad_i, oj = clampi(qj, 0, W - 1) - pad_j;
 
-    // Prefetch the superset of step t+1's patch into the other buffer, and read step t+1's
-    // box and step t+2's rebase.
+    // Prefetch the superset of step g+1's patch into the other buffer, and read step g+1's
+    // box and step g+2's rebase. Step g+1 starts from this step's position (plus the rebase
+    // of a segment boundary), or, at a boundary, from a position the chain already holds.
     int nsr0 = 0, nsc0 = 0;
     int d2i = 0, d2j = 0, nlo_i = 0, nlo_j = 0, nhi_i = H - 1, nhi_j = W - 1;
-    if (t + 1 < T) {
-      nsr0 = clampi(clampi(qi - ri, lo_i, hi_i) + d1i, 0, H - 1) - pad_i;
-      nsc0 = clampi(clampi(qj - rj, lo_j, hi_j) + d1j, 0, W - 1) - pad_j;
-      const int r1 = clampi(clampi(qi + ri, lo_i, hi_i) + d1i, 0, H - 1) - pad_i + ph;
-      const int c1 = clampi(clampi(qj + rj, lo_j, hi_j) + d1j, 0, W - 1) - pad_j + pw;
+    if (g + 1 < G) {
+      int fi = 0, fj = 0, ofi = 0, ofj = 0;
+      const bool fixed = kSeg && t == T - 1 && sc.next_start(sg, s, fi, fj, ofi, ofj);
+      const int ai = fixed ? fi : clampi(qi - ri, lo_i, hi_i) + ofi;
+      const int aj = fixed ? fj : clampi(qj - rj, lo_j, hi_j) + ofj;
+      const int bi = fixed ? fi : clampi(qi + ri, lo_i, hi_i) + ofi;
+      const int bj = fixed ? fj : clampi(qj + rj, lo_j, hi_j) + ofj;
+      nsr0 = clampi(ai + d1i, 0, H - 1) - pad_i;
+      nsc0 = clampi(aj + d1j, 0, W - 1) - pad_j;
+      const int r1 = clampi(bi + d1i, 0, H - 1) - pad_i + ph;
+      const int c1 = clampi(bj + d1j, 0, W - 1) - pad_j + pw;
       load_region<kAligned>(bufs + (cur ^ 1) * buf_bytes, shifts + (cur ^ 1) * ly.brows,
-                            frames + (size_t)(t + 1) * H * W, H, W, nsr0, r1 - nsr0, nsc0,
-                            c1 - nsc0, ly.pitch, fill, tid);
+                            frame_of(sn, tn), H, W, nsr0, r1 - nsr0, nsc0, c1 - nsc0, ly.pitch,
+                            fill, tid);
       cp_async_commit();
       if (deltas) {
-        nlo_i = lo[2 * t + 2];
-        nlo_j = lo[2 * t + 3];
-        nhi_i = hi[2 * t + 2];
-        nhi_j = hi[2 * t + 3];
-        if (t + 2 < T) {
-          d2i = deltas[2 * t + 4];
-          d2j = deltas[2 * t + 5];
+        nlo_i = lo[arg_row(sn, tn)];
+        nlo_j = lo[arg_row(sn, tn) + 1];
+        nhi_i = hi[arg_row(sn, tn)];
+        nhi_j = hi[arg_row(sn, tn) + 1];
+        if (g + 2 < G) {
+          int s2 = sn, t2 = tn;
+          next(s2, t2);
+          d2i = deltas[arg_row(s2, t2)];
+          d2j = deltas[arg_row(s2, t2) + 1];
         }
       }
     }
@@ -404,8 +541,9 @@ dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T
     const int ni = clampi(qi - ri + row, lo_i, hi_i);
     const int nj = clampi(qj - rj + col, lo_j, hi_j);
     if (tid == 0) {
-      out_pos[2 * t] = ni;
-      out_pos[2 * t + 1] = nj;
+      const long long o = out_row(s, t);
+      out_pos[o] = ni;
+      out_pos[o + 1] = nj;
       if (out_off) {
         const float m0 = bv;
         const float rm = resp[max(row - 1, 0) * ww + col], rp = resp[min(row + 1, wh - 1) * ww + col];
@@ -414,12 +552,18 @@ dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T
         const float den_c = cm - 2.0f * m0 + cp;
         const bool int_r = row > 0 && row < wh - 1 && den_r < 0.f;
         const bool int_c = col > 0 && col < ww - 1 && den_c < 0.f;
-        out_off[2 * t] = int_r ? 0.5f * (rm - rp) / den_r : 0.f;
-        out_off[2 * t + 1] = int_c ? 0.5f * (cm - cp) / den_c : 0.f;
+        out_off[o] = int_r ? 0.5f * (rm - rp) / den_r : 0.f;
+        out_off[o + 1] = int_c ? 0.5f * (cm - cp) / den_c : 0.f;
       }
     }
     pi = ni;
     pj = nj;
+    if constexpr (kSeg) {
+      sc.step(sg, s, t, ni, nj);
+      if (t == T - 1 && s + 1 < sg.S) sc.begin(sg, s + 1, pi, pj);
+    }
+    s = sn;
+    t = tn;
     d0i = d1i;
     d0j = d1j;
     d1i = d2i;
@@ -430,6 +574,10 @@ dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T
     hi_j = nhi_j;
     sr0 = nsr0;
     sc0 = nsc0;
+  }
+  if (kSeg && sg.carry_out && tid == 0) {
+    sg.carry_out[2 * chain] = sc.ci;
+    sg.carry_out[2 * chain + 1] = sc.cj;
   }
 }
 
@@ -487,26 +635,35 @@ __device__ __forceinline__ int dsmem_s32(unsigned addr) {
 
 // Lane b is the cluster of the C CTAs with blockIdx.y = b; CTA r (blockIdx.x) owns output tiles
 // r, r + C, r + 2C, ... of the window (row-major over the ntr x ntc tiles of th x tw outputs).
-template <bool kAligned>
+template <bool kAligned, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 dog_scan_tiled_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T, int H,
                       int W, const int32_t* __restrict__ pos0, const uint8_t* __restrict__ fills,
                       const int32_t* __restrict__ deltas, const int32_t* __restrict__ lo,
                       const int32_t* __restrict__ hi, const float* __restrict__ taps, int L,
                       int ri, int rj, float direction, int32_t* __restrict__ out_pos,
-                      float* __restrict__ out_off, int th, int tw) {
+                      float* __restrict__ out_off, int th, int tw, Segments sg) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int chain = blockIdx.y;
+  const int chain = blockIdx.y, B = gridDim.y;
   const int rank = blockIdx.x, C = gridDim.x;  // the grid's x dimension is one cluster
-  const long long lane_steps = 2LL * T * chain;
+  // the lane's rows and frames of step (seg, t), as in dog_scan_kernel; without kSeg the
+  // lane's pointers move to its rows once, as the plain chunk scan had them
+  const long long lane_rows = 2LL * T * chain;
   frames += chain * lane_stride;
-  pos0 += 2 * chain;
   const int fill = fills[chain];
-  if (deltas) deltas += lane_steps;
-  if (lo) lo += lane_steps;
-  if (hi) hi += lane_steps;
-  out_pos += lane_steps;
-  if (out_off) out_off += lane_steps;
+  if constexpr (!kSeg) {
+    if (deltas) deltas += lane_rows;
+    if (lo) lo += lane_rows;
+    if (hi) hi += lane_rows;
+    out_pos += lane_rows;
+    if (out_off) out_off += lane_rows;
+  }
+  auto arg_row = [&](int s, int t) {
+    return kSeg ? s * sg.arg_stride + lane_rows + 2 * t : 2LL * t;
+  };
+  auto out_row = [&](int s, int t) {
+    return kSeg ? 2LL * T * ((long long)s * B + chain) + 2 * t : 2LL * t;
+  };
 
   const int wh = 2 * ri + 1, ww = 2 * rj + 1;
   const int pad_i = ri + L / 2, pad_j = rj + L / 2;
@@ -529,22 +686,34 @@ dog_scan_tiled_kernel(const uint8_t* __restrict__ frames, long long lane_stride,
   for (int k = tid; k < L; k += kThreads) tp[k] = make_float2(taps[k], taps[L + k]);
   __syncthreads();
 
-  int pi = pos0[0], pj = pos0[1];
+  // every thread of every CTA computes each step's position from the cluster's exchange, so
+  // every thread holds the same chain between segments
+  SegmentChain sc(sg, chain, T);
+  int pi = 0, pj = 0;
+  if (!kSeg || pos0) {  // (a carry replaces pos0)
+    pi = pos0[2 * chain];
+    pj = pos0[2 * chain + 1];
+  }
+  if constexpr (kSeg) sc.begin(sg, 0, pi, pj);
+  // segment seg, step t (the tile loop has its own s); without kSeg one segment, and the
+  // loops are the plain chunk scan's
+  for (int seg = 0; seg < (kSeg ? sg.S : 1); ++seg)
   for (int t = 0; t < T; ++t) {
-    const uint8_t* frame = frames + (size_t)t * H * W;
+    const uint8_t* frame = frames + (kSeg ? seg * sg.frame_stride : 0LL) + (size_t)t * H * W;
     int qi = pi, qj = pj;  // p
     int lo_i = 0, lo_j = 0, hi_i = H - 1, hi_j = W - 1;
     if (deltas) {
-      qi += deltas[2 * t];
-      qj += deltas[2 * t + 1];
-      lo_i = lo[2 * t];
-      lo_j = lo[2 * t + 1];
-      hi_i = hi[2 * t];
-      hi_j = hi[2 * t + 1];
+      const long long a = arg_row(seg, t);
+      qi += deltas[a];
+      qj += deltas[a + 1];
+      lo_i = lo[a];
+      lo_j = lo[a + 1];
+      hi_i = hi[a];
+      hi_j = hi[a + 1];
     }
     const int r0 = clampi(qi, 0, H - 1) - pad_i;  // frame row and column of the patch origin
     const int c0 = clampi(qj, 0, W - 1) - pad_j;
-    const int par = t & 1;
+    const int par = (kSeg ? seg * T + t : t) & 1;
     float* rcur = resp + par * slots * th * tw;
 
     // the first tile's patch, loaded synchronously; each next one is copied while the
@@ -663,21 +832,31 @@ dog_scan_tiled_kernel(const uint8_t* __restrict__ frames, long long lane_stride,
       const float rm = __shfl_sync(0xffffffffu, nv, 0), rp = __shfl_sync(0xffffffffu, nv, 1);
       const float cm = __shfl_sync(0xffffffffu, nv, 2), cp = __shfl_sync(0xffffffffu, nv, 3);
       if (lane == 0) {
-        out_pos[2 * t] = ni;
-        out_pos[2 * t + 1] = nj;
+        const long long o = out_row(seg, t);
+        out_pos[o] = ni;
+        out_pos[o + 1] = nj;
         if (out_off) {
           const float m0 = bv;
           const float den_r = rm - 2.0f * m0 + rp;
           const float den_c = cm - 2.0f * m0 + cp;
           const bool int_r = row > 0 && row < wh - 1 && den_r < 0.f;
           const bool int_c = col > 0 && col < ww - 1 && den_c < 0.f;
-          out_off[2 * t] = int_r ? 0.5f * (rm - rp) / den_r : 0.f;
-          out_off[2 * t + 1] = int_c ? 0.5f * (cm - cp) / den_c : 0.f;
+          out_off[o] = int_r ? 0.5f * (rm - rp) / den_r : 0.f;
+          out_off[o + 1] = int_c ? 0.5f * (cm - cp) / den_c : 0.f;
         }
       }
     }
     pi = ni;
     pj = nj;
+    if constexpr (kSeg) {
+      sc.step(sg, seg, t, ni, nj);
+      if (t == T - 1 && seg + 1 < sg.S) sc.begin(sg, seg + 1, pi, pj);
+    }
+  }
+  // every CTA read carry_in before the first cluster barrier, so it may be overwritten now
+  if (kSeg && sg.carry_out && rank == 0 && threadIdx.x == 0) {
+    sg.carry_out[2 * chain] = sc.ci;
+    sg.carry_out[2 * chain + 1] = sc.cj;
   }
   cluster_sync();  // no CTA leaves while another may still read its shared memory
 }
@@ -708,6 +887,28 @@ void tiled_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int cluste
   cfg->numAttrs = 1;
 }
 
+// The segments of a launch, or an error for arguments the kernels do not take.
+cudaError_t make_segments(Segments* sg, int S, long long frame_stride, long long arg_stride,
+                          const void* pos0, const void* ks, const void* origin0,
+                          const void* origin_last, const void* carry_in, void* carry_out) {
+  const bool carry = carry_in != nullptr;
+  if (S <= 0 || frame_stride < 0 || arg_stride < 0) return cudaErrorInvalidValue;
+  if (carry != (carry_out != nullptr) || carry != (origin0 != nullptr) ||
+      carry != (origin_last != nullptr) || (carry && ks == nullptr) || (!carry && !pos0))
+    return cudaErrorInvalidValue;
+  *sg = Segments{S, frame_stride, arg_stride, (const int32_t*)ks, (const int32_t*)origin0,
+                 (const int32_t*)origin_last, (const int32_t*)carry_in, (int32_t*)carry_out};
+  return cudaSuccess;
+}
+
+// Whether a launch needs the kernels' segment path (kSeg): more than one segment, or a chain.
+bool segmented(const Segments& sg) { return sg.S > 1 || sg.ks || sg.carry_in; }
+
+bool aligned_frames(const void* frames, int W, long long lane_stride, long long frame_stride) {
+  return reinterpret_cast<uintptr_t>(frames) % 16 == 0 && W % 16 == 0 && lane_stride % 16 == 0 &&
+         frame_stride % 16 == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -723,30 +924,40 @@ long long dog_scan_tiled_smem_bytes(int L, int ri, int rj, int tile_h, int tile_
   return tiled_layout(L, tile_h, tile_w, subpixel ? (nt + cluster - 1) / cluster : 0).bytes;
 }
 
-// Both launchers run B chains of T steps on `stream` (dog_scan one CTA a lane, dog_scan_tiled one
-// cluster a lane). Device pointers:
-// frames u8 contiguous, lane b's [T,H,W] at frames + b * lane_stride (lane_stride 0: all lanes
-// read the same frames), pos0 [B,2] i32, fills [B] u8, taps [2L] f32 (centre then surround),
-// out_pos [B,T,2] i32; deltas, lo and hi ([B,T,2] i32) and out_off ([B,T,2] f32) may be null.
+// Both launchers run B lanes of S segments of T steps on `stream` (dog_scan one CTA a lane,
+// dog_scan_tiled one cluster a lane). Device pointers:
+// frames u8, segment s of lane b [T,H,W] contiguous at frames + s * frame_stride +
+// b * lane_stride (lane_stride 0: all lanes read the same frames), fills [B] u8, taps [2L] f32
+// (centre then surround), out_pos [S,B,T,2] i32; pos0 [B,2] i32, which a carry replaces and may
+// then be null; deltas, lo and hi (segment s's [B,T,2] i32 at s * arg_stride) and out_off
+// ([S,B,T,2] f32) may be null. The segments' chain (see the note above): ks ([S][B] at
+// s * arg_stride) may be null; carry_in and carry_out ([B,2]) need ks, origin0 and origin_last
+// ([S][B][2] at s * arg_stride) and come together; S = 1 with none of them is one chunk scan.
 // They return cudaGetLastError() after launch.
 
 // dog_scan_kernel: for windows with dog_scan_smem_bytes within the card's limit.
 int dog_scan_launch(const void* frames, long long lane_stride, int B, int T, int H, int W,
                     const void* pos0, const void* fills, const void* deltas, const void* lo,
                     const void* hi, const void* taps, int L, int ri, int rj, float direction,
-                    void* out_pos, void* out_off, void* stream) {
-  if (B <= 0 || lane_stride < 0) return (int)cudaErrorInvalidValue;
+                    void* out_pos, void* out_off, int S, long long frame_stride,
+                    long long arg_stride, const void* ks, const void* origin0,
+                    const void* origin_last, const void* carry_in, void* carry_out,
+                    void* stream) {
+  if (B <= 0 || T <= 0 || lane_stride < 0) return (int)cudaErrorInvalidValue;
+  Segments sg;
+  cudaError_t e = make_segments(&sg, S, frame_stride, arg_stride, pos0, ks, origin0, origin_last,
+                                carry_in, carry_out);
+  if (e != cudaSuccess) return (int)e;
   const long long smem = dog_scan_smem_bytes(L, ri, rj);
-  const bool aligned = reinterpret_cast<uintptr_t>(frames) % 16 == 0 && W % 16 == 0 &&
-                       lane_stride % 16 == 0;
-  auto kernel = aligned ? dog_scan_kernel<true> : dog_scan_kernel<false>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  const bool al = aligned_frames(frames, W, lane_stride, frame_stride);
+  auto kernel = segmented(sg) ? (al ? dog_scan_kernel<true, true> : dog_scan_kernel<false, true>)
+                              : (al ? dog_scan_kernel<true, false> : dog_scan_kernel<false, false>);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<B, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
       (const uint8_t*)frames, lane_stride, T, H, W, (const int32_t*)pos0, (const uint8_t*)fills,
       (const int32_t*)deltas, (const int32_t*)lo, (const int32_t*)hi, (const float*)taps, L, ri,
-      rj, direction, (int32_t*)out_pos, (float*)out_off);
+      rj, direction, (int32_t*)out_pos, (float*)out_off, sg);
   return (int)cudaGetLastError();
 }
 
@@ -756,7 +967,7 @@ int dog_scan_launch(const void* frames, long long lane_stride, int B, int T, int
 int dog_scan_tiled_active_clusters(int cluster, long long smem, int* n_active) {
   *n_active = 0;
   if (cluster < 1 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
-  auto kernel = dog_scan_tiled_kernel<true>;
+  auto kernel = dog_scan_tiled_kernel<true, true>;
   cudaError_t e = tiled_attributes(kernel, smem, cluster);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg;
@@ -771,18 +982,26 @@ int dog_scan_tiled_active_clusters(int cluster, long long smem, int* n_active) {
 int dog_scan_tiled_launch(const void* frames, long long lane_stride, int B, int T, int H, int W,
                           const void* pos0, const void* fills, const void* deltas,
                           const void* lo, const void* hi, const void* taps, int L, int ri,
-                          int rj, float direction, void* out_pos, void* out_off, int tile_h,
-                          int tile_w, int cluster, void* stream) {
-  if (B <= 0 || B > 65535 || lane_stride < 0) return (int)cudaErrorInvalidValue;
+                          int rj, float direction, void* out_pos, void* out_off, int S,
+                          long long frame_stride, long long arg_stride, const void* ks,
+                          const void* origin0, const void* origin_last, const void* carry_in,
+                          void* carry_out, int tile_h, int tile_w, int cluster, void* stream) {
+  if (B <= 0 || B > 65535 || T <= 0 || lane_stride < 0) return (int)cudaErrorInvalidValue;
   if (tile_h <= 0 || tile_w <= 0 || tile_h % kR != 0 || tile_w % kR != 0 || cluster < 1 ||
       cluster > kMaxCluster)
     return (int)cudaErrorInvalidValue;
+  Segments sg;
+  cudaError_t e = make_segments(&sg, S, frame_stride, arg_stride, pos0, ks, origin0, origin_last,
+                                carry_in, carry_out);
+  if (e != cudaSuccess) return (int)e;
   const long long smem =
       dog_scan_tiled_smem_bytes(L, ri, rj, tile_h, tile_w, cluster, out_off != nullptr);
-  const bool aligned = reinterpret_cast<uintptr_t>(frames) % 16 == 0 && W % 16 == 0 &&
-                       lane_stride % 16 == 0;
-  auto kernel = aligned ? dog_scan_tiled_kernel<true> : dog_scan_tiled_kernel<false>;
-  cudaError_t e = tiled_attributes(kernel, smem, cluster);
+  const bool al = aligned_frames(frames, W, lane_stride, frame_stride);
+  auto kernel = segmented(sg)
+                    ? (al ? dog_scan_tiled_kernel<true, true> : dog_scan_tiled_kernel<false, true>)
+                    : (al ? dog_scan_tiled_kernel<true, false>
+                          : dog_scan_tiled_kernel<false, false>);
+  e = tiled_attributes(kernel, smem, cluster);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
@@ -790,7 +1009,7 @@ int dog_scan_tiled_launch(const void* frames, long long lane_stride, int B, int 
   e = cudaLaunchKernelEx(&cfg, kernel, (const uint8_t*)frames, lane_stride, T, H, W,
                          (const int32_t*)pos0, (const uint8_t*)fills, (const int32_t*)deltas,
                          (const int32_t*)lo, (const int32_t*)hi, (const float*)taps, L, ri, rj,
-                         direction, (int32_t*)out_pos, (float*)out_off, tile_h, tile_w);
+                         direction, (int32_t*)out_pos, (float*)out_off, tile_h, tile_w, sg);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

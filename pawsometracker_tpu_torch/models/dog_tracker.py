@@ -25,7 +25,9 @@ import numpy as np
 import torch
 
 from ..ops.dog_kernel import default_gaussian_len, get_sigma
-from ..ops.tracker_kernel import dog_scan, dog_scan_batch, dog_scan_batch_plain, dog_scan_plain
+from ..ops.tracker_kernel import (dog_scan, dog_scan_batch, dog_scan_batch_plain,
+                                  dog_scan_batch_segments, dog_scan_batch_segments_plain,
+                                  dog_scan_plain, dog_scan_segments, dog_scan_segments_plain)
 
 __all__ = ["TrackerSpec", "TrackerFns", "tracker_fns", "center_guess", "autodetect_spec",
            "make_spec", "spec_from_reference", "resolve_device", "frame_box",
@@ -187,6 +189,19 @@ class TrackerFns:
     - ``snap_multi_sub(frame, guesses, fill) -> (int32 [N,2], float32 [N,2])``
     - ``scan_multi_sub(frames, pos0s, fill) -> (int32 [T,N,2], float32 [T,N,2])``, clamped
       to the frame
+
+    S chunk scans chained in one launch (the counterparts of the JAX package's
+    group dispatch, ``make_super_chain``, ``make_super_chain_batch`` and
+    ``make_super_full``), each with ``subpixel=True`` also returning offsets
+    of the positions' shape:
+
+    - ``scan_bounded_super(crops [S,K,ch,cw], pos0 [2], fill, deltas, lo, hi [S,K,2], ks [S])
+      -> int32 [S,K,2]``: segment s > 0 starts at segment s-1's row ``max(ks-1, 0)``;
+    - ``scan_bounded_batch_super(crops [S,L,K,ch,cw], carry [L,2], fills [L], deltas, lo, hi
+      [S,L,K,2], ks [S,L], origin0, origin_last [S,L,2], carry_out=None) -> (int32 [S,L,K,2],
+      carry [L,2])``: the absolute carry across segments;
+    - ``scan_super(frames [S,T,H,W], pos0 [2], fill) -> int32 [S,T,2]``: whole frames,
+      each segment from the last one's last step (with ``subpixel``, clamped to the frame).
     """
 
     spec: TrackerSpec
@@ -204,6 +219,9 @@ class TrackerFns:
     snap_multi: callable
     scan_multi_sub: callable
     snap_multi_sub: callable
+    scan_bounded_super: callable
+    scan_bounded_batch_super: callable
+    scan_super: callable
 
 
 @functools.lru_cache(maxsize=1024)
@@ -215,6 +233,8 @@ def _lane_fills(fill: int, n: int, device: torch.device) -> torch.Tensor:
 def _build(spec: TrackerSpec, device: torch.device, engine: str) -> TrackerFns:
     run = dog_scan_plain if engine == "xla" else dog_scan
     run_b = dog_scan_batch_plain if engine == "xla" else dog_scan_batch
+    run_s = dog_scan_segments_plain if engine == "xla" else dog_scan_segments
+    run_bs = dog_scan_batch_segments_plain if engine == "xla" else dog_scan_batch_segments
     kw = dict(radii=spec.radii, sigma=spec.sigma, darker_target=spec.darker_target)
 
     def u8(x):
@@ -223,6 +243,13 @@ def _build(spec: TrackerSpec, device: torch.device, engine: str) -> TrackerFns:
     def i32(x):
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
                                device=device).to(torch.int32).contiguous()
+
+    def seg(x):
+        # the per-segment arguments keep their strides: the pipelines hand views of one
+        # staged buffer, which the kernel reads as they lie
+        if torch.is_tensor(x) and x.dtype == torch.int32 and x.device == device:
+            return x
+        return i32(x)
 
     def snap(frame_u8, guess, fill):
         return run(u8(frame_u8)[None], i32(guess), int(fill), **kw)[0]
@@ -283,12 +310,31 @@ def _build(spec: TrackerSpec, device: torch.device, engine: str) -> TrackerFns:
                          lo=zeros, hi=hi, subpixel=True, **kw)
         return pos.transpose(0, 1), off.transpose(0, 1)
 
+    def scan_bounded_super(crops_u8, pos0, fill, deltas, lo, hi, ks, *, subpixel=False):
+        return run_s(u8(crops_u8), seg(pos0), int(fill), deltas=seg(deltas), lo=seg(lo),
+                     hi=seg(hi), ks=seg(ks), subpixel=subpixel, **kw)
+
+    def scan_bounded_batch_super(crops_u8, carry, fills, deltas, lo, hi, ks, origin0,
+                                 origin_last, *, carry_out=None, subpixel=False):
+        return run_bs(u8(crops_u8), None, u8(fills), deltas=seg(deltas), lo=seg(lo), hi=seg(hi),
+                      ks=seg(ks), origin0=seg(origin0), origin_last=seg(origin_last),
+                      carry=seg(carry), carry_out=carry_out, subpixel=subpixel, **kw)
+
+    def scan_super(frames_u8, pos0, fill, *, subpixel=False):
+        f = u8(frames_u8)
+        if not subpixel:
+            return run_s(f, i32(pos0), int(fill), **kw)
+        zeros, hi = frame_box(spec.frame_shape, tuple(f.shape[:2]), device)
+        return run_s(f, i32(pos0), int(fill), deltas=zeros, lo=zeros, hi=hi, subpixel=True, **kw)
+
     return TrackerFns(spec=spec, snap=snap, scan=scan, scan_bounded=scan_bounded,
                       scan_sub=scan_sub, snap_sub=snap_sub, snap_batch=snap_batch,
                       scan_batch=scan_batch, scan_bounded_batch=scan_bounded_batch,
                       scan_sub_batch=scan_sub_batch, snap_sub_batch=snap_sub_batch,
                       scan_multi=scan_multi, snap_multi=snap_multi,
-                      scan_multi_sub=scan_multi_sub, snap_multi_sub=snap_multi_sub)
+                      scan_multi_sub=scan_multi_sub, snap_multi_sub=snap_multi_sub,
+                      scan_bounded_super=scan_bounded_super,
+                      scan_bounded_batch_super=scan_bounded_batch_super, scan_super=scan_super)
 
 
 @functools.lru_cache(maxsize=256)

@@ -20,6 +20,13 @@ every chunk scan from ``target_width`` 39 up at the default window. On a CPU
 tensor it runs :func:`dog_scan_plain`, a Python loop over steps of the :mod:`.filters`
 ops, which is also what both kernels are held against on the card.
 :data:`launches` counts kernel launches (and only those).
+
+:func:`dog_scan_segments` and :func:`dog_scan_batch_segments` run S chunk
+scans a lane in one launch, chained as the JAX package's group dispatch chains
+them (``make_super_chain``, ``make_chained_batch``, ``make_super_chain_batch``,
+``make_super_full`` in ``pawsometracker_tpu/pipeline.py``); their plain
+versions are loops of :func:`dog_scan_plain` and :func:`dog_scan_batch_plain`
+with the same rule between segments.
 """
 
 from __future__ import annotations
@@ -36,15 +43,18 @@ from .dog_kernel import dog_kernel_separable
 from .filters import argmax_colmajor, separable_correlate_valid
 
 __all__ = ["dog_scan", "dog_scan_plain", "dog_scan_cuda", "dog_scan_batch",
-           "dog_scan_batch_plain", "dog_scan_batch_cuda", "launches", "launches_by_config",
-           "launches_by_kernel", "reset_launches", "kernel_for", "tile_plan", "TilePlan",
-           "KERNELS", "MAX_CLUSTER"]
+           "dog_scan_batch_plain", "dog_scan_batch_cuda", "dog_scan_segments",
+           "dog_scan_segments_plain", "dog_scan_segments_cuda", "dog_scan_batch_segments",
+           "dog_scan_batch_segments_plain", "dog_scan_batch_segments_cuda", "launches",
+           "launches_by_config", "launches_by_kernel", "reset_launches", "kernel_for",
+           "tile_plan", "TilePlan", "KERNELS", "MAX_CLUSTER"]
 
 #: kernel launches since import (or the last :func:`reset_launches`)
 launches = 0
 #: the same count by kernel and configuration, as ``"<kernel>: <configuration>"``: the
 #: kernel one of :data:`KERNELS`, the configuration ``unbounded`` or ``bounded``, either
-#: with ``+subpixel``, each also with a ``batched`` prefix (:func:`_config_name`)
+#: with ``+subpixel``, each also with a ``batched`` prefix and a ``, segmented`` suffix
+#: (:func:`_config_name`)
 launches_by_config: Counter = Counter()
 #: the same count by kernel
 launches_by_kernel: Counter = Counter()
@@ -68,10 +78,11 @@ def reset_launches() -> None:
     launches_by_kernel.clear()
 
 
-def _config_name(bounded: bool, subpixel: bool, batched: bool = False) -> str:
+def _config_name(bounded: bool, subpixel: bool, batched: bool = False,
+                 segmented: bool = False) -> str:
     """Configuration name used in the launch counts and reports."""
     return (("batched " if batched else "") + ("bounded" if bounded else "unbounded")
-            + ("+subpixel" if subpixel else ""))
+            + ("+subpixel" if subpixel else "") + (", segmented" if segmented else ""))
 
 
 @functools.lru_cache(maxsize=64)
@@ -368,9 +379,10 @@ def _lib():
 
 def _bind(lib):
     """Declare the C interface of a library built from ``csrc/dog_scan.cu``."""
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    common = [vp, ctypes.c_longlong, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32,
-              ctypes.c_float, vp, vp]
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    common = [vp, i64, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32,
+              ctypes.c_float, vp, vp,
+              i32, i64, i64, vp, vp, vp, vp, vp]  # the segments
     lib.dog_scan_launch.argtypes = common + [vp]
     lib.dog_scan_launch.restype = i32
     lib.dog_scan_tiled_launch.argtypes = common + [i32, i32, i32, vp]
@@ -413,25 +425,43 @@ def _check_cuda(tensors: dict):
             raise ValueError(f"{name} must be contiguous")
 
 
+class _Segments(NamedTuple):
+    """A launch's segments (``Segments`` in csrc/dog_scan.cu): S chunk scans a
+    lane, segment s's frames ``frame_stride`` bytes and its int32 arguments
+    ``arg_stride`` elements after segment s-1's, and the chain between them."""
+
+    S: int = 1
+    frame_stride: int = 0
+    arg_stride: int = 0
+    ks: object = None
+    origin0: object = None
+    origin_last: object = None
+    carry_in: object = None
+    carry_out: object = None
+
+
 def _launch(frames, lane_stride: int, B: int, T: int, pos0, fills, deltas, lo, hi, radii,
-            sigma, darker_target, subpixel, config: str):
-    """Launch the kernel for B lanes of T steps on the current stream (the one
-    :func:`kernel_for` picks); returns ``out_pos [B,T,2]`` (and ``out_off``).
-    Counts the launch."""
+            sigma, darker_target, subpixel, config: str, seg: _Segments = _Segments()):
+    """Launch the kernel for B lanes of ``seg.S`` segments of T steps on the
+    current stream (the one :func:`kernel_for` picks); returns ``out_pos
+    [S,B,T,2]`` (and ``out_off``). Counts the launch."""
     global launches
     H, W = frames.shape[-2:]
     dev = frames.device
-    out_pos = torch.empty((B, T, 2), dtype=torch.int32, device=dev)
-    out_off = torch.empty((B, T, 2), dtype=torch.float32, device=dev) if subpixel else None
+    out_pos = torch.empty((seg.S, B, T, 2), dtype=torch.int32, device=dev)
+    out_off = (torch.empty((seg.S, B, T, 2), dtype=torch.float32, device=dev) if subpixel
+               else None)
     if B == 0 or T == 0:
         return out_pos, out_off
     taps, direction, L = _taps(float(sigma), bool(darker_target), dev)
     limit = _smem_limit(dev.index if dev.index is not None else 0)
     kernel = kernel_for(radii, L, limit)
     lib = _lib()
-    args = (frames.data_ptr(), lane_stride, B, T, H, W, pos0.data_ptr(), fills.data_ptr(),
+    args = (frames.data_ptr(), lane_stride, B, T, H, W, _ptr(pos0), fills.data_ptr(),
             _ptr(deltas), _ptr(lo), _ptr(hi), taps.data_ptr(), L, int(radii[0]), int(radii[1]),
-            direction, out_pos.data_ptr(), _ptr(out_off))
+            direction, out_pos.data_ptr(), _ptr(out_off), seg.S, seg.frame_stride,
+            seg.arg_stride, _ptr(seg.ks), _ptr(seg.origin0), _ptr(seg.origin_last),
+            _ptr(seg.carry_in), _ptr(seg.carry_out))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if kernel == "dog_scan":
@@ -459,7 +489,7 @@ def dog_scan_cuda(frames: torch.Tensor, pos0: torch.Tensor, fill: int, *, radii,
     out_pos, out_off = _launch(frames, 0, 1, T, pos0, _fill_tensor(int(fill), frames.device),
                                deltas, lo, hi, radii, sigma, darker_target, subpixel,
                                _config_name(bounded, subpixel))
-    return (out_pos[0], out_off[0]) if subpixel else out_pos[0]
+    return (out_pos[0, 0], out_off[0, 0]) if subpixel else out_pos[0, 0]
 
 
 def dog_scan_batch_cuda(frames: torch.Tensor, pos0: torch.Tensor, fills: torch.Tensor, *, radii,
@@ -475,4 +505,255 @@ def dog_scan_batch_cuda(frames: torch.Tensor, pos0: torch.Tensor, fills: torch.T
     out_pos, out_off = _launch(frames, lane_stride, B, T, pos0, fills, deltas, lo, hi, radii,
                                sigma, darker_target, subpixel,
                                _config_name(bounded, subpixel, batched=True))
-    return (out_pos, out_off) if subpixel else out_pos
+    return (out_pos[0], out_off[0]) if subpixel else out_pos[0]
+
+
+# ---- segments: S chained chunk scans a lane in one launch ------------------------------
+
+
+def _check_segment_args(frames, pos0, fills, deltas, lo, hi, ks, origin0, origin_last, carry,
+                        carry_out, batched: bool):
+    """Shapes, types and devices of a segmented scan; returns ``(bounded, S,
+    B, T)``. ``fills`` is None for one lane."""
+    dims = (4, 5) if batched else (4,)
+    if frames.dtype != torch.uint8 or frames.dim() not in dims:
+        want = "[S, B, T, H, W] or shared [S, T, H, W]" if batched else "[S, T, H, W]"
+        raise ValueError(f"frames must be uint8 {want}, got {frames.dtype} "
+                         f"{tuple(frames.shape)}")
+    S, T = frames.shape[0], frames.shape[-3]
+    lane = (2,) if not batched else None
+    if carry is not None:
+        if not batched:
+            raise ValueError("a carry chains batched segments only")
+        if origin0 is None or origin_last is None or ks is None:
+            raise ValueError("a carry needs ks, origin0 and origin_last")
+        if carry.dim() != 2 or carry.shape[1] != 2:
+            raise ValueError(f"carry must have shape (B, 2), got {tuple(carry.shape)}")
+        B = carry.shape[0]
+    else:
+        if origin0 is not None or origin_last is not None or carry_out is not None:
+            raise ValueError("origin0, origin_last and carry_out come with a carry")
+        if pos0 is None:
+            raise ValueError("pos0 is needed without a carry")
+        if batched and (pos0.dim() != 2 or pos0.shape[1] != 2):
+            raise ValueError(f"pos0 must have shape (B, 2), got {tuple(pos0.shape)}")
+        if not batched and tuple(pos0.shape) != lane:
+            raise ValueError(f"pos0 must have shape (2,), got {tuple(pos0.shape)}")
+        B = pos0.shape[0] if batched else 1
+    if batched:
+        if frames.dim() == 5 and frames.shape[1] != B:
+            raise ValueError(f"frames has {frames.shape[1]} lanes, the chain {B}")
+        if tuple(fills.shape) != (B,):
+            raise ValueError(f"fills must have shape ({B},), got {tuple(fills.shape)}")
+    bounded = deltas is not None
+    if bounded != (lo is not None) or bounded != (hi is not None):
+        raise ValueError("deltas, lo and hi are given together or not at all")
+    lanes = (B,) if batched else ()
+    want = {"deltas": (S,) + lanes + (T, 2), "lo": (S,) + lanes + (T, 2),
+            "hi": (S,) + lanes + (T, 2), "ks": (S,) + lanes, "origin0": (S, B, 2),
+            "origin_last": (S, B, 2), "pos0": None, "fills": None, "carry": (B, 2),
+            "carry_out": (B, 2)}
+    for name, a in (("deltas", deltas), ("lo", lo), ("hi", hi), ("ks", ks),
+                    ("origin0", origin0), ("origin_last", origin_last), ("pos0", pos0),
+                    ("fills", fills), ("carry", carry), ("carry_out", carry_out)):
+        if a is None:
+            continue
+        if want[name] is not None and tuple(a.shape) != want[name]:
+            raise ValueError(f"{name} must have shape {want[name]}, got {tuple(a.shape)}")
+        if a.device != frames.device:
+            raise ValueError(f"{name} is on {a.device}, frames on {frames.device}")
+    return bounded, S, B, T
+
+
+def dog_scan_segments(frames: torch.Tensor, pos0: torch.Tensor, fill: int, *, radii,
+                      sigma: float, darker_target: bool, deltas=None, lo=None, hi=None, ks=None,
+                      subpixel: bool = False):
+    """S chained scans of one lane: segment s tracks through ``frames[s]``
+    (``frames [S, T, H, W]`` u8, with ``deltas``/``lo``/``hi [S, T, 2]`` when
+    bounded). Segment 0 starts from ``pos0``; segment s > 0 from segment s-1's
+    position at step ``max(ks[s-1] - 1, 0)`` (``ks [S]``, each chunk's real
+    steps: the JAX package's ``make_super_chain``), or its last step without
+    ``ks`` (``make_super_full``); ``deltas[s][0]`` rebases it.
+
+    Returns positions ``int32 [S, T, 2]``, and with ``subpixel`` offsets
+    ``float32 [S, T, 2]``. A CUDA tensor launches the kernel once; a CPU
+    tensor runs the plain version; any other device raises."""
+    args = dict(radii=radii, sigma=sigma, darker_target=darker_target, deltas=deltas, lo=lo,
+                hi=hi, ks=ks, subpixel=subpixel)
+    if frames.is_cuda:
+        return dog_scan_segments_cuda(frames, pos0, fill, **args)
+    if frames.device.type == "cpu":
+        return dog_scan_segments_plain(frames, pos0, fill, **args)
+    raise ValueError(f"dog_scan_segments runs on CUDA or CPU tensors, got {frames.device}")
+
+
+def _row(pos, ks, T: int):
+    """Per lane, the row ``max(min(ks, T) - 1, 0)`` of ``pos [..., T, 2]``."""
+    idx = (ks.to(torch.int64).clamp(max=T) - 1).clamp(min=0)
+    if pos.dim() == 2:
+        return pos[idx]
+    return pos[torch.arange(pos.shape[0], device=pos.device), idx]
+
+
+def dog_scan_segments_plain(frames: torch.Tensor, pos0: torch.Tensor, fill: int, *, radii,
+                            sigma: float, darker_target: bool, deltas=None, lo=None, hi=None,
+                            ks=None, subpixel: bool = False):
+    """The plain PyTorch version of :func:`dog_scan_segments`, on any device:
+    :func:`dog_scan_plain` a segment, chained by the same rule."""
+    bounded, S, _, T = _check_segment_args(frames, pos0, None, deltas, lo, hi, ks, None, None,
+                                           None, None, batched=False)
+    outs, p = [], pos0
+    for s in range(S):
+        box = dict(deltas=deltas[s], lo=lo[s], hi=hi[s]) if bounded else {}
+        out = dog_scan_plain(frames[s], p, fill, radii=radii, sigma=sigma,
+                             darker_target=darker_target, subpixel=subpixel, **box)
+        pos = out[0] if subpixel else out
+        p = pos[-1] if ks is None else _row(pos, ks[s], T)
+        outs.append(out)
+    if subpixel:
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+    return torch.stack(outs)
+
+
+def dog_scan_batch_segments(frames: torch.Tensor, pos0, fills: torch.Tensor, *, radii,
+                            sigma: float, darker_target: bool, deltas=None, lo=None, hi=None,
+                            ks=None, origin0=None, origin_last=None, carry=None, carry_out=None,
+                            subpixel: bool = False):
+    """S chained scans of B lanes: segment s of lane b tracks through
+    ``frames[s, b]`` (``frames [S, B, T, H, W]``, or every lane through
+    ``frames[s]`` of a shared ``[S, T, H, W]``) with fill ``fills[b]``, and
+    ``deltas``/``lo``/``hi [S, B, T, 2]`` when bounded.
+
+    The chain between segments, as the JAX package's:
+
+    - with ``carry [B, 2]`` (absolute positions; ``ks [S, B]``, ``origin0``
+      and ``origin_last [S, B, 2]``; ``pos0`` unused): segment s starts at
+      ``carry - origin0[s]``, and after it ``carry = pos[s, b, ks-1] +
+      origin_last[s, b]`` where ``ks[s, b] > 0`` (``make_super_chain_batch``;
+      S = 1 is ``make_chained_batch``). The carry after the last segment goes
+      to ``carry_out`` (a new tensor when None; it may be ``carry`` itself)
+      and the call returns ``(positions, carry_out)``;
+    - without: from ``pos0 [B, 2]``, each next segment from the last one's
+      step ``max(ks-1, 0)`` (``ks [S, B]``) or its last step.
+
+    Positions are ``int32 [S, B, T, 2]`` (with ``subpixel``, a pair with
+    offsets ``float32 [S, B, T, 2]``). A CUDA tensor launches the kernel once;
+    a CPU tensor runs the plain version; any other device raises."""
+    args = dict(radii=radii, sigma=sigma, darker_target=darker_target, deltas=deltas, lo=lo,
+                hi=hi, ks=ks, origin0=origin0, origin_last=origin_last, carry=carry,
+                carry_out=carry_out, subpixel=subpixel)
+    if frames.is_cuda:
+        return dog_scan_batch_segments_cuda(frames, pos0, fills, **args)
+    if frames.device.type == "cpu":
+        return dog_scan_batch_segments_plain(frames, pos0, fills, **args)
+    raise ValueError(f"dog_scan_batch_segments runs on CUDA or CPU tensors, got "
+                     f"{frames.device}")
+
+
+def dog_scan_batch_segments_plain(frames: torch.Tensor, pos0, fills: torch.Tensor, *, radii,
+                                  sigma: float, darker_target: bool, deltas=None, lo=None,
+                                  hi=None, ks=None, origin0=None, origin_last=None, carry=None,
+                                  carry_out=None, subpixel: bool = False):
+    """The plain PyTorch version of :func:`dog_scan_batch_segments`, on any
+    device: :func:`dog_scan_batch_plain` a segment, chained by the same rule."""
+    bounded, S, B, T = _check_segment_args(frames, pos0, fills, deltas, lo, hi, ks, origin0,
+                                           origin_last, carry, carry_out, batched=True)
+    c = None if carry is None else carry.clone()
+    outs, p = [], pos0
+    for s in range(S):
+        if c is not None:
+            p = c - origin0[s]
+        box = dict(deltas=deltas[s], lo=lo[s], hi=hi[s]) if bounded else {}
+        out = dog_scan_batch_plain(frames[s], p, fills, radii=radii, sigma=sigma,
+                                   darker_target=darker_target, subpixel=subpixel, **box)
+        pos = out[0] if subpixel else out
+        if c is not None:
+            c = torch.where((ks[s] > 0)[:, None], _row(pos, ks[s], T) + origin_last[s], c)
+        else:
+            p = pos[:, -1] if ks is None else _row(pos, ks[s], T)
+        outs.append(out)
+    out = ((torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])) if subpixel
+           else torch.stack(outs))
+    if c is None:
+        return out
+    if carry_out is None:
+        return out, c
+    carry_out.copy_(c)
+    return out, carry_out
+
+
+def _shared_stride(named: dict, S: int):
+    """The int32 per-segment arguments ``named`` as views with one segment
+    stride, and that stride: as given where every one's segment 0 is
+    contiguous and they share ``stride(0)`` (views of one buffer, as the
+    pipelines stage them), else packed into one new ``[S, n]`` buffer."""
+    present = {k: a for k, a in named.items() if a is not None}
+    if not present or (S == 1 and all(a[0].is_contiguous() for a in present.values())):
+        return named, 0
+    strides = {a.stride(0) for a in present.values()}
+    if len(strides) == 1 and all(a[0].is_contiguous() for a in present.values()):
+        return named, strides.pop()
+    flat = torch.cat([a.reshape(S, -1) for a in present.values()], dim=1).contiguous()
+    out, at = dict(named), 0
+    for k, a in present.items():
+        n = a[0].numel()
+        out[k] = flat[:, at:at + n].view(a.shape)
+        at += n
+    return out, flat.stride(0)
+
+
+def _segments_launch(frames, lane_stride, B, pos0, fills, args: dict, carry, carry_out, radii,
+                     sigma, darker_target, subpixel, config):
+    """Launch a segmented scan: ``args`` holds the per-segment int32 tensors."""
+    S, T = frames.shape[0], frames.shape[-3]
+    if not frames[0].is_contiguous():
+        raise ValueError("frames must be contiguous within a segment")
+    a, arg_stride = _shared_stride(args, S)
+    seg = _Segments(S, frames.stride(0) if S > 1 else 0, arg_stride, a["ks"], a["origin0"],
+                    a["origin_last"], carry, carry_out)
+    return _launch(frames, lane_stride, B, T, pos0, fills, a["deltas"], a["lo"], a["hi"], radii,
+                   sigma, darker_target, subpixel, config, seg)
+
+
+def dog_scan_segments_cuda(frames: torch.Tensor, pos0: torch.Tensor, fill: int, *, radii,
+                           sigma: float, darker_target: bool, deltas=None, lo=None, hi=None,
+                           ks=None, subpixel: bool = False):
+    """Launch a kernel of ``csrc/dog_scan.cu`` once for S chained scans of one
+    lane (:func:`dog_scan_segments`) on the current stream, for CUDA tensors
+    (int32 ``pos0``/``deltas``/``lo``/``hi``/``ks``, each segment contiguous).
+    Raises on anything the kernel does not take and on a failed launch."""
+    bounded, S, _, T = _check_segment_args(frames, pos0, None, deltas, lo, hi, ks, None, None,
+                                           None, None, batched=False)
+    named = dict(deltas=deltas, lo=lo, hi=hi, ks=ks, origin0=None, origin_last=None)
+    _check_cuda(dict(frames=frames[0], pos0=pos0, **{k: v if v is None else v[0]
+                                                     for k, v in named.items()}))
+    out_pos, out_off = _segments_launch(
+        frames, 0, 1, pos0, _fill_tensor(int(fill), frames.device), named, None, None, radii,
+        sigma, darker_target, subpixel, _config_name(bounded, subpixel, segmented=True))
+    return (out_pos[:, 0], out_off[:, 0]) if subpixel else out_pos[:, 0]
+
+
+def dog_scan_batch_segments_cuda(frames: torch.Tensor, pos0, fills: torch.Tensor, *, radii,
+                                 sigma: float, darker_target: bool, deltas=None, lo=None,
+                                 hi=None, ks=None, origin0=None, origin_last=None, carry=None,
+                                 carry_out=None, subpixel: bool = False):
+    """Launch a kernel of ``csrc/dog_scan.cu`` once for S chained scans of B
+    lanes (:func:`dog_scan_batch_segments`) on the current stream, for CUDA
+    tensors (uint8 ``fills``; int32 ``pos0``, ``carry``, ``carry_out`` and
+    the per-segment arguments, each segment contiguous). The kernel reads
+    ``carry`` before it writes ``carry_out``, so the two may be one tensor.
+    Raises on anything the kernel does not take and on a failed launch."""
+    bounded, S, B, T = _check_segment_args(frames, pos0, fills, deltas, lo, hi, ks, origin0,
+                                           origin_last, carry, carry_out, batched=True)
+    named = dict(deltas=deltas, lo=lo, hi=hi, ks=ks, origin0=origin0, origin_last=origin_last)
+    if carry is not None and carry_out is None:
+        carry_out = torch.empty((B, 2), dtype=torch.int32, device=frames.device)
+    _check_cuda(dict(frames=frames[0], fills=fills, pos0=pos0, carry=carry, carry_out=carry_out,
+                     **{k: v if v is None else v[0] for k, v in named.items()}))
+    lane_stride = 0 if frames.dim() == 4 else frames.stride(1)
+    out_pos, out_off = _segments_launch(
+        frames, lane_stride, B, None if carry is not None else pos0, fills, named, carry,
+        carry_out, radii, sigma, darker_target, subpixel,
+        _config_name(bounded, subpixel, batched=True, segmented=True))
+    out = (out_pos, out_off) if subpixel else out_pos
+    return out if carry is None else (out, carry_out)

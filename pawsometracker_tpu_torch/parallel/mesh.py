@@ -218,12 +218,19 @@ class ShardedFn:
     of the lanes of data shard i, runs on ``devices[i]`` in that device's
     context. A call splits every argument by lane range (a :class:`Sharded`
     keeps its shards), launches the shards in turn and returns a
-    :class:`Sharded` (a tuple of them where the function returns a tuple)."""
+    :class:`Sharded` (a tuple of them where the function returns a tuple).
 
-    def __init__(self, fns, mesh: Mesh):
+    A bounded scan over the mesh also carries its segmented form:
+    ``segments[i]`` is shard i's ``scan_bounded_batch_super`` (S chained
+    scans a launch, see :class:`~..models.dog_tracker.TrackerFns`), which the
+    lane engines call a shard at a time and :meth:`segmented` calls over the
+    whole batch."""
+
+    def __init__(self, fns, mesh: Mesh, segments=None):
         self.fns = list(fns)
         self.mesh = mesh
         self.devices = mesh.data_devices()
+        self.segments = None if segments is None else list(segments)
 
     def __call__(self, *args):
         batch = args[0].shape[0]
@@ -239,6 +246,44 @@ class ShardedFn:
         if isinstance(outs[0], tuple):
             return tuple(wrap([o[k] for o in outs]) for k in range(len(outs[0])))
         return wrap(outs)
+
+    def segmented(self, crops, carry, fills, deltas, lo, hi, ks, origin0, origin_last):
+        """S chained batched scans over the mesh, one launch a data shard on
+        that shard's lanes and carry, in its device's context (the JAX
+        package's ``make_super_chain_batch`` over ``sharded_pallas_bounded``).
+        Arguments as ``scan_bounded_batch_super``'s, lanes on axis 1 of the
+        per-segment ones (``crops [S,L,...]``, ``ks [S,L]``, ...) and on axis
+        0 of ``carry`` and ``fills``. Returns ``(positions, carry)`` as
+        :class:`Sharded` s with lanes first: positions ``[L, S, K, 2]`` (a pair
+        with offsets for a subpixel scan), carry ``[L, 2]``."""
+        if self.segments is None:
+            raise ValueError("this ShardedFn has no segmented form")
+        batch = carry.shape[0]
+        sharding = BatchSharding(self.mesh, 1)
+        lanes = sharding.lanes(batch)
+
+        def per_segment(x):  # lanes on axis 1
+            t = x if torch.is_tensor(x) else torch.as_tensor(np.ascontiguousarray(x))
+            return [t[:, sl].to(d) for sl, d in zip(lanes, sharding.devices)]
+
+        seg_args = [per_segment(a) for a in (crops, deltas, lo, hi, ks, origin0, origin_last)]
+        carries = shard_lanes(carry, sharding, batch)
+        fill_parts = shard_lanes(fills, sharding, batch)
+        outs, new_carry = [], []
+        for i, (fn, dev) in enumerate(zip(self.segments, self.devices)):
+            c, d, l, h, k, o0, ol = (p[i] for p in seg_args)
+            with on_device(dev):
+                out, cy = fn(c, carries[i], fill_parts[i], d, l, h, k, o0, ol)
+            outs.append(out)
+            new_carry.append(cy)
+
+        def wrap(shards):  # [S, L_i, ...] -> lanes first
+            shards = [x.transpose(0, 1) for x in shards]
+            return Sharded(shards, BatchSharding(self.mesh, shards[0].dim()))
+
+        out = (tuple(wrap([o[k] for o in outs]) for k in range(2)) if isinstance(outs[0], tuple)
+               else wrap(outs))
+        return out, Sharded(new_carry, BatchSharding(self.mesh, 2))
 
     def map(self, make) -> "ShardedFn":
         """A new ShardedFn of ``make(fn, device)`` for each shard's function."""
@@ -423,8 +468,16 @@ def sharded_pallas_bounded(spec: TrackerSpec, mesh: Mesh, *, interpret: bool = F
     port's counterpart of Pallas interpret mode: an explicit request, never a
     fallback."""
     fns = _mesh_fns(spec, _check_mesh(mesh), "xla" if interpret else "auto")
+    return _bounded_fn(fns, mesh, subpixel)
+
+
+def _bounded_fn(fns, mesh: Mesh, subpixel: bool) -> ShardedFn:
+    """The batched bounded scan of each shard's ``fns`` over ``mesh``, with its
+    segmented form."""
     name = "scan_sub_batch" if subpixel else "scan_bounded_batch"
-    return ShardedFn([getattr(f, name) for f in fns], mesh)
+    return ShardedFn([getattr(f, name) for f in fns], mesh,
+                     [functools.partial(f.scan_bounded_batch_super, subpixel=subpixel)
+                      for f in fns])
 
 
 class ShardedBatchTracker:
@@ -437,7 +490,9 @@ class ShardedBatchTracker:
     ``snap``/``snap_detect``: ``(frames [B,H,W], guesses [B,2], fills [B]) ->
     [B,2]``; ``scan``: ``(frames [B,T,H,W], pos0 [B,2], fills) -> [B,T,2]``;
     ``scan_bounded``/``scan_sub`` take ``deltas, lo, hi [B,T,2]`` too;
-    ``snap_sub``/``snap_detect_sub`` also return offsets. ``engine`` is as in
+    ``snap_sub``/``snap_detect_sub`` also return offsets. With a mesh,
+    ``scan_bounded`` and ``scan_sub`` carry their segmented form
+    (:meth:`ShardedFn.segmented`). ``engine`` is as in
     :func:`~..models.dog_tracker.tracker_fns`, except that ``"pallas"`` with a
     mesh raises, as in the JAX package. ``device``: without a mesh, as in
     ``tracker_fns``; with one, ``None`` or one of its devices (``.device``,
@@ -478,8 +533,8 @@ class ShardedBatchTracker:
         self.snap = sharded("snap_batch", fns)
         self.snap_detect = sharded("snap_batch", det)
         self.scan = sharded("scan_batch", fns)
-        self.scan_bounded = sharded("scan_bounded_batch", fns)
-        self.scan_sub = sharded("scan_sub_batch", fns)
+        self.scan_bounded = _bounded_fn(fns, mesh, False)
+        self.scan_sub = _bounded_fn(fns, mesh, True)
         self.snap_sub = sharded("snap_sub_batch", fns)
         self.snap_detect_sub = sharded("snap_sub_batch", det)
 

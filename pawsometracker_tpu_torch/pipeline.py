@@ -39,9 +39,26 @@ device's side stream, run one launch a shard in that device's context, keep
 the chain per shard on its device, and gather the positions into one pinned
 buffer behind an event a shard.
 
-The reference's group dispatch (super-programs that coalesce TPU calls) and
-its dispatch thread are not ported: a CUDA launch returns at once, and the
-copy to the card runs on a side stream.
+Group dispatch, the counterpart of the reference's (``_GroupDispatchBase``,
+the ``make_super_*`` programs): every engine stages its chunks, and a group of
+them runs as one launch a data shard of the kernel's segmented form, which
+chains the S chunk scans on the card as the super-programs do, the batched
+chain's carry included (see :class:`_ShardedEngine`). The size is 1 unless
+``PAWS_DISPATCH_GROUP`` pins it (clamped to :data:`GROUP_MAX`, ``"0"``
+unpinned); adaptive growth is off on the port's devices
+(:func:`_grouping_pays`). Full frames group on ``track``'s single stream, as
+the reference's ``run_full_pipeline``; the batch and multi-target full-frame
+loops have no group dispatch there, and none here.
+
+Without a counterpart, as there is nothing on the card for them to do:
+
+- the reference's dispatch thread (``_SerialDispatcher``, ``_ImmediateResult``)
+  and its ``PAWS_SYNC_DISPATCH`` and ``PAWS_STAGE_THREADS``: a group launches
+  inline, a launch returns at once, and the copies to the card already run on
+  side streams;
+- its prewarm of the super-programs (``_maybe_prewarm``,
+  ``PAWS_SUPER_PREWARM``): a segmented launch is the same kernel, with no
+  program to compile per group size.
 
 Also here: the ring-budget cap on the pipeline depth, and ``_crop_with_fill``,
 which the parallel decoder imports.
@@ -185,6 +202,11 @@ def _parts(x, shards) -> list:
     return [t[sl] for sl, _, _ in shards]
 
 
+def _shard_shape(shape, sl) -> tuple:
+    """``shape`` with its leading (lane) axis cut to the lanes ``sl``."""
+    return (len(range(shape[0])[sl]),) + tuple(shape[1:])
+
+
 def _record(stream):
     """A new event recorded on ``stream``."""
     event = torch.cuda.Event()
@@ -192,94 +214,252 @@ def _record(stream):
     return event
 
 
+#: most chunks one launch runs (the JAX package's ``_GroupDispatchBase.GROUP_MAX``)
+GROUP_MAX = 4
+
+
+def _grouping_pays() -> bool:
+    """Whether the pipelines grow dispatch groups by themselves (the JAX
+    package's ``_grouping_pays``, ``pawsometracker_tpu/pipeline.py:615-627``):
+    never on the port's devices. Growth is for a device reached over a link,
+    where every call is a round trip that a group of S chunks pays once, which
+    is why the JAX package grows groups on the TPU alone. The port's card sits
+    on the host's own bus: a launch returns at once and the copies run on side
+    streams, so growth stays off, as the JAX package keeps it off on every
+    other backend. ``PAWS_DISPATCH_GROUP`` pins a group size on every device."""
+    return False
+
+
+class _GroupHandle:
+    """The handle of a dispatched chunk (the JAX package's ``_GroupHandle``,
+    ``pawsometracker_tpu/pipeline.py:233-245``): ``result`` is None while the
+    chunk is staged, then its ``(positions, offsets, events)`` once its group
+    is launched."""
+
+    __slots__ = ("result",)
+
+    def __init__(self):
+        self.result = None
+
+
+class _DeviceGroup:
+    """The card side of one group of chunks: per data shard their frames
+    ``frames[i] [cap, ...]`` (u8, chunk s at ``frames[i][s]``), for the ROI
+    engines their int32 arguments ``args[i] [cap, n]`` (else None), and the
+    event that marks done the launch that read them."""
+
+    __slots__ = ("cap", "frames", "args", "consumed")
+
+    def __init__(self, cap: int, frames: list, args: list):
+        self.cap = cap
+        self.frames = frames
+        self.args = args
+        self.consumed = [None] * len(frames)
+
+
 class _ShardedEngine:
     """What the engines share: their lanes split into data shards
     (:func:`_lane_shards`), on the card a side stream a device for the copies
-    to the card (shards on one device share it), and results that come back
-    into one pinned buffer behind an event a shard."""
+    to the card (shards on one device share it), results that come back into
+    pinned buffers behind an event a shard, and group dispatch.
 
-    def __init__(self, scan, lanes, device):
+    Group dispatch is the JAX package's ``_GroupDispatchBase``
+    (``pawsometracker_tpu/pipeline.py:727-877``) with one segmented launch in
+    place of a super-program. A dispatch stages its chunk: on the card its copy
+    starts at once, into the chunk's slot of a device group (:class:`_DeviceGroup`,
+    from a ring of :attr:`RING`; a group's buffers are refilled only behind the
+    launch that read them, a wait on the card). ``group_target`` staged chunks
+    run as one launch a data shard, the engine's scan for one chunk and its
+    segmented form (S chained scans) for more, and the launch waits on the
+    chunks' copies. The first dispatch of a chain runs alone, and draining a
+    chunk whose group is still staged launches what is staged.
+    ``group_target`` is 1, or ``PAWS_DISPATCH_GROUP`` clamped to
+    :data:`GROUP_MAX` (``"0"`` unpins) where the engine has a segmented scan;
+    :meth:`grow_group` raises it and :meth:`reset` sets it back to 1 unless it
+    is pinned. Positions are the same at every group size."""
+
+    GROUP_MAX = GROUP_MAX
+    #: device groups in the ring; its size sets how far copies run ahead of launches
+    RING = 3
+
+    def __init__(self, scan, lanes, device, group_allowed: bool):
         self.shards = _lane_shards(scan, lanes, device)
         self._cuda = self.shards[0][1].type == "cuda"
         if self._cuda:
             self._copy_streams = {dev: torch.cuda.Stream(dev) for _, dev, _ in self.shards}
             # the first shard's (the only one without a mesh)
             self._copy_stream = self._copy_streams[self.shards[0][1]]
+        self._ring: list[_DeviceGroup] = []
+        self._ring_next = 0
+        self._group = None  # the device group being staged
+        self._staged: list = []  # (entry, handle) of the chunks staged and not launched
+        self._chain_started = False
+        #: launches of staged groups, each one launch a data shard
+        self.groups = 0
+        pin = os.environ.get("PAWS_DISPATCH_GROUP")
+        self._group_pinned = bool(pin) and pin != "0"
+        self._group_allowed = group_allowed
+        want = min(int(pin), GROUP_MAX) if self._group_pinned else 1
+        self.group_target = want if group_allowed else 1
 
-    def _copy_in(self, slot, copies):
-        """Per shard i, on its device's side stream and after the scan that
-        last read ``slot``'s twins, start the ``(dst, src)`` copies
-        ``copies[i]`` and record ``slot.copied[i]``; the shard's scan stream
-        waits for them."""
+    # -- group dispatch ---------------------------------------------------
+    def reset(self):
+        """Invalidate the chain on the device (replay, run start). The staged
+        chunks are dropped: their handles are never drained, and later groups
+        refill their device slots."""
+        self._staged.clear()
+        self._chain_started = False
+        if not self._group_pinned:
+            self.group_target = 1
+        self._reset_chain()
+
+    def _reset_chain(self):
+        pass
+
+    def grow_group(self, cap: int = GROUP_MAX):
+        """The controller's signal that the lagged drain still blocks at the
+        depth ceiling: one more chunk a launch, up to ``cap`` (the overlap
+        bound ``(depth + 1) // 2``) and :data:`GROUP_MAX`; nothing when the
+        size is pinned or the engine has no segmented scan."""
+        if (self._group_allowed and not self._group_pinned
+                and self.group_target < min(cap, self.GROUP_MAX)):
+            self.group_target += 1
+
+    def _stage_entry(self, entry) -> _GroupHandle:
+        """Stage one dispatch; launch the group when it is full, and the first
+        dispatch of a chain alone (it starts the chain from the host)."""
+        handle = _GroupHandle()
+        self._staged.append((entry, handle))
+        if len(self._staged) >= self.group_target or not self._chain_started:
+            self._flush()
+        self._chain_started = True
+        return handle
+
+    def _flush(self):
+        """Launch the staged chunks as one group."""
+        if not self._staged:
+            return
+        staged, self._staged = self._staged, []
+        with self.timer.section("device"):
+            results = self._launch([e for e, _ in staged])
+        self.groups += 1
+        for (_, handle), result in zip(staged, results):
+            handle.result = result
+
+    def _slot(self, make):
+        """``(device group, s)``: where the chunk about to be staged goes, s
+        its index in the group. A group starts in the next device group of the
+        ring, made by ``make(cap)`` (again, once the card is done with the old
+        one, where it has less room than ``group_target``). On the CPU there
+        are no device groups (None)."""
+        s = len(self._staged)
+        if s and self._group is not None and s >= self._group.cap:
+            self._flush()  # the target grew past this group's room
+            s = 0
+        if not self._cuda:
+            return None, s
+        if s == 0:
+            i = self._ring_next
+            self._ring_next = (i + 1) % self.RING
+            cap = max(1, self.group_target)
+            if i == len(self._ring):
+                self._ring.append(make(cap))
+            elif self._ring[i].cap < cap:
+                self._sync()  # nothing may still read or write the buffers that go
+                self._ring[i] = make(cap)
+            self._group = self._ring[i]
+        return self._group, s
+
+    def _copy_in(self, group, s: int, copies) -> list:
+        """Per shard i, on its device's side stream: (for a group's first
+        chunk) wait for the launch that last read ``group``, start the
+        ``(dst, src)`` copies ``copies[i]`` and record their event, which the
+        shard's scan stream waits for. Returns the events."""
+        events = []
         for i, (_, dev, _) in enumerate(self.shards):
             stream = self._copy_streams[dev]
             with torch.cuda.device(dev), torch.cuda.stream(stream):
-                if slot.consumed[i] is not None:
-                    stream.wait_event(slot.consumed[i])  # the last scan read the twins
+                if s == 0 and group.consumed[i] is not None:
+                    stream.wait_event(group.consumed[i])
                 for dst, src in copies[i]:
                     dst.copy_(src, non_blocking=True)
-                slot.copied[i] = _record(stream)
-            torch.cuda.current_stream(dev).wait_event(slot.copied[i])
+                events.append(_record(stream))
+            torch.cuda.current_stream(dev).wait_event(events[-1])
+        return events
 
-    def _results(self, slot, outs, pos_h, off_h):
-        """The handle of a dispatched chunk whose scans gave, per shard,
-        ``(positions, offsets or None)`` with lanes first: on the CPU their
-        concatenation; on the card, after marking each shard's twins in
-        ``slot`` consumed once the work queued so far has run, the copies of
-        its results into its lanes of the pinned ``pos_h`` (``off_h``), each
-        behind an event."""
+    def _results(self, outs, bufs) -> list:
+        """The handles' results of a launched group whose scans gave, per
+        shard, ``(positions, offsets or None)`` with the group's chunks first
+        and lanes next: on the CPU, chunk s's rows (the shards' concatenated);
+        on the card, after marking the device group consumed once the work
+        queued so far has run, the copies of each chunk's rows into its lanes
+        of its pinned ``bufs[s] = (pos_h, off_h)``, behind one event a shard."""
         if not self._cuda:
-            if len(outs) == 1:
-                return outs[0] + (None,)
-            return (torch.cat([p for p, _ in outs]),
-                    None if outs[0][1] is None else torch.cat([o for _, o in outs]), None)
+            def cat(parts):
+                return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+            return [(cat([p[s] for p, _ in outs]),
+                     None if outs[0][1] is None else cat([o[s] for _, o in outs]), None)
+                    for s in range(outs[0][0].shape[0])]
         done = []
         for i, ((sl, dev, _), (pos, off)) in enumerate(zip(self.shards, outs)):
             with torch.cuda.device(dev):
                 stream = torch.cuda.current_stream(dev)
-                slot.consumed[i] = _record(stream)
-                pos_h[sl].copy_(pos, non_blocking=True)
-                if off is not None:
-                    off_h[sl].copy_(off, non_blocking=True)
+                self._group.consumed[i] = _record(stream)
+                for s, (pos_h, off_h) in enumerate(bufs):
+                    pos_h[sl].copy_(pos[s], non_blocking=True)
+                    if off is not None:
+                        off_h[sl].copy_(off[s], non_blocking=True)
                 done.append(_record(stream))
-        return pos_h, off_h, done
+        return [(pos_h, off_h, done) for pos_h, off_h in bufs]
 
     @staticmethod
     def ready(handle) -> bool:
-        """True when :meth:`to_host` will not block."""
-        return handle[2] is None or all(e.query() for e in handle[2])
+        """True when :meth:`to_host` will not block: the chunk's group is
+        launched and its results are in. A staged chunk is never ready."""
+        r = handle.result
+        return r is not None and (r[2] is None or all(e.query() for e in r[2]))
 
-    @staticmethod
-    def to_host(handle):
-        """The chunk's positions (and offsets) as numpy arrays."""
-        pos, off, done = handle
+    def to_host(self, handle):
+        """The chunk's positions (and offsets) as numpy arrays; launches the
+        chunk's group first if it is still staged."""
+        if handle.result is None:
+            self._flush()
+        pos, off, done = handle.result
         for e in done or ():
             e.synchronize()
         return pos.numpy().copy(), (None if off is None else off.numpy().copy())
 
+    def _sync(self):
+        for dev, stream in self._copy_streams.items():
+            torch.cuda.current_stream(dev).synchronize()
+            stream.synchronize()
+
     def close(self):
         """Wait for the card's work on this engine's buffers before they go."""
         if self._cuda:
-            for dev, stream in self._copy_streams.items():
-                torch.cuda.current_stream(dev).synchronize()
-                stream.synchronize()
+            self._sync()
+        self._ring.clear()
+        self._group = None
 
 
 class _Slot:
-    """One staging slot: a host buffer (pinned when the scan runs on the
-    card), and per shard its device twin of the shard's lanes (a view of the
-    host buffer on the CPU), the event that marks its host-to-device copy
-    done and the event that marks the scan that read it done."""
+    """One pinned staging slot of the full-frame engine on the card, and per
+    shard the event that marks its copy to the card done."""
 
-    __slots__ = ("host", "dev", "copied", "consumed")
+    __slots__ = ("host", "copied")
 
-    def __init__(self, shape, shards):
-        cuda = shards[0][1].type == "cuda"
-        self.host = torch.empty(shape, dtype=torch.uint8, pin_memory=cuda)
-        self.dev = [torch.empty(self.host[sl].shape, dtype=torch.uint8, device=dev) if cuda
-                    else self.host[sl] for sl, dev, _ in shards]
-        self.copied = [None] * len(shards)
-        self.consumed = [None] * len(shards)
+    def __init__(self, shape):
+        self.host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+        self.copied = []
+
+
+class _FullEntry(NamedTuple):
+    """A staged full-frame chunk: its host array (the CPU scans read it; None
+    on the card) and each lane's real frames."""
+
+    host: object
+    valid: list
 
 
 class _FullFrameEngine(_ShardedEngine):
@@ -290,50 +470,67 @@ class _FullFrameEngine(_ShardedEngine):
     ``[lanes,T,H,W]`` and returns positions (steps first for one stream,
     ``[lanes,T,2]`` for lanes), or ``(positions, offsets)`` with
     ``subpixel``; a :class:`~.parallel.mesh.ShardedFn` runs each shard's lanes
-    on its device, the chain kept per shard.
+    on its device, the chain kept per shard. ``segments(frames [S,T,H,W],
+    pos0, fill)``, given for one stream and one target, is the scan's
+    segmented form (``scan_super``): with it, group dispatch runs S chunks a
+    launch, each from the last one's last step (the JAX package's
+    ``make_super_full``).
 
-    Every chunk is copied once, into a staging slot: on the CPU the scan then
-    runs at once; on the card the slot is one of a ring of ``slots``
-    :class:`_Slot` s, each shard's lanes go to its device on that device's
-    side stream, and the dispatch returns before the scans end, the results
-    coming back into one pinned buffer behind an event a shard that
-    :meth:`to_host` waits on."""
+    Every chunk is copied once, into a host buffer padded to the scan length
+    by repeating its last frame: on the CPU a new array, which the scan reads;
+    on the card one of a ring of ``slots`` pinned :class:`_Slot` s, refilled
+    once its copies are done, from which each shard's lanes go to its slot of
+    the device group on that device's side stream. The dispatch returns before
+    the scans end, the results coming back into pinned buffers behind an event
+    a shard that :meth:`to_host` waits on."""
 
-    def __init__(self, scan, pos0, fill, subpixel, timer, device, slots: int, lanes=None):
-        super().__init__(scan, lanes, device)
+    def __init__(self, scan, pos0, fill, subpixel, timer, device, slots: int, lanes=None,
+                 segments=None):
+        super().__init__(scan, lanes, device, group_allowed=segments is not None)
+        self.segments = segments
         self.pos0 = [torch.as_tensor(p).to(device=dev, dtype=torch.int32)
                      for p, (_, dev, _) in zip(_parts(pos0, self.shards), self.shards)]
         self.fill = _parts(fill, self.shards)
         self.subpixel = subpixel
         self.timer = timer
         self.lanes = lanes
-        self._n_slots = max(2, int(slots)) if self._cuda else 1
+        self._n_slots = max(2, int(slots))
         self._slots: list[_Slot] = []
         self._next = 0
 
-    def _stage(self, chunks, T: int) -> _Slot:
-        """Copy one chunk per stream (``None`` for a lane past its end) into
-        the next slot, each padded to ``T`` steps by repeating its last frame,
-        and on the card on to each shard's device; returns the slot."""
+    def _new_group(self, cap: int, shape) -> _DeviceGroup:
+        return _DeviceGroup(cap, [torch.empty((cap,) + _shard_shape(shape, sl), dtype=torch.uint8,
+                                              device=dev) for sl, dev, _ in self.shards], None)
+
+    def _stage(self, chunks, T: int):
+        """Copy one chunk per stream (``None`` for a lane past its end) into a
+        host buffer, each padded to ``T`` steps by repeating its last frame,
+        and on the card on to its slot of each shard's device group; returns
+        the staged entry."""
         frame_shape = next(c.shape[1:] for c in chunks if c is not None)
-        lead = (T,) if self.lanes is None else (self.lanes, T)
-        if len(self._slots) < self._n_slots:
-            self._slots.append(_Slot(lead + tuple(frame_shape), self.shards))
-        slot = self._slots[self._next]
-        self._next = (self._next + 1) % self._n_slots
-        for copied in slot.copied:
-            if copied is not None:
+        shape = ((T,) if self.lanes is None else (self.lanes, T)) + tuple(frame_shape)
+        group, s = self._slot(lambda cap: self._new_group(cap, shape))
+        if self._cuda:
+            if len(self._slots) < self._n_slots:
+                self._slots.append(_Slot(shape))
+            slot = self._slots[self._next]
+            self._next = (self._next + 1) % self._n_slots
+            for copied in slot.copied:
                 copied.synchronize()  # the pinned buffer is free once its copies are done
-        host = slot.host.numpy()
+            host = slot.host.numpy()
+        else:
+            host = np.empty(shape, np.uint8)
         for row, chunk in zip([host] if self.lanes is None else host, chunks):
             # a lane past its end keeps whatever its row holds: its steps are discarded
             if chunk is not None:
                 row[:len(chunk)] = chunk
                 row[len(chunk):] = chunk[-1]
-        if self._cuda:
-            self._copy_in(slot, [[(dev, slot.host[sl])]
-                                 for dev, (sl, _, _) in zip(slot.dev, self.shards)])
-        return slot
+        valid = [0 if c is None else len(c) for c in chunks]
+        if not self._cuda:
+            return _FullEntry(host, valid)
+        slot.copied = self._copy_in(group, s, [[(group.frames[i][s], slot.host[sl])]
+                                               for i, (sl, _, _) in enumerate(self.shards)])
+        return _FullEntry(None, valid)
 
     def _chain(self, pos0, pos, valid, T: int):
         """The next chunk's start: each stream's position after its last valid
@@ -350,24 +547,38 @@ class _FullFrameEngine(_ShardedEngine):
         ``None`` for a lane past its end), padded to ``T`` steps; returns a
         handle for :meth:`ready` and :meth:`to_host`."""
         with self.timer.section("upload"):
-            slot = self._stage(chunks, T)
-        valid = [0 if c is None else len(c) for c in chunks]
+            entry = self._stage(chunks, T)
+        return self._stage_entry(entry)
+
+    def _launch(self, entries) -> list:
+        S = len(entries)
         outs = []
-        with self.timer.section("device"):
-            for i, (sl, dev, scan) in enumerate(self.shards):
-                with on_device(dev):
-                    out = scan(slot.dev[i], self.pos0[i], self.fill[i])
-                    pos = out[0] if self.subpixel else out
-                    self.pos0[i] = self._chain(self.pos0[i], pos, valid[sl], T)
-                outs.append(out if self.subpixel else (out, None))
-        pos_h = off_h = None
+        for i, (sl, dev, scan) in enumerate(self.shards):
+            if self._cuda:
+                frames = self._group.frames[i][:S]
+            else:
+                frames = torch.from_numpy(entries[0].host[sl][None] if S == 1 else
+                                          np.stack([e.host[sl] for e in entries]))
+            T = frames.shape[-3]
+            with on_device(dev):
+                if S == 1:
+                    out = scan(frames[0], self.pos0[i], self.fill[i])
+                    out = tuple(o[None] for o in out) if self.subpixel else out[None]
+                else:  # one stream, one target: its segmented scan
+                    out = self.segments(frames, self.pos0[i], self.fill[i])
+                pos, off = out if self.subpixel else (out, None)
+                self.pos0[i] = self._chain(self.pos0[i], pos[-1], entries[-1].valid[sl], T)
+            outs.append((pos, off))
+        bufs = []
         if self._cuda:
             first = outs[0][0]
-            shape = first.shape if len(outs) == 1 else (self.lanes,) + tuple(first.shape[1:])
-            pos_h = torch.empty(shape, dtype=first.dtype, pin_memory=True)
-            if self.subpixel:
-                off_h = torch.empty(shape, dtype=torch.float32, pin_memory=True)
-        return self._results(slot, outs, pos_h, off_h)
+            shape = (tuple(first.shape[1:]) if len(outs) == 1
+                     else (self.lanes,) + tuple(first.shape[2:]))
+            for _ in entries:
+                bufs.append((torch.empty(shape, dtype=first.dtype, pin_memory=True),
+                             torch.empty(shape, dtype=torch.float32, pin_memory=True)
+                             if self.subpixel else None))
+        return self._results(outs, bufs)
 
     def close(self):
         super().close()
@@ -389,29 +600,46 @@ def run_full_pipeline(
     prefetchers: list,
     device,
     progress=None,
+    segments=None,
+    stats: dict | None = None,
 ):
     """Full-frame streaming of one video: chunk scans chain their start
     positions on the device and the host drains positions ``depth`` chunks
     behind. ``pos0_abs`` is one position ``[2]``, or ``[N, 2]`` for N targets
-    (``scan`` then returns ``[T, N, 2]``). Frames are whole, so results equal
-    the synchronous loop's at every depth. Returns ``(position blocks, offset
-    blocks, frames tracked)``."""
+    (``scan`` then returns ``[T, N, 2]``). ``segments``, the scan's segmented
+    form for one target, turns on group dispatch (``PAWS_DISPATCH_GROUP``;
+    growth after ``depth + 2`` drains where :func:`_grouping_pays`, capped at
+    ``(depth + 1) // 2`` so two groups stay in flight), as the JAX package's
+    ``run_full_pipeline`` has it. Frames are whole, so results equal the
+    synchronous loop's at every depth and group size. ``stats``, when given,
+    receives the group launches. Returns ``(position blocks, offset blocks,
+    frames tracked)``."""
     positions: list[np.ndarray] = []
     offsets: list[np.ndarray] = []
     tracked = 0
+    drained = 0
     pending: deque = deque()  # (handle, chunk)
 
     from .diagnose import Dont
 
     keep = not isinstance(dia, Dont)
-    eng = _FullFrameEngine(scan, pos0_abs, fill, subpixel, timer, device, slots=depth + 2)
+    eng = _FullFrameEngine(scan, pos0_abs, fill, subpixel, timer, device, slots=depth + 2,
+                           segments=segments)
+    grow_groups = _grouping_pays()
+    group_cap = max(1, (depth + 1) // 2)
 
     def drain_one():
-        nonlocal tracked
+        nonlocal tracked, drained
         handle, frames = pending.popleft()
         k = len(frames)
         with timer.section("drain"):
+            t0 = time.perf_counter()
             out_np, off_np = eng.to_host(handle)
+            blocked = time.perf_counter() - t0
+        drained += 1
+        # the first drains wait for the pipeline to fill, not for a round trip
+        if grow_groups and drained > depth + 2 and blocked > AUTO_DRAIN_BLOCK_S:
+            eng.grow_group(group_cap)
         positions.append(out_np[:k])
         if off_np is not None:
             offsets.append(off_np[:k])
@@ -439,6 +667,8 @@ def run_full_pipeline(
             drain_one()
     finally:
         eng.close()
+    if stats is not None:
+        stats["groups"] = eng.groups
     return positions, offsets, tracked
 
 
@@ -564,28 +794,32 @@ class _CropBuffer(np.ndarray):
 
 
 class _RoiSlot:
-    """The card side of one crop buffer ``[L, K, ch, cw]``: the pinned crops
-    ``host`` and the scan's int32 arguments ``args`` (one flat buffer, laid
-    out by the engine, a span a shard), per shard their device twins of the
-    shard's lanes, pinned buffers for the positions ``[L, K, 2]`` (and
-    offsets) coming back, and per shard the event that marks its copy to the
-    card done and the one that marks the scan that read its twins done."""
+    """The host side of one crop buffer ``[L, K, ch, cw]`` on the card: the
+    pinned crops ``host`` and the scan's int32 arguments ``args`` (one flat
+    buffer, laid out by the engine, a span a shard), pinned buffers for the
+    positions ``[L, K, 2]`` (and offsets) coming back, and per shard the event
+    that marks its copy to the card done."""
 
-    __slots__ = ("host", "dev", "args", "args_dev", "pos", "off", "copied", "consumed")
+    __slots__ = ("host", "args", "pos", "off", "copied")
 
-    def __init__(self, shape, spans, subpixel: bool, shards):
+    def __init__(self, shape, n_args: int, subpixel: bool):
         lanes_steps = tuple(shape[:2]) + (2,)
         self.host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
-        self.dev = [torch.empty(self.host[sl].shape, dtype=torch.uint8, device=dev)
-                    for sl, dev, _ in shards]
-        self.args = torch.empty(spans[-1][1], dtype=torch.int32, pin_memory=True)
-        self.args_dev = [torch.empty(a1 - a0, dtype=torch.int32, device=dev)
-                         for (a0, a1), (_, dev, _) in zip(spans, shards)]
+        self.args = torch.empty(n_args, dtype=torch.int32, pin_memory=True)
         self.pos = torch.empty(lanes_steps, dtype=torch.int32, pin_memory=True)
         self.off = (torch.empty(lanes_steps, dtype=torch.float32, pin_memory=True)
                     if subpixel else None)
-        self.copied = [None] * len(shards)
-        self.consumed = [None] * len(shards)
+        self.copied = []
+
+
+class _RoiEntry(NamedTuple):
+    """A staged ROI chunk: its crop buffer, its flat int32 arguments, whether
+    it starts the chain, and its real frame count (L = 1)."""
+
+    buf: object
+    args: np.ndarray
+    first: bool
+    k: int
 
 
 class _RoiEngine(_ShardedEngine):
@@ -594,21 +828,27 @@ class _RoiEngine(_ShardedEngine):
 
     The lanes split into data shards (:func:`_lane_shards`): one on the
     engine's device, or under a mesh one a row of it, each on its device with
-    its own scan. On the card every crop buffer comes from :meth:`alloc`,
-    pinned, with a :class:`_RoiSlot`: each shard's crops and int32 arguments
-    go to its device in one non-blocking copy each on that device's side
-    stream, its scan waits on their event, and the positions come back into
-    one pinned buffer behind an event a shard that :meth:`ready` queries and
-    :meth:`to_host` waits on. A buffer is refilled only after :meth:`claim`
-    (its last copies done), and its twins only after the scan that read them.
-    On the CPU the scans run at dispatch."""
+    its own scan and segmented scan (``segments``: one device's, or a
+    :class:`~.parallel.mesh.ShardedFn` scan's own ``segments``). On the card
+    every crop buffer comes from :meth:`alloc`, pinned, with a
+    :class:`_RoiSlot`: each shard's crops and int32 arguments go to its slot
+    of the device group in one non-blocking copy each on that device's side
+    stream, the group's launch waits on their events, and the positions come
+    back into the buffer's pinned ones behind an event a shard that
+    :meth:`ready` queries and :meth:`to_host` waits on. A buffer is refilled
+    only after :meth:`claim` (its last copies done). On the CPU the staged
+    chunks keep their buffers, which the launch stacks."""
 
-    def __init__(self, scan, crop_shape, frame_shape, subpixel, timer, device, lanes: int):
+    def __init__(self, scan, crop_shape, frame_shape, subpixel, timer, device, lanes: int,
+                 segments):
         self.ch, self.cw = crop_shape
         self.frame_max = np.array([frame_shape[0] - 1, frame_shape[1] - 1])
         self.subpixel = subpixel
         self.timer = timer
-        super().__init__(scan, lanes, device)
+        seg = scan.segments if isinstance(scan, ShardedFn) else [segments]
+        super().__init__(scan, lanes, device,
+                         group_allowed=seg is not None and all(f is not None for f in seg))
+        self.seg_fns = seg
         self.lanes = [len(range(lanes)[sl]) for sl, _, _ in self.shards]
         self.reset()
 
@@ -622,7 +862,7 @@ class _RoiEngine(_ShardedEngine):
         :class:`_CropBuffer` on the card, a plain array on the CPU."""
         if not self._cuda:
             return np.empty(shape, np.uint8)
-        slot = _RoiSlot(shape, self._spans(shape[1]), self.subpixel, self.shards)
+        slot = _RoiSlot(shape, self._spans(shape[1])[-1][1], self.subpixel)
         buf = slot.host.numpy().view(_CropBuffer)
         buf.slot = slot
         return buf
@@ -633,8 +873,7 @@ class _RoiEngine(_ShardedEngine):
         slot = getattr(buf, "slot", None)
         if slot is not None:
             for copied in slot.copied:
-                if copied is not None:
-                    copied.synchronize()
+                copied.synchronize()
 
     def _bounds(self, o):
         """Per-frame clamp box: the frame's bounds in each frame's crop
@@ -643,56 +882,100 @@ class _RoiEngine(_ShardedEngine):
         hi = np.minimum([self.ch - 1, self.cw - 1], self.frame_max - o)
         return lo, hi
 
+    def _new_group(self, cap: int, K: int) -> _DeviceGroup:
+        shape = (cap, K, self.ch, self.cw)
+        return _DeviceGroup(
+            cap, [torch.empty(shape[:1] + (n,) + shape[1:], dtype=torch.uint8, device=dev)
+                  for n, (_, dev, _) in zip(self.lanes, self.shards)],
+            [torch.empty((cap, self._n_args(n, K)), dtype=torch.int32, device=dev)
+             for n, (_, dev, _) in zip(self.lanes, self.shards)])
+
     def _stage(self, buf, args):
-        """The chunk's crops ``[L, K, ch, cw]`` and flat arguments as tensors
-        the scans read, per shard ``(its crops, its argument span)``: on the
-        card, copied from the pinned buffers on the shard's side stream, with
-        the shard's scan stream waiting for them."""
-        spans = self._spans(buf.shape[1])
+        """Stage the chunk's crops ``buf [L, K, ch, cw]`` and flat arguments:
+        on the card, start their copies from the pinned buffers into the
+        chunk's slot of each shard's device group, on the shard's side stream,
+        with its scan stream waiting for them."""
+        K = buf.shape[1]
+        group, s = self._slot(lambda cap: self._new_group(cap, K))
         if not self._cuda:
-            return [(torch.from_numpy(buf[sl]), torch.from_numpy(args[a0:a1]))
-                    for (sl, _, _), (a0, a1) in zip(self.shards, spans)]
+            return
         slot = buf.slot
         slot.args.numpy()[...] = args
-        self._copy_in(slot, [[(dev, slot.host[sl]), (args_dev, slot.args[a0:a1])]
-                             for dev, args_dev, (sl, _, _), (a0, a1)
-                             in zip(slot.dev, slot.args_dev, self.shards, spans)])
-        return list(zip(slot.dev, slot.args_dev))
+        slot.copied = self._copy_in(group, s, [
+            [(group.frames[i][s], slot.host[sl]), (group.args[i][s], slot.args[a0:a1])]
+            for i, ((sl, _, _), (a0, a1)) in enumerate(zip(self.shards, self._spans(K)))])
 
-    def _finish(self, buf, outs):
-        """The handle of a dispatched chunk whose scans gave, per shard,
-        ``(pos [L_i, K, 2], off)``, through the slot's pinned buffers."""
-        if not self._cuda:
-            return self._results(None, outs, None, None)
-        return self._results(buf.slot, outs, buf.slot.pos, buf.slot.off)
+    def _inputs(self, entries) -> list:
+        """Per shard, ``(crops [S, L_i, K, ch, cw], args [S, n_i])`` of the
+        staged ``entries``: views of the device group on the card, stacks of
+        the staged host buffers on the CPU."""
+        S = len(entries)
+        if self._cuda:
+            g = self._group
+            return [(g.frames[i][:S], g.args[i][:S]) for i in range(len(self.shards))]
+        spans = self._spans(entries[0].buf.shape[1])
+        return [(torch.from_numpy(np.stack([e.buf[sl] for e in entries])),
+                 torch.from_numpy(np.stack([e.args[a0:a1] for e in entries])))
+                for (sl, _, _), (a0, a1) in zip(self.shards, spans)]
+
+    def _finish(self, entries, outs) -> list:
+        """The results of launched ``entries`` whose scans gave, per shard,
+        ``(positions [S, L_i, K, 2], offsets)``, through their buffers' pinned ones."""
+        bufs = [(e.buf.slot.pos, e.buf.slot.off) for e in entries] if self._cuda else None
+        return self._results(outs, bufs)
+
+
+class _SingleArgs(NamedTuple):
+    """Views of :class:`_SingleEngine`'s flat int32 arguments (the last axis of
+    a numpy array on the host, or of its ``[S, n]`` twin on the device):
+    ``deltas``, ``lo``, ``hi`` ``[..., K, 2]``, the chain's start ``[..., 2]``
+    (a chain's first chunk) and the real frame count ``ks [...]``."""
+
+    deltas: object
+    lo: object
+    hi: object
+    start: object
+    ks: object
+
+
+def _single_args(flat, K: int) -> _SingleArgs:
+    lead, n = tuple(flat.shape[:-1]), 2 * K
+    return _SingleArgs(flat[..., :n].reshape(lead + (K, 2)),
+                       flat[..., n:2 * n].reshape(lead + (K, 2)),
+                       flat[..., 2 * n:3 * n].reshape(lead + (K, 2)),
+                       flat[..., 3 * n:3 * n + 2], flat[..., 3 * n + 2])
 
 
 class _SingleEngine(_RoiEngine):
     """Lane adapter for L = 1 over the unbatched bounded scan
-    ``scan(frames [K,ch,cw], pos0 [2], fill, deltas, lo, hi)``: the JAX
-    package's ``_SingleEngine`` without group dispatch.
+    ``scan(frames [K,ch,cw], pos0 [2], fill, deltas, lo, hi)`` and its
+    segmented form ``segments`` (``scan_bounded_super``): the JAX package's
+    ``_SingleEngine``.
 
-    It owns the chain on the device: a chunk's scan starts from a view of the
+    It owns the chain on the device: a group starts from a view of the
     previous output's last real row, ``prev[prev_k - 1]``, which ``deltas[0]``
-    rebases into the new crop, so the host never waits for it; after
-    :meth:`reset` (a replay, or the start of a run) the first scan takes its
-    absolute start ``P - o[0]`` from the host. Its arguments are ``[4, K, 2]``:
-    deltas, lo, hi, and in row 3 a chain start."""
+    rebases into the new crop, so the host never waits for it; inside a
+    group the kernel carries it (segment s from segment s-1's row
+    ``max(ks-1, 0)``). After :meth:`reset` (a replay, or the start of a run)
+    the first chunk runs alone and takes its absolute start ``P - o[0]`` from
+    the host. Its arguments: deltas, lo, hi ``[K, 2]``, a chain start and
+    ``ks``."""
 
-    def __init__(self, scan, crop_shape, frame_shape, fill, subpixel, timer, device):
+    def __init__(self, scan, crop_shape, frame_shape, fill, subpixel, timer, device,
+                 segments=None):
         self.fill = int(fill)
         self.scan = scan
-        super().__init__(scan, crop_shape, frame_shape, subpixel, timer, device, lanes=1)
+        super().__init__(scan, crop_shape, frame_shape, subpixel, timer, device, lanes=1,
+                         segments=segments)
 
-    def reset(self):
-        """Invalidate the chain on the device (replay, run start)."""
+    def _reset_chain(self):
         self._prev = None
         self._prev_k = None
         self._prev_origin = None
 
     @staticmethod
     def _n_args(lanes, K):
-        return 4 * K * 2
+        return 6 * K + 4
 
     @staticmethod
     def _deltas(o, prev_last):
@@ -706,39 +989,49 @@ class _SingleEngine(_RoiEngine):
         return d
 
     def dispatch(self, buf, origins, P_abs, valid=None):
-        """Start the scan of the chunk in ``buf`` (``[1, K, ch, cw]``, cropped
-        at per-frame ``origins [1, K, 2]``; ``valid[0]`` real frames) from the
-        chain, or from ``P_abs`` after a reset; returns a handle for
+        """Stage the scan of the chunk in ``buf`` (``[1, K, ch, cw]``, cropped
+        at per-frame ``origins [1, K, 2]``; ``valid[0]`` real frames), chained
+        to the last one, or from ``P_abs`` after a reset; returns a handle for
         :meth:`ready` and :meth:`to_host`."""
         o = np.asarray(origins[0], np.int64)
         K = buf.shape[1]
         k = K if valid is None else int(valid[0])
-        first = self._prev is None
-        args = np.zeros((4, K, 2), np.int32)
-        args[0] = self._deltas(o, o[0] if first else self._prev_origin)
-        args[1], args[2] = self._bounds(o)
+        first = not self._chain_started
+        args = np.zeros(self._n_args(1, K), np.int32)
+        a = _single_args(args, K)
+        a.deltas[...] = self._deltas(o, o[0] if first else self._prev_origin)
+        a.lo[...], a.hi[...] = self._bounds(o)
+        a.ks[...] = k
         if first:
-            args[3, 0] = np.asarray(P_abs[0], np.int64) - o[0]
+            a.start[...] = np.asarray(P_abs[0], np.int64) - o[0]
         with self.timer.section("upload"):
-            [(frames, a)] = self._stage(buf, args.reshape(-1))
-        a = a.view(4, K, 2)
-        pos0 = a[3, 0] if first else self._prev[self._prev_k - 1]
-        with self.timer.section("device"):
-            out = self.scan(frames[0], pos0, self.fill, a[0], a[1], a[2])
+            self._stage(buf, args)
+        # the chain continues from the last REAL row: its frame count, and the
+        # origin that row was cropped at
+        self._prev_origin = o[max(k - 1, 0)]
+        return self._stage_entry(_RoiEntry(buf, args, first, max(k, 1)))
+
+    def _launch(self, entries) -> list:
+        [(frames, flat)] = self._inputs(entries)  # [S, 1, K, ch, cw], [S, n]
+        a = _single_args(flat, frames.shape[2])
+        if len(entries) == 1:
+            pos0 = a.start[0] if entries[0].first else self._prev[self._prev_k - 1]
+            out = self.scan(frames[0, 0], pos0, self.fill, a.deltas[0], a.lo[0], a.hi[0])
+            out = tuple(x[None] for x in out) if self.subpixel else out[None]
+        else:  # a chained group: the chain started before it
+            out = self.seg_fns[0](frames[:, 0], self._prev[self._prev_k - 1], self.fill,
+                                  a.deltas, a.lo, a.hi, a.ks)
         pos, off = out if self.subpixel else (out, None)
-        # the chain continues from the last REAL row: its position, its frame
-        # count and the origin that row was cropped at
-        self._prev, self._prev_k, self._prev_origin = pos, max(k, 1), o[max(k - 1, 0)]
-        return self._finish(buf, [(pos[None], None if off is None else off[None])])
+        self._prev, self._prev_k = pos[-1], entries[-1].k
+        return self._finish(entries, [(pos[:, None], None if off is None else off[:, None])])
 
 
 class _BatchArgs(NamedTuple):
     """Views of :class:`_BatchedEngine`'s flat int32 arguments of one shard
-    (a numpy array on the host, its tensor twin on the device), each
-    contiguous: the scan's ``deltas``, ``lo``, ``hi`` ``[L, K, 2]``; per lane
-    the first and last real frame's crop origin and the chain's seed ``[L,
-    2]``; the real frame count ``ks [L]`` and ``last_row [L]``, the row of
-    each lane's last real step in the positions seen as ``[L*K, 2]``."""
+    (the last axis of a numpy array on the host, or of its ``[S, n]`` twin on
+    the device): the scan's ``deltas``, ``lo``, ``hi`` ``[..., L, K, 2]``; per
+    lane the first and last real frame's crop origin and the chain's seed
+    ``[..., L, 2]``; and the real frame count ``ks [..., L]``."""
 
     deltas: object
     lo: object
@@ -747,18 +1040,17 @@ class _BatchArgs(NamedTuple):
     origin_last: object
     seed: object
     ks: object
-    last_row: object
 
 
 def _batch_args(flat, lanes: int, K: int) -> _BatchArgs:
-    n, o = 2 * lanes * K, 6 * lanes * K
-    pair = (lanes, 2)
+    lead, n, o = tuple(flat.shape[:-1]), 2 * lanes * K, 6 * lanes * K
+    steps, pair = lead + (lanes, K, 2), lead + (lanes, 2)
     return _BatchArgs(
-        flat[:n].reshape(lanes, K, 2), flat[n:2 * n].reshape(lanes, K, 2),
-        flat[2 * n:o].reshape(lanes, K, 2), flat[o:o + 2 * lanes].reshape(pair),
-        flat[o + 2 * lanes:o + 4 * lanes].reshape(pair),
-        flat[o + 4 * lanes:o + 6 * lanes].reshape(pair),
-        flat[o + 6 * lanes:o + 7 * lanes], flat[o + 7 * lanes:o + 8 * lanes])
+        flat[..., :n].reshape(steps), flat[..., n:2 * n].reshape(steps),
+        flat[..., 2 * n:o].reshape(steps), flat[..., o:o + 2 * lanes].reshape(pair),
+        flat[..., o + 2 * lanes:o + 4 * lanes].reshape(pair),
+        flat[..., o + 4 * lanes:o + 6 * lanes].reshape(pair),
+        flat[..., o + 6 * lanes:o + 7 * lanes])
 
 
 def last_rows(ks, K: int) -> np.ndarray:
@@ -769,9 +1061,10 @@ def last_rows(ks, K: int) -> np.ndarray:
 
 
 def chain_batch(scan, frames, carry, ks, last_row, origin0, origin_last, fills, deltas, lo, hi):
-    """One chained scan of L lanes: the JAX package's ``make_chained_batch``
-    (``pawsometracker_tpu/pipeline.py:248-277``) as tensor ops beside the
-    kernel, with no host sync.
+    """One chained scan of L lanes as tensor ops beside the scan: the JAX
+    package's ``make_chained_batch`` (``pawsometracker_tpu/pipeline.py:248-277``),
+    the plain form of the carry that the batched engine's launches keep
+    (``scan_bounded_batch_super`` with S = 1).
 
     The chain's state is an absolute per-lane carry ``[L, 2]`` int32 on the
     device. The scan starts at ``carry - origin0`` (so ``deltas[:, 0]`` is
@@ -789,30 +1082,32 @@ def chain_batch(scan, frames, carry, ks, last_row, origin0, origin_last, fills, 
 class _BatchedEngine(_RoiEngine):
     """Lane adapter for L lanes (B videos, or N targets of one video) over
     the batched bounded scan ``scan(frames [L,K,ch,cw], pos0 [L,2], fills
-    [L], deltas, lo, hi [L,K,2])``, one launch a chunk (one a data shard
-    when ``scan`` is a :class:`~.parallel.mesh.ShardedFn`): the JAX
-    package's ``_BatchedEngine`` without group dispatch.
+    [L], deltas, lo, hi [L,K,2])`` and its segmented form ``segments``
+    (``scan_bounded_batch_super``; a :class:`~.parallel.mesh.ShardedFn` scan
+    brings its own): the JAX package's ``_BatchedEngine``. Every group is one
+    segmented launch a data shard.
 
-    The chain is :func:`chain_batch`'s absolute carry on the device, one a
-    shard on its device; after :meth:`reset` (a replay, or the start of a
-    run) the next chunk seeds every shard's from the controller's ``P_abs``,
-    which travels in the staged arguments. The arguments are one flat int32
-    buffer, a :func:`_batch_args` span a shard, each copied to its device in
-    one piece beside its crops."""
+    The chain is an absolute per-lane carry ``[L, 2]`` on the device, one a
+    shard, which the launches read and write themselves (the JAX package's
+    ``make_chained_batch`` for one chunk, ``make_super_chain_batch`` for
+    more; :func:`chain_batch` is the same rule as tensor ops). After
+    :meth:`reset` (a replay, or the start of a run) the next chunk seeds every
+    shard's from the controller's ``P_abs``, which travels in the staged
+    arguments. The arguments are one flat int32 buffer, a :func:`_batch_args`
+    span a shard, each copied to its device in one piece beside its crops."""
 
-    def __init__(self, scan, crop_shape, frame_shape, fills, subpixel, timer, device):
+    def __init__(self, scan, crop_shape, frame_shape, fills, subpixel, timer, device,
+                 segments=None):
         fills = np.asarray(fills, np.uint8)
         super().__init__(scan, crop_shape, frame_shape, subpixel, timer, device,
-                         lanes=len(fills))
+                         lanes=len(fills), segments=segments)
         self.fills = [torch.as_tensor(fills[sl]).to(dev) for sl, dev, _ in self.shards]
-
-    def reset(self):
-        """Invalidate the chain on the device (replay, run start): every shard's carry."""
-        self._carry = None
+        self._carry = [torch.zeros((n, 2), dtype=torch.int32, device=dev)
+                       for n, (_, dev, _) in zip(self.lanes, self.shards)]
 
     @staticmethod
     def _n_args(lanes, K):
-        return 6 * lanes * K + 8 * lanes
+        return 6 * lanes * K + 7 * lanes
 
     @staticmethod
     def _deltas(origins):
@@ -829,15 +1124,14 @@ class _BatchedEngine(_RoiEngine):
         return origins[np.arange(origins.shape[0]), idx]
 
     def dispatch(self, buf, origins, P_abs, valid=None):
-        """Start the scan of the chunk in ``buf`` (``[L, K, ch, cw]``, cropped
+        """Stage the scan of the chunk in ``buf`` (``[L, K, ch, cw]``, cropped
         at per-frame ``origins [L, K, 2]``; ``valid[b]`` real frames in lane
-        b) from the carry, or from ``P_abs [L, 2]`` after a reset; returns a
-        handle for :meth:`ready` and :meth:`to_host`."""
+        b), chained by the carry, or from ``P_abs [L, 2]`` after a reset;
+        returns a handle for :meth:`ready` and :meth:`to_host`."""
         L, K = buf.shape[:2]
         o = np.asarray(origins, np.int64)
         ks = np.full(L, K, np.int64) if valid is None else np.asarray(valid, np.int64)
-        first = self._carry is None
-        seed = np.asarray(P_abs, np.int64).reshape(L, 2) if first else None
+        first = not self._chain_started
         spans = self._spans(K)
         args = np.zeros(spans[-1][1], np.int32)
         for (sl, _, _), n, (a0, a1) in zip(self.shards, self.lanes, spans):
@@ -847,24 +1141,24 @@ class _BatchedEngine(_RoiEngine):
             a.origin0[...] = o[sl, 0]
             a.origin_last[...] = self._last_origin(o[sl], ks[sl])
             a.ks[...] = ks[sl]
-            a.last_row[...] = last_rows(ks[sl], K)
             if first:
-                a.seed[...] = seed[sl]
+                a.seed[...] = np.asarray(P_abs, np.int64).reshape(L, 2)[sl]
         with self.timer.section("upload"):
-            staged = self._stage(buf, args)
-        outs, carry = [], []
-        with self.timer.section("device"):
-            for i, ((_, dev, scan), n, (frames, flat)) in enumerate(
-                    zip(self.shards, self.lanes, staged)):
-                d = _batch_args(flat, n, K)
-                with on_device(dev):
-                    out, c = chain_batch(scan, frames, d.seed if first else self._carry[i],
-                                         d.ks, d.last_row, d.origin0, d.origin_last,
-                                         self.fills[i], d.deltas, d.lo, d.hi)
-                outs.append(out if self.subpixel else (out, None))
-                carry.append(c)
-        self._carry = carry
-        return self._finish(buf, outs)
+            self._stage(buf, args)
+        return self._stage_entry(_RoiEntry(buf, args, first, 0))
+
+    def _launch(self, entries) -> list:
+        K = entries[0].buf.shape[1]
+        outs = []
+        for i, ((_, dev, _), n, (frames, flat), seg) in enumerate(
+                zip(self.shards, self.lanes, self._inputs(entries), self.seg_fns)):
+            a = _batch_args(flat, n, K)  # each [S, ...]
+            carry = a.seed[0] if entries[0].first else self._carry[i]
+            with on_device(dev):
+                out, _ = seg(frames, carry, self.fills[i], a.deltas, a.lo, a.hi, a.ks, a.origin0,
+                             a.origin_last, carry_out=self._carry[i])
+            outs.append(out if self.subpixel else (out, None))
+        return self._finish(entries, outs)
 
 
 class SingleVideoSource:
@@ -1162,9 +1456,10 @@ class PerVideoSource:
 
 
 #: converged auto depth per (lanes, K, crop, frame, mode) geometry and
-#: process, with the replay-learned soft cap: a later run of the same geometry
-#: starts where the last one settled instead of ramping from 1. Positions are
-#: the same at every depth, so this is only a warm start.
+#: process, with the replay-learned soft cap and the dispatch group size: a
+#: later run of the same geometry starts where the last one settled instead of
+#: ramping from 1. Positions are the same at every depth and group size, so
+#: this is only a warm start.
 _AUTO_DEPTH_MEMO: dict = {}
 
 
@@ -1239,11 +1534,14 @@ class SpeculativePipeline:
             self.depth_max = depth
         self._memo_key = (L, K, crop_shape, spec.frame_shape, mode)
         if self.auto_depth:
-            memo_depth, memo_cap = _AUTO_DEPTH_MEMO.get(self._memo_key, (1, AUTO_DEPTH_MAX))
+            memo_depth, memo_cap, memo_group = _AUTO_DEPTH_MEMO.get(self._memo_key,
+                                                                   (1, AUTO_DEPTH_MAX, 1))
             self.depth_cur = min(memo_depth, self.depth_max)
         else:
             self.depth_cur = depth
-            memo_cap = AUTO_DEPTH_MAX
+            memo_cap, memo_group = AUTO_DEPTH_MAX, 1
+        self._memo_group = memo_group
+        self._grow_groups = _grouping_pays()
         self.engine = engine
         self.source = source
         self.sink = sink
@@ -1487,8 +1785,15 @@ class SpeculativePipeline:
                 # the lagged drain still blocked: add a chunk of slack (up to
                 # the replay-learned soft cap)
                 self.depth_cur += 1
-            elif self._depth_soft_cap < self.depth_max:
-                self._cap_wanted = True  # blocked at the cap: may explore it
+            else:
+                # blocked at the ceiling: the soft cap may be explored, and
+                # where groups pay, more chunks a launch (capped so that two
+                # groups stay in flight); never in the same event as deepening
+                if self._depth_soft_cap < self.depth_max:
+                    self._cap_wanted = True
+                grow = getattr(self.engine, "grow_group", None)
+                if self._grow_groups and grow is not None:
+                    grow(max(1, (self.depth_cur + 1) // 2))
         if self.mode == "predict" and not self._contained(pos_np, entry.origins, entry.valid):
             head = self._split_exact(entry) if entry.exact else [entry]
             rest = list(self._pending)
@@ -1509,6 +1814,13 @@ class SpeculativePipeline:
         self._vel_ready = False
         self.tracked = np.zeros(self.L, np.int64)
         self.engine.reset()
+        # warm start of the group size the memo holds, after reset (which sets
+        # it back to 1) and within the overlap bound; replays still reset it
+        if (self.auto_depth and self._memo_group > 1
+                and not os.environ.get("PAWS_DISPATCH_GROUP")
+                and getattr(self.engine, "_group_allowed", False)):
+            self.engine.group_target = min(self._memo_group, max(1, (self.depth_cur + 1) // 2),
+                                           self.engine.GROUP_MAX)
         try:
             remaining = n_rest
             eof = False
@@ -1563,7 +1875,9 @@ class SpeculativePipeline:
                 remaining -= int(valid.max())
             if self.auto_depth:
                 # recorded on a clean finish only
-                _AUTO_DEPTH_MEMO[self._memo_key] = (self.depth_cur, self._depth_soft_cap)
+                _AUTO_DEPTH_MEMO[self._memo_key] = (
+                    self.depth_cur, self._depth_soft_cap,
+                    getattr(self.engine, "group_target", 1) or 1)
         finally:
             close = getattr(self.engine, "close", None)
             if close is not None:
@@ -1571,10 +1885,13 @@ class SpeculativePipeline:
         return self.tracked
 
     def report(self, stats: dict) -> None:
-        """Add the run's crop shape, K, mode, final depth, and dispatch and
-        replay counts to ``stats``."""
+        """Add the run's crop shape, K, mode, final depth, its dispatch and
+        replay counts, and its group launches (each one launch a data shard)
+        and final group size to ``stats``."""
         stats.update(crop=(self.ch, self.cw), K=self.K, mode=self.mode, depth=self.depth_cur,
-                     dispatches=self.dispatches, replays=self.replays)
+                     dispatches=self.dispatches, replays=self.replays,
+                     groups=getattr(self.engine, "groups", self.dispatches),
+                     group=getattr(self.engine, "group_target", 1))
 
 
 def run_roi_pipeline(
@@ -1644,7 +1961,9 @@ def run_roi_pipeline(
             L=1, K=K, crop_shape=(ch, cw), margin=margin, spec=spec, mode=mode, depth=depth,
             auto_cap=depth_max if depth == "auto" else None,
             engine=_SingleEngine(fns.scan_sub if subpixel else fns.scan_bounded, (ch, cw),
-                                 spec.frame_shape, fill, subpixel, timer, device),
+                                 spec.frame_shape, fill, subpixel, timer, device,
+                                 segments=functools.partial(fns.scan_bounded_super,
+                                                            subpixel=subpixel)),
             source=SingleVideoSource(src, K=K, ch=ch, cw=cw, fill=fill, dia=dia, mode=mode,
                                      native_roi=native_roi, depth=depth_max, n_rest=n_rest,
                                      prefetchers=prefetchers),
@@ -1720,7 +2039,9 @@ def run_multi_roi_pipeline(
             auto_cap=depth_max if depth == "auto" else None,
             engine=_BatchedEngine(tracker.scan_sub if subpixel else tracker.scan_bounded, (ch, cw),
                                   spec.frame_shape, np.full(N, fill, np.uint8), subpixel, timer,
-                                  device),
+                                  device, segments=functools.partial(
+                                      tracker_fns(roi_spec, device, engine).scan_bounded_batch_super,
+                                      subpixel=subpixel)),
             source=FanoutSource(src, N=N, K=K, ch=ch, cw=cw, fill=fill, mode=mode, depth=depth_max,
                                 n_rest=n_rest, prefetchers=prefetchers, dia=dia),
             sink=sink,

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from pawsometracker_tpu_torch import IJ, track
-from pawsometracker_tpu_torch.models.dog_tracker import make_spec
+from pawsometracker_tpu_torch.models.dog_tracker import make_spec, tracker_fns
 from pawsometracker_tpu_torch.ops import tracker_kernel as tk
 
 pytestmark = pytest.mark.cuda
@@ -633,11 +633,12 @@ def _two_targets(T=48, h=160, w=160):
 def test_batch_and_multi_roi_on_card_equal_cpu(card, caplog, subpixel, depth):
     """track_batch and track_multi on ROI on the card: positions (offsets
     within 1e-3) equal to the device="cpu" run; one snap, then every chunk one
-    batched bounded launch, and the plain version never runs."""
+    batched bounded launch (the segmented form, which keeps the chain's carry),
+    and the plain version never runs."""
     from pawsometracker_tpu_torch import track_batch, track_multi
 
     caplog.set_level(logging.DEBUG, logger="pawsometracker_tpu_torch")
-    cfg = "batched bounded+subpixel" if subpixel else "batched bounded"
+    cfg = ("batched bounded+subpixel" if subpixel else "batched bounded") + ", segmented"
     kw = dict(fps=24, target_width=8, window_size=21, subpixel=subpixel, pipeline_depth=depth,
               roi_frames=4, stream="roi")
     clips, locs = _lane_clips()
@@ -855,3 +856,210 @@ def test_sharded_pallas_bounded_on_card_equals_plain(card):
         np.testing.assert_array_equal(
             np.asarray(global_detect_batch(spec, space)(frames0, fills)),
             global_detect_batch(spec)(frames0, fills).cpu().numpy())
+
+
+# ---- segments: S chained chunk scans a launch (group dispatch) ------------------------
+
+
+def _segment_case(card, S, B, subpixel, rng):
+    """S segments of T = 6 steps of B lanes on 90x110 frames, window 21: a
+    disc a lane moving 2 px a step, random rebases and boxes, short segments
+    (ks 3 and 1) and, for B > 1, a lane with no real step in segment 1; and
+    the spec keywords."""
+    T = 6
+    h, w, spec = 90, 110, make_spec((90, 110), 21, 8, True)
+    paths = [[(40 + 2 * t * (b % 2), 30 + 25 * b + 2 * t) for t in range(S * T)]
+             for b in range(B)]
+    frames = np.stack([ellipse_frames(h, w, p) for p in paths])  # [B, S*T, h, w]
+    frames = np.ascontiguousarray(np.moveaxis(frames.reshape(B, S, T, h, w), 0, 1))
+    b = random_bounds(rng, (S, B, T, 2), h, w)
+    ks = np.tile(np.array([T, 3, T, 1][:S])[:, None], (1, B))
+    if S > 1 and B > 1:
+        ks[1, 1] = 0
+    args = {k: torch.from_numpy(v.astype(np.int32)).to(card) for k, v in b.items()}
+    args["ks"] = torch.from_numpy(ks.astype(np.int32)).to(card)
+    kw = dict(radii=spec.radii, sigma=spec.sigma, darker_target=True, subpixel=subpixel)
+    return torch.from_numpy(frames).to(card), args, kw, (h, w)
+
+
+def _assert_same_out(got, want, subpixel):
+    if subpixel:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("subpixel", [False, True])
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("kernel", ["dog_scan", "dog_scan_tiled"])
+def test_segments_equal_plain(card, monkeypatch, kernel, S, subpixel):
+    """One segmented launch of each kernel equals its plain version bit for
+    bit, in each chain across segments: one lane from the last row of each
+    segment's real steps (ks, with short segments), 4 lanes with an absolute
+    carry (a lane with ks = 0 keeps it; a start off the crop; the carry
+    written over itself), 4 lanes on shared frames by the ks rule, and whole
+    frames from the last step (no ks). dog_scan_tiled takes the window as
+    the tiled fixture sends it there: 3 CTAs a lane."""
+    if kernel == "dog_scan_tiled":
+        monkeypatch.setattr(tk, "kernel_for", lambda radii, L, limit: "dog_scan_tiled")
+        monkeypatch.setattr(tk, "tiled_cluster", None)
+    rng = np.random.default_rng(40 + S)
+    frames, a, kw, (h, w) = _segment_case(card, S, 4, subpixel, rng)
+    fills = torch.tensor([128, 100, 160, 128], dtype=torch.uint8, device=card)
+    box = dict(deltas=a["deltas"], lo=a["lo"], hi=a["hi"])
+    before, before_k = tk.launches, tk.launches_by_kernel[kernel]
+    # one lane, the ks rule
+    pos0 = torch.tensor([40, 30], dtype=torch.int32, device=card)
+    one = {k: v[:, 0].contiguous() for k, v in box.items()}
+    got = tk.dog_scan_segments(frames[:, 0], pos0, 128, ks=a["ks"][:, 0].contiguous(), **one,
+                               **kw)
+    want = tk.dog_scan_segments_plain(frames[:, 0], pos0, 128, ks=a["ks"][:, 0].contiguous(),
+                                      **one, **kw)
+    _assert_same_out(got, want, subpixel)
+    # 4 lanes, the absolute carry; lane 3 starts below its crop
+    origin0 = torch.from_numpy(rng.integers(-20, 20, (S, 4, 2)).astype(np.int32)).to(card)
+    origin_last = torch.from_numpy(rng.integers(-20, 20, (S, 4, 2)).astype(np.int32)).to(card)
+    carry = torch.tensor([[40, 30], [40, 55], [40, 80], [h + 30, 105]], dtype=torch.int32,
+                         device=card) + origin0[0]
+    seg = dict(ks=a["ks"], origin0=origin0, origin_last=origin_last, **box, **kw)
+    got, got_c = tk.dog_scan_batch_segments(frames, None, fills, carry=carry, **seg)
+    want, want_c = tk.dog_scan_batch_segments_plain(frames, None, fills, carry=carry, **seg)
+    _assert_same_out(got, want, subpixel)
+    assert torch.equal(got_c, want_c)
+    c = carry.clone()
+    _, same = tk.dog_scan_batch_segments(frames, None, fills, carry=c, carry_out=c, **seg)
+    assert same is c and torch.equal(c, want_c)
+    # 4 lanes on shared frames (lane stride 0), the ks rule
+    p4 = carry - origin0[0]
+    shared = frames[:, 0].contiguous()
+    got = tk.dog_scan_batch_segments(shared, p4, fills, ks=a["ks"], **box, **kw)
+    want = tk.dog_scan_batch_segments_plain(shared, p4, fills, ks=a["ks"], **box, **kw)
+    _assert_same_out(got, want, subpixel)
+    # whole frames, unbounded: each segment from the last step
+    got = tk.dog_scan_segments(frames[:, 1], pos0, 100, **kw)
+    want = tk.dog_scan_segments_plain(frames[:, 1], pos0, 100, **kw)
+    _assert_same_out(got, want, subpixel)
+    torch.cuda.synchronize()
+    assert tk.launches == before + 5 and tk.launches_by_kernel[kernel] == before_k + 5
+
+
+def test_segments_equal_chunk_by_chunk(card):
+    """S chunk launches chained on the host and one segmented launch give the
+    same positions (the ks rule and the carry rule), so a group is the same
+    work as its chunks."""
+    rng = np.random.default_rng(9)
+    S = 3
+    frames, a, kw, _ = _segment_case(card, S, 4, False, rng)
+    fills = torch.full((4,), 128, dtype=torch.uint8, device=card)
+    origin0 = torch.from_numpy(rng.integers(-20, 20, (S, 4, 2)).astype(np.int32)).to(card)
+    origin_last = torch.from_numpy(rng.integers(-20, 20, (S, 4, 2)).astype(np.int32)).to(card)
+    carry = torch.tensor([[40, 30], [40, 55], [40, 80], [40, 105]], dtype=torch.int32,
+                         device=card) + origin0[0]
+    got, got_c = tk.dog_scan_batch_segments(frames, None, fills, carry=carry, ks=a["ks"],
+                                            origin0=origin0, origin_last=origin_last,
+                                            deltas=a["deltas"], lo=a["lo"], hi=a["hi"], **kw)
+    c = carry
+    for s in range(S):
+        out, c = tk.dog_scan_batch_segments(frames[s:s + 1], None, fills, carry=c,
+                                            ks=a["ks"][s:s + 1], origin0=origin0[s:s + 1],
+                                            origin_last=origin_last[s:s + 1],
+                                            deltas=a["deltas"][s:s + 1], lo=a["lo"][s:s + 1],
+                                            hi=a["hi"][s:s + 1], **kw)
+        assert torch.equal(out[0], got[s])
+    assert torch.equal(c, got_c)
+
+
+def test_carry_in_launch_equals_chain_batch(card, monkeypatch):
+    """With S = 1 the batched launch's own carry equals chain_batch's tensor
+    ops on the card, and track_batch on ROI never runs chain_batch there."""
+    from pawsometracker_tpu_torch import pipeline, track_batch
+    from pawsometracker_tpu_torch.parallel.mesh import ShardedBatchTracker
+
+    rng = np.random.default_rng(12)
+    frames, a, kw, _ = _segment_case(card, 1, 4, False, rng)
+    spec = make_spec((90, 110), 21, 8, True)
+    tracker = ShardedBatchTracker(spec, device=card)
+    fills = torch.full((4,), 128, dtype=torch.uint8, device=card)
+    ks = torch.tensor([6, 0, 2, 1], dtype=torch.int32, device=card)
+    o0 = torch.from_numpy(rng.integers(-20, 20, (4, 2)).astype(np.int32)).to(card)
+    olast = torch.from_numpy(rng.integers(-20, 20, (4, 2)).astype(np.int32)).to(card)
+    carry = torch.tensor([[40, 30], [40, 55], [40, 80], [40, 105]], dtype=torch.int32,
+                         device=card) + o0
+    out, want = pipeline.chain_batch(tracker.scan_bounded, frames[0], carry, ks,
+                                     torch.from_numpy(pipeline.last_rows(ks.cpu(), 6)).to(card),
+                                     o0, olast, fills, a["deltas"][0], a["lo"][0], a["hi"][0])
+    got, got_c = tracker_fns(spec, card).scan_bounded_batch_super(
+        frames, carry, fills, a["deltas"], a["lo"], a["hi"], ks[None], o0[None], olast[None])
+    assert torch.equal(got[0], out) and torch.equal(got_c, want)
+
+    def no_chain(*args, **kwargs):
+        raise AssertionError("chain_batch ran on the card's path")
+
+    monkeypatch.setattr(pipeline, "chain_batch", no_chain)
+    clips, locs = _lane_clips()
+    got = track_batch(clips, fps=24, target_width=8, window_size=21, stream="roi", roi_frames=4,
+                      start_location=locs)
+    want = track_batch(clips, fps=24, target_width=8, window_size=21, stream="full",
+                       start_location=locs)
+    for (_, ij), (_, ij_w) in zip(got, want):
+        np.testing.assert_array_equal(ij, ij_w)
+
+
+@pytest.mark.parametrize("pin", ["2", "4"])
+def test_entry_points_group_on_card(card, caplog, monkeypatch, pin):
+    """Under PAWS_DISPATCH_GROUP each entry point on the card equals its
+    unpinned run (offsets included), launches the snap(s) plus one launch a
+    group (once a shard under a mesh), fewer than its chunks, and never runs a
+    plain version: track on ROI and on full frames, track_batch on ROI (and
+    over 4 shards of cuda:0), track_multi on ROI."""
+    from pawsometracker_tpu_torch import make_mesh, track_batch, track_multi
+    from pawsometracker_tpu_torch.models import dog_tracker
+
+    caplog.set_level(logging.DEBUG, logger="pawsometracker_tpu_torch")
+    frames, path = _roi_clip()
+    clips, locs = _lane_clips()
+    two, targets = _two_targets()
+    common = dict(fps=24, target_width=8, window_size=21, roi_frames=4, pipeline_depth=3)
+    runs = {
+        "track roi": lambda **k: track(frames, start_location=IJ(*path[0]), stream="roi",
+                                       **common, **k),
+        "track full": lambda **k: track(frames, start_location=IJ(*path[0]), stream="full",
+                                        chunk_size=4, **common, **k),
+        "track_batch roi": lambda **k: track_batch(clips, start_location=locs, stream="roi",
+                                                   **common, **k),
+        "track_batch roi x4": lambda **k: track_batch(
+            clips, start_location=locs, stream="roi", mesh=make_mesh(devices=["cuda:0"] * 4),
+            **common, **k),
+        "track_multi roi": lambda **k: track_multi(two, targets, stream="roi", **common, **k),
+    }
+
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran on the card's path")
+
+    for name, run in runs.items():
+        for subpixel in (False, True):
+            monkeypatch.delenv("PAWS_DISPATCH_GROUP", raising=False)
+            want = run(subpixel=subpixel)
+            with monkeypatch.context() as m:
+                m.setenv("PAWS_DISPATCH_GROUP", pin)
+                for mod in (tk, dog_tracker):
+                    for fn in ("dog_scan_plain", "dog_scan_batch_plain", "dog_scan_segments_plain",
+                               "dog_scan_batch_segments_plain"):
+                        m.setattr(mod, fn, no_plain, raising=False)
+                caplog.clear()
+                tk.reset_launches()
+                got = run(subpixel=subpixel)
+                torch.cuda.synchronize()
+                stats = _roi_stats(caplog)
+            shards = stats.get("shards", 1)
+            snaps = 1
+            assert tk.launches == shards * (snaps + stats["groups"]), name
+            if name != "track full":
+                assert stats["group"] == int(pin) and stats["groups"] < stats["dispatches"]
+            pairs = list(zip(got, want)) if name.startswith("track_batch") else [(got, want)]
+            for (ts, ij), (ts_w, ij_w) in pairs:
+                np.testing.assert_array_equal(ts, ts_w)
+                if subpixel:
+                    np.testing.assert_allclose(ij, ij_w, rtol=0, atol=1e-3)
+                else:
+                    np.testing.assert_array_equal(ij, ij_w)

@@ -61,7 +61,8 @@ PATCHES = {
     "no_passes": [ROW_LOOP, COL_LOOP],
     "no_prefetch": [PREFETCH],
     "fixed": [ROW_LOOP, COL_LOOP, PREFETCH],
-    "row_offsets": [("const bool aligned = ", "const bool aligned = false && ")],
+    "row_offsets": [("return reinterpret_cast<uintptr_t>(frames) % 16 == 0 && W % 16 == 0",
+                     "return false && W % 16 == 0")],
 }
 
 
@@ -91,9 +92,11 @@ def sass_histogram(so: str) -> dict:
     hist: dict = {}
     fn = None
     for ln in text.splitlines():
-        m = re.search(r"Function : \S*?\d(dog_scan\w*?kernel)(ILb([01]))?", ln)
+        m = re.search(r"Function : \S*?\d(dog_scan\w*?kernel)(ILb([01])ELb([01]))?", ln)
         if m:
-            fn = m.group(1) + ({"0": "<per-row offsets>", "1": "<aligned>"}.get(m.group(3), ""))
+            fn = m.group(1) + (f"<{'aligned' if m.group(3) == '1' else 'per-row offsets'},"
+                               f" {'segments' if m.group(4) == '1' else 'one chunk'}>"
+                               if m.group(2) else "")
             hist[fn] = {}
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", ln)
@@ -188,6 +191,7 @@ def main() -> int:
         err = lib.dog_scan_launch(frames.data_ptr(), 0, 1, steps, H, W, pos0.data_ptr(),
                                   fills.data_ptr(), None, None, None, taps.data_ptr(), L, ri, rj,
                                   direction, out.data_ptr(), None,
+                                  1, 0, 0, None, None, None, None, None,  # one segment
                                   torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(lib.dog_scan_error_string(err).decode())

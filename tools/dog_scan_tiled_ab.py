@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's dog_scan_tiled kernel in two checkouts on one card, in turns.
+"""Time the port's dog_scan_tiled (and dog_scan) kernels in two checkouts on one card, in turns.
 
     python3 tools/dog_scan_tiled_ab.py [--parent DIR] [--variant DIR]
                                        [--order parent,change,change,parent] [--clusters 8,16]
@@ -16,9 +16,12 @@ sleep of the card. The shapes are those the tiled kernel takes at 1080p:
   and 4 lanes;
 - 64-frame chunk scans at the default windows of ``target_width`` 40, 60 and
   100 (69x69, L = 101; 105x105, L = 149; 173x173, L = 245), unbounded and
-  bounded with subpixel offsets, one lane and 4 lanes with their own frames.
+  bounded with subpixel offsets, one lane and 4 lanes with their own frames;
+- and two shapes of ``dog_scan``: the bench shape's 64-frame chunk (41x41,
+  ``target_width=25``, one lane, unbounded) and the 185x185 ROI crop's 12-frame
+  bounded chunk that ``track`` launches at 1080p (one lane).
 
-Every case must go to ``dog_scan_tiled`` (``kernel_for``); the positions and
+Every case must go to the kernel it is named for (``kernel_for``); the positions and
 offsets of every turn must equal those of the first. Each chunk case is also
 timed at T = 1, which splits its time into a cost per step and a fixed cost
 per launch, and each case's host time per launch (the wrapper's Python and
@@ -140,6 +143,19 @@ def worker(out_path: str, clusters: list) -> int:
                 spec, frames[:lanes], starts[:lanes], None, False)
             cases[f"target_width={tw} T=64 bounded+subpixel B={lanes}"] = (
                 spec, frames[:lanes], starts[:lanes], b, True)
+    del frames
+    # dog_scan: the bench chunk, and a 185x185 crop's bounded chunk (boxes inside the crop)
+    bench = make_spec((H, W), 41, 25, True)
+    frames, paths = disc_frames(CHUNK, 1, 12, dev)
+    cases["dog_scan bench T=64 unbounded B=1"] = (bench, frames, [list(paths[0][0])], None, False)
+    crop = make_spec((185, 185), 41, 25, True)
+    r0, c0 = paths[0][0][0] - 92, paths[0][0][1] - 92  # the disc starts at the crop's centre
+    crops = frames[:, :12, r0:r0 + 185, c0:c0 + 185].contiguous()
+    box = {"deltas": torch.zeros((1, 12, 2), dtype=torch.int32, device=dev),
+           "lo": torch.zeros((1, 12, 2), dtype=torch.int32, device=dev),
+           "hi": torch.full((1, 12, 2), 184, dtype=torch.int32, device=dev)}
+    cases["dog_scan ROI 185x185 T=12 bounded B=1"] = (
+        crop, crops, [[92, 92]], box, False)
 
     # every argument on the card before any timing: a host-to-device copy inside
     # the timed calls would wait for the queued work and time the host
@@ -167,12 +183,13 @@ def worker(out_path: str, clusters: list) -> int:
     for case, (spec, fr, starts, b, sub) in cases.items():
         L = spec.kernel_len
         kernel = tk.kernel_for(spec.radii, L, limit)
-        if kernel != "dog_scan_tiled":
-            raise SystemExit(f"{case}: kernel_for picks {kernel}, not dog_scan_tiled")
+        want = "dog_scan" if case.startswith("dog_scan ") else "dog_scan_tiled"
+        if kernel != want:
+            raise SystemExit(f"{case}: kernel_for picks {kernel}, not {want}")
         lanes, steps = fr.shape[0], fr.shape[1]
         entry = {"radii": list(spec.radii), "L": L, "T": steps, "lanes": lanes,
                  **cost(spec.radii, L, steps, lanes), "by_cluster": {}}
-        for c in forced:
+        for c in (forced if want == "dog_scan_tiled" else [None]):
             if c is not None:
                 tk.tiled_cluster = c
             out = run(case, steps)
@@ -184,7 +201,7 @@ def worker(out_path: str, clusters: list) -> int:
                 ms1, _ = device_ms(lambda: run(case, 1), reps=200)
                 step_us = 1e3 * (ms - ms1) / (steps - 1)
                 rec.update(ms_T1=ms1, us_per_step=step_us, fixed_us=1e3 * ms1 - step_us)
-            if hasattr(tk, "tile_plan"):
+            if want == "dog_scan_tiled" and hasattr(tk, "tile_plan"):
                 plan = tk._tiled_plan(spec.radii, L, limit, sub, 0)
                 rec["plan"] = plan._asdict()
                 rec["cluster_sm_bound_ms"] = entry["sm_bound_ms"] / plan.cluster
@@ -277,7 +294,7 @@ def main() -> int:
             line += "; " + who + " " + ", ".join(f"C={c} {v['median_ms']:.4f} ms"
                                                  for c, v in row[who].items() if c != "plan")
         if "parent" in roots:
-            line += f"; parent/change {row['parent']['auto']['median_ms'] / row['change']['auto']['median_ms']:.1f}x"
+            line += f"; parent/change {row['parent']['auto']['median_ms'] / row['change']['auto']['median_ms']:.3f}x"
         print(line, flush=True)
     record = {"card": card, "order": order, "cases": summary}
     with open(os.path.join(out_dir, "dog_scan_tiled_ab.json"), "w") as f:
