@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels (``dog_scan`` and ``dog_scan_tiled``, one
 source) from ``pawsometracker_tpu_torch/csrc`` and runs three phases on the
-card; any failure exits non-zero:
+card, with the engine choice between the first two; any failure exits
+non-zero:
 
 1. Each kernel against its plain PyTorch version on the same card tensors, at
    the bench shape (1080p frames, ``target_width=25``, 41x41 window, T=64).
@@ -43,8 +44,25 @@ card; any failure exits non-zero:
    short one in chunk 1; positions and carry), and 1080p 64-frame chunks from
    the last step.
    Integer positions must be equal, offsets within ``atol=1e-3``.
+E. The engine choice (``engine="auto"`` on the ROI paths), with the engine
+   cache in a fresh directory: ``pick_bounded_engine`` and
+   ``pick_bounded_engine_batch`` for every geometry whose bounded scans the
+   main paths launch (the 185x185 and 461x461 crops, one chain and 4 lanes,
+   with and without subpixel; 1 and 2 lanes, the mesh paths' shards and the
+   CLI's ``--batch``) and for the 1080p ROI crops of ``target_width`` 30, 35
+   and 38 (the largest windows ``dog_scan`` takes), each decision printed:
+   every candidate kernel must give the plain version's positions on the
+   probe's blob and both tie frames, and the probe's launches and plain runs
+   stay out of the counts. A second call must hit the session cache and a
+   fresh process must read every decision from the file without measuring.
+   Then both kernels timed at every shape where both fit (the 185x185 chunk
+   scans, one chain and 4 lanes, one segment and 2; the sweep's crops, one
+   chain and 4 lanes), each with its bound from ``cost()`` and the pick.
 2. The main paths, each driven with the launch counts set to 0 just before
-   it and read just after:
+   it and read just after (the ROI paths with ``engine="auto"``, the
+   default: every bounded launch must be the kernel the engine choice chose
+   for the crop, and the positions must equal the same call under
+   ``engine="pallas"``, the shape rule's kernel):
    - ``track()`` on a synthetic 1080p, 480-frame clip (a dark disc of radius
      12 on 128-gray moving on a circle), with the start location given,
      auto-detected, and with ``subpixel=True``: 1 + ceil(479/64) = 9
@@ -71,8 +89,9 @@ card; any failure exits non-zero:
    Each call must launch the kernel as often as its chunking says and never
    run the plain version, land within RMSE < 1 px of the drawn truth per
    video or target, equal the port's single-video ``track()`` of each video
-   or target on the card, and (the first call of each path) equal the
-   port's own ``device="cpu"`` run.
+   or target on the card, and equal the port's own ``device="cpu"`` run
+   (the first call of each batch and multi path; for ``track()`` every
+   call, on the first 129 frames of the clip, 33 for the large target).
    Then ``track_resumable`` of the bench clip ("track_resumable ROI",
    ``stream="auto"``, 120-frame slices, so 4): interrupted after 2 slices
    and resumed, uninterrupted, and with ``subpixel=True``; each must equal
@@ -138,6 +157,7 @@ full record goes to ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import math
@@ -185,6 +205,9 @@ ROI_K = 12
 CHECKPOINT_EVERY = 5.0
 #: frames of each clip that the CLI phase writes as .npy and tracks
 CLI_FRAMES = 96
+#: the target widths of the engine choice's sweep at 1080p ROI: the largest default windows
+#: dog_scan takes (69x69 at 38; from 39 on only dog_scan_tiled)
+SWEEP_TW = (30, 35, 38)
 #: the PAWS_DISPATCH_GROUP pins the group-dispatch phases drive: phase 2's
 #: checks, and phase 3's end-to-end timing (None: unpinned)
 PINS = (2, 4)
@@ -391,12 +414,16 @@ class StatsLog(logging.Handler):
 def count_plain_runs(*modules) -> dict:
     """Wrap the plain versions in ``modules`` (the chunk scans, the segmented
     scans, and the batched chain's tensor ops) so that each run adds one to
-    the returned count: the main paths must never take them on the card."""
-    runs = {"n": 0}
+    the returned count ``"n"``: the main paths must never take them on the
+    card. A run inside the engine chooser's probe, where the plain version is
+    the oracle, adds one to ``"probe"`` instead."""
+    from pawsometracker_tpu_torch.ops import tracker_kernel as tk
+
+    runs = {"n": 0, "probe": 0}
 
     def counted(fn):
         def wrapper(*a, **k):
-            runs["n"] += 1
+            runs["probe" if tk.is_probing() else "n"] += 1
             return fn(*a, **k)
         return wrapper
 
@@ -445,6 +472,32 @@ def cli_probe(args) -> int:
                       "by_kernel": dict(tk.launches_by_kernel), "plain_runs": plain_runs["n"],
                       "stats": stats_log.all}, default=str), file=sys.stderr)
     return rc
+
+
+def engine_probe(args) -> int:
+    """In this fresh process, as a user's next run would: the engine chooser's
+    decisions for the geometries in ``args[0]`` (JSON: a list of ``[crop,
+    window, target_width, batch or null, subpixel]``), read from the engine
+    cache under ``$PAWSOMETRACKER_CACHE``. Prints one JSON object: the
+    decisions, the kernel launches and the probe's launches and plain runs
+    (all 0 when nothing was measured)."""
+    from pawsometracker_tpu_torch import pipeline
+    from pawsometracker_tpu_torch.models import dog_tracker
+    from pawsometracker_tpu_torch.models.dog_tracker import make_spec
+    from pawsometracker_tpu_torch.ops import tracker_kernel as tk
+
+    plain_runs = count_plain_runs(tk, dog_tracker)
+    tk.reset_launches()
+    infos = []
+    for crop, window, tw, batch, sub in json.loads(args[0]):
+        rspec = make_spec((crop, crop), window, tw, True)
+        if batch is None:
+            infos.append(pipeline.pick_bounded_engine(rspec, ROI_K, subpixel=sub)[1])
+        else:
+            infos.append(pipeline.pick_bounded_engine_batch(rspec, ROI_K, batch, subpixel=sub)[1])
+    print(json.dumps({"infos": infos, "launches": tk.launches,
+                      "probe_launches": dict(tk.probe_launches), "plain_runs": plain_runs}))
+    return 0
 
 
 def roi_chunk(frames, truth, spec, fill, dev, roi_geometry, crop_with_fill):
@@ -606,6 +659,7 @@ def main() -> int:
         from pawsometracker_tpu_torch.ops import _build, tracker_kernel as tk
         from pawsometracker_tpu_torch.ops.dog_kernel import dog_kernel_2d, guess_window_size
         from pawsometracker_tpu_torch.ops.filters import mode_u8_host
+        from pawsometracker_tpu_torch import pipeline as pl
         from pawsometracker_tpu_torch.pipeline import (_AUTO_DEPTH_MEMO, _crop_with_fill,
                                                        roi_geometry)
     except ImportError as e:
@@ -827,8 +881,10 @@ def main() -> int:
 
     phase1 = {}
     for name, (fr, p0, fl, k, b, sub, batched) in cases.items():
+        t_case = time.perf_counter()
         got, want = run_kernel(name), run_plain(name)
         torch.cuda.synchronize()
+        t_case = time.perf_counter() - t_case
         gp, wp = (got[0], want[0]) if sub else (got, want)
         pos_equal = bool(torch.equal(gp, wp))
         err = float((gp - wp).abs().max())
@@ -840,7 +896,8 @@ def main() -> int:
                         "lanes": int(p0.shape[0]) if batched else 1,
                         "positions_equal": pos_equal, "max_abs_err": err, "ok": ok}
         log(f"phase 1 {name} ({kernel_of(name)}): T={steps} lanes={phase1[name]['lanes']}"
-            f" positions equal={pos_equal} max_abs_err={err:.3g} -> {'ok' if ok else 'FAIL'}")
+            f" positions equal={pos_equal} max_abs_err={err:.3g} ({t_case:.2f} s with the plain"
+            f" version) -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"phase 1 {name}: kernel and plain version disagree")
         if name.startswith("tiled") and kernel_of(name) != "dog_scan_tiled":
@@ -940,10 +997,12 @@ def main() -> int:
     for S in (2, 4):
         seg_cases[f"segments full 1080p T={CHUNK} S={S}"] = ("full", full_segments, kw, S, False)
 
-    def run_segments(name, plain=False, carry_out=None):
+    def run_segments(name, plain=False, carry_out=None, kernel=None):
         kind, d, skw, S, sub = seg_cases[name]
-        one = tk.dog_scan_segments_plain if plain else tk.dog_scan_segments_cuda
-        batch = tk.dog_scan_batch_segments_plain if plain else tk.dog_scan_batch_segments_cuda
+        one = (tk.dog_scan_segments_plain if plain
+               else functools.partial(tk.dog_scan_segments_cuda, kernel=kernel))
+        batch = (tk.dog_scan_batch_segments_plain if plain
+                 else functools.partial(tk.dog_scan_batch_segments_cuda, kernel=kernel))
         if kind == "full":
             return one(d[:S], pos0, fill, subpixel=sub, **skw)
         if kind == "one":
@@ -992,6 +1051,176 @@ def main() -> int:
     record["phase1"] = phase1
 
     phase_done("phase 1")
+    # ---- engine choice: the measured kernel of each bounded ROI geometry ------
+    # in a cache root of its own, which the CLI's fresh processes of phase 2
+    # inherit
+    os.environ["PAWSOMETRACKER_CACHE"] = tempfile.mkdtemp(prefix="chip_smoke_engine_",
+                                                          dir=os.path.join(ROOT, "build"))
+    pl._session_engine_cache.clear()
+
+    def roi_spec_of(sp):
+        ch, cw, _ = roi_geometry(sp, ROI_K, 7, "predict")
+        return make_spec((ch, cw), sp.window_size, sp.target_width, True)
+
+    def lanes_label(batch):
+        return "L=1" if batch is None else f"B={batch}"
+
+    # every geometry whose bounded scans the main paths launch: both crops, one
+    # chain and 4 lanes, each with and without subpixel; the shards of the mesh
+    # paths (1 and 2 lanes of track_batch ROI; the CLI's --batch of 2 files);
+    # and the largest windows dog_scan takes (target_width 30, 35, 38)
+    geoms = {}  # label: (crop spec, lanes or None, subpixel)
+    for label, sp in (("185x185", spec), ("461x461", lspec)):
+        for batch in (None, B):
+            for sub in (False, True):
+                geoms[f"{label} {lanes_label(batch)}" + (" +subpixel" if sub else "")] = (
+                    roi_spec_of(sp), batch, sub)
+    for batch in (1, 2):
+        for sub in (False, True):
+            geoms[f"185x185 B={batch} (a mesh shard)" + (" +subpixel" if sub else "")] = (
+                roi_spec_of(spec), batch, sub)
+    sweep = {tw: make_spec((H, W), guess_window_size(tw), tw, True) for tw in SWEEP_TW}
+    for tw, tspec in sweep.items():
+        rs = roi_spec_of(tspec)
+        geoms[f"tw={tw} {rs.frame_shape[0]}x{rs.frame_shape[1]} L=1"] = (rs, None, False)
+
+    def pick(rspec, batch, sub):
+        if batch is None:
+            return pl.pick_bounded_engine(rspec, ROI_K, fill, subpixel=sub)
+        return pl.pick_bounded_engine_batch(rspec, ROI_K, batch, fill, subpixel=sub)
+
+    tk.reset_launches()
+    plain_runs["n"] = plain_runs["probe"] = 0
+    engine_choice = {}
+    for label, (rspec, batch, sub) in geoms.items():
+        t0 = time.perf_counter()
+        try:
+            eng, info = pick(rspec, batch, sub)
+        except RuntimeError as e:  # a kernel differs from the plain version, or failed
+            raise SystemExit(f"engine choice {label}: {e}")
+        wall = time.perf_counter() - t0
+        ok = (eng == "pallas" and info.get("parity") is True and info.get("tie_parity") is True
+              and info.get("kernel") in tk.KERNELS)
+        engine_choice[label] = dict(info, wall_s=wall, ok=ok)
+        log(f"engine choice {label} (crop {rspec.frame_shape[0]}x{rspec.frame_shape[1]}, window"
+            f" {rspec.window_size[0]}x{rspec.window_size[1]}, L = {rspec.kernel_len}, K = {ROI_K}):"
+            f" {json.dumps(info)}, {wall:.2f} s -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"engine choice {label}: {info}")
+    probe = {"launches": dict(tk.probe_launches), "plain_runs": plain_runs["probe"]}
+    ok = tk.launches == 0 and plain_runs["n"] == 0
+    log(f"engine choice: the probes launched {probe['launches']} (apart from the launch counts:"
+        f" {tk.launches}) and ran the plain version {probe['plain_runs']} times (counted apart:"
+        f" {plain_runs['n']}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("engine choice: the probe's runs entered the counts")
+    # a second call hits the session cache; a fresh process reads the file
+    before = sum(tk.probe_launches.values())
+    hits = all(pick(*g)[1] is pl._session_engine_cache[pl._engine_key(
+        g[0], ROI_K, g[1], g[2], dev)] for g in geoms.values())
+    hits = hits and sum(tk.probe_launches.values()) == before and plain_runs["probe"] == \
+        probe["plain_runs"]
+    wanted = [[g[0].frame_shape[0], g[0].window_size[0], g[0].target_width, g[1], g[2]]
+              for g in geoms.values()]
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                        "sys.exit(chip_smoke.engine_probe(sys.argv[1:]))", json.dumps(wanted)],
+                       cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+                       text=True, timeout=300)
+    fresh_wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise SystemExit(f"engine choice: the fresh process failed:\n{r.stderr[-4000:]}")
+    fresh = json.loads(r.stdout.strip().splitlines()[-1])
+    read_back = (fresh["infos"] == [json.loads(json.dumps(pick(*g)[1])) for g in geoms.values()]
+                 and fresh["launches"] == 0 and not fresh["probe_launches"]
+                 and fresh["plain_runs"] == {"n": 0, "probe": 0})
+    log(f"engine choice: a second call hits the session cache={hits}; a fresh process read all"
+        f" {len(geoms)} decisions from {pl._engine_cache_path()} without measuring={read_back}"
+        f" (launches {fresh['launches']}, probe launches {fresh['probe_launches']}, plain runs"
+        f" {fresh['plain_runs']}, {fresh_wall:.2f} s) -> {'ok' if hits and read_back else 'FAIL'}")
+    if not (hits and read_back):
+        raise SystemExit("engine choice: a decision was measured again")
+    chosen = {label: info["kernel"] for label, info in engine_choice.items()}
+
+    # both kernels timed at every main-path shape where both fit (the 185x185
+    # chunk scans, one chain and 4 lanes, one segment and 2) and at the
+    # target_width sweep's crops; each row's bound from cost(), and the pick
+    sweep_cases = {}
+    for tw, tspec in sweep.items():
+        rs = roi_spec_of(tspec)
+        skw_t = dict(radii=tspec.radii, sigma=tspec.sigma, darker_target=True)
+        crops, rpos0, rbnd = roi_chunk(frames_np, truth, tspec, fill, dev, roi_geometry,
+                                       _crop_with_fill)
+        sweep_cases[tw] = (rs, skw_t, (crops, rpos0, fill, rbnd),
+                           roi_lanes(clips, truths, BATCH_FILLS, tspec, dev, roi_geometry,
+                                     _crop_with_fill))
+    rows = {}  # label: (launch(kernel), radii, sigma, steps, subpixel, lanes, plain, pick)
+    for sub in (False, True):
+        tail = "bounded+subpixel" if sub else "bounded"
+        name = f"ROI 185x185 T={ROI_K} {tail}"
+        fr, p0, fl, k, b, _, _ = cases[name]
+        rows[name] = (functools.partial(
+            lambda kern, fr, p0, fl, k, b, sub: tk.dog_scan_cuda(
+                fr, p0, fl, subpixel=sub, kernel=kern, **k, **b), fr=fr, p0=p0, fl=fl, k=k, b=b,
+            sub=sub), k, ROI_K, sub, 1, None, "185x185 L=1" + (" +subpixel" if sub else ""))
+        name = f"ROI batch 185x185 B={B} T={ROI_K} {tail} (lane 2 fill)"
+        fr, p0, fl, k, b, _, _ = cases[name]
+        rows[name] = (functools.partial(
+            lambda kern, fr, p0, fl, k, b, sub: tk.dog_scan_batch_cuda(
+                fr, p0, fl, subpixel=sub, kernel=kern, **k, **b), fr=fr, p0=p0, fl=fl, k=k, b=b,
+            sub=sub), k, ROI_K, sub, B, None, f"185x185 B={B}" + (" +subpixel" if sub else ""))
+    for name, lanes_n, glabel in ((f"segments ROI 185x185 one chain T={ROI_K} S=2", 1,
+                                   "185x185 L=1"),
+                                  (f"segments ROI 185x185 B={B} carry T={ROI_K} S=2", B,
+                                   f"185x185 B={B}")):
+        rows[name] = (functools.partial(lambda kern, name: run_segments(name, kernel=kern),
+                                        name=name), seg_cases[name][2], 2 * ROI_K, False,
+                      lanes_n, None, glabel)
+    for tw, (rs, skw_t, (crops, rpos0, fl, rbnd), (bc, bp, bf, bb)) in sweep_cases.items():
+        crop = f"{rs.frame_shape[0]}x{rs.frame_shape[1]}"
+        rows[f"ROI tw={tw} {crop} T={ROI_K} bounded"] = (
+            functools.partial(lambda kern, c, p, f, b, k: tk.dog_scan_cuda(
+                c, p, f, kernel=kern, **k, **b), c=crops, p=rpos0, f=fl, b=rbnd, k=skw_t),
+            skw_t, ROI_K, False, 1,
+            functools.partial(lambda c, p, f, b, k: tk.dog_scan_plain(c, p, f, **k, **b),
+                              c=crops, p=rpos0, f=fl, b=rbnd, k=skw_t),
+            f"tw={tw} {crop} L=1")
+        rows[f"ROI batch tw={tw} {crop} B={B} T={ROI_K} bounded"] = (
+            functools.partial(lambda kern, c, p, f, b, k: tk.dog_scan_batch_cuda(
+                c, p, f, kernel=kern, **k, **b), c=bc, p=bp, f=bf, b=bb, k=skw_t),
+            skw_t, ROI_K, False, B, None, None)
+    engine_timing = {}
+    for name, (launch, skw_r, steps, sub, lanes_n, plain_fn, glabel) in rows.items():
+        case_L = tk._taps(skw_r["sigma"], True, dev)[2]
+        c = cost(skw_r["radii"], case_L, steps, sub, True, lanes=lanes_n)
+        plain_ms = cuda_time_ms(plain_fn, reps=1, warmup=0) if plain_fn is not None else None
+        picked = chosen.get(glabel) if glabel else None
+        engine_timing[name] = {"pick": picked, "plain_ms": plain_ms, "T": steps,
+                               "lanes": lanes_n, "L": case_L, **c}
+        for kname in tk.KERNELS:
+            ms = cuda_time_ms(functools.partial(launch, kname), reps=20)
+            row = {"ms": ms, "us_per_step": 1e3 * ms / steps, "card_bound_share": c["bound_ms"] / ms,
+                   "sm_bound_share": c["sm_bound_ms"] / ms}
+            where = ""
+            if kname == "dog_scan_tiled":
+                plan = tk._tiled_plan(skw_r["radii"], case_L, smem_limit, sub, 0)
+                row.update(cluster=plan.cluster, tile=list(plan.tile),
+                           cluster_bound_share=c["sm_bound_ms"] / plan.cluster / ms)
+                where = (f", its cluster of {plan.cluster} SMs {c['sm_bound_ms'] / plan.cluster:.4f}"
+                         f" ms ({100 * row['cluster_bound_share']:.1f}%)")
+            engine_timing[name][kname] = row
+            log(f"engine choice timing {name} ({kname}): {ms:.4f} ms a launch"
+                f" ({row['us_per_step']:.2f} us/step), bound {c['bound_ms']:.6f} ms ({c['bound_by']},"
+                f" {100 * row['card_bound_share']:.2f}%), one SM {c['sm_bound_ms']:.4f} ms"
+                f" ({100 * row['sm_bound_share']:.1f}%){where}; plain "
+                + (f"{plain_ms:.3f} ms" if plain_ms is not None else "not measured")
+                + f"; the chooser's pick: {picked or 'not measured'}")
+    record["engine_choice"] = {"decisions": engine_choice, "probe": probe,
+                               "session_hits": hits, "fresh_process_read_back": read_back,
+                               "timing": engine_timing}
+    del sweep_cases
+
+    phase_done("engine choice")
     # ---- phase 2: the main paths --------------------------------------------
     base = dict(fps=FPS, target_width=TARGET_WIDTH, window_size=WINDOW, stream="full")
     large = dict(fps=FPS, target_width=LARGE_TW, stream="full")  # the default window
@@ -1048,19 +1277,30 @@ def main() -> int:
         "track large target": {n: 1 + math.ceil((N_FRAMES - 1) / CHUNK)
                                for n in paths["track large target"]},
     }
+    def bounded_by_kernel():
+        # "<kernel>: [batched ]bounded[+subpixel][, segmented]", by kernel
+        counts = {}
+        for c, n in tk.launches_by_config.items():
+            kname, cfg = c.split(": ")
+            if cfg.removeprefix("batched ").startswith("bounded"):
+                counts[kname] = counts.get(kname, 0) + n
+        return counts
+
     def bounded_launches():
-        # "<kernel>: [batched ]bounded[+subpixel]"
-        return sum(n for c, n in tk.launches_by_config.items()
-                   if c.split(": ")[1].removeprefix("batched ").startswith("bounded"))
+        return sum(bounded_by_kernel().values())
+
+    # the engine choice's geometry of each ROI path's bounded launches
+    roi_geoms = {"track ROI": "185x185 L=1", "track large target ROI": "461x461 L=1",
+                 "track_batch ROI": f"185x185 B={B}", "track_multi ROI": f"185x185 B={B}"}
 
     results, main_counts, roi_stats = {}, {}, {}
     for path, runs in paths.items():
         tk.reset_launches()  # counts to 0 just before the path, read just after
-        plain_runs["n"] = 0
+        plain_runs["n"] = plain_runs["probe"] = 0
         for name, extra in runs.items():
             before, plain_before = tk.launches, plain_runs["n"]
             tiled_before = tk.launches_by_kernel["dog_scan_tiled"]
-            bounded_before = bounded_launches()
+            bounded_before = bounded_by_kernel()
             stats_log.last = None
             t0 = time.perf_counter()
             out = entry[path](**extra)
@@ -1069,11 +1309,16 @@ def main() -> int:
                                    time.perf_counter() - t0,
                                    tk.launches_by_kernel["dog_scan_tiled"] - tiled_before)
             if path in roi_paths:
+                by_kernel = {k: n - bounded_before.get(k, 0)
+                             for k, n in bounded_by_kernel().items()
+                             if n > bounded_before.get(k, 0)}
                 roi_stats[path, name] = dict(stats_log.last or {},
-                                             bounded_launches=bounded_launches() - bounded_before)
+                                             bounded_launches=sum(by_kernel.values()),
+                                             bounded_by_kernel=by_kernel)
         main_counts[path] = {"total": tk.launches, "by_config": dict(tk.launches_by_config),
                              "by_kernel": dict(tk.launches_by_kernel),
-                             "plain_runs": plain_runs["n"]}
+                             "plain_runs": plain_runs["n"], "probe_runs": plain_runs["probe"],
+                             "probe_launches": dict(tk.probe_launches)}
     record["main_path_launches"] = main_counts
 
     phase2 = {}
@@ -1082,6 +1327,7 @@ def main() -> int:
     for path, runs in paths.items():
         kind = roi_paths.get(path, path)  # the entry point and clip of the path
         for name, extra in runs.items():
+            t_checks = time.perf_counter()
             out, n_launch, n_plain, wall, n_tiled = results[path, name]
             sub = bool(extra.get("subpixel"))
             if kind == "track":
@@ -1131,13 +1377,23 @@ def main() -> int:
                 pairs = [(out, full)] if kind != "track_batch" else list(zip(out, full))
                 equal_full = all(same(a[1], f[1], sub) and np.array_equal(a[0], f[0])
                                  for a, f in pairs)
+                # engine="auto": every bounded launch the kernel the engine choice
+                # chose for the crop, and the positions of the shape rule's kernel
+                want_kernel = chosen[roi_geoms[path] + (" +subpixel" if sub else "")]
+                by_shape = entry[path](**extra, engine="pallas")
+                pairs = [(out, by_shape)] if kind != "track_batch" else list(zip(out, by_shape))
+                equal_pallas = all(same(a[1], f[1], sub) and np.array_equal(a[0], f[0])
+                                   for a, f in pairs)
+                st["equals_engine_pallas"] = equal_pallas
                 # unpinned, a group is one chunk: one launch a dispatch
-                roi_ok = (st.get("stream") == "roi" and equal_full
-                          and st["bounded_launches"] == st.get("groups") == st.get("dispatches"))
+                roi_ok = (st.get("stream") == "roi" and equal_full and equal_pallas
+                          and st["bounded_launches"] == st.get("groups") == st.get("dispatches")
+                          and list(st["bounded_by_kernel"]) == [want_kernel])
                 roi_note = (f", stream={st.get('stream')} crop={st.get('crop')} K={st.get('K')}"
                             f" dispatches={st.get('dispatches')} (bounded launches"
-                            f" {st['bounded_launches']}) replays={st.get('replays')}"
-                            f" depth={st.get('depth')}, equals stream='full'={equal_full}")
+                            f" {st['bounded_by_kernel']}, the chosen kernel {want_kernel})"
+                            f" replays={st.get('replays')} depth={st.get('depth')}, equals"
+                            f" stream='full'={equal_full}, equals engine='pallas'={equal_pallas}")
             else:
                 want_n = want_launches[path][name]
             ok = (n_launch == want_n and n_plain == 0 and max(errs) < 1.0 and equal_single
@@ -1161,7 +1417,7 @@ def main() -> int:
                 f" {n_tiled}), plain runs={n_plain},"
                 f" rmse max={max(errs):.4f} px over {len(errs)}, equals single track()="
                 f"{equal_single}, equals device='cpu' run={equal_cpu}, {wall:.3f} s{roi_note}"
-                f" -> {'ok' if ok else 'FAIL'}")
+                f" (checks {time.perf_counter() - t_checks:.1f} s) -> {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"phase 2 {path} {name} failed")
     record["phase2"] = phase2

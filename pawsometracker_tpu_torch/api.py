@@ -415,9 +415,12 @@ def track(
     ``progress`` is an optional ``callback(frames_done, frames_expected)``
     called after each chunk of the current file.
 
-    ``engine``: ``"auto"`` and ``"pallas"`` run the hand-written CUDA kernel
-    on the card (the plain version on the CPU); ``"xla"`` runs the plain
-    PyTorch scan. ``stream`` forces full-frame or ROI streaming (``"auto"``:
+    ``engine``: ``"auto"`` and ``"pallas"`` run a hand-written CUDA kernel
+    on the card (the plain version on the CPU): ``"pallas"`` the one the
+    window's shape picks, ``"auto"`` on the ROI path the one measured fastest
+    for the crop on this card and held to the plain version there, once per
+    card and geometry (``pipeline.pick_bounded_engine``; a kernel that differs
+    raises); ``"xla"`` runs the plain PyTorch scan. ``stream`` forces full-frame or ROI streaming (``"auto"``:
     ROI when the crop is under half the frame, as in the JAX package);
     ``roi_frames``, ``pipeline_depth`` and ``speculate`` tune the speculative
     ROI pipeline (see :mod:`.pipeline`: depth 0 is synchronous, ``"auto"``

@@ -23,7 +23,6 @@ mesh over the local cards whenever there are several.
 
 from __future__ import annotations
 
-import functools
 import logging
 
 import numpy as np
@@ -42,7 +41,7 @@ from .api import (
 )
 from .diagnose import Diagnose, Dont
 from .io.decode import ChunkPrefetcher, open_source
-from .models.dog_tracker import full_frame_sub_scan, make_spec, resolve_device, tracker_fns
+from .models.dog_tracker import full_frame_sub_scan, make_spec, resolve_device
 from .ops.dog_kernel import fix_window_size, guess_window_size
 from .ops.filters import mode_u8_host
 from .parallel.mesh import Mesh, Sharded, ShardedBatchTracker, make_mesh, mesh_device
@@ -51,6 +50,7 @@ from .pipeline import (
     PerVideoSource,
     SpeculativePipeline,
     _BatchedEngine,
+    _select_batched_bounded,
     _select_sharded_bounded,
     auto_depth_cap,
     roi_geometry,
@@ -455,12 +455,12 @@ def _track_batch_uniform(
                 if not all(getattr(s, "serves_views", False) for s in sources):
                     auto_cap = min(depth_gate, auto_depth_cap(frame_shape, roi_frames, lanes=B))
             segments = None  # a ShardedFn scan brings its own
-            if mesh is None:
-                scan = roi_engine.scan_sub if subpixel else roi_engine.scan_bounded
-                segments = functools.partial(
-                    tracker_fns(roi_spec, roi_engine.device, tracker_engine)
-                    .scan_bounded_batch_super, subpixel=subpixel)
-            else:  # one kernel launch a shard where the batch divides the data axis
+            if mesh is None:  # the measured choice on the card
+                scan, segments = _select_batched_bounded(roi_engine, roi_spec, roi_frames, B,
+                                                         int(fills[0]), engine,
+                                                         subpixel=subpixel)
+            else:  # one kernel launch a shard where the batch divides the data axis, the
+                # kernel measured at the shard's batch
                 scan = _select_sharded_bounded(roi_engine, roi_spec, roi_frames, B,
                                                int(fills[0]), engine, mesh, subpixel=subpixel)
             with timer.section("buffers"):  # the controller, its pinned crop buffers

@@ -25,9 +25,10 @@ import numpy as np
 import torch
 
 from ..ops.dog_kernel import default_gaussian_len, get_sigma
-from ..ops.tracker_kernel import (dog_scan, dog_scan_batch, dog_scan_batch_plain,
-                                  dog_scan_batch_segments, dog_scan_batch_segments_plain,
-                                  dog_scan_plain, dog_scan_segments, dog_scan_segments_plain)
+from ..ops.tracker_kernel import (KERNELS, check_kernel, dog_scan, dog_scan_batch,
+                                  dog_scan_batch_plain, dog_scan_batch_segments,
+                                  dog_scan_batch_segments_plain, dog_scan_plain, dog_scan_segments,
+                                  dog_scan_segments_plain)
 
 __all__ = ["TrackerSpec", "TrackerFns", "tracker_fns", "center_guess", "autodetect_spec",
            "make_spec", "spec_from_reference", "resolve_device", "frame_box",
@@ -231,11 +232,16 @@ def _lane_fills(fill: int, n: int, device: torch.device) -> torch.Tensor:
 
 
 def _build(spec: TrackerSpec, device: torch.device, engine: str) -> TrackerFns:
-    run = dog_scan_plain if engine == "xla" else dog_scan
-    run_b = dog_scan_batch_plain if engine == "xla" else dog_scan_batch
-    run_s = dog_scan_segments_plain if engine == "xla" else dog_scan_segments
-    run_bs = dog_scan_batch_segments_plain if engine == "xla" else dog_scan_batch_segments
+    """``engine``: ``"xla"`` (the plain version), ``"kernel"`` (the shape
+    rule's kernel) or a kernel's name (:data:`~..ops.tracker_kernel.KERNELS`)."""
+    plain = engine == "xla"
+    run = dog_scan_plain if plain else dog_scan
+    run_b = dog_scan_batch_plain if plain else dog_scan_batch
+    run_s = dog_scan_segments_plain if plain else dog_scan_segments
+    run_bs = dog_scan_batch_segments_plain if plain else dog_scan_batch_segments
     kw = dict(radii=spec.radii, sigma=spec.sigma, darker_target=spec.darker_target)
+    if engine in KERNELS:
+        kw["kernel"] = engine
 
     def u8(x):
         return torch.as_tensor(x, device=device).to(torch.uint8).contiguous()
@@ -342,11 +348,20 @@ def _tracker_fns_cached(spec: TrackerSpec, device: torch.device, engine: str) ->
     return _build(spec, device, engine)
 
 
-def tracker_fns(spec: TrackerSpec, device=None, engine: str = "auto") -> TrackerFns:
-    """Tracker functions for ``spec`` on ``device`` (cached per spec, device
-    and engine). ``device=None`` is the card. ``engine``: ``"auto"`` and
-    ``"pallas"`` run the CUDA kernel on the card (the plain version on the
-    CPU); ``"xla"`` runs the plain PyTorch version on either."""
+def tracker_fns(spec: TrackerSpec, device=None, engine: str = "auto",
+                kernel: str | None = None) -> TrackerFns:
+    """Tracker functions for ``spec`` on ``device`` (cached per spec, device,
+    engine and kernel). ``device=None`` is the card. ``engine``: ``"auto"``
+    and ``"pallas"`` run a CUDA kernel on the card (the plain version on the
+    CPU), ``kernel`` (one of :data:`~..ops.tracker_kernel.KERNELS`) or, when
+    None, the one the window's shape picks; ``"xla"`` runs the plain PyTorch
+    version on either, and takes no ``kernel``. Here ``"auto"`` measures
+    nothing: the ROI pipelines measure their bounded scans
+    (``pipeline.pick_bounded_engine``) and pass the kernel they chose."""
     if engine not in ("auto", "pallas", "xla"):
         raise ValueError(f"engine must be one of ('auto', 'pallas', 'xla'), got {engine!r}")
-    return _tracker_fns_cached(spec, resolve_device(device), "xla" if engine == "xla" else "kernel")
+    check_kernel(kernel)
+    if engine == "xla" and kernel is not None:
+        raise ValueError(f"engine='xla' runs the plain version, not the kernel {kernel!r}")
+    key = "xla" if engine == "xla" else (kernel or "kernel")
+    return _tracker_fns_cached(spec, resolve_device(device), key)

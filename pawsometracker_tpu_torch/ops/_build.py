@@ -20,7 +20,7 @@ import threading
 
 from ..utils.compilecache import default_cache_dir
 
-__all__ = ["kernel_library", "nvcc_path", "build_dir", "CSRC"]
+__all__ = ["kernel_library", "library_digest", "nvcc_path", "build_dir", "CSRC"]
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -61,6 +61,14 @@ def nvcc_path() -> str:
                        "(set CUDA_HOME) on the machine with the card")
 
 
+def library_digest(name: str) -> str:
+    """The hash of ``csrc/<name>.cu`` and the build flags that names its
+    library: an edited source gets another."""
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
 def kernel_library(name: str) -> ctypes.CDLL:
     """Load ``csrc/<name>.cu`` as a shared library, building it first if the
     build directory has no library for this source and these flags."""
@@ -69,10 +77,8 @@ def kernel_library(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         src = os.path.join(CSRC, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
         out_dir = build_dir()
-        so = os.path.join(out_dir, f"lib{name}_{digest.hexdigest()[:16]}.so")
+        so = os.path.join(out_dir, f"lib{name}_{library_digest(name)}.so")
         if not os.path.exists(so):
             os.makedirs(out_dir, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"

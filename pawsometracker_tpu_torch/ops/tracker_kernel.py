@@ -11,15 +11,20 @@ unbatched configurations:
 
 On a CUDA tensor it launches one of the two kernels of ``csrc/dog_scan.cu``
 (the step loop inside the kernel, see the note there) or raises; it never
-falls back. Which kernel is a matter of shape
-(:func:`kernel_for`): ``dog_scan`` (register-blocked passes, the next patch
-prefetched) when its working set fits shared memory, ``dog_scan_tiled`` (one
-thread-block cluster a lane, the window's tiles spread over its CTAs,
-:func:`tile_plan`) for larger windows: the quarter-frame autodetect snap, and
-every chunk scan from ``target_width`` 39 up at the default window. On a CPU
+falls back. Which kernel runs is the caller's ``kernel=`` (one of
+:data:`KERNELS`), else a matter of shape (:func:`kernel_for`): ``dog_scan``
+(register-blocked passes, the next patch prefetched) when its working set fits
+shared memory, ``dog_scan_tiled`` (one thread-block cluster a lane, the
+window's tiles spread over its CTAs, :func:`tile_plan`) for larger windows:
+the quarter-frame autodetect snap, and every chunk scan from ``target_width``
+39 up at the default window. ``dog_scan_tiled`` takes any window, so below
+the shared-memory limit both run; the ROI pipelines choose between them by
+measurement (``pipeline.pick_bounded_engine``). On a CPU
 tensor it runs :func:`dog_scan_plain`, a Python loop over steps of the :mod:`.filters`
-ops, which is also what both kernels are held against on the card.
-:data:`launches` counts kernel launches (and only those).
+ops, which is also what both kernels are held against on the card; there
+``kernel=`` is checked and has nothing to choose. :data:`launches` counts
+kernel launches (and only those); launches inside :func:`probing` (the engine
+chooser's measurement) count in :data:`probe_launches` instead.
 
 :func:`dog_scan_segments` and :func:`dog_scan_batch_segments` run S chunk
 scans a lane in one launch, chained as the JAX package's group dispatch chains
@@ -31,6 +36,7 @@ with the same rule between segments.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from collections import Counter
@@ -47,6 +53,7 @@ __all__ = ["dog_scan", "dog_scan_plain", "dog_scan_cuda", "dog_scan_batch",
            "dog_scan_segments_plain", "dog_scan_segments_cuda", "dog_scan_batch_segments",
            "dog_scan_batch_segments_plain", "dog_scan_batch_segments_cuda", "launches",
            "launches_by_config", "launches_by_kernel", "reset_launches", "kernel_for",
+           "kernels_for", "check_kernel", "probing", "is_probing", "probe_launches",
            "tile_plan", "TilePlan", "KERNELS", "MAX_CLUSTER"]
 
 #: kernel launches since import (or the last :func:`reset_launches`)
@@ -58,6 +65,10 @@ launches = 0
 launches_by_config: Counter = Counter()
 #: the same count by kernel
 launches_by_kernel: Counter = Counter()
+#: launches inside :func:`probing` (the engine chooser's measurement), by kernel; they are
+#: not in the counts above
+probe_launches: Counter = Counter()
+_probing = 0
 
 #: the kernels of csrc/dog_scan.cu, each with its own entry point
 KERNELS = ("dog_scan", "dog_scan_tiled")
@@ -76,6 +87,25 @@ def reset_launches() -> None:
     launches = 0
     launches_by_config.clear()
     launches_by_kernel.clear()
+    probe_launches.clear()
+
+
+@contextlib.contextmanager
+def probing():
+    """Count the launches made inside in :data:`probe_launches`, not in
+    :data:`launches`: the engine chooser times and checks the kernels with
+    them, and they are no part of the work the caller asked for."""
+    global _probing
+    _probing += 1
+    try:
+        yield
+    finally:
+        _probing -= 1
+
+
+def is_probing() -> bool:
+    """Whether the calling code runs inside :func:`probing`."""
+    return _probing > 0
 
 
 def _config_name(bounded: bool, subpixel: bool, batched: bool = False,
@@ -140,16 +170,19 @@ def _check_batch_args(frames, pos0, fills, deltas, lo, hi):
 
 
 def dog_scan(frames: torch.Tensor, pos0: torch.Tensor, fill: int, *, radii, sigma: float,
-             darker_target: bool, deltas=None, lo=None, hi=None, subpixel: bool = False):
+             darker_target: bool, deltas=None, lo=None, hi=None, subpixel: bool = False,
+             kernel=None):
     """Track through ``frames [T, H, W]`` u8 from ``pos0`` (row, col).
 
     Returns positions ``int32 [T, 2]``, and with ``subpixel`` also offsets
-    ``float32 [T, 2]``. A CUDA tensor launches the kernel; a CPU tensor runs
-    the plain version; any other device raises."""
+    ``float32 [T, 2]``. A CUDA tensor launches the kernel (``kernel``, one of
+    :data:`KERNELS`, or the shape rule's without one); a CPU tensor runs the
+    plain version; any other device raises."""
+    check_kernel(kernel)
     if frames.is_cuda:
         return dog_scan_cuda(frames, pos0, fill, radii=radii, sigma=sigma,
                              darker_target=darker_target, deltas=deltas, lo=lo, hi=hi,
-                             subpixel=subpixel)
+                             subpixel=subpixel, kernel=kernel)
     if frames.device.type == "cpu":
         return dog_scan_plain(frames, pos0, fill, radii=radii, sigma=sigma,
                               darker_target=darker_target, deltas=deltas, lo=lo, hi=hi,
@@ -227,19 +260,21 @@ def _parabolic_offset(resp: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def dog_scan_batch(frames: torch.Tensor, pos0: torch.Tensor, fills: torch.Tensor, *, radii,
                    sigma: float, darker_target: bool, deltas=None, lo=None, hi=None,
-                   subpixel: bool = False):
+                   subpixel: bool = False, kernel=None):
     """Track B chains in one call: lane b through ``frames[b]`` (``frames
     [B, T, H, W]``), or every lane through the same ``frames [T, H, W]``, from
     ``pos0[b]`` with fill ``fills[b]`` (and ``deltas``/``lo``/``hi [B, T, 2]``
     when bounded).
 
     Returns positions ``int32 [B, T, 2]``, and with ``subpixel`` also offsets
-    ``float32 [B, T, 2]``. A CUDA tensor launches the kernel; a CPU tensor runs
-    the plain version; any other device raises."""
+    ``float32 [B, T, 2]``. A CUDA tensor launches the kernel (``kernel`` as
+    in :func:`dog_scan`); a CPU tensor runs the plain version; any other
+    device raises."""
+    check_kernel(kernel)
     if frames.is_cuda:
         return dog_scan_batch_cuda(frames, pos0, fills, radii=radii, sigma=sigma,
                                    darker_target=darker_target, deltas=deltas, lo=lo, hi=hi,
-                                   subpixel=subpixel)
+                                   subpixel=subpixel, kernel=kernel)
     if frames.device.type == "cpu":
         return dog_scan_batch_plain(frames, pos0, fills, radii=radii, sigma=sigma,
                                     darker_target=darker_target, deltas=deltas, lo=lo, hi=hi,
@@ -275,6 +310,34 @@ def kernel_for(radii, L: int, smem_limit: int) -> str:
     ``smem_limit`` bytes of shared memory, else ``dog_scan_tiled``."""
     fits = _scan_smem_bytes(L, int(radii[0]), int(radii[1])) <= smem_limit
     return KERNELS[0] if fits else KERNELS[1]
+
+
+def kernels_for(radii, L: int, smem_limit: int) -> tuple:
+    """The kernels that can run a window of ``radii`` with L taps, the shape
+    rule's (:func:`kernel_for`) first: ``dog_scan_tiled`` takes any window,
+    ``dog_scan`` those that fit ``smem_limit``."""
+    first = kernel_for(radii, L, smem_limit)
+    return (first,) if first == KERNELS[1] else (first, KERNELS[1])
+
+
+def check_kernel(kernel) -> None:
+    """Raise unless ``kernel`` is None (the shape rule) or one of :data:`KERNELS`."""
+    if kernel is not None and kernel not in KERNELS:
+        raise ValueError(f"kernel must be None or one of {KERNELS}, got {kernel!r}")
+
+
+def _pick_kernel(kernel, radii, L: int, smem_limit: int) -> str:
+    """The kernel a launch takes: ``kernel``, checked against the window, or
+    the shape rule's without one."""
+    if kernel is None:
+        return kernel_for(radii, L, smem_limit)
+    check_kernel(kernel)
+    if kernel == KERNELS[0] and kernel_for(radii, L, smem_limit) != KERNELS[0]:
+        raise ValueError(f"dog_scan does not take a {2 * int(radii[0]) + 1}x"
+                         f"{2 * int(radii[1]) + 1} window with {L} taps: it needs "
+                         f"{_scan_smem_bytes(L, int(radii[0]), int(radii[1]))} bytes of shared "
+                         f"memory, the card has {smem_limit} a block")
+    return kernel
 
 
 def _scan_smem_bytes(L: int, ri: int, rj: int) -> int:
@@ -441,10 +504,12 @@ class _Segments(NamedTuple):
 
 
 def _launch(frames, lane_stride: int, B: int, T: int, pos0, fills, deltas, lo, hi, radii,
-            sigma, darker_target, subpixel, config: str, seg: _Segments = _Segments()):
-    """Launch the kernel for B lanes of ``seg.S`` segments of T steps on the
-    current stream (the one :func:`kernel_for` picks); returns ``out_pos
-    [S,B,T,2]`` (and ``out_off``). Counts the launch."""
+            sigma, darker_target, subpixel, config: str, seg: _Segments = _Segments(),
+            kernel=None):
+    """Launch ``kernel`` (None: the one :func:`kernel_for` picks) for B lanes
+    of ``seg.S`` segments of T steps on the current stream; returns ``out_pos
+    [S,B,T,2]`` (and ``out_off``). Counts the launch (in :data:`probe_launches`
+    inside :func:`probing`)."""
     global launches
     H, W = frames.shape[-2:]
     dev = frames.device
@@ -455,7 +520,7 @@ def _launch(frames, lane_stride: int, B: int, T: int, pos0, fills, deltas, lo, h
         return out_pos, out_off
     taps, direction, L = _taps(float(sigma), bool(darker_target), dev)
     limit = _smem_limit(dev.index if dev.index is not None else 0)
-    kernel = kernel_for(radii, L, limit)
+    kernel = _pick_kernel(kernel, radii, L, limit)
     lib = _lib()
     args = (frames.data_ptr(), lane_stride, B, T, H, W, _ptr(pos0), fills.data_ptr(),
             _ptr(deltas), _ptr(lo), _ptr(hi), taps.data_ptr(), L, int(radii[0]), int(radii[1]),
@@ -471,6 +536,9 @@ def _launch(frames, lane_stride: int, B: int, T: int, pos0, fills, deltas, lo, h
             err = lib.dog_scan_tiled_launch(*args, *plan.tile, plan.cluster, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: {lib.dog_scan_error_string(err).decode()}")
+    if _probing:
+        probe_launches[kernel] += 1
+        return out_pos, out_off
     launches += 1
     launches_by_kernel[kernel] += 1
     launches_by_config[f"{kernel}: {config}"] += 1
@@ -478,25 +546,27 @@ def _launch(frames, lane_stride: int, B: int, T: int, pos0, fills, deltas, lo, h
 
 
 def dog_scan_cuda(frames: torch.Tensor, pos0: torch.Tensor, fill: int, *, radii, sigma: float,
-                  darker_target: bool, deltas=None, lo=None, hi=None, subpixel: bool = False):
-    """Launch a kernel of ``csrc/dog_scan.cu`` for one chain (one lane) on the current
-    stream for CUDA tensors (int32 ``pos0``/``deltas``/``lo``/``hi``,
-    contiguous). Raises on anything the kernel does not take and on a failed
-    launch."""
+                  darker_target: bool, deltas=None, lo=None, hi=None, subpixel: bool = False,
+                  kernel=None):
+    """Launch a kernel of ``csrc/dog_scan.cu`` (``kernel``, or the shape
+    rule's) for one chain (one lane) on the current stream for CUDA tensors
+    (int32 ``pos0``/``deltas``/``lo``/``hi``, contiguous). Raises on anything
+    the kernel does not take (``"dog_scan"`` on a window too large for it)
+    and on a failed launch."""
     bounded = _check_args(frames, pos0, deltas, lo, hi)
     _check_cuda(dict(frames=frames, pos0=pos0, deltas=deltas, lo=lo, hi=hi))
     T = frames.shape[0]
     out_pos, out_off = _launch(frames, 0, 1, T, pos0, _fill_tensor(int(fill), frames.device),
                                deltas, lo, hi, radii, sigma, darker_target, subpixel,
-                               _config_name(bounded, subpixel))
+                               _config_name(bounded, subpixel), kernel=kernel)
     return (out_pos[0, 0], out_off[0, 0]) if subpixel else out_pos[0, 0]
 
 
 def dog_scan_batch_cuda(frames: torch.Tensor, pos0: torch.Tensor, fills: torch.Tensor, *, radii,
                         sigma: float, darker_target: bool, deltas=None, lo=None, hi=None,
-                        subpixel: bool = False):
-    """Launch a kernel of ``csrc/dog_scan.cu`` for B lanes on the current stream
-    for CUDA tensors (uint8 ``fills``, int32 ``pos0``/``deltas``/``lo``/``hi``,
+                        subpixel: bool = False, kernel=None):
+    """Launch a kernel of ``csrc/dog_scan.cu`` (``kernel`` as in
+    :func:`dog_scan_cuda`) for B lanes on the current stream for CUDA tensors (uint8 ``fills``, int32 ``pos0``/``deltas``/``lo``/``hi``,
     contiguous). Shared ``frames [T, H, W]`` launch with a lane stride of 0.
     Raises on anything the kernel does not take and on a failed launch."""
     bounded, B, T = _check_batch_args(frames, pos0, fills, deltas, lo, hi)
@@ -504,7 +574,7 @@ def dog_scan_batch_cuda(frames: torch.Tensor, pos0: torch.Tensor, fills: torch.T
     lane_stride = 0 if frames.dim() == 3 else frames.stride(0)
     out_pos, out_off = _launch(frames, lane_stride, B, T, pos0, fills, deltas, lo, hi, radii,
                                sigma, darker_target, subpixel,
-                               _config_name(bounded, subpixel, batched=True))
+                               _config_name(bounded, subpixel, batched=True), kernel=kernel)
     return (out_pos[0], out_off[0]) if subpixel else out_pos[0]
 
 
@@ -567,7 +637,7 @@ def _check_segment_args(frames, pos0, fills, deltas, lo, hi, ks, origin0, origin
 
 def dog_scan_segments(frames: torch.Tensor, pos0: torch.Tensor, fill: int, *, radii,
                       sigma: float, darker_target: bool, deltas=None, lo=None, hi=None, ks=None,
-                      subpixel: bool = False):
+                      subpixel: bool = False, kernel=None):
     """S chained scans of one lane: segment s tracks through ``frames[s]``
     (``frames [S, T, H, W]`` u8, with ``deltas``/``lo``/``hi [S, T, 2]`` when
     bounded). Segment 0 starts from ``pos0``; segment s > 0 from segment s-1's
@@ -576,12 +646,14 @@ def dog_scan_segments(frames: torch.Tensor, pos0: torch.Tensor, fill: int, *, ra
     ``ks`` (``make_super_full``); ``deltas[s][0]`` rebases it.
 
     Returns positions ``int32 [S, T, 2]``, and with ``subpixel`` offsets
-    ``float32 [S, T, 2]``. A CUDA tensor launches the kernel once; a CPU
-    tensor runs the plain version; any other device raises."""
+    ``float32 [S, T, 2]``. A CUDA tensor launches the kernel once (``kernel``
+    as in :func:`dog_scan`); a CPU tensor runs the plain version; any other
+    device raises."""
+    check_kernel(kernel)
     args = dict(radii=radii, sigma=sigma, darker_target=darker_target, deltas=deltas, lo=lo,
                 hi=hi, ks=ks, subpixel=subpixel)
     if frames.is_cuda:
-        return dog_scan_segments_cuda(frames, pos0, fill, **args)
+        return dog_scan_segments_cuda(frames, pos0, fill, kernel=kernel, **args)
     if frames.device.type == "cpu":
         return dog_scan_segments_plain(frames, pos0, fill, **args)
     raise ValueError(f"dog_scan_segments runs on CUDA or CPU tensors, got {frames.device}")
@@ -618,7 +690,7 @@ def dog_scan_segments_plain(frames: torch.Tensor, pos0: torch.Tensor, fill: int,
 def dog_scan_batch_segments(frames: torch.Tensor, pos0, fills: torch.Tensor, *, radii,
                             sigma: float, darker_target: bool, deltas=None, lo=None, hi=None,
                             ks=None, origin0=None, origin_last=None, carry=None, carry_out=None,
-                            subpixel: bool = False):
+                            subpixel: bool = False, kernel=None):
     """S chained scans of B lanes: segment s of lane b tracks through
     ``frames[s, b]`` (``frames [S, B, T, H, W]``, or every lane through
     ``frames[s]`` of a shared ``[S, T, H, W]``) with fill ``fills[b]``, and
@@ -637,13 +709,15 @@ def dog_scan_batch_segments(frames: torch.Tensor, pos0, fills: torch.Tensor, *, 
       step ``max(ks-1, 0)`` (``ks [S, B]``) or its last step.
 
     Positions are ``int32 [S, B, T, 2]`` (with ``subpixel``, a pair with
-    offsets ``float32 [S, B, T, 2]``). A CUDA tensor launches the kernel once;
-    a CPU tensor runs the plain version; any other device raises."""
+    offsets ``float32 [S, B, T, 2]``). A CUDA tensor launches the kernel once
+    (``kernel`` as in :func:`dog_scan`); a CPU tensor runs the plain version;
+    any other device raises."""
+    check_kernel(kernel)
     args = dict(radii=radii, sigma=sigma, darker_target=darker_target, deltas=deltas, lo=lo,
                 hi=hi, ks=ks, origin0=origin0, origin_last=origin_last, carry=carry,
                 carry_out=carry_out, subpixel=subpixel)
     if frames.is_cuda:
-        return dog_scan_batch_segments_cuda(frames, pos0, fills, **args)
+        return dog_scan_batch_segments_cuda(frames, pos0, fills, kernel=kernel, **args)
     if frames.device.type == "cpu":
         return dog_scan_batch_segments_plain(frames, pos0, fills, **args)
     raise ValueError(f"dog_scan_batch_segments runs on CUDA or CPU tensors, got "
@@ -703,7 +777,7 @@ def _shared_stride(named: dict, S: int):
 
 
 def _segments_launch(frames, lane_stride, B, pos0, fills, args: dict, carry, carry_out, radii,
-                     sigma, darker_target, subpixel, config):
+                     sigma, darker_target, subpixel, config, kernel=None):
     """Launch a segmented scan: ``args`` holds the per-segment int32 tensors."""
     S, T = frames.shape[0], frames.shape[-3]
     if not frames[0].is_contiguous():
@@ -712,14 +786,14 @@ def _segments_launch(frames, lane_stride, B, pos0, fills, args: dict, carry, car
     seg = _Segments(S, frames.stride(0) if S > 1 else 0, arg_stride, a["ks"], a["origin0"],
                     a["origin_last"], carry, carry_out)
     return _launch(frames, lane_stride, B, T, pos0, fills, a["deltas"], a["lo"], a["hi"], radii,
-                   sigma, darker_target, subpixel, config, seg)
+                   sigma, darker_target, subpixel, config, seg, kernel=kernel)
 
 
 def dog_scan_segments_cuda(frames: torch.Tensor, pos0: torch.Tensor, fill: int, *, radii,
                            sigma: float, darker_target: bool, deltas=None, lo=None, hi=None,
-                           ks=None, subpixel: bool = False):
-    """Launch a kernel of ``csrc/dog_scan.cu`` once for S chained scans of one
-    lane (:func:`dog_scan_segments`) on the current stream, for CUDA tensors
+                           ks=None, subpixel: bool = False, kernel=None):
+    """Launch a kernel of ``csrc/dog_scan.cu`` (``kernel`` as in
+    :func:`dog_scan_cuda`) once for S chained scans of one lane (:func:`dog_scan_segments`) on the current stream, for CUDA tensors
     (int32 ``pos0``/``deltas``/``lo``/``hi``/``ks``, each segment contiguous).
     Raises on anything the kernel does not take and on a failed launch."""
     bounded, S, _, T = _check_segment_args(frames, pos0, None, deltas, lo, hi, ks, None, None,
@@ -729,16 +803,17 @@ def dog_scan_segments_cuda(frames: torch.Tensor, pos0: torch.Tensor, fill: int, 
                                                      for k, v in named.items()}))
     out_pos, out_off = _segments_launch(
         frames, 0, 1, pos0, _fill_tensor(int(fill), frames.device), named, None, None, radii,
-        sigma, darker_target, subpixel, _config_name(bounded, subpixel, segmented=True))
+        sigma, darker_target, subpixel, _config_name(bounded, subpixel, segmented=True),
+        kernel=kernel)
     return (out_pos[:, 0], out_off[:, 0]) if subpixel else out_pos[:, 0]
 
 
 def dog_scan_batch_segments_cuda(frames: torch.Tensor, pos0, fills: torch.Tensor, *, radii,
                                  sigma: float, darker_target: bool, deltas=None, lo=None,
                                  hi=None, ks=None, origin0=None, origin_last=None, carry=None,
-                                 carry_out=None, subpixel: bool = False):
-    """Launch a kernel of ``csrc/dog_scan.cu`` once for S chained scans of B
-    lanes (:func:`dog_scan_batch_segments`) on the current stream, for CUDA
+                                 carry_out=None, subpixel: bool = False, kernel=None):
+    """Launch a kernel of ``csrc/dog_scan.cu`` (``kernel`` as in
+    :func:`dog_scan_cuda`) once for S chained scans of B lanes (:func:`dog_scan_batch_segments`) on the current stream, for CUDA
     tensors (uint8 ``fills``; int32 ``pos0``, ``carry``, ``carry_out`` and
     the per-segment arguments, each segment contiguous). The kernel reads
     ``carry`` before it writes ``carry_out``, so the two may be one tensor.
@@ -754,6 +829,6 @@ def dog_scan_batch_segments_cuda(frames: torch.Tensor, pos0, fills: torch.Tensor
     out_pos, out_off = _segments_launch(
         frames, lane_stride, B, None if carry is not None else pos0, fills, named, carry,
         carry_out, radii, sigma, darker_target, subpixel,
-        _config_name(bounded, subpixel, batched=True, segmented=True))
+        _config_name(bounded, subpixel, batched=True, segmented=True), kernel=kernel)
     out = (out_pos, out_off) if subpixel else out_pos
     return out if carry is None else (out, carry_out)

@@ -449,16 +449,19 @@ def global_detect_peaks(spec: TrackerSpec, n_targets: int, min_distance: int | N
     return detect
 
 
-def _mesh_fns(spec: TrackerSpec, mesh: Mesh, engine: str) -> list:
-    return [tracker_fns(spec, d, engine) for d in mesh.data_devices()]
+def _mesh_fns(spec: TrackerSpec, mesh: Mesh, engine: str, kernel: str | None = None) -> list:
+    """Each data shard's tracker functions on its device, every one with
+    ``kernel`` (see :func:`~..models.dog_tracker.tracker_fns`)."""
+    return [tracker_fns(spec, d, engine, kernel=kernel) for d in mesh.data_devices()]
 
 
-@functools.lru_cache(maxsize=128)
 def sharded_pallas_bounded(spec: TrackerSpec, mesh: Mesh, *, interpret: bool = False,
-                           subpixel: bool = False) -> ShardedFn:
+                           subpixel: bool = False, kernel: str | None = None) -> ShardedFn:
     """The batched bounded scan under a device mesh: each data shard runs
     one ``dog_scan_batch`` launch on its lanes, on its device (the JAX
-    package's ``shard_map`` of the fused kernel over ``data``).
+    package's ``shard_map`` of the fused kernel over ``data``), of ``kernel``
+    on every shard (one of ``ops.tracker_kernel.KERNELS``, as the ROI path's
+    measured choice gives it; None: the shape rule's).
 
     The batch must divide the mesh's ``data`` extent. Signature of the
     batched bounded scan: ``fn(frames [B,T,ch,cw], pos0 [B,2], fills [B],
@@ -466,8 +469,15 @@ def sharded_pallas_bounded(spec: TrackerSpec, mesh: Mesh, *, interpret: bool = F
     (and offsets float32 ``[B,T,2]`` with ``subpixel``), each a
     :class:`Sharded`. ``interpret=True`` runs the plain PyTorch version, the
     port's counterpart of Pallas interpret mode: an explicit request, never a
-    fallback."""
-    fns = _mesh_fns(spec, _check_mesh(mesh), "xla" if interpret else "auto")
+    fallback, and it takes no ``kernel``. One ShardedFn for each set of
+    arguments, however they are spelt."""
+    return _sharded_pallas_bounded(spec, _check_mesh(mesh), bool(interpret), bool(subpixel),
+                                   kernel)
+
+
+@functools.lru_cache(maxsize=128)
+def _sharded_pallas_bounded(spec, mesh, interpret, subpixel, kernel) -> ShardedFn:
+    fns = _mesh_fns(spec, mesh, "xla" if interpret else "pallas", kernel)
     return _bounded_fn(fns, mesh, subpixel)
 
 

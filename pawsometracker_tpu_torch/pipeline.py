@@ -67,6 +67,7 @@ which the parallel decoder imports.
 from __future__ import annotations
 
 import functools
+import json
 import logging
 import os
 import time
@@ -77,13 +78,16 @@ import numpy as np
 import torch
 
 from .io.decode import ChunkPrefetcher
-from .models.dog_tracker import make_spec, tracker_fns
+from .models.dog_tracker import make_spec, resolve_device, tracker_fns
+from .ops import tracker_kernel as tk
 from .parallel.mesh import BatchSharding, Sharded, ShardedBatchTracker, ShardedFn, on_device
+from .utils.compilecache import cache_root
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["auto_depth_cap", "run_full_pipeline", "run_batch_pipeline", "run_roi_pipeline",
            "run_multi_roi_pipeline", "roi_geometry", "chain_batch", "last_rows",
+           "pick_bounded_engine", "pick_bounded_engine_batch",
            "SpeculativePipeline", "SingleVideoSource", "FanoutSource", "PerVideoSource",
            "AUTO_DEPTH_MAX"]
 
@@ -763,16 +767,301 @@ def run_batch_pipeline(
 # ---------------------------------------------------------------------------
 
 
+# ---- the measured engine choice ---------------------------------------------------------
+
+#: the decision rule's version, the first field of every key of the engine cache: a change to
+#: the probe or the rule measures again
+ENGINE_RULE = "torch-v1"
+#: the other kernel replaces the shape rule's only when it takes less than this share of
+#: its time (the JAX package's margin, ``pawsometracker_tpu/pipeline.py:526-531``)
+ENGINE_MARGIN = 0.75
+#: a measurement whose every time exceeds this (ms) is kept for the process and not
+#: persisted: the next process measures again (the JAX package's rule)
+DEGRADED_MS = 500.0
+
+#: the decisions of this process, by key (:func:`_engine_key`)
+_session_engine_cache: dict = {}
+
+
+def _engine_cache_path() -> str:
+    """The engine cache: ``engine_cache_torch.json`` under the port's cache root
+    (``$PAWSOMETRACKER_CACHE``, else ``~/.cache/pawsometracker_tpu_torch``), a
+    file of its own beside the JAX package's ``engine_cache.json`` where both
+    share a root."""
+    d = cache_root()
+    os.makedirs(d, exist_ok=True)
+    return os.path.join(d, "engine_cache_torch.json")
+
+
+def _load_engine_cache() -> dict:
+    p = _engine_cache_path()
+    if not os.path.exists(p):
+        return {}
+    try:
+        with open(p) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {}
+
+
+def _save_engine_cache(entries: dict) -> None:
+    """Add ``entries`` to the cache file, atomically: the file is read again
+    just before the write, so decisions another process saved while this one
+    measured are kept, and a reader sees the old file or the new one."""
+    p = _engine_cache_path()
+    cache = _load_engine_cache()
+    cache.update(entries)
+    tmp = f"{p}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(cache, f, indent=1)
+    os.replace(tmp, p)
+
+
+def _measures(device: torch.device) -> bool:
+    """Whether the chooser measures on ``device``: on a CUDA card only."""
+    return device.type == "cuda"
+
+
+def _device_kind(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device)
+
+
+def _engine_key(roi_spec, k_frames: int, batch, subpixel: bool, device) -> str:
+    """The decision's key: the rule, the card and the software that ran it (the
+    kernel library's digest, so an edited ``.cu`` measures again), and the
+    geometry. ``fill`` is not in it: the DoG response of a constant is 0,
+    so the probe's times and positions do not depend on it."""
+    from .ops._build import library_digest
+
+    fields = (ENGINE_RULE, _device_kind(device), torch.__version__, torch.version.cuda,
+              library_digest("dog_scan"), roi_spec.frame_shape, roi_spec.radii,
+              round(roi_spec.sigma, 6), roi_spec.darker_target, k_frames)
+    fields += (() if batch is None else (f"B{batch}",)) + (("sub",) if subpixel else ())
+    return "|".join(map(str, fields))
+
+
+def pick_bounded_engine(roi_spec, k_frames: int, fill: int = 128, subpixel: bool = False, *,
+                        device=None):
+    """The bounded scan of one chain for this card and geometry, chosen by
+    measurement (the JAX package's ``pick_bounded_engine``,
+    ``pawsometracker_tpu/pipeline.py:346-381``).
+
+    On the card it times the kernels that take the window (``dog_scan``
+    where it fits shared memory, ``dog_scan_tiled`` always) on the JAX
+    package's probe: an off-centre blob, then a flat field and a centred
+    blob, whose responses tie. Each must give the plain version's positions
+    on all three, and offsets within ``atol=1e-3`` with ``subpixel``: a
+    parity pin for the built kernels on this card. The shape rule's kernel
+    stays unless the other takes under :data:`ENGINE_MARGIN` of its time.
+    The decision is kept for the process and in the engine cache
+    (:func:`_engine_cache_path`), per card, software and geometry, so each
+    card measures once. The probe times one chunk launch; the segmented
+    launches of grouped dispatch (``PAWS_DISPATCH_GROUP``) at that geometry
+    take the same kernel, unmeasured in that form.
+
+    Unlike the JAX package's chooser, nothing falls back: a kernel that
+    differs from the plain version raises :class:`RuntimeError` (naming the
+    kernel, the geometry and the first step that differs), and so does a
+    kernel that fails to build or launch. Off the card it measures nothing.
+
+    Returns ``("pallas", info)``: ``info["kernel"]`` the chosen kernel,
+    ``info["<kernel>_ms"]`` each candidate's best of 3 card times on the blob,
+    ``info["xla_ms"]`` the plain version's one run, ``parity`` and
+    ``tie_parity``; ``("xla", {"reason": "non-cuda device"})`` off the card.
+    ``device=None`` is the card."""
+    return _pick_engine_measured(roi_spec, k_frames, fill, None, subpixel, device)
+
+
+def pick_bounded_engine_batch(roi_spec, k_frames: int, batch: int, fill: int = 128,
+                              subpixel: bool = False, *, device=None):
+    """:func:`pick_bounded_engine` for the batched bounded scan of ``batch``
+    lanes (the batch and multi ROI paths; under a mesh, a shard's lanes):
+    the JAX package's ``pick_bounded_engine_batch``."""
+    return _pick_engine_measured(roi_spec, k_frames, fill, int(batch), subpixel, device)
+
+
+def _pick_engine_measured(roi_spec, k_frames: int, fill: int, batch, subpixel: bool = False,
+                          device=None):
+    dev = resolve_device(device)
+    if not _measures(dev):
+        return "xla", {"reason": "non-cuda device"}
+    key = _engine_key(roi_spec, k_frames, batch, subpixel, dev)
+    if key in _session_engine_cache:
+        info = _session_engine_cache[key]
+        return info["engine"], info
+    saved = _load_engine_cache().get(key)
+    if saved is not None:
+        _session_engine_cache[key] = saved
+        return saved["engine"], saved
+    with tk.probing(), on_device(dev):
+        info = _measure_engines(roi_spec, k_frames, fill, batch, subpixel, dev)
+    _session_engine_cache[key] = info
+    times = [v for k, v in info.items() if k.endswith("_ms")]
+    if min(times) > DEGRADED_MS:
+        info["transient"] = "degraded measurement, not persisted"
+        return info["engine"], info
+    try:
+        _save_engine_cache({key: info})
+    except OSError:
+        pass  # a read-only cache root: the process keeps its decision
+    return info["engine"], info
+
+
+def _probe_inputs(roi_spec, k_frames: int, fill: int, batch, device) -> dict:
+    """The JAX package's probe (``pawsometracker_tpu/pipeline.py:424-470``), on
+    ``device``: the bounded scan's arguments over K copies of a frame (in
+    each of ``batch`` lanes) from the crop's centre, with zero rebases and the
+    crop as the box; by name, the off-centre blob (a unique maximum) first,
+    then the flat field and the centred blob (exact ties)."""
+    ch, cw = roi_spec.frame_shape
+    yy, xx = np.mgrid[:ch, :cw]
+    sig = max(roi_spec.sigma, 1.0)
+    sign = -1.0 if roi_spec.darker_target else 1.0
+
+    def blob(ci, cj):
+        g = np.exp(-((yy - ci) ** 2 + (xx - cj) ** 2) / (2.0 * sig ** 2))
+        return np.clip(fill + sign * 110.0 * g, 0, 255).astype(np.uint8)
+
+    frames = {"blob": blob(ch // 2 + 3, cw // 2 - 2),
+              "flat field": np.full((ch, cw), fill, np.uint8),
+              "centred blob": blob(ch // 2, cw // 2)}
+    lanes = () if batch is None else (batch,)
+
+    def i32(a):
+        return torch.from_numpy(np.array(a, np.int32)).to(device)
+
+    zeros = i32(np.zeros(lanes + (k_frames, 2)))
+    hi = i32(np.broadcast_to([ch - 1, cw - 1], lanes + (k_frames, 2)))
+    pos = i32(np.broadcast_to([ch // 2, cw // 2], lanes + (2,)))
+    fills = fill if batch is None else torch.full((batch,), fill, dtype=torch.uint8,
+                                                  device=device)
+    return {name: (torch.from_numpy(np.ascontiguousarray(
+                       np.broadcast_to(fr, lanes + (k_frames, ch, cw)))).to(device),
+                   pos, fills, zeros, zeros, hi)
+            for name, fr in frames.items()}
+
+
+#: card clock cycles of the sleep queued before each timed candidate run (about 1 ms on an
+#: H100): longer than the host takes to issue the run, so the events time the card's work
+_QUEUE_CYCLES = 2_000_000
+
+
+def _timed(name: str, fn, reps: int):
+    """Run ``fn`` on the card; returns its output on the host and a time in ms
+    by CUDA events. With ``reps`` > 1 (a candidate kernel): once to warm up,
+    then the best of ``reps`` runs, each queued behind a short sleep of the
+    card, so that the time is the kernel's and not the wrapper's Python,
+    which both candidates share; with 1 (the plain version, a Python loop of
+    small launches): one run, the host's issue included. ``name`` says what
+    runs."""
+    if reps > 1:
+        fn()
+    best, out = float("inf"), None
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        if reps > 1:
+            torch.cuda._sleep(_QUEUE_CYCLES)
+        t0.record()
+        out = fn()
+        t1.record()
+        t1.synchronize()
+        best = min(best, t0.elapsed_time(t1))
+    host = tuple(o.cpu().numpy() for o in out) if isinstance(out, tuple) else out.cpu().numpy()
+    return host, best
+
+
+def _first_mismatch(got, want, subpixel: bool):
+    """Where ``got`` first differs from ``want`` (positions exactly, offsets
+    beyond ``atol=1e-3``), as ``(index, got, want)``, or None."""
+    pairs = [(got[0], want[0], 0.0), (got[1], want[1], 1e-3)] if subpixel else [(got, want, 0.0)]
+    for g, w, atol in pairs:
+        bad = np.abs(g.astype(np.float64) - w.astype(np.float64)) > atol
+        if bad.any():
+            idx = np.argwhere(bad)[0][:-1]  # the step (and lane) of the first difference
+            return tuple(int(i) for i in idx), g[tuple(idx)].tolist(), w[tuple(idx)].tolist()
+    return None
+
+
+def _measure_engines(roi_spec, k_frames: int, fill: int, batch, subpixel: bool,
+                     device) -> dict:
+    """Time every kernel that takes the window against the plain version on
+    the probe (:func:`_probe_inputs`) and choose; raise on any difference."""
+    candidates = tk.kernels_for(roi_spec.radii, roi_spec.kernel_len,
+                                tk._smem_limit(device.index or 0))
+    name = ("scan_sub" if subpixel else "scan_bounded") + ("" if batch is None else "_batch")
+    inputs = _probe_inputs(roi_spec, k_frames, fill, batch, device)
+    kw = dict(radii=roi_spec.radii, sigma=roi_spec.sigma, darker_target=roi_spec.darker_target,
+              subpixel=subpixel)
+
+    def plain(frames, pos, fills, deltas, lo, hi):  # read from the module at each call
+        run = tk.dog_scan_plain if batch is None else tk.dog_scan_batch_plain
+        return run(frames, pos, fills, deltas=deltas, lo=lo, hi=hi, **kw)
+
+    want, info = {}, {"engine": "pallas"}
+    for probe, args in inputs.items():  # the oracle: once on each input
+        want[probe], ms = _timed("plain", functools.partial(plain, *args), 1)
+        if probe == "blob":
+            info["xla_ms"] = round(ms, 4)
+    times = {}
+    for kernel in candidates:
+        scan = getattr(tracker_fns(roi_spec, device, "pallas", kernel=kernel), name)
+        for probe, args in inputs.items():
+            got, ms = _timed(kernel, functools.partial(scan, *args), 3 if probe == "blob" else 1)
+            if probe == "blob":
+                times[kernel] = ms
+            bad = _first_mismatch(got, want[probe], subpixel)
+            if bad is not None:
+                where, g, w = bad
+                ch, cw = roi_spec.frame_shape
+                raise RuntimeError(
+                    f"{kernel} differs from the plain version on this card: {ch}x{cw} crop, "
+                    f"window {roi_spec.window_size}, sigma {roi_spec.sigma:.6g}, K={k_frames}"
+                    + ("" if batch is None else f", B={batch}")
+                    + (", subpixel" if subpixel else "")
+                    + f", probe {probe!r}: first at {'step' if batch is None else '(lane, step)'}"
+                    f" {where}: {g} against {w}")
+    default = candidates[0]
+    wins = [k for k in candidates[1:] if times[k] < ENGINE_MARGIN * times[default]]
+    info["kernel"] = min(wins, key=times.get) if wins else default
+    info["default"] = default
+    info.update({f"{k}_ms": round(t, 4) for k, t in times.items()})
+    info.update(parity=True, tie_parity=True)
+    return info
+
+
+def _select_batched_bounded(tracker, roi_spec, k_frames: int, batch: int, fill: int,
+                            engine: str, subpixel: bool = False):
+    """The batched bounded scan of the batch and multi ROI paths on the
+    tracker's one device (the JAX package's ``_select_batched_bounded``,
+    ``pawsometracker_tpu/pipeline.py:558-573``): ``"auto"`` the kernel
+    :func:`pick_bounded_engine_batch` chooses (the plain version off the
+    card), ``"pallas"`` the shape rule's kernel, ``"xla"`` the plain version.
+    Returns ``(scan, segments)``: the chunk scan (``scan_sub_batch`` with
+    ``subpixel``, else ``scan_bounded_batch``) and its segmented form, which
+    the port's lane engine launches for every group."""
+    kernel = None
+    if engine == "auto":
+        engine, info = pick_bounded_engine_batch(roi_spec, k_frames, batch, fill,
+                                                 subpixel=subpixel, device=tracker.device)
+        kernel = info.get("kernel")
+    fns = tracker_fns(roi_spec, tracker.device, engine, kernel=kernel)
+    return (fns.scan_sub_batch if subpixel else fns.scan_bounded_batch,
+            functools.partial(fns.scan_bounded_batch_super, subpixel=subpixel))
+
+
 def _select_sharded_bounded(tracker, roi_spec, k_frames: int, batch: int, fill: int,
                             engine: str, mesh, subpixel: bool = False):
     """The batched bounded scan of the batch ROI path under a mesh (the JAX
     package's ``_select_sharded_bounded``, ``pawsometracker_tpu/pipeline.py:576-598``):
-    for ``"auto"`` and ``"pallas"``, when the batch divides the mesh's
-    ``data`` axis, :func:`~.parallel.mesh.sharded_pallas_bounded` (one kernel
-    launch a shard); otherwise the tracker's own scan (``engine="xla"``: the
-    plain version a shard). The card has one bounded engine, so ``"auto"``
-    measures nothing (``k_frames`` and ``fill`` are the JAX signature's).
-    ``engine="pallas"`` with a batch the data axis does not divide raises."""
+    where the batch divides the mesh's ``data`` axis, ``"pallas"`` gives
+    :func:`~.parallel.mesh.sharded_pallas_bounded` with the shape rule's
+    kernel (one launch a shard), and ``"auto"`` measures at the per-shard
+    batch on the mesh's first device (:func:`pick_bounded_engine_batch`) and
+    gives it with the chosen kernel on the card; otherwise the tracker's own
+    scan (``"xla"``: the plain version a shard; ``"auto"`` off the card, or
+    on a batch the data axis does not divide). ``engine="pallas"`` with a
+    batch the data axis does not divide raises."""
     from .parallel.mesh import sharded_pallas_bounded
 
     data_size = mesh.shape["data"]
@@ -781,8 +1070,14 @@ def _select_sharded_bounded(tracker, roi_spec, k_frames: int, batch: int, fill: 
             f"engine='pallas' under a mesh needs the batch ({batch}) divisible "
             f"by the mesh data axis ({data_size})"
         )
-    if engine in ("auto", "pallas") and batch % data_size == 0:
-        return sharded_pallas_bounded(roi_spec, mesh, subpixel=subpixel)
+    kernel = None
+    if engine == "auto" and batch % data_size == 0:
+        engine, info = pick_bounded_engine_batch(roi_spec, k_frames, max(batch // data_size, 1),
+                                                 fill, subpixel=subpixel,
+                                                 device=mesh.data_devices()[0])
+        kernel = info.get("kernel")
+    if engine == "pallas":
+        return sharded_pallas_bounded(roi_spec, mesh, subpixel=subpixel, kernel=kernel)
     return tracker.scan_sub if subpixel else tracker.scan_bounded
 
 
@@ -1917,9 +2212,10 @@ def run_roi_pipeline(
 ):
     """Track ``n_rest`` frames of ``src`` by speculative ROI streaming (one
     video, one target: :class:`SpeculativePipeline` with L = 1 over
-    :class:`_SingleEngine`). ``engine`` ``"auto"`` and ``"pallas"`` scan with
-    the CUDA kernel on the card (the plain version on the CPU), ``"xla"`` with
-    the plain version.
+    :class:`_SingleEngine`). ``engine``: ``"auto"`` scans with the kernel
+    :func:`pick_bounded_engine` chooses for the crop on the card (the plain
+    version on the CPU), ``"pallas"`` with the shape rule's kernel (the plain
+    version on the CPU), ``"xla"`` with the plain version.
 
     Returns ``(position blocks, offset blocks, frames tracked)``, each
     position block an absolute int ``[k, 2]``. ``prefetchers`` collects any
@@ -1940,7 +2236,13 @@ def run_roi_pipeline(
     mode = speculate if depth_max > 0 else "contain"
     ch, cw, margin = roi_geometry(spec, K, depth_max, mode)
     roi_spec = make_spec((ch, cw), spec.window_size, spec.target_width, spec.darker_target)
-    fns = tracker_fns(roi_spec, device, engine)
+    kernel = None
+    if engine == "auto":
+        # the measured choice, kept per card and geometry; also a parity pin
+        # of the kernels against the plain version on this card
+        engine, info = pick_bounded_engine(roi_spec, K, fill, subpixel=subpixel, device=device)
+        kernel = info.get("kernel")
+    fns = tracker_fns(roi_spec, device, engine, kernel=kernel)
 
     positions: list[np.ndarray] = []
     offsets: list[np.ndarray] = []
@@ -2018,6 +2320,8 @@ def run_multi_roi_pipeline(
     roi_spec = make_spec((ch, cw), spec.window_size, spec.target_width, spec.darker_target)
     N = int(np.asarray(pos0_abs).shape[0])
     tracker = ShardedBatchTracker(roi_spec, None, engine, device=device)
+    scan, segments = _select_batched_bounded(tracker, roi_spec, K, N, fill, engine,
+                                             subpixel=subpixel)
 
     positions: list[np.ndarray] = []
     offsets: list[np.ndarray] = []
@@ -2037,11 +2341,8 @@ def run_multi_roi_pipeline(
         pipe = SpeculativePipeline(
             L=N, K=K, crop_shape=(ch, cw), margin=margin, spec=spec, mode=mode, depth=depth,
             auto_cap=depth_max if depth == "auto" else None,
-            engine=_BatchedEngine(tracker.scan_sub if subpixel else tracker.scan_bounded, (ch, cw),
-                                  spec.frame_shape, np.full(N, fill, np.uint8), subpixel, timer,
-                                  device, segments=functools.partial(
-                                      tracker_fns(roi_spec, device, engine).scan_bounded_batch_super,
-                                      subpixel=subpixel)),
+            engine=_BatchedEngine(scan, (ch, cw), spec.frame_shape, np.full(N, fill, np.uint8),
+                                  subpixel, timer, device, segments=segments),
             source=FanoutSource(src, N=N, K=K, ch=ch, cw=cw, fill=fill, mode=mode, depth=depth_max,
                                 n_rest=n_rest, prefetchers=prefetchers, dia=dia),
             sink=sink,

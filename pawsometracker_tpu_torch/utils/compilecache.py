@@ -12,13 +12,18 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["default_cache_dir"]
+__all__ = ["cache_root", "default_cache_dir"]
+
+
+def cache_root() -> str:
+    """``$PAWSOMETRACKER_CACHE`` (the cache root the JAX package shares) or
+    ``~/.cache/pawsometracker_tpu_torch``: the kernel libraries go under it,
+    and the engine chooser's decisions (``pipeline.pick_bounded_engine``)."""
+    return os.environ.get(
+        "PAWSOMETRACKER_CACHE", os.path.expanduser("~/.cache/pawsometracker_tpu_torch")
+    )
 
 
 def default_cache_dir() -> str:
-    """``$PAWSOMETRACKER_CACHE/kernels`` (the cache root the JAX package
-    shares) or ``~/.cache/pawsometracker_tpu_torch/kernels``."""
-    root = os.environ.get(
-        "PAWSOMETRACKER_CACHE", os.path.expanduser("~/.cache/pawsometracker_tpu_torch")
-    )
-    return os.path.join(root, "kernels")
+    """``<cache_root()>/kernels``."""
+    return os.path.join(cache_root(), "kernels")

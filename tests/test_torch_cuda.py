@@ -5,6 +5,7 @@ with the card and without JAX:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import json
 import logging
 
 import numpy as np
@@ -722,22 +723,34 @@ def test_batch_roi_buffers_wait_for_copy_and_scan(card, monkeypatch):
         np.testing.assert_array_equal(ij, ij_c)
 
 
+def forbid_plain(monkeypatch):
+    """Make a run of the plain chunk scans on the card fail, except inside the
+    engine chooser's probe, where the plain version is the oracle the kernels
+    are held to."""
+    from pawsometracker_tpu_torch.models import dog_tracker
+
+    def forbid(real):
+        def run(*a, **k):
+            if not tk.is_probing():
+                raise AssertionError("the plain version ran on the card's path")
+            return real(*a, **k)
+        return run
+
+    for mod in (tk, dog_tracker):
+        for name in ("dog_scan_plain", "dog_scan_batch_plain"):
+            monkeypatch.setattr(mod, name, forbid(getattr(mod, name)))
+
+
 @pytest.mark.parametrize("subpixel", [False, True])
 def test_track_resumable_on_card_equals_track(card, caplog, tmp_path, monkeypatch, subpixel):
     """track_resumable on a 1080p array at stream="auto" (the ROI pipeline),
     interrupted after 2 of 4 slices and resumed: positions (offsets within
     1e-3) and timestamps equal to one uninterrupted track() on the card; each
     slice launches its snap and one bounded launch a dispatch, and the plain
-    version never runs."""
+    version never runs outside the engine chooser's probe."""
     from pawsometracker_tpu_torch import load_checkpoint, track_resumable
-    from pawsometracker_tpu_torch.models import dog_tracker
 
-    def no_plain(*a, **k):
-        raise AssertionError("the plain version ran on the card's path")
-
-    for mod in (tk, dog_tracker):
-        monkeypatch.setattr(mod, "dog_scan_plain", no_plain)
-        monkeypatch.setattr(mod, "dog_scan_batch_plain", no_plain)
+    forbid_plain(monkeypatch)
     caplog.set_level(logging.DEBUG, logger="pawsometracker_tpu_torch")
     n, h, w = 96, 1080, 1920
     path = [(540 + round(200 * np.sin(t / 40)), 960 + round(200 * np.cos(t / 40)))
@@ -789,9 +802,9 @@ def test_track_batch_mesh_on_card_equals_none(card, caplog, monkeypatch, mesh_na
                                               subpixel):
     """track_batch over a mesh of the card(s) equals mesh=None, offsets
     included, with one launch a data shard for each launch of mesh=None (the
-    snap, then each chunk or dispatch), and never the plain version."""
+    snap, then each chunk or dispatch), and never the plain version outside the
+    engine chooser's probe (a mesh shard's batch is a geometry of its own)."""
     from pawsometracker_tpu_torch import track_batch
-    from pawsometracker_tpu_torch.models import dog_tracker
 
     mesh = _mesh(mesh_name)
     if mesh is None:
@@ -801,13 +814,7 @@ def test_track_batch_mesh_on_card_equals_none(card, caplog, monkeypatch, mesh_na
     kw = dict(fps=24, target_width=8, window_size=21, stream=stream, subpixel=subpixel,
               start_location=locs, chunk_size=16, roi_frames=4)
     want = track_batch(clips, **kw)
-
-    def no_plain(*a, **k):
-        raise AssertionError("the plain version ran on the card's path")
-
-    for mod in (tk, dog_tracker):
-        monkeypatch.setattr(mod, "dog_scan_plain", no_plain)
-        monkeypatch.setattr(mod, "dog_scan_batch_plain", no_plain)
+    forbid_plain(monkeypatch)
     caplog.clear()
     tk.reset_launches()
     got = track_batch(clips, mesh=mesh, **kw)
@@ -1063,3 +1070,175 @@ def test_entry_points_group_on_card(card, caplog, monkeypatch, pin):
                     np.testing.assert_allclose(ij, ij_w, rtol=0, atol=1e-3)
                 else:
                     np.testing.assert_array_equal(ij, ij_w)
+
+
+# ---- the measured engine choice: either kernel by name, off-frame starts, the chooser ----
+
+
+def _textured_lanes(B, T, h, w, seed):
+    """B lanes of T frames: a dark disc of radius 8 a lane moving 3 px a step
+    on 128-gray with faint blobs and noise; and each lane's path."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    paths = [[(h // 2 - 10 + 5 * b + 3 * t, w // 2 - 20 + 3 * t) for t in range(T)]
+             for b in range(B)]
+    frames = np.empty((B, T, h, w), np.uint8)
+    for b in range(B):
+        base = 128.0 + rng.normal(0, 3, (h, w))
+        for i, j, d in zip(rng.uniform(0, h, 40), rng.uniform(0, w, 40), rng.uniform(5, 30, 40)):
+            base -= d * np.exp(-((yy - i) ** 2 + (xx - j) ** 2) / 18.0)
+        for t, (i, j) in enumerate(paths[b]):
+            img = base.copy()
+            img[(yy - i) ** 2 + (xx - j) ** 2 <= 64] = 30
+            frames[b, t] = np.clip(np.round(img), 0, 255)
+    return frames, paths
+
+
+@pytest.mark.parametrize("subpixel", [False, True])
+@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("window,crop", [(41, 185), (77, 241)])
+def test_either_kernel_by_name_equals_plain(card, window, crop, lanes, S, subpixel):
+    """Windows that both kernels take (41x41 on the bench shape's 185x185 ROI
+    crop, and 77x77 at the same L = 65): each named kernel's bounded scan
+    equals the plain version bit for bit, launching that kernel, for one lane
+    and 4, one chunk and 2 chained segments (the batched chain's carry in the
+    launch). dog_scan_tiled runs here below target_width 39 and on
+    one-register-block tiles (7 rows) over a cluster of 6 and 11 CTAs."""
+    T, h = 12, crop
+    spec = make_spec((h, h), window, 25, True)
+    limit = tk._smem_limit(0)
+    assert tk.kernels_for(spec.radii, spec.kernel_len, limit) == tk.KERNELS
+    assert tk.tile_plan(spec.radii, spec.kernel_len, limit, subpixel).tiles == (
+        {41: 6, 77: 11}[window], 1)
+    rng = np.random.default_rng(window + 10 * lanes + S)
+    frames, paths = _textured_lanes(lanes, S * T, h, h, window)
+    frames = np.ascontiguousarray(np.moveaxis(frames.reshape(lanes, S, T, h, h), 0, 1))
+    b = random_bounds(rng, (S, lanes, T, 2), h, h)
+    arg = {k: torch.from_numpy(v.astype(np.int32)).to(card) for k, v in b.items()}
+    fr = torch.from_numpy(frames).to(card)
+    fills = torch.tensor([128, 100, 160, 128][:lanes], dtype=torch.uint8, device=card)
+    starts = torch.tensor([p[0] for p in paths], dtype=torch.int32, device=card)
+    ks = torch.full((S, lanes), T, dtype=torch.int32, device=card)
+    origin0 = torch.from_numpy(rng.integers(-8, 8, (S, lanes, 2)).astype(np.int32)).to(card)
+    origin_last = torch.from_numpy(rng.integers(-8, 8, (S, lanes, 2)).astype(np.int32)).to(card)
+
+    def run(fns):
+        if S == 1 and lanes == 1:
+            scan = fns.scan_sub if subpixel else fns.scan_bounded
+            return scan(fr[0, 0], starts[0], 128, arg["deltas"][0, 0], arg["lo"][0, 0],
+                        arg["hi"][0, 0])
+        if S == 1:
+            scan = fns.scan_sub_batch if subpixel else fns.scan_bounded_batch
+            return scan(fr[0], starts, fills, arg["deltas"][0], arg["lo"][0], arg["hi"][0])
+        if lanes == 1:
+            return fns.scan_bounded_super(fr[:, 0], starts[0], 128, arg["deltas"][:, 0],
+                                          arg["lo"][:, 0], arg["hi"][:, 0], ks[:, 0],
+                                          subpixel=subpixel)
+        return fns.scan_bounded_batch_super(fr, starts + origin0[0], fills, arg["deltas"],
+                                            arg["lo"], arg["hi"], ks, origin0, origin_last,
+                                            subpixel=subpixel)
+
+    want = run(tracker_fns(spec, card, "xla"))
+    for kernel in tk.KERNELS:
+        before = tk.launches_by_kernel[kernel]
+        got = run(tracker_fns(spec, card, "pallas", kernel=kernel))
+        torch.cuda.synchronize()
+        assert tk.launches_by_kernel[kernel] == before + 1
+        if S > 1 and lanes > 1:
+            (got, got_c), (w_out, want_c) = got, want
+            assert torch.equal(got_c, want_c)
+        else:
+            w_out = want
+        _assert_same_out(got, w_out, subpixel)
+
+
+OFF_FRAME_STARTS = [(-1, 50), (-3, 50), (-8, 50), (50, -4), (-5, -5), (103, 50), (50, 104)]
+
+
+@pytest.mark.parametrize("kernel", ["dog_scan", "dog_scan_tiled"])
+def test_off_frame_starts_equal_plain(card, kernel):
+    """Both kernels follow the port's rule for a start off the frame (the
+    patch read at the start clamped into the frame, the argmax mapped back
+    from the start as given): the plain version's positions at the starts of
+    tests/test_torch_offframe.py, on its disc clip and on textured frames,
+    one lane (unbounded and bounded) and all starts as lanes of one launch."""
+    h = w = 100
+    spec = make_spec((h, w), 21, 10, True)
+    yy, xx = np.mgrid[:h, :w]
+    disc = np.full((4, h, w), 128, np.uint8)
+    for t in range(4):
+        disc[t][(yy - 8) ** 2 + (xx - 50 - t) ** 2 <= 36] = 30
+    textured = _textured_lanes(1, 4, h, w, 3)[0][0]
+    fns, plain = tracker_fns(spec, card, "pallas", kernel=kernel), tracker_fns(spec, card, "xla")
+    rng = np.random.default_rng(4)
+    b = {k: torch.from_numpy(v.astype(np.int32)).to(card)
+         for k, v in random_bounds(rng, (4, 2), h, w).items()}
+    for frames in (disc, textured):
+        fr = torch.from_numpy(frames).to(card)
+        for start in OFF_FRAME_STARTS:
+            p0 = torch.tensor(start, dtype=torch.int32, device=card)
+            assert torch.equal(fns.scan(fr, p0, 128), plain.scan(fr, p0, 128)), start
+            bounded = (fr, p0, 128, b["deltas"], b["lo"], b["hi"])
+            assert torch.equal(fns.scan_bounded(*bounded), plain.scan_bounded(*bounded)), start
+            _assert_same_out(fns.scan_sub(*bounded), plain.scan_sub(*bounded), True)
+        starts = torch.tensor(OFF_FRAME_STARTS, dtype=torch.int32, device=card)
+        fills = torch.full((len(OFF_FRAME_STARTS),), 128, dtype=torch.uint8, device=card)
+        assert torch.equal(fns.scan_multi(fr, starts, 128), plain.scan_multi(fr, starts, 128))
+        lanes = fr[None].expand(len(OFF_FRAME_STARTS), -1, -1, -1).contiguous()
+        assert torch.equal(fns.scan_batch(lanes, starts, fills), plain.scan_batch(lanes, starts,
+                                                                                  fills))
+
+
+def test_chooser_on_card(card, tmp_path, monkeypatch):
+    """pick_bounded_engine on the bench shape's ROI geometry (185x185 crop,
+    41x41 window, K = 12), one chain with and without subpixel and 4 lanes:
+    both kernels measured and pinned to the plain version on the three probe
+    inputs; the probe's launches counted apart from the launch counts; the
+    decision kept for the process and in the file, which a fresh session
+    reads without measuring; and the ROI path of track() launching the chosen
+    kernel, equal to engine="pallas"."""
+    from pawsometracker_tpu_torch import pipeline
+
+    monkeypatch.setenv("PAWSOMETRACKER_CACHE", str(tmp_path))
+    monkeypatch.setattr(pipeline, "_session_engine_cache", {})
+    spec = make_spec((185, 185), 41, 25, True)
+    tk.reset_launches()
+    picks = [pipeline.pick_bounded_engine(spec, 12, 128), pipeline.pick_bounded_engine(
+        spec, 12, 128, subpixel=True), pipeline.pick_bounded_engine_batch(spec, 12, 4, 128)]
+    assert tk.launches == 0
+    # each kernel: a warm-up and 3 timed runs on the blob, one run on each tie input
+    assert dict(tk.probe_launches) == {"dog_scan": 3 * 6, "dog_scan_tiled": 3 * 6}
+    for eng, info in picks:
+        assert eng == "pallas" and info["parity"] and info["tie_parity"], info
+        assert info["kernel"] in tk.KERNELS and info["default"] == "dog_scan", info
+        assert info["dog_scan_ms"] > 0 and info["dog_scan_tiled_ms"] > 0 and info["xla_ms"] > 0
+    assert pipeline.pick_bounded_engine(spec, 12, 128) == picks[0]
+    monkeypatch.setattr(pipeline, "_session_engine_cache", {})
+    assert pipeline.pick_bounded_engine(spec, 12, 128) == picks[0]
+    assert sum(tk.probe_launches.values()) == 36  # nothing measured again
+    with open(tmp_path / "engine_cache_torch.json") as f:
+        assert len(json.load(f)) == 3
+
+
+def test_roi_auto_launches_the_chosen_kernel(card, caplog, tmp_path, monkeypatch):
+    """track() on ROI with engine="auto" launches the kernel the chooser chose
+    for its crop, once a dispatch, and equals engine="pallas" (the shape
+    rule) and the CPU run; the chooser's probe adds no launch to the counts."""
+    from pawsometracker_tpu_torch import pipeline
+
+    monkeypatch.setenv("PAWSOMETRACKER_CACHE", str(tmp_path))
+    monkeypatch.setattr(pipeline, "_session_engine_cache", {})
+    caplog.set_level(logging.DEBUG, logger="pawsometracker_tpu_torch")
+    frames, path = _roi_clip()
+    kw = dict(fps=24, start_location=IJ(*path[0]), target_width=8, window_size=21,
+              stream="roi", roi_frames=4, pipeline_depth=2)
+    tk.reset_launches()
+    _, ij = track(frames, **kw)
+    stats = _roi_stats(caplog)
+    [info] = pipeline._session_engine_cache.values()
+    assert sum(tk.probe_launches.values()) > 0
+    assert tk.launches == 1 + stats["dispatches"]
+    assert tk.launches_by_config[f"{info['kernel']}: bounded"] == stats["dispatches"]
+    np.testing.assert_array_equal(ij, track(frames, engine="pallas", **kw)[1])
+    np.testing.assert_array_equal(ij, track(frames, device="cpu", **kw)[1])

@@ -165,9 +165,11 @@ def test_sharded_pallas_bounded_matches_jax(mesh8, pmesh8, subpixel):
 
 def test_select_sharded_bounded(mesh8, pmesh8):
     """engine='pallas' under a mesh needs B % data == 0 in both packages;
-    the port's 'auto'/'pallas' give sharded_pallas_bounded where the batch
-    divides the data axis, and 'xla' (or a batch that does not divide) the
-    tracker's own scan."""
+    'pallas' gives sharded_pallas_bounded where the batch divides the data
+    axis, and 'xla', or 'auto' off the card (the chooser measures nothing
+    there, as JAX's off the TPU: tests/test_sharding.py:104-105), or a batch
+    that does not divide, the tracker's own scan. tests/test_torch_engine.py
+    routes 'auto' with the card gate open."""
     spec = make_spec((64, 64), 15, 6, True)
     tracker = ShardedBatchTracker(spec, pmesh8)
     ref_tracker = ref_mesh.ShardedBatchTracker(ref_make_spec((64, 64), 15, 6, True), mesh8)
@@ -175,10 +177,13 @@ def test_select_sharded_bounded(mesh8, pmesh8):
         ref_select(ref_tracker, ref_tracker.spec, 4, 3, 128, "pallas", mesh8)
     with pytest.raises(ValueError, match="divisible"):
         _select_sharded_bounded(tracker, spec, 4, 3, 128, "pallas", pmesh8)
-    for engine in ("auto", "pallas"):
-        for sub in (False, True):
-            assert (_select_sharded_bounded(tracker, spec, 4, 8, 128, engine, pmesh8, subpixel=sub)
-                    is sharded_pallas_bounded(spec, pmesh8, subpixel=sub))
+    assert ref_select(ref_tracker, ref_tracker.spec, 4, 8, 128, "auto", mesh8) \
+        is ref_tracker.scan_bounded
+    for sub in (False, True):
+        assert (_select_sharded_bounded(tracker, spec, 4, 8, 128, "pallas", pmesh8, subpixel=sub)
+                is sharded_pallas_bounded(spec, pmesh8, subpixel=sub))
+        assert (_select_sharded_bounded(tracker, spec, 4, 8, 128, "auto", pmesh8, subpixel=sub)
+                is (tracker.scan_sub if sub else tracker.scan_bounded))
     assert _select_sharded_bounded(tracker, spec, 4, 8, 128, "xla", pmesh8) is tracker.scan_bounded
     assert _select_sharded_bounded(tracker, spec, 4, 3, 128, "auto", pmesh8) is tracker.scan_bounded
     assert (_select_sharded_bounded(tracker, spec, 4, 8, 128, "xla", pmesh8, subpixel=True)

@@ -3,6 +3,7 @@
 
     python3 tools/dog_scan_tiled_ab.py [--parent DIR] [--variant DIR]
                                        [--order parent,change,change,parent] [--clusters 8,16]
+                                       [--kernel dog_scan|dog_scan_tiled]
 
 Each turn is a fresh process that imports ``pawsometracker_tpu_torch`` from
 one checkout (``change`` is this one, ``parent`` is ``--parent``, for example
@@ -21,8 +22,13 @@ sleep of the card. The shapes are those the tiled kernel takes at 1080p:
   ``target_width=25``, one lane, unbounded) and the 185x185 ROI crop's 12-frame
   bounded chunk that ``track`` launches at 1080p (one lane).
 
-Every case must go to the kernel it is named for (``kernel_for``); the positions and
-offsets of every turn must equal those of the first. Each chunk case is also
+Every case must go to the kernel it is named for (``kernel_for``), or, with
+``--kernel``, every case goes to the kernel named there (the wrappers'
+``kernel=``; a case whose window that kernel cannot take is skipped, and a
+checkout whose wrappers take no ``kernel=`` refuses): so either kernel can
+be timed at the other's shapes, ``dog_scan_tiled`` on the bench shape and the
+185x185 crop. The positions and offsets of every turn must equal those of
+the first. Each chunk case is also
 timed at T = 1, which splits its time into a cost per step and a fixed cost
 per launch, and each case's host time per launch (the wrapper's Python and
 the launch call) is read on the host clock while the card is busy. With
@@ -107,7 +113,7 @@ def disc_frames(n, lanes, radius, dev):
     return frames, paths
 
 
-def worker(out_path: str, clusters: list) -> int:
+def worker(out_path: str, clusters: list, kernel: str | None = None) -> int:
     import numpy as np
     import torch
 
@@ -119,6 +125,9 @@ def worker(out_path: str, clusters: list) -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
     limit = tk._smem_limit(0)
+    if kernel is not None and not hasattr(tk, "kernels_for"):
+        raise SystemExit(f"{ROOT}: its wrappers take no kernel=, so --kernel cannot force one")
+    forced_kernel = {} if kernel is None else {"kernel": kernel}
     cases = {}
     snap_spec = autodetect_spec(make_spec((H, W), 41, 25, True))
     frames, paths = disc_frames(1, 4, 12, dev)
@@ -162,7 +171,8 @@ def worker(out_path: str, clusters: list) -> int:
     args = {}
     for case, (spec, fr, starts, b, sub) in cases.items():
         lanes = fr.shape[0]
-        kw = dict(radii=spec.radii, sigma=spec.sigma, darker_target=True, subpixel=sub)
+        kw = dict(radii=spec.radii, sigma=spec.sigma, darker_target=True, subpixel=sub,
+                  **forced_kernel)
         pos0 = torch.tensor(starts, dtype=torch.int32, device=dev)
         fills = torch.full((lanes,), 128, dtype=torch.uint8, device=dev)
         for steps in {fr.shape[1], 1}:
@@ -182,10 +192,15 @@ def worker(out_path: str, clusters: list) -> int:
     result = {"card": card_line(), "torch": torch.__version__, "cases": {}}
     for case, (spec, fr, starts, b, sub) in cases.items():
         L = spec.kernel_len
-        kernel = tk.kernel_for(spec.radii, L, limit)
         want = "dog_scan" if case.startswith("dog_scan ") else "dog_scan_tiled"
-        if kernel != want:
-            raise SystemExit(f"{case}: kernel_for picks {kernel}, not {want}")
+        if kernel is not None:
+            if kernel not in tk.kernels_for(spec.radii, L, limit):
+                print(f"  {case}: {kernel} does not take this window, skipped", flush=True)
+                continue
+            want = kernel
+        elif tk.kernel_for(spec.radii, L, limit) != want:
+            raise SystemExit(f"{case}: kernel_for picks {tk.kernel_for(spec.radii, L, limit)},"
+                             f" not {want}")
         lanes, steps = fr.shape[0], fr.shape[1]
         entry = {"radii": list(spec.radii), "L": L, "T": steps, "lanes": lanes,
                  **cost(spec.radii, L, steps, lanes), "by_cluster": {}}
@@ -227,13 +242,15 @@ def main() -> int:
                     help="turns, comma-separated (default parent,change,change,parent with "
                          "--parent, else change)")
     ap.add_argument("--clusters", default="", help="cluster sizes to force in the change's turns")
+    ap.add_argument("--kernel", choices=["dog_scan", "dog_scan_tiled"],
+                    help="launch every case on this kernel (skipping windows it cannot take)")
     ap.add_argument("--worker", nargs=2, metavar=("ROOT", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     clusters = [int(c) for c in args.clusters.split(",") if c]
     if args.worker:
         global ROOT
         ROOT = os.path.abspath(args.worker[0])
-        return worker(args.worker[1], clusters)
+        return worker(args.worker[1], clusters, args.kernel)
     import torch
 
     if not torch.cuda.is_available():
@@ -255,7 +272,8 @@ def main() -> int:
         out = os.path.join(out_dir, f"tiled_ab_turn{n}.json")
         env = dict(os.environ, PAWS_KERNEL_BUILD_DIR=os.path.join(out_dir, f"tiled_ab_{who}"))
         r = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", roots[who], out,
-                            "--clusters", args.clusters], env=env)
+                            "--clusters", args.clusters]
+                           + (["--kernel", args.kernel] if args.kernel else []), env=env)
         if r.returncode != 0:
             raise SystemExit(f"turn {n} ({who}) failed with {r.returncode}")
         with open(out) as f:
@@ -296,7 +314,7 @@ def main() -> int:
         if "parent" in roots:
             line += f"; parent/change {row['parent']['auto']['median_ms'] / row['change']['auto']['median_ms']:.3f}x"
         print(line, flush=True)
-    record = {"card": card, "order": order, "cases": summary}
+    record = {"card": card, "order": order, "kernel": args.kernel, "cases": summary}
     with open(os.path.join(out_dir, "dog_scan_tiled_ab.json"), "w") as f:
         json.dump(record, f, indent=1)
     print(json.dumps({"card": card, "cases": {c: {w: r[w]["auto"]["median_ms"] for w in roots}
