@@ -43,14 +43,20 @@ non-zero:
    4 lanes with the carry in the launch (a lane with no real frame and a
    short one in chunk 1; positions and carry), and 1080p 64-frame chunks from
    the last step.
-   Integer positions must be equal, offsets within ``atol=1e-3``.
+   Every case runs on each kernel that takes its window (the shape rule's
+   first; ``dog_scan`` takes windows up to ``target_width`` 63 at the default
+   window, so the large target's and the 461x461 crop's too), and
+   ``dog_scan`` also under each forced cluster size (``SCAN_CLUSTERS`` where
+   it fits, and the largest the card schedules), each against the one plain
+   run of the case. Integer positions must be equal, offsets within
+   ``atol=1e-3``.
 E. The engine choice (``engine="auto"`` on the ROI paths), with the engine
    cache in a fresh directory: ``pick_bounded_engine`` and
    ``pick_bounded_engine_batch`` for every geometry whose bounded scans the
    main paths launch (the 185x185 and 461x461 crops, one chain and 4 lanes,
    with and without subpixel; 1 and 2 lanes, the mesh paths' shards and the
    CLI's ``--batch``) and for the 1080p ROI crops of ``target_width`` 30, 35
-   and 38 (the largest windows ``dog_scan`` takes), each decision printed:
+   and 38 (windows 53, 61 and 69), each decision printed:
    every candidate kernel must give the plain version's positions on the
    probe's blob and both tie frames, and the probe's launches and plain runs
    stay out of the counts. A second call must hit the session cache and a
@@ -74,8 +80,10 @@ E. The engine choice (``engine="auto"`` on the ROI paths), with the engine
      locations given, ``n_targets=4``, and ``subpixel=True``;
    - ``track()`` of a large target: ``target_width=60`` with its default
      window (105x105, L = 149), a disc of radius 30 on the same circle, 480
-     frames, the same three ways; every launch must be ``dog_scan_tiled``,
-     and the ``device="cpu"`` cross-check runs the first 33 frames.
+     frames, the same three ways; every launch at the window must be the
+     shape rule's kernel (``dog_scan``), the autodetect snap
+     ``dog_scan_tiled``, and the ``device="cpu"`` cross-check runs the first
+     33 frames.
    These four stream full frames (``stream="full"``). Then each entry point
    through ``stream="auto"``, which takes the speculative ROI pipeline at
    1080p (as the JAX package does when the crops are under half the frame):
@@ -121,10 +129,13 @@ E. The engine choice (``engine="auto"`` on the ROI paths), with the engine
    unbounded, bounded, bounded+subpixel, the snap; lanes: B = 1, 4 and 16,
    and four targets on shared frames; bounded and bounded+subpixel lanes at
    T=16) and at T=1 (the fixed cost of a launch); the tiled kernel's snap for
-   B = 4 and its T=64 chunk scans at the default windows of ``target_width``
-   40, 60 and 100 (B = 1 and 4, unbounded and bounded+subpixel); the plain
+   B = 4; the T=64 chunk scans at the default windows of ``target_width``
+   40, 60 and 100 (B = 1 and 4, unbounded and bounded+subpixel) on each
+   kernel that takes them; ``dog_scan`` under each forced cluster size at
+   the bench chunk and the 185x185 crop's chunk scans; the plain
    version on the same inputs, each bound and the share of the whole card's,
-   one SM's and (tiled) the cluster's SMs' bound the kernel reaches; one
+   one SM's and the cluster's SMs' bound the kernel reaches, and
+   ``dog_scan``'s time in PR 10 (``PR10_MS``) beside its row; one
    cuDNN ``conv2d`` with the 2-D DoG kernel plus ``argmax`` as the snap's
    library yardstick; end-to-end frames/s of the four paths; and a
    ``torch.profiler`` busy share of one ``track()``, one ``track_batch`` and
@@ -205,13 +216,43 @@ ROI_K = 12
 CHECKPOINT_EVERY = 5.0
 #: frames of each clip that the CLI phase writes as .npy and tracks
 CLI_FRAMES = 96
-#: the target widths of the engine choice's sweep at 1080p ROI: the largest default windows
-#: dog_scan takes (69x69 at 38; from 39 on only dog_scan_tiled)
+#: the target widths of the engine choice's sweep at 1080p ROI: default windows 53, 61 and 69,
+#: where both kernels run (dog_scan takes windows up to target_width 63)
 SWEEP_TW = (30, 35, 38)
+#: dog_scan's cluster sizes phase 1 forces at every window where they fit, beside the card's
+#: own pick and the largest the card schedules: the whole window on one CTA, two CTAs, and
+#: one 7-row block a CTA at the bench window (41 = 6 * 7 - 1)
+SCAN_CLUSTERS = (1, 2, 6)
 #: the PAWS_DISPATCH_GROUP pins the group-dispatch phases drive: phase 2's
 #: checks, and phase 3's end-to-end timing (None: unpinned)
 PINS = (2, 4)
 GROUP_E2E_PINS = (None, 1, 2, 4)
+#: dog_scan's ms a launch in PR 10's last chip_smoke.py run (H100 80GB HBM3, 700 W), before
+#: its redesign as a cluster, by phase-3 timing name: printed beside this run's
+PR10_MS = {
+    "unbounded": 0.5104, "bounded": 0.5125, "bounded+subpixel": 0.5211,
+    "batched unbounded B=1": 0.5103, "batched unbounded B=4": 0.5105,
+    "batched unbounded B=16": 0.5115, "batched shared frames (4 targets)": 0.5105,
+    "batched bounded B=4 (T=16)": 0.1305, "batched bounded+subpixel B=4 (T=16)": 0.1326,
+    "unbounded T=1": 0.0104, "bounded+subpixel T=1": 0.0108, "batched unbounded B=4 T=1": 0.0104,
+    "ROI 185x185 T=12 bounded": 0.1061, "ROI 185x185 T=12 bounded+subpixel": 0.1080,
+    "ROI batch 185x185 B=4 T=12 bounded (lane 2 fill)": 0.1130,
+    "ROI batch 185x185 B=4 T=12 bounded+subpixel (lane 2 fill)": 0.1130,
+    "ROI multi 185x185 4 targets of one stream T=12 bounded": 0.1063,
+    "segments ROI 185x185 one chain T=12 S=1": 0.1110,
+    "segments ROI 185x185 one chain T=12 S=2": 0.2194,
+    "segments ROI 185x185 one chain T=12 S=4": 0.4357,
+    "segments ROI 185x185 B=4 carry T=12 S=1": 0.1112,
+    "segments ROI 185x185 B=4 carry T=12 S=2": 0.2255,
+    "segments ROI 185x185 B=4 carry T=12 S=4": 0.4424,
+    "segments full 1080p T=64 S=1": 0.5103, "segments full 1080p T=64 S=2": 1.0588,
+    "segments full 1080p T=64 S=4": 2.1149,
+    "ROI tw=30 233x233 T=12 bounded": 0.1942, "ROI tw=35 269x269 T=12 bounded": 0.2720,
+    "ROI tw=38 297x297 T=12 bounded": 0.3285,
+    "ROI batch tw=30 233x233 B=4 T=12 bounded": 0.1944,
+    "ROI batch tw=35 269x269 B=4 T=12 bounded": 0.2720,
+    "ROI batch tw=38 297x297 B=4 T=12 bounded": 0.3286,
+}
 #: H100 SXM published peaks: f32 outside the tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -806,34 +847,34 @@ def main() -> int:
                 "hi": np.minimum(ttr + rng.integers(0, 16, size=(steps, 2)), [H - 1, W - 1])}
         tbnd = {k: torch.tensor(v, dtype=torch.int32, device=dev) for k, v in tbnd.items()}
         cases.update({
-            f"tiled tw={tw} unbounded": (own[0], tstarts[0], 128, tkw, {}, False, False),
-            f"tiled tw={tw} bounded": (own[0], tstarts[0], 128, tkw, tbnd, False, False),
-            f"tiled tw={tw} bounded+subpixel": (own[0], tstarts[0], 128, tkw, tbnd, True, False),
-            f"tiled tw={tw} batched own frames": (own, tstarts, lane_fills, tkw, {}, False, True),
-            f"tiled tw={tw} batched shared frames (4 targets)": (tshared, tstarts, shared_fills,
+            f"tw={tw} unbounded": (own[0], tstarts[0], 128, tkw, {}, False, False),
+            f"tw={tw} bounded": (own[0], tstarts[0], 128, tkw, tbnd, False, False),
+            f"tw={tw} bounded+subpixel": (own[0], tstarts[0], 128, tkw, tbnd, True, False),
+            f"tw={tw} batched own frames": (own, tstarts, lane_fills, tkw, {}, False, True),
+            f"tw={tw} batched shared frames (4 targets)": (tshared, tstarts, shared_fills,
                                                                  tkw, {}, False, True),
-            f"tiled tw={tw} batched lane off the frame": (own, toff, lane_fills, tkw, {}, False,
+            f"tw={tw} batched lane off the frame": (own, toff, lane_fills, tkw, {}, False,
                                                           True),
         })
         if tw == LARGE_TW:
             tflat = torch.full((steps, H, W), fill, dtype=torch.uint8, device=dev)
-            cases[f"tiled tw={tw} flat field (ties across CTAs)"] = (tflat, centre, fill, tkw, {},
+            cases[f"tw={tw} flat field (ties across CTAs)"] = (tflat, centre, fill, tkw, {},
                                                                      False, False)
-            cases[f"tiled tw={tw} flat field (ties across CTAs) +subpixel"] = (
+            cases[f"tw={tw} flat field (ties across CTAs) +subpixel"] = (
                 tflat, centre, fill, tkw, {}, True, False)
 
     # the ROI pipeline's chunk scans at the crops it cuts at 1080p: the bench
     # shape (185x185, dog_scan) and the large target (461x461, dog_scan_tiled)
     lspec = make_spec((H, W), guess_window_size(LARGE_TW), LARGE_TW, True)
     lkw = dict(radii=lspec.radii, sigma=lspec.sigma, darker_target=True)
-    roi_cases = {}
+    roi_cases = []
     for label, fr_np, tru, sp, skw in (("185x185", frames_np, truth, spec, kw),
-                                       ("tiled 461x461", large_np, large_truth, lspec, lkw)):
+                                       ("461x461", large_np, large_truth, lspec, lkw)):
         crops, rpos0, rbnd = roi_chunk(fr_np, tru, sp, fill, dev, roi_geometry, _crop_with_fill)
         for sub in (False, True):
             name = f"ROI {label} T={ROI_K} {'bounded+subpixel' if sub else 'bounded'}"
             cases[name] = (crops, rpos0, fill, skw, rbnd, sub, False)
-            roi_cases[name] = "dog_scan_tiled" if label.startswith("tiled") else "dog_scan"
+            roi_cases.append(name)
     # the batch and multi ROI engines' chunk scans (batched bounded, each lane
     # reading its own crops) at both crop sizes: in the batch, lane 2 is pure
     # fill, as a video past its end is; the 4 targets' crops are cut from one
@@ -843,9 +884,8 @@ def main() -> int:
                              LARGE_DISC_R)
     for label, sp, skw, lane_frames, lane_truths, fills_b, stream, stream_truths in (
             ("185x185", spec, kw, clips, truths, BATCH_FILLS, multi_np, multi_truths),
-            ("tiled 461x461", lspec, lkw, [tiled_multi] * B, tiled_truths, (128,) * B,
+            ("461x461", lspec, lkw, [tiled_multi] * B, tiled_truths, (128,) * B,
              tiled_multi, tiled_truths)):
-        kernel = "dog_scan_tiled" if label.startswith("tiled") else "dog_scan"
         lane_frames = [None if b == 2 else f for b, f in enumerate(lane_frames)]
         bcrops, bpos0, bfills, bbnd = roi_lanes(lane_frames, lane_truths, fills_b, sp, dev,
                                                 roi_geometry, _crop_with_fill)
@@ -853,25 +893,52 @@ def main() -> int:
             name = (f"ROI batch {label} B={B} T={ROI_K}"
                     f" {'bounded+subpixel' if sub else 'bounded'} (lane 2 fill)")
             cases[name] = (bcrops, bpos0, bfills, skw, bbnd, sub, True)
-            roi_cases[name] = kernel
+            roi_cases.append(name)
         mcrops, mpos0, mfills, mbnd = roi_lanes([stream] * B, stream_truths, (128,) * B, sp, dev,
                                                 roi_geometry, _crop_with_fill)
         name = f"ROI multi {label} {B} targets of one stream T={ROI_K} bounded"
         cases[name] = (mcrops, mpos0, mfills, skw, mbnd, False, True)
-        roi_cases[name] = kernel
+        roi_cases.append(name)
     del tiled_multi
 
-    def run_kernel(name):
+    def run_kernel(name, kernel=None):
         fr, p0, fl, k, b, sub, batched = cases[name]
         if batched:
-            return tk.dog_scan_batch_cuda(fr, p0, fl, subpixel=sub, **k, **b)
-        return tk.dog_scan_cuda(fr, p0, fl, subpixel=sub, **k, **b)
+            return tk.dog_scan_batch_cuda(fr, p0, fl, subpixel=sub, kernel=kernel, **k, **b)
+        return tk.dog_scan_cuda(fr, p0, fl, subpixel=sub, kernel=kernel, **k, **b)
 
     smem_limit = tk._smem_limit(0)
 
+    def taps_of(k):
+        return tk._taps(k["sigma"], True, dev)[2]
+
     def kernel_of(name):
         k = cases[name][3]
-        return tk.kernel_for(k["radii"], tk._taps(k["sigma"], True, dev)[2], smem_limit)
+        return tk.kernel_for(k["radii"], taps_of(k), smem_limit)
+
+    def scan_clusters(k):
+        """dog_scan's forced cluster sizes at a window: those of SCAN_CLUSTERS
+        that fit, and the largest the card schedules (up to 16)"""
+        fits = [c for c in range(1, tk.MAX_CLUSTER + 1)
+                if tk.scan_plan(k["radii"], taps_of(k), c).smem <= smem_limit
+                and tk._scan_active_clusters(tuple(k["radii"]), taps_of(k), c, 0) > 0]
+        return sorted({c for c in SCAN_CLUSTERS if c in fits} | set(fits[-1:]))
+
+    def checked_runs(k):
+        """(kernel, forced cluster) of each run phase 1 holds to the plain
+        version: the shape rule's kernel first, every other kernel that takes
+        the window, and dog_scan under each forced cluster size"""
+        first = tk.kernel_for(k["radii"], taps_of(k), smem_limit)
+        runs = [(first, None)] + [(kn, None) for kn in tk.kernels_for(k["radii"], taps_of(k),
+                                                                      smem_limit) if kn != first]
+        if "dog_scan" in tk.kernels_for(k["radii"], taps_of(k), smem_limit):
+            runs += [("dog_scan", c) for c in scan_clusters(k)]
+        return runs
+
+    def run_label(name, kernel, cluster, first):
+        if (kernel, cluster) == first:
+            return name
+        return f"{name} [{kernel}" + (f", C={cluster}" if cluster else "") + "]"
 
     def run_plain(name):
         fr, p0, fl, k, b, sub, batched = cases[name]
@@ -882,28 +949,33 @@ def main() -> int:
     phase1 = {}
     for name, (fr, p0, fl, k, b, sub, batched) in cases.items():
         t_case = time.perf_counter()
-        got, want = run_kernel(name), run_plain(name)
-        torch.cuda.synchronize()
-        t_case = time.perf_counter() - t_case
-        gp, wp = (got[0], want[0]) if sub else (got, want)
-        pos_equal = bool(torch.equal(gp, wp))
-        err = float((gp - wp).abs().max())
-        if sub:
-            err = max(err, float((got[1] - want[1]).abs().max()))
-        ok = pos_equal and err <= (OFFSET_ATOL if sub else 0)
-        steps = int(fr.shape[-3])
-        phase1[name] = {"kernel": kernel_of(name), "T": steps,
-                        "lanes": int(p0.shape[0]) if batched else 1,
-                        "positions_equal": pos_equal, "max_abs_err": err, "ok": ok}
-        log(f"phase 1 {name} ({kernel_of(name)}): T={steps} lanes={phase1[name]['lanes']}"
-            f" positions equal={pos_equal} max_abs_err={err:.3g} ({t_case:.2f} s with the plain"
-            f" version) -> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"phase 1 {name}: kernel and plain version disagree")
-        if name.startswith("tiled") and kernel_of(name) != "dog_scan_tiled":
-            raise SystemExit(f"phase 1 {name}: took {kernel_of(name)}, not dog_scan_tiled")
-        if name in roi_cases and kernel_of(name) != roi_cases[name]:
-            raise SystemExit(f"phase 1 {name}: took {kernel_of(name)}, not {roi_cases[name]}")
+        want = run_plain(name)
+        runs = checked_runs(k)
+        for kname, c in runs:
+            tk.scan_cluster = c
+            try:
+                got = run_kernel(name, kname)
+                torch.cuda.synchronize()
+            finally:
+                tk.scan_cluster = None
+            gp, wp = (got[0], want[0]) if sub else (got, want)
+            pos_equal = bool(torch.equal(gp, wp))
+            err = float((gp - wp).abs().max())
+            if sub:
+                err = max(err, float((got[1] - want[1]).abs().max()))
+            ok = pos_equal and err <= (OFFSET_ATOL if sub else 0)
+            steps = int(fr.shape[-3])
+            label = run_label(name, kname, c, runs[0])
+            phase1[label] = {"kernel": kname, "cluster": c, "T": steps,
+                             "lanes": int(p0.shape[0]) if batched else 1,
+                             "positions_equal": pos_equal, "max_abs_err": err, "ok": ok}
+            log(f"phase 1 {label} ({kname}" + (f", C={c} forced" if c else "") + f"): T={steps}"
+                f" lanes={phase1[label]['lanes']} positions equal={pos_equal}"
+                f" max_abs_err={err:.3g} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"phase 1 {label}: kernel and plain version disagree")
+        log(f"phase 1 {name}: {len(runs)} kernel runs against one plain run,"
+            f" {time.perf_counter() - t_case:.2f} s")
     one = tk.dog_scan_batch_cuda(chunk[None], pos0[None], lane_fills[:1], **kw)
     one_ok = bool(torch.equal(one[0], tk.dog_scan_cuda(chunk, pos0, int(BATCH_FILLS[0]), **kw)))
     phase1["batched B=1 equals unbatched"] = {"kernel": "dog_scan", "T": CHUNK, "lanes": 1,
@@ -921,7 +993,7 @@ def main() -> int:
     log(f"phase 1 meshes ({torch.cuda.device_count()} card(s) on this machine): "
         + ", ".join(f"{k} {dict(m.shape)}" for k, m in meshes.items()))
     sharded_cases = {}
-    for label, sp in (("185x185", spec), ("tiled 461x461", lspec)):
+    for label, sp in (("185x185", spec), ("461x461", lspec)):
         ch, cw, _ = roi_geometry(sp, ROI_K, 7, "predict")
         rspec = make_spec((ch, cw), sp.window_size, sp.target_width, True)
         for sub in (False, True):
@@ -979,7 +1051,7 @@ def main() -> int:
                                      _crop_with_fill, seg_ks["one chain"]),
                     roi_segments(clips, truths, BATCH_FILLS, spec, dev, roi_geometry,
                                  _crop_with_fill, seg_ks["4 lanes"])),
-        "tiled 461x461": (lkw, roi_segments([large_np], [large_truth], [fill], lspec, dev,
+        "461x461": (lkw, roi_segments([large_np], [large_truth], [fill], lspec, dev,
                                             roi_geometry, _crop_with_fill, seg_ks["one chain"]),
                           roi_segments([large_np] * B, [circle_path(N_FRAMES)] * B, (128,) * B,
                                        lspec, dev, roi_geometry, _crop_with_fill,
@@ -1016,36 +1088,45 @@ def main() -> int:
 
     def seg_kernel(name):
         k = seg_cases[name][2]
-        return tk.kernel_for(k["radii"], tk._taps(k["sigma"], True, dev)[2], smem_limit)
+        return tk.kernel_for(k["radii"], taps_of(k), smem_limit)
 
-    for name, (kind, _, _, S, sub) in seg_cases.items():
-        before = tk.launches
-        got = run_segments(name)
-        n_launch = tk.launches - before
+    for name, (kind, _, skw_s, S, sub) in seg_cases.items():
         want = run_segments(name, plain=True)
-        torch.cuda.synchronize()
         if kind == "carry":
-            (got, got_c), (want, want_c) = got, want
-            carry_equal = bool(torch.equal(got_c, want_c))
-        else:
+            want, want_c = want
+        runs = checked_runs(skw_s)
+        for kname, c in runs:
+            tk.scan_cluster = c
+            try:
+                before = tk.launches
+                got = run_segments(name, kernel=kname)
+                n_launch = tk.launches - before
+                torch.cuda.synchronize()
+            finally:
+                tk.scan_cluster = None
             carry_equal = True
-        gp, wp = (got[0], want[0]) if sub else (got, want)
-        pos_equal = bool(torch.equal(gp, wp)) and carry_equal
-        err = float((gp - wp).abs().max())
-        if sub:
-            err = max(err, float((got[1] - want[1]).abs().max()))
-        ok = pos_equal and err <= (OFFSET_ATOL if sub else 0) and n_launch == 1
-        lanes_n = B if kind == "carry" else 1
-        phase1[name] = {"kernel": seg_kernel(name), "T": int(gp.shape[-2]), "segments": S,
-                        "lanes": lanes_n, "launches": n_launch, "positions_equal": pos_equal,
-                        "max_abs_err": err, "ok": ok}
-        log(f"phase 1 {name} ({seg_kernel(name)}): {S} segments of T={gp.shape[-2]}, lanes="
-            f"{lanes_n}, one launch={n_launch == 1}, positions"
-            + (" and carry" if kind == "carry" else "") + f" equal={pos_equal}"
-            f" max_abs_err={err:.3g} -> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"phase 1 {name}: the segmented kernel and its plain version disagree")
-    for name in [n for n in cases if n.startswith("tiled ")]:
+            if kind == "carry":
+                got, got_c = got
+                carry_equal = bool(torch.equal(got_c, want_c))
+            gp, wp = (got[0], want[0]) if sub else (got, want)
+            pos_equal = bool(torch.equal(gp, wp)) and carry_equal
+            err = float((gp - wp).abs().max())
+            if sub:
+                err = max(err, float((got[1] - want[1]).abs().max()))
+            ok = pos_equal and err <= (OFFSET_ATOL if sub else 0) and n_launch == 1
+            lanes_n = B if kind == "carry" else 1
+            label = run_label(name, kname, c, runs[0])
+            phase1[label] = {"kernel": kname, "cluster": c, "T": int(gp.shape[-2]),
+                             "segments": S, "lanes": lanes_n, "launches": n_launch,
+                             "positions_equal": pos_equal, "max_abs_err": err, "ok": ok}
+            log(f"phase 1 {label} ({kname}" + (f", C={c} forced" if c else "") + f"): {S}"
+                f" segments of T={gp.shape[-2]}, lanes={lanes_n}, one launch={n_launch == 1},"
+                " positions" + (" and carry" if kind == "carry" else "") + f" equal={pos_equal}"
+                f" max_abs_err={err:.3g} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"phase 1 {label}: the segmented kernel and its plain version"
+                                 " disagree")
+    for name in [n for n in cases if n.startswith("tw=")]:
         del cases[name]
     del flat, mirror, narrow, own, tshared, tflat
     record["phase1"] = phase1
@@ -1068,7 +1149,7 @@ def main() -> int:
     # every geometry whose bounded scans the main paths launch: both crops, one
     # chain and 4 lanes, each with and without subpixel; the shards of the mesh
     # paths (1 and 2 lanes of track_batch ROI; the CLI's --batch of 2 files);
-    # and the largest windows dog_scan takes (target_width 30, 35, 38)
+    # and the sweep's windows (target_width 30, 35, 38)
     geoms = {}  # label: (crop spec, lanes or None, subpixel)
     for label, sp in (("185x185", spec), ("461x461", lspec)):
         for batch in (None, B):
@@ -1155,20 +1236,23 @@ def main() -> int:
                            roi_lanes(clips, truths, BATCH_FILLS, tspec, dev, roi_geometry,
                                      _crop_with_fill))
     rows = {}  # label: (launch(kernel), radii, sigma, steps, subpixel, lanes, plain, pick)
-    for sub in (False, True):
-        tail = "bounded+subpixel" if sub else "bounded"
-        name = f"ROI 185x185 T={ROI_K} {tail}"
-        fr, p0, fl, k, b, _, _ = cases[name]
-        rows[name] = (functools.partial(
-            lambda kern, fr, p0, fl, k, b, sub: tk.dog_scan_cuda(
-                fr, p0, fl, subpixel=sub, kernel=kern, **k, **b), fr=fr, p0=p0, fl=fl, k=k, b=b,
-            sub=sub), k, ROI_K, sub, 1, None, "185x185 L=1" + (" +subpixel" if sub else ""))
-        name = f"ROI batch 185x185 B={B} T={ROI_K} {tail} (lane 2 fill)"
-        fr, p0, fl, k, b, _, _ = cases[name]
-        rows[name] = (functools.partial(
-            lambda kern, fr, p0, fl, k, b, sub: tk.dog_scan_batch_cuda(
-                fr, p0, fl, subpixel=sub, kernel=kern, **k, **b), fr=fr, p0=p0, fl=fl, k=k, b=b,
-            sub=sub), k, ROI_K, sub, B, None, f"185x185 B={B}" + (" +subpixel" if sub else ""))
+    for crop in ("185x185", "461x461"):
+        for sub in (False, True):
+            tail = "bounded+subpixel" if sub else "bounded"
+            name = f"ROI {crop} T={ROI_K} {tail}"
+            fr, p0, fl, k, b, _, _ = cases[name]
+            rows[name] = (functools.partial(
+                lambda kern, fr, p0, fl, k, b, sub: tk.dog_scan_cuda(
+                    fr, p0, fl, subpixel=sub, kernel=kern, **k, **b), fr=fr, p0=p0, fl=fl, k=k,
+                b=b, sub=sub), k, ROI_K, sub, 1, None,
+                f"{crop} L=1" + (" +subpixel" if sub else ""))
+            name = f"ROI batch {crop} B={B} T={ROI_K} {tail} (lane 2 fill)"
+            fr, p0, fl, k, b, _, _ = cases[name]
+            rows[name] = (functools.partial(
+                lambda kern, fr, p0, fl, k, b, sub: tk.dog_scan_batch_cuda(
+                    fr, p0, fl, subpixel=sub, kernel=kern, **k, **b), fr=fr, p0=p0, fl=fl, k=k,
+                b=b, sub=sub), k, ROI_K, sub, B, None,
+                f"{crop} B={B}" + (" +subpixel" if sub else ""))
     for name, lanes_n, glabel in ((f"segments ROI 185x185 one chain T={ROI_K} S=2", 1,
                                    "185x185 L=1"),
                                   (f"segments ROI 185x185 B={B} carry T={ROI_K} S=2", B,
@@ -1197,11 +1281,20 @@ def main() -> int:
         picked = chosen.get(glabel) if glabel else None
         engine_timing[name] = {"pick": picked, "plain_ms": plain_ms, "T": steps,
                                "lanes": lanes_n, "L": case_L, **c}
-        for kname in tk.KERNELS:
+        for kname in tk.kernels_for(skw_r["radii"], case_L, smem_limit):
             ms = cuda_time_ms(functools.partial(launch, kname), reps=20)
             row = {"ms": ms, "us_per_step": 1e3 * ms / steps, "card_bound_share": c["bound_ms"] / ms,
-                   "sm_bound_share": c["sm_bound_ms"] / ms}
+                   "sm_bound_share": c["sm_bound_ms"] / ms,
+                   "pr10_ms": PR10_MS.get(name) if kname == "dog_scan" else None}
             where = ""
+            if kname == "dog_scan":
+                plan = tk._scan_plan(skw_r["radii"], case_L, smem_limit, lanes_n, 0)
+                row.update(cluster=plan.cluster, slots=plan.slots,
+                           cluster_bound_share=c["sm_bound_ms"] / plan.cluster / ms)
+                where = (f", its cluster of {plan.cluster} SMs"
+                         f" {c['sm_bound_ms'] / plan.cluster:.4f} ms"
+                         f" ({100 * row['cluster_bound_share']:.1f}%); PR 10 "
+                         + (f"{PR10_MS[name]:.4f} ms" if name in PR10_MS else "not measured"))
             if kname == "dog_scan_tiled":
                 plan = tk._tiled_plan(skw_r["radii"], case_L, smem_limit, sub, 0)
                 row.update(cluster=plan.cluster, tile=list(plan.tile),
@@ -1289,6 +1382,7 @@ def main() -> int:
     def bounded_launches():
         return sum(bounded_by_kernel().values())
 
+    large_kernel = tk.kernel_for(lspec.radii, lspec.kernel_len, smem_limit)
     # the engine choice's geometry of each ROI path's bounded launches
     roi_geoms = {"track ROI": "185x185 L=1", "track large target ROI": "461x461 L=1",
                  "track_batch ROI": f"185x185 B={B}", "track_multi ROI": f"185x185 B={B}"}
@@ -1405,7 +1499,15 @@ def main() -> int:
             else:
                 ok = ok and out[1].shape[:2] == (MULTI_FRAMES, B)
             if kind == "track large target":
-                ok = ok and n_tiled == n_launch  # every launch is the tiled kernel
+                # every launch at the tracking window takes the shape rule's kernel
+                # (dog_scan, one cluster of 15 CTAs a lane), the autodetect snap
+                # dog_scan_tiled; on ROI the bounded launches the chosen kernel (above)
+                auto = int(name == "autodetect")
+                bounded = roi_stats[path, name] if path in roi_paths else {}
+                at_window = n_launch - auto - bounded.get("bounded_launches", 0)
+                want_tiled = (auto + bounded.get("bounded_by_kernel", {}).get("dog_scan_tiled", 0)
+                              + (at_window if large_kernel == "dog_scan_tiled" else 0))
+                ok = ok and n_tiled == want_tiled
             phase2[f"{path} {name}"] = {"launches": n_launch, "want_launches": want_n,
                                         "tiled_launches": n_tiled,
                                         "plain_runs": n_plain, "rmse_px": errs,
@@ -1691,7 +1793,7 @@ def main() -> int:
                                   device=dev).expand(B, CHUNK, 2).contiguous()}
         for n_lanes in (1, B):
             for sub in (False, True):
-                name = (f"tiled tw={tw} T=64 {'bounded+subpixel' if sub else 'unbounded'}"
+                name = (f"tw={tw} T=64 {'bounded+subpixel' if sub else 'unbounded'}"
                         f" B={n_lanes}")
                 if n_lanes == 1:  # one chain, as track() launches it
                     cases[name] = (tframes[0], tstarts[0], 128, tkw,
@@ -1700,7 +1802,7 @@ def main() -> int:
                     cases[name] = (tframes, tstarts, lane_fills, tkw, box if sub else {}, sub,
                                    True)
                 large_cases.append(name)
-    timed = {  # name: (case, whether the plain version is timed too)
+    timed = {  # name: (case, whether the plain version is timed too[, the kernel])
         "unbounded": ("unbounded", True),
         "bounded": ("bounded", True),
         "bounded+subpixel": ("bounded+subpixel", True),
@@ -1715,28 +1817,42 @@ def main() -> int:
         "bounded+subpixel T=1": ("bounded+subpixel T=1", True),
         "batched unbounded B=4 T=1": ("batched unbounded B=4 T=1", True),
         "batched snap quarter-frame B=4": ("batched snap quarter-frame", True),
+        # the large targets' chunk scans on each kernel that takes their window;
         # the plain version at the large-target path's shape only (~60 ms a step)
-        **{n: (n, n == f"tiled tw={LARGE_TW} T=64 unbounded B=1") for n in large_cases},
+        **{f"{n} [{kn}]": (n, kn == large_kernel and n == f"tw={LARGE_TW} T=64 unbounded B=1",
+                           kn)
+           for n in large_cases for kn in tk.kernels_for(cases[n][3]["radii"],
+                                                         taps_of(cases[n][3]), smem_limit)},
         # the ROI pipeline's chunk scans at its crops, as phase 1 checked them
         **{n: (n, True) for n in roi_cases},
     }
     timing = {}
-    for name, (case, with_plain) in timed.items():
+    for name, (case, with_plain, *kname) in timed.items():
         fr, p0, fl, k, b, sub, batched = cases[case]
+        kname = kname[0] if kname else kernel_of(case)
         n_lanes = int(p0.shape[0]) if batched else 1
         steps = int(fr.shape[-3])
-        ms = cuda_time_ms(lambda: run_kernel(case), reps=20 if steps > 1 else 200)
+        ms = cuda_time_ms(lambda: run_kernel(case, kname), reps=20 if steps > 1 else 200)
         plain_ms = (cuda_time_ms(lambda: run_plain(case), reps=1, warmup=int(case not in large_cases))
                     if with_plain else None)
         case_L = tk._taps(k["sigma"], True, dev)[2]
         c = cost(k["radii"], case_L, steps, sub, bool(b), lanes=n_lanes)
-        timing[name] = {"kernel": kernel_of(case), "config": tk._config_name(bool(b), sub, batched),
+        timing[name] = {"kernel": kname, "config": tk._config_name(bool(b), sub, batched),
                         "T": steps, "lanes": n_lanes, "L": case_L, "ms": ms, "plain_ms": plain_ms,
                         "library_ms": None,
                         **c, "us_per_step": 1e3 * ms / steps, "sm_bound_share": c["sm_bound_ms"] / ms,
-                        "card_bound_share": c["bound_ms"] / ms}
+                        "card_bound_share": c["bound_ms"] / ms, "pr10_ms": PR10_MS.get(name)}
         where = ""
-        if kernel_of(case) == "dog_scan_tiled":  # a chain runs on its cluster's C SMs
+        if kname == "dog_scan":  # a chain runs on its cluster's C SMs
+            plan = tk._scan_plan(k["radii"], case_L, smem_limit, n_lanes, 0)
+            timing[name].update(cluster=plan.cluster, slots=plan.slots, threads=plan.threads,
+                                cluster_bound_ms=c["sm_bound_ms"] / plan.cluster,
+                                cluster_bound_share=c["sm_bound_ms"] / plan.cluster / ms)
+            where = (f"; its cluster of {plan.cluster} SMs {c['sm_bound_ms'] / plan.cluster:.4f}"
+                     f" ms ({100 * c['sm_bound_ms'] / plan.cluster / ms:.1f}% of it reached,"
+                     f" {plan.slots} row block(s) and {plan.threads} threads a CTA); PR 10 "
+                     + (f"{PR10_MS[name]:.4f} ms" if name in PR10_MS else "not measured"))
+        if kname == "dog_scan_tiled":  # a chain runs on its cluster's C SMs
             plan = tk._tiled_plan(k["radii"], case_L, smem_limit, sub, 0)
             timing[name].update(cluster=plan.cluster, tile=list(plan.tile), work=plan.work,
                                 cluster_bound_ms=c["sm_bound_ms"] / plan.cluster,
@@ -1744,12 +1860,29 @@ def main() -> int:
             where = (f"; its cluster of {plan.cluster} SMs {c['sm_bound_ms'] / plan.cluster:.4f}"
                      f" ms ({100 * c['sm_bound_ms'] / plan.cluster / ms:.1f}% of it reached,"
                      f" tiles {plan.tile[0]}x{plan.tile[1]}, work {plan.work:.3f}x the direct taps)")
-        log(f"phase 3 {name} ({kernel_of(case)}): T={steps} lanes={n_lanes} kernel {ms:.4f}"
+        log(f"phase 3 {name} ({kname}): T={steps} lanes={n_lanes} kernel {ms:.4f}"
             f" ms/launch ({1e3 * ms / steps:.2f} us/step), plain "
             + (f"{plain_ms:.3f} ms" if plain_ms is not None else "not measured")
             + f", bound {c['bound_ms']:.6f} ms ({c['bound_by']}, {100 * c['bound_ms'] / ms:.2f}%"
             f" of it reached), one chain on one SM {c['sm_bound_ms']:.4f} ms"
             f" ({100 * c['sm_bound_ms'] / ms:.1f}%){where}")
+    # dog_scan under each forced cluster size at the bench chunk and the
+    # 185x185 crop's chunk scans, beside the card's own pick (timed above)
+    cluster_sweep = {}
+    for case in ("unbounded", f"ROI 185x185 T={ROI_K} bounded",
+                 f"ROI batch 185x185 B={B} T={ROI_K} bounded (lane 2 fill)"):
+        row = {}
+        for cl in scan_clusters(cases[case][3]):
+            tk.scan_cluster = cl
+            try:
+                row[cl] = cuda_time_ms(lambda: run_kernel(case, "dog_scan"), reps=20)
+            finally:
+                tk.scan_cluster = None
+        cluster_sweep[case] = row
+        log(f"phase 3 dog_scan {case} under forced cluster sizes: "
+            + ", ".join(f"C={cl} {v:.4f} ms" for cl, v in row.items())
+            + f"; the card's pick C={timing[case]['cluster']} {timing[case]['ms']:.4f} ms")
+    record["dog_scan_cluster_sweep"] = cluster_sweep
     # what one ROI launch costs the host: the wrapper's checks, the taps and
     # plan lookups, the output allocation and the ctypes call
     wrapper_us = {n: host_us_per_launch(lambda n=n: run_kernel(n)) for n in roi_cases}

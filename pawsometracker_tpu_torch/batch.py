@@ -4,8 +4,7 @@
 JAX package's ``track_batch`` (``pawsometracker_tpu/batch.py``), plus a
 keyword-only ``device``. Every file is an independent video. The per-video
 scan is sequential but independent across videos, so B videos run in one
-launch of the CUDA kernel per chunk, one CTA (one SM, or one cluster for a
-large window) per video.
+launch of the CUDA kernel per chunk, one thread-block cluster per video.
 
 Streaming is the JAX package's: ``stream="auto"`` sends only drift-bounded
 crops of each video to the card when a crop is under half the frame (1080p,

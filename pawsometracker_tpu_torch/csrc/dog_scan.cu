@@ -24,43 +24,64 @@
 //
 // What bounds it: at the bench shape (41x41 window, L = 65, patch 105x105) one step is about
 // 1.56 MFLOP of direct taps (rows 2*2*41*105*65, columns 2*2*41*41*65) on about 11 KB of
-// patch. The recurrence is sequential, so one chain is one CTA on one SM: what bounds a chain
-// is one SM's f32 FMA rate (about 3.1 us a step at 67/132 TFLOP/s) plus the latency of the
-// per-step argmax and its barriers, not the card's memory or its 132-SM peak. Lanes are
-// independent: one CTA per lane (blockIdx.x = b), in waves when B exceeds what the SMs hold.
+// patch. The recurrence is sequential: a step needs the last step's argmax, so the card's
+// 132-SM peak and its memory are far off (about 0.02 us a step). What bounds one chain is
+// the SMs it is spread over: on one SM the FMA rate alone is about 3.1 us a step (67/132
+// TFLOP/s), and a step that spreads over C SMs pays one cluster barrier and one exchange of
+// the maxima through distributed shared memory instead.
 //
-// dog_scan_kernel, the kernel for windows whose working set fits shared memory, is built
-// around that bound:
-//   - register-blocked passes: a thread computes kR adjacent outputs along the pass, keeping
-//     the kR inputs they share as a sliding window in registers (the tap loop is unrolled by
-//     kR, so the window's rotation is static). Per tap it makes one tap-pair load (centre and
-//     surround interleaved as float2) and one input load (converted once) for 2*kR FMAs. The
-//     row-pass sums are stored as (centre, surround) float2 pairs, so the column pass loads
-//     both with one instruction;
-//   - the next frame's patch is prefetched while this step computes: every quantity that
-//     decides it (p, lo[t], hi[t], deltas[t+1]) is known at the start of the step, so the
-//     superset of rows clamp(g(p-ri)+d', 0, H-1)-pad_i .. clamp(g(p+ri)+d', 0, H-1)-pad_i+ph-1
-//     (g = clamp to [lo, hi]; columns alike, at most (2ri+ph) x (2rj+pw)) is copied with
-//     cp.async into the other half of a double buffer. Each row starts at a 16-byte boundary
-//     of the frame, so frames of any width or lane base work; when the width and the lane
-//     base are multiples of 16 every row starts at the same offset (the kAligned variant),
-//     otherwise each row's offset is kept beside the buffer. Out-of-frame cells are written
-//     with the fill. Step 0 loads its patch synchronously, the last step prefetches nothing;
-//   - the response stays in shared memory, and the subpixel neighbours are read from it: the
-//     values the argmax saw;
-//   - the step boundary is two __syncthreads: one after the row pass, one after the column
-//     pass and the per-warp maxima; every warp then reduces the warp maxima itself, every
-//     thread computes the new position, and thread 0 writes the outputs.
-// Shared memory: two u8 supersets, the row-pass sums, the response, the taps (about 91 KB of
-// the 227 KB at the bench shape; dog_scan_smem_bytes). On an H100 a bench-shape step takes
-// about 8 us, 2.6x one SM's FMA bound: the row pass issues ~19 instructions per 14 FMAs on
-// 20 warps, the column pass runs on 8 warps, and the argmax and barriers cost ~1 us
+// dog_scan_kernel, the kernel for windows whose working set fits shared memory, is one
+// thread-block cluster a lane: grid (C, B), cluster dims (C, 1, 1), C <= 16 (above 8 a
+// non-portable size). The window's output rows are cut into row blocks of kR = 7 rows (41 =
+// 6 * 7 - 1); CTA r owns the contiguous blocks [r * slots, (r + 1) * slots), slots = ceil(nbv
+// / C), so C = 6 gives one block a CTA at 41x41 and C = 1 is the whole window on one CTA. A
+// CTA's threads are sized to its work: its row-pass or column-pass items, or a quarter of the
+// 16-byte chunks of its copy, whichever are more, in whole warps (288 at the bench window with
+// C = 6, 640 with C = 1). Per step each CTA:
+//   - prefetches its share of the next step's patch while this step computes: every quantity
+//     that decides it (p, lo[t], hi[t], deltas[t+1]) is known at the start of the step, and
+//     every CTA computes them alike, so each copies the superset of the rows its own blocks
+//     can need, clamp(g(p-ri)+d', 0, H-1)-pad_i+a_lo .. clamp(g(p+ri)+d', 0, H-1)-pad_i+a_lo+
+//     rows+L-1 (g = clamp to [lo, hi]; a_lo its first output row; at most 2ri + slots*kR + L
+//     rows by 4rj + L columns) with cp.async into the other half of a double buffer. No step
+//     waits on a synchronous load. Each row starts at a 16-byte boundary of the frame, so
+//     frames of any width or lane base work; when the width and the lane base are multiples of
+//     16 every row starts at the same offset (the kAligned variant), otherwise each row's
+//     offset is kept beside the buffer. Out-of-frame cells are written with the fill; a chunk
+//     across the frame's edge is read whole by one 16-byte load and its outside bytes replaced
+//     (ROI crops are narrow, so most rows have one). Step 0 loads its rows synchronously, the
+//     last step prefetches nothing;
+//   - runs register-blocked passes over its blocks: a thread computes kR adjacent outputs
+//     along the pass, keeping the kR inputs they share as a sliding window in registers (the
+//     tap loop is unrolled by kR, so the window's rotation is static). Per tap it makes one
+//     tap-pair load (centre and surround interleaved as float2) and one input load (converted
+//     once) for 2*kR FMAs. The row-pass sums are stored as (centre, surround) float2 pairs, so
+//     the column pass loads both with one instruction. One __syncthreads between the passes;
+//   - reduces its (max, column-major index) per warp with keep_better, a total order, so the
+//     result does not depend on C; after one cluster barrier every warp of every CTA reads
+//     the pair of every warp that can hold a column item through distributed shared memory
+//     and computes the same new position: no round trip through global memory, no second
+//     kernel, no second barrier. The pairs and
+//     (with subpixel offsets) each CTA's responses are double-buffered by step parity, so the
+//     next step's writes wait for this step's reads behind the next cluster barrier; CTA 0
+//     reads the four neighbours of the maximum from the CTAs that own them (the values the
+//     argmax saw).
+// Shared memory a CTA: two u8 supersets, its row-pass sums, the taps, its responses by parity
+// (about 45 KB at the bench window with C = 6; dog_scan_smem_bytes). The wrapper picks C from
+// the block count and cudaOccupancyMaxActiveClusters with the launch's lanes in view
+// (ops/tracker_kernel.py::scan_plan); a launch that cannot be scheduled fails and raises.
+// On an H100 a bench-shape step takes about 5.2 us with C = 6 (8.0 us on one CTA before this
+// design), 6.0 us on the 185x185 crop, against a cluster bound of 0.5 us: the passes take about
+// 2.7 us, run by one or two warps a scheduler, too few to hide the latency of one thread's
+// long FMA chain; the cluster barrier and the exchange about 0.7 us; the copy 0.6 us (1.6 on
+// the crop, whose rows are not 16-byte aligned); the rest of the step's fixed work about 1 us
 // (tools/dog_scan_split.py; PERF.md).
 //
-// dog_scan_tiled_kernel takes windows whose working set does not fit: the quarter-frame
-// autodetect snap (271x481 at 1080p) and every chunk scan from target_width 39 up at the
-// default window (69x69 with L = 97 and larger). A step there is 20-100 MFLOP, too much for one
-// SM, so a lane is one thread-block cluster of C <= 16 CTAs (grid (C, B), cluster dims (C,1,1)):
+// dog_scan_tiled_kernel takes windows whose working set does not fit dog_scan's CTAs: the
+// quarter-frame autodetect snap (271x481 at 1080p) and every chunk scan from target_width 64 up
+// at the default window (113x113 with L = 157 and larger). A step there is 20-100 MFLOP, too
+// much for one SM, so a lane is one thread-block cluster of C <= 16 CTAs (grid (C, B), cluster
+// dims (C,1,1)):
 //   - the window is cut into output tiles of 7 rows (one kR block) by the whole window's width,
 //     or by a few column tiles when that does not fit, so a tile's row pass recomputes at most
 //     the L - 1 apron columns of its column tiles (tile_plan in ops/tracker_kernel.py counts the
@@ -76,9 +97,10 @@
 //     parity, so the next step's writes wait for the reads behind the next cluster barrier),
 //     and CTA 0 reads the four neighbours of the maximum from the CTAs that own them: the
 //     values the argmax saw.
-// The wrapper picks between the two kernels by shape (ops/tracker_kernel.py::kernel_for), and
-// picks C from the tile count and cudaOccupancyMaxActiveClusters before the launch; a launch
-// that cannot be scheduled fails and raises.
+// The wrapper picks between the two kernels by shape (ops/tracker_kernel.py::kernel_for: dog_scan
+// where its fewest-slots plan fits), and picks C from the tile count and
+// cudaOccupancyMaxActiveClusters before the launch; a launch that cannot be scheduled fails and
+// raises.
 //
 // Segments: a launch may run S chunk scans of T steps each, one after the other in every lane,
 // as the JAX package's group dispatch runs S scans in one program (pawsometracker_tpu/
@@ -91,14 +113,14 @@
 // rebases), or carry - origin0 of the next segment, the absolute carry becoming the position
 // of step ks-1 plus origin_last at the end of each segment with ks > 0 (a carry: the batched
 // chain; with S = 1 that is make_chained_batch). The chain lives in registers: every thread
-// computes every step's position (dog_scan_tiled: from the cluster's exchange of maxima), so
+// computes every step's position from the cluster's exchange of maxima, so
 // every thread holds the same chain and the host sees no position between segments. A step's
-// arithmetic does not change. In dog_scan the prefetch of a segment's first patch is the
-// superset over the last step's outcomes shifted by the rebase, or the exact patch where the
+// arithmetic does not change. In dog_scan each CTA's prefetch of a segment's first patch is the
+// superset over the last step's outcomes shifted by the rebase, or the exact rows where the
 // chain already holds the start (a segment with ks < T). Both kernels are compiled twice: a
 // launch of one segment without a chain takes the instantiation without segments (kSeg
-// false), so a chunk scan carries no segment state in its registers; dog_scan sits at the
-// register cap of its 640 threads, where that state cost 4% a step.
+// false), so a chunk scan carries no segment state in its registers (both kernels compile for
+// up to 640 threads a CTA, at a register cap where that state cost 4% a step).
 //
 // Summation order decides argmax ties, so the plain PyTorch version
 // (ops/filters.py::separable_correlate_valid) emulates this FMA sequence exactly; both kernels
@@ -216,36 +238,36 @@ struct SegmentChain {
   }
 };
 
-// ---- dog_scan_kernel: register-blocked passes, prefetched next patch -------------------------
+// ---- the cluster and the copies, shared by both kernels -------------------------------------
 
-constexpr int kR = 7;           // outputs per thread along each pass (41 = 6 * 7 - 1)
-constexpr int kThreads = 640;   // 20 warps: the 6 x 105 row-pass items of the bench shape
+constexpr int kR = 7;            // outputs per thread along each pass (41 = 6 * 7 - 1)
+constexpr int kThreads = 640;    // the largest CTA of either kernel: 20 warps
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 16;  // CTAs of one cluster; above 8 a non-portable size
 
-// Shared-memory layout of dog_scan_kernel, from (L, ri, rj); the host sizes the launch with it.
-struct ScanLayout {
-  int nbv, nbh;    // row-pass blocks of kR rows, column-pass blocks of kR columns
-  int brows;       // rows of one superset buffer: 2ri + nbv*kR + L (the row-blocked reads' slack)
-  int pitch;       // bytes of one buffer row: the 4rj + L superset columns, up to 15 bytes of
-                   // row offset, in whole 16-byte chunks
-  int pitch2;      // float2 pairs of one row-pass row: nbh*kR + L, odd (no bank conflicts)
-  long long off_rows, off_taps, off_resp, off_shift, bytes;
-};
+// The cluster's barrier: every thread of every CTA arrives (its shared-memory writes released
+// to the cluster) and waits (the others' acquired).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
-__host__ __device__ inline ScanLayout scan_layout(int L, int ri, int rj) {
-  ScanLayout s;
-  const int wh = 2 * ri + 1, ww = 2 * rj + 1;
-  s.nbv = (wh + kR - 1) / kR;
-  s.nbh = (ww + kR - 1) / kR;
-  s.brows = 2 * ri + s.nbv * kR + L;
-  s.pitch = 16 * ((4 * rj + L + 30) / 16);
-  s.pitch2 = (s.nbh * kR + L) | 1;
-  s.off_rows = 2LL * s.brows * s.pitch;                // [2][brows][pitch] u8 supersets
-  s.off_taps = s.off_rows + 8LL * wh * s.pitch2;       // [wh][pitch2] float2 row-pass sums
-  s.off_resp = s.off_taps + 8LL * L;                   // [L] float2 (centre, surround) taps
-  s.off_shift = s.off_resp + 4LL * wh * ww;            // [wh][ww] f32 response
-  s.bytes = s.off_shift + 8LL * s.brows;               // [2][brows] i32 row offsets
-  return s;
+// Address of `p` (this CTA's shared memory) in CTA `rank`'s shared memory, and loads from it.
+__device__ __forceinline__ unsigned dsmem_addr(const void* p, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ float dsmem_f32(unsigned addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ int dsmem_s32(unsigned addr) {
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -265,15 +287,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // one shift (c0 mod 16) for the whole buffer when kAligned (frame rows and the lane base
 // 16-byte aligned), else each row's own, written to shift[u]. Whole 16-byte chunks inside the
 // frame go by cp.async (the caller commits and waits); chunks wholly outside are stored as
-// fill; a chunk across the frame's edge is copied byte by byte.
+// fill; a chunk across the frame's edge is read whole by one 16-byte load (the aligned block
+// holds a byte of the frame's row, so it lies in mapped memory) and its bytes outside the frame
+// replaced by the fill: one load's latency, not sixteen in a row. Thread tid of nthreads.
 template <bool kAligned>
 __device__ __forceinline__ void load_region(uint8_t* buf, int* shift, const uint8_t* frame, int H,
                                             int W, int r0, int nrows, int c0, int ncols,
-                                            int pitch, int fill, int tid) {
+                                            int pitch, int fill, int tid, int nthreads) {
   const int nch = pitch >> 4;
   const unsigned f4 = 0x01010101u * (unsigned)fill;
   const uint4 f16 = make_uint4(f4, f4, f4, f4);
-  for (int idx = tid; idx < nrows * nch; idx += kThreads) {
+  for (int idx = tid; idx < nrows * nch; idx += nthreads) {
     const int u = idx / nch, j = idx - u * nch;
     const int r = r0 + u;
     const long long roff = (long long)r * W;
@@ -289,10 +313,16 @@ __device__ __forceinline__ void load_region(uint8_t* buf, int* shift, const uint
     } else if (cb >= 0 && cb + 16 <= W) {
       cp_async16(dst, frame + roff + cb);
     } else {
-      for (int b = 0; b < 16; ++b) {
-        const int c = cb + b;
-        dst[b] = (c >= 0 && c < W) ? frame[roff + c] : (uint8_t)fill;
-      }
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(frame + roff + cb));
+      unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int c = cb + 4 * q + b;
+          if (c < 0 || c >= W) w[q] = (w[q] & ~(0xffu << (8 * b))) | ((unsigned)fill << (8 * b));
+        }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
     }
   }
 }
@@ -349,6 +379,45 @@ __device__ __forceinline__ void blocked_taps(const float2* tp, int L, Load load,
   }
 }
 
+// ---- dog_scan_kernel: one cluster a lane, row blocks split over its CTAs, prefetched rows ----
+
+// Shared-memory layout and block size of one CTA of dog_scan_kernel, from (L, ri, rj) and the
+// cluster's C CTAs; the host sizes the launch with it (ops/tracker_kernel.py::scan_plan mirrors
+// it).
+struct ScanLayout {
+  int nbv, nbh;  // row blocks of kR output rows in the window, column blocks of kR columns
+  int slots;     // row blocks of one CTA: ceil(nbv / C); CTA r owns [r * slots, (r + 1) * slots)
+  int threads;   // the CTA's threads: its row-pass (slots * pw) or column-pass (slots * kR * nbh)
+                 // items or a quarter of the chunks of its copy (brows * pitch / 16), whichever
+                 // are more, in whole warps, at most kThreads
+  int brows;     // rows of one superset buffer: 2ri + slots*kR + L (the row-blocked reads' slack)
+  int pitch;     // bytes of one buffer row: the 4rj + L superset columns, up to 15 bytes of
+                 // row offset, in whole 16-byte chunks
+  int pitch2;    // float2 pairs of one row-pass row: nbh*kR + L, odd (no bank conflicts)
+  long long off_rows, off_taps, off_resp, off_shift, bytes;
+};
+
+__host__ __device__ inline ScanLayout scan_layout(int L, int ri, int rj, int cluster) {
+  ScanLayout s;
+  const int wh = 2 * ri + 1, ww = 2 * rj + 1, pw = ww + L - 1;
+  s.nbv = (wh + kR - 1) / kR;
+  s.nbh = (ww + kR - 1) / kR;
+  s.slots = (s.nbv + cluster - 1) / cluster;
+  s.brows = 2 * ri + s.slots * kR + L;
+  s.pitch = 16 * ((4 * rj + L + 30) / 16);
+  const int items = max(max(s.slots * pw, s.slots * kR * s.nbh), s.brows * (s.pitch / 16) / 4);
+  s.threads = min(kThreads, 32 * ((items + 31) / 32));
+  s.pitch2 = (s.nbh * kR + L) | 1;
+  s.off_rows = 2LL * s.brows * s.pitch;                     // [2][brows][pitch] u8 supersets
+  s.off_taps = s.off_rows + 8LL * s.slots * kR * s.pitch2;  // [slots*kR][pitch2] float2 row sums
+  s.off_resp = s.off_taps + 8LL * L;                        // [L] float2 (centre, surround) taps
+  s.off_shift = s.off_resp + 8LL * s.slots * kR * ww;       // [2][slots*kR][ww] f32 responses
+  s.bytes = s.off_shift + 8LL * s.brows;                    // [2][brows] i32 row offsets
+  return s;
+}
+
+// Lane b is the cluster of the C CTAs with blockIdx.y = b; CTA r (blockIdx.x) owns the window's
+// output rows [a_lo, a_lo + nrow): row blocks r * slots .. (r + 1) * slots - 1.
 template <bool kAligned, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T, int H, int W,
@@ -358,11 +427,12 @@ dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T
                 int rj, float direction, int32_t* __restrict__ out_pos,
                 float* __restrict__ out_off, Segments sg) {
   extern __shared__ __align__(16) unsigned char smem[];
-  // this CTA's lane: in segment s its frames [T,H,W] at s * frame_stride + chain * lane_stride,
-  // its rows [T,2] of deltas, lo, hi at s * arg_stride + chain * 2T and of out_pos and out_off
-  // at (s * B + chain) * 2T; pos0 [2] and its fill. Without kSeg (a chunk scan: S = 1, no
-  // chain) s stays 0 and the segment terms compile away.
-  const int chain = blockIdx.x, B = gridDim.x;
+  // this cluster's lane: in segment s its frames [T,H,W] at s * frame_stride + chain *
+  // lane_stride, its rows [T,2] of deltas, lo, hi at s * arg_stride + chain * 2T and of out_pos
+  // and out_off at (s * B + chain) * 2T; pos0 [2] and its fill. Without kSeg (a chunk scan:
+  // S = 1, no chain) s stays 0 and the segment terms compile away.
+  const int chain = blockIdx.y, B = gridDim.y;
+  const int rank = blockIdx.x, C = gridDim.x;  // the grid's x dimension is one cluster
   const long long lane_rows = 2LL * T * chain;
   frames += chain * lane_stride;
   const int fill = fills[chain];
@@ -384,28 +454,36 @@ dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T
     }
   };
 
-  const ScanLayout ly = scan_layout(L, ri, rj);
+  const ScanLayout ly = scan_layout(L, ri, rj, C);
   const int wh = 2 * ri + 1, ww = 2 * rj + 1;
-  const int ph = wh + L - 1, pw = ww + L - 1;
+  const int pw = ww + L - 1;
   const int pad_i = ri + L / 2, pad_j = rj + L / 2;
+  const int band = ly.slots * kR;              // output rows a CTA owns at most
+  const int a_lo = min(rank * band, wh);       // this CTA's first output row
+  const int nrow = min(band, wh - a_lo);       // its output rows (0 for a CTA past the window)
+  const int nblk = (nrow + kR - 1) / kR;       // its row blocks
+  const int prow = nrow + L - 1;               // the patch rows they read
   const int buf_bytes = ly.brows * ly.pitch;
   uint8_t* bufs = smem;                                          // [2][brows][pitch]
-  float2* rows = reinterpret_cast<float2*>(smem + ly.off_rows);  // [wh][pitch2]
+  float2* rows = reinterpret_cast<float2*>(smem + ly.off_rows);  // [band][pitch2]
   float2* tp = reinterpret_cast<float2*>(smem + ly.off_taps);    // [L] (centre, surround)
-  float* resp = reinterpret_cast<float*>(smem + ly.off_resp);    // [wh][ww]
+  float* resp = reinterpret_cast<float*>(smem + ly.off_resp);    // [2][band][ww]
   int* shifts = reinterpret_cast<int*>(smem + ly.off_shift);     // [2][brows]
-  __shared__ float s_v[kWarps];
-  __shared__ int s_k[kWarps];
+  __shared__ float s_v[2][kWarps];  // each warp's (max, column-major index), by step parity
+  __shared__ int s_k[2][kWarps];
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int k = tid; k < L; k += kThreads) tp[k] = make_float2(taps[k], taps[L + k]);
+  const int tid = threadIdx.x, nthreads = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  // the warps that can hold a column-pass item, in any CTA of the cluster: only their maxima
+  // are exchanged
+  const int nwx = min(nthreads >> 5, (band * ly.nbh + 31) / 32);
+  for (int k = tid; k < L; k += nthreads) tp[k] = make_float2(taps[k], taps[L + k]);
   if (!kAligned)
-    for (int k = tid; k < 2 * ly.brows; k += kThreads) shifts[k] = 0;
+    for (int k = tid; k < 2 * ly.brows; k += nthreads) shifts[k] = 0;
   __syncthreads();
 
-  // Every thread carries the position and this step's box in registers: p, deltas[g], lo[g],
-  // hi[g] and deltas[g+1] (the prefetch needs it), the next step's read one step ahead; and
-  // the chain between segments.
+  // Every thread of every CTA carries the position and this step's box in registers: p,
+  // deltas[g], lo[g], hi[g] and deltas[g+1] (the prefetch needs it), the next step's read one
+  // step ahead; and the chain between segments. All compute them alike.
   SegmentChain sc(sg, chain, T);
   int pi = 0, pj = 0;
   if (pos0) {
@@ -430,11 +508,12 @@ dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T
     hi_j = hi[arg_row(0, 0) + 1];
   }
 
-  // step 0's patch, loaded synchronously; (sr0, sc0) is where the current buffer's region
-  // starts in the frame
-  int sr0 = clampi(pi + d0i, 0, H - 1) - pad_i, sc0 = clampi(pj + d0j, 0, W - 1) - pad_j;
-  load_region<kAligned>(bufs, shifts, frame_of(0, 0), H, W, sr0, ph, sc0, pw, ly.pitch, fill,
-                        tid);
+  // step 0's rows of this CTA, loaded synchronously; (sr0, sc0) is where the current buffer's
+  // region starts in the frame
+  int sr0 = clampi(pi + d0i, 0, H - 1) - pad_i + a_lo, sc0 = clampi(pj + d0j, 0, W - 1) - pad_j;
+  if (nrow > 0)
+    load_region<kAligned>(bufs, shifts, frame_of(0, 0), H, W, sr0, prow, sc0, pw, ly.pitch, fill,
+                          tid, nthreads);
   cp_async_wait_all();
   __syncthreads();
 
@@ -442,15 +521,16 @@ dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T
   for (int g = 0; g < G; ++g) {
     int sn = s, tn = t;  // step g+1's
     next(sn, tn);
-    const int cur = g & 1;
-    const uint8_t* bcur = bufs + cur * buf_bytes;
-    const int* shcur = shifts + cur * ly.brows;
+    const int par = g & 1;
+    const uint8_t* bcur = bufs + par * buf_bytes;
+    const int* shcur = shifts + par * ly.brows;
     const int qi = pi + d0i, qj = pj + d0j;  // p
     const int oi = clampi(qi, 0, H - 1) - pad_i, oj = clampi(qj, 0, W - 1) - pad_j;
 
-    // Prefetch the superset of step g+1's patch into the other buffer, and read step g+1's
-    // box and step g+2's rebase. Step g+1 starts from this step's position (plus the rebase
-    // of a segment boundary), or, at a boundary, from a position the chain already holds.
+    // Prefetch this CTA's superset of step g+1's rows into the other buffer, and read step
+    // g+1's box and step g+2's rebase. Step g+1 starts from this step's position (plus the
+    // rebase of a segment boundary), or, at a boundary, from a position the chain already
+    // holds.
     int nsr0 = 0, nsc0 = 0;
     int d2i = 0, d2j = 0, nlo_i = 0, nlo_j = 0, nhi_i = H - 1, nhi_j = W - 1;
     if (g + 1 < G) {
@@ -460,13 +540,15 @@ dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T
       const int aj = fixed ? fj : clampi(qj - rj, lo_j, hi_j) + ofj;
       const int bi = fixed ? fi : clampi(qi + ri, lo_i, hi_i) + ofi;
       const int bj = fixed ? fj : clampi(qj + rj, lo_j, hi_j) + ofj;
-      nsr0 = clampi(ai + d1i, 0, H - 1) - pad_i;
+      nsr0 = clampi(ai + d1i, 0, H - 1) - pad_i + a_lo;
       nsc0 = clampi(aj + d1j, 0, W - 1) - pad_j;
-      const int r1 = clampi(bi + d1i, 0, H - 1) - pad_i + ph;
-      const int c1 = clampi(bj + d1j, 0, W - 1) - pad_j + pw;
-      load_region<kAligned>(bufs + (cur ^ 1) * buf_bytes, shifts + (cur ^ 1) * ly.brows,
-                            frame_of(sn, tn), H, W, nsr0, r1 - nsr0, nsc0, c1 - nsc0, ly.pitch,
-                            fill, tid);
+      if (nrow > 0) {
+        const int r1 = clampi(bi + d1i, 0, H - 1) - pad_i + a_lo + prow;
+        const int c1 = clampi(bj + d1j, 0, W - 1) - pad_j + pw;
+        load_region<kAligned>(bufs + (par ^ 1) * buf_bytes, shifts + (par ^ 1) * ly.brows,
+                              frame_of(sn, tn), H, W, nsr0, r1 - nsr0, nsc0, c1 - nsc0, ly.pitch,
+                              fill, tid, nthreads);
+      }
       cp_async_commit();
       if (deltas) {
         nlo_i = lo[arg_row(sn, tn)];
@@ -482,10 +564,11 @@ dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T
       }
     }
 
-    // Row pass: rows[a][x] = (sum_k gc[k] P[a+k][x], sum_k gs[k] P[a+k][x]), kR rows a thread.
-    const int orow = oi - sr0;
+    // Row pass over this CTA's blocks: rows[a][x] = (sum_k gc[k] P[a_lo+a+k][x], sum_k gs[k]
+    // P[a_lo+a+k][x]), kR rows a thread.
+    const int orow = oi + a_lo - sr0;
     const int ocol = oj - sc0 + (kAligned ? (sc0 & 15) : 0);
-    for (int it = tid; it < ly.nbv * pw; it += kThreads) {
+    for (int it = tid; it < nblk * pw; it += nthreads) {
       const int blk = it / pw, x = it - blk * pw;
       const int a0 = blk * kR;
       const uint8_t* col = bcur + (orow + a0) * ly.pitch + ocol + x;
@@ -497,16 +580,18 @@ dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T
       }, ac, as);
 #pragma unroll
       for (int i = 0; i < kR; ++i)
-        if (a0 + i < wh) rows[(a0 + i) * ly.pitch2 + x] = make_float2(ac[i], as[i]);
+        if (a0 + i < nrow) rows[(a0 + i) * ly.pitch2 + x] = make_float2(ac[i], as[i]);
     }
     __syncthreads();
 
-    // Column pass, kR columns a thread (lanes along the rows), the response kept in shared
-    // memory, and each thread's first maximum in column-major order.
+    // Column pass over this CTA's rows, kR columns a thread (lanes along the rows), the
+    // response kept by step parity with subpixel offsets, and each thread's first maximum in
+    // column-major order.
     float bv = -INFINITY;
     int bk = INT_MAX;
-    for (int it = tid; it < wh * ly.nbh; it += kThreads) {
-      const int blk = it / wh, a = it - blk * wh;
+    float* rcur = resp + par * band * ww;
+    for (int it = tid; it < nrow * ly.nbh; it += nthreads) {
+      const int blk = it / nrow, a = it - blk * nrow;
       const int b0 = blk * kR;
       const float2* rp = rows + a * ly.pitch2 + b0;
       float rc[kR], rs[kR];
@@ -516,22 +601,29 @@ dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T
         const int b = b0 + i;
         if (b < ww) {
           const float v = direction * (rc[i] - rs[i]);
-          resp[a * ww + b] = v;
-          keep_better(v, b * wh + a, bv, bk);
+          if (out_off) rcur[a * ww + b] = v;
+          keep_better(v, b * wh + a_lo + a, bv, bk);
         }
       }
     }
     warp_argmax(bv, bk);
-    if (lane == 0) {
-      s_v[warp] = bv;
-      s_k[warp] = bk;
+    if (lane == 0 && warp < nwx) {
+      s_v[par][warp] = bv;
+      s_k[par][warp] = bk;
     }
-    cp_async_wait_all();  // the next patch has landed (this thread's copies)
-    __syncthreads();      // ... and everyone's; the warp maxima and the response are written
+    cp_async_wait_all();  // this thread's copies of the next rows have landed
 
-    // Every warp reduces the warp maxima; every lane ends with the block's.
-    bv = lane < kWarps ? s_v[lane] : -INFINITY;
-    bk = lane < kWarps ? s_k[lane] : INT_MAX;
+    // The exchange: one cluster barrier, then every warp of every CTA reads the pair of every
+    // warp with column items through distributed shared memory (its own CTA's first) and
+    // reduces them. keep_better is a total order, so the result does not depend on C.
+    cluster_sync();
+    bv = -INFINITY;
+    bk = INT_MAX;
+    for (int i = lane; i < C * nwx; i += 32) {
+      const unsigned cta = (rank + i / nwx) % C, w = i % nwx;
+      keep_better(dsmem_f32(dsmem_addr(&s_v[par][w], cta)),
+                  dsmem_s32(dsmem_addr(&s_k[par][w], cta)), bv, bk);
+    }
     for (int o = 16; o > 0; o >>= 1) {
       const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
       const int ok = __shfl_xor_sync(0xffffffffu, bk, o);
@@ -540,20 +632,31 @@ dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T
     const int row = bk % wh, col = bk / wh;
     const int ni = clampi(qi - ri + row, lo_i, hi_i);
     const int nj = clampi(qj - rj + col, lo_j, hi_j);
-    if (tid == 0) {
-      const long long o = out_row(s, t);
-      out_pos[o] = ni;
-      out_pos[o + 1] = nj;
-      if (out_off) {
-        const float m0 = bv;
-        const float rm = resp[max(row - 1, 0) * ww + col], rp = resp[min(row + 1, wh - 1) * ww + col];
-        const float cm = resp[row * ww + max(col - 1, 0)], cp = resp[row * ww + min(col + 1, ww - 1)];
-        const float den_r = rm - 2.0f * m0 + rp;
-        const float den_c = cm - 2.0f * m0 + cp;
-        const bool int_r = row > 0 && row < wh - 1 && den_r < 0.f;
-        const bool int_c = col > 0 && col < ww - 1 && den_c < 0.f;
-        out_off[o] = int_r ? 0.5f * (rm - rp) / den_r : 0.f;
-        out_off[o + 1] = int_c ? 0.5f * (cm - cp) / den_c : 0.f;
+    if (rank == 0 && warp == 0) {
+      float nv = 0.f;
+      if (out_off && lane < 4) {
+        // the four neighbours of the maximum, read from the responses of the CTAs that own
+        // their rows: the values the argmax saw
+        const int a = lane == 0 ? max(row - 1, 0) : lane == 1 ? min(row + 1, wh - 1) : row;
+        const int b = lane == 2 ? max(col - 1, 0) : lane == 3 ? min(col + 1, ww - 1) : col;
+        const int owner = a / band;
+        nv = dsmem_f32(dsmem_addr(resp + (par * band + a - owner * band) * ww + b, owner));
+      }
+      const float rm = __shfl_sync(0xffffffffu, nv, 0), rp = __shfl_sync(0xffffffffu, nv, 1);
+      const float cm = __shfl_sync(0xffffffffu, nv, 2), cp = __shfl_sync(0xffffffffu, nv, 3);
+      if (lane == 0) {
+        const long long o = out_row(s, t);
+        out_pos[o] = ni;
+        out_pos[o + 1] = nj;
+        if (out_off) {
+          const float m0 = bv;
+          const float den_r = rm - 2.0f * m0 + rp;
+          const float den_c = cm - 2.0f * m0 + cp;
+          const bool int_r = row > 0 && row < wh - 1 && den_r < 0.f;
+          const bool int_c = col > 0 && col < ww - 1 && den_c < 0.f;
+          out_off[o] = int_r ? 0.5f * (rm - rp) / den_r : 0.f;
+          out_off[o + 1] = int_c ? 0.5f * (cm - cp) / den_c : 0.f;
+        }
       }
     }
     pi = ni;
@@ -575,15 +678,15 @@ dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T
     sr0 = nsr0;
     sc0 = nsc0;
   }
-  if (kSeg && sg.carry_out && tid == 0) {
+  // every CTA read carry_in before the first cluster barrier, so it may be overwritten now
+  if (kSeg && sg.carry_out && rank == 0 && tid == 0) {
     sg.carry_out[2 * chain] = sc.ci;
     sg.carry_out[2 * chain + 1] = sc.cj;
   }
+  cluster_sync();  // no CTA leaves while another may still read its shared memory
 }
 
 // ---- dog_scan_tiled_kernel: one thread-block cluster per lane --------------------------------
-
-constexpr int kMaxCluster = 16;  // CTAs of one cluster; above 8 a non-portable size
 
 // Shared-memory layout of one CTA of dog_scan_tiled_kernel, from L, the output tile (th x tw,
 // both multiples of kR) and the response slots (tiles a CTA owns; 0 without subpixel offsets).
@@ -606,31 +709,6 @@ __host__ __device__ inline TiledLayout tiled_layout(int L, int th, int tw, int r
   s.off_shift = s.off_resp + 8LL * resp_slots * th * tw;     // [2][slots][th][tw] f32 response
   s.bytes = s.off_shift + 4LL * s.brows;                     // [brows] i32 row offsets
   return s;
-}
-
-// The cluster's barrier: every thread of every CTA arrives (its shared-memory writes released
-// to the cluster) and waits (the others' acquired).
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// Address of `p` (this CTA's shared memory) in CTA `rank`'s shared memory, and loads from it.
-__device__ __forceinline__ unsigned dsmem_addr(const void* p, unsigned rank) {
-  unsigned out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(out) : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(rank));
-  return out;
-}
-__device__ __forceinline__ float dsmem_f32(unsigned addr) {
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
-  return v;
-}
-__device__ __forceinline__ int dsmem_s32(unsigned addr) {
-  int v;
-  asm volatile("ld.shared::cluster.s32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
-  return v;
 }
 
 // Lane b is the cluster of the C CTAs with blockIdx.y = b; CTA r (blockIdx.x) owns output tiles
@@ -721,7 +799,7 @@ dog_scan_tiled_kernel(const uint8_t* __restrict__ frames, long long lane_stride,
     if (rank < nt) {
       const int tr = rank / ntc, tc = rank - tr * ntc;
       load_region<kAligned>(patch, shifts, frame, H, W, r0 + tr * th, ly.brows, c0 + tc * tw, pw,
-                            ly.pitch, fill, tid);
+                            ly.pitch, fill, tid, kThreads);
     }
     cp_async_wait_all();
     __syncthreads();
@@ -754,7 +832,7 @@ dog_scan_tiled_kernel(const uint8_t* __restrict__ frames, long long lane_stride,
       if (s + 1 < slots && nid < nt) {
         const int nr = nid / ntc, nc = nid - nr * ntc;
         load_region<kAligned>(patch, shifts, frame, H, W, r0 + nr * th, ly.brows, c0 + nc * tw,
-                              pw, ly.pitch, fill, tid);
+                              pw, ly.pitch, fill, tid, kThreads);
         cp_async_commit();
       }
 
@@ -861,10 +939,10 @@ dog_scan_tiled_kernel(const uint8_t* __restrict__ frames, long long lane_stride,
   cluster_sync();  // no CTA leaves while another may still read its shared memory
 }
 
-// Set dog_scan_tiled_kernel's attributes for `smem` bytes of dynamic shared memory and
-// clusters of `cluster` CTAs (a non-portable size above 8).
+// Set a cluster kernel's attributes for `smem` bytes of dynamic shared memory and clusters of
+// `cluster` CTAs (a non-portable size above 8).
 template <class Kernel>
-cudaError_t tiled_attributes(Kernel kernel, long long smem, int cluster) {
+cudaError_t cluster_attributes(Kernel kernel, long long smem, int cluster) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e == cudaSuccess && cluster > 8)
@@ -872,11 +950,12 @@ cudaError_t tiled_attributes(Kernel kernel, long long smem, int cluster) {
   return e;
 }
 
-void tiled_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int cluster, int B,
-                         long long smem, void* stream) {
+// A launch of grid (cluster, B) in clusters of (cluster, 1, 1), `threads` a CTA.
+void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int cluster, int B,
+                    int threads, long long smem, void* stream) {
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(cluster, B, 1);
-  cfg->blockDim = dim3(kThreads, 1, 1);
+  cfg->blockDim = dim3(threads, 1, 1);
   cfg->dynamicSmemBytes = (size_t)smem;
   cfg->stream = (cudaStream_t)stream;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -913,8 +992,11 @@ bool aligned_frames(const void* frames, int W, long long lane_stride, long long 
 
 extern "C" {
 
-// Dynamic shared memory of one dog_scan_kernel launch, in bytes (scan_layout above).
-long long dog_scan_smem_bytes(int L, int ri, int rj) { return scan_layout(L, ri, rj).bytes; }
+// Dynamic shared memory of one CTA of a dog_scan_kernel launch of `cluster` CTAs a lane, in
+// bytes (scan_layout above).
+long long dog_scan_smem_bytes(int L, int ri, int rj, int cluster) {
+  return scan_layout(L, ri, rj, cluster).bytes;
+}
 
 // Dynamic shared memory of one CTA of a dog_scan_tiled_kernel launch, in bytes (tiled_layout
 // above): tiles of tile_h x tile_w, `cluster` CTAs a lane, the response kept with `subpixel`.
@@ -924,8 +1006,8 @@ long long dog_scan_tiled_smem_bytes(int L, int ri, int rj, int tile_h, int tile_
   return tiled_layout(L, tile_h, tile_w, subpixel ? (nt + cluster - 1) / cluster : 0).bytes;
 }
 
-// Both launchers run B lanes of S segments of T steps on `stream` (dog_scan one CTA a lane,
-// dog_scan_tiled one cluster a lane). Device pointers:
+// Both launchers run B lanes of S segments of T steps on `stream`, one thread-block cluster of
+// `cluster` CTAs a lane (grid (cluster, B)). Device pointers:
 // frames u8, segment s of lane b [T,H,W] contiguous at frames + s * frame_stride +
 // b * lane_stride (lane_stride 0: all lanes read the same frames), fills [B] u8, taps [2L] f32
 // (centre then surround), out_pos [S,B,T,2] i32; pos0 [B,2] i32, which a carry replaces and may
@@ -935,29 +1017,53 @@ long long dog_scan_tiled_smem_bytes(int L, int ri, int rj, int tile_h, int tile_
 // ([S][B][2] at s * arg_stride) and come together; S = 1 with none of them is one chunk scan.
 // They return cudaGetLastError() after launch.
 
-// dog_scan_kernel: for windows with dog_scan_smem_bytes within the card's limit.
+// How many clusters of dog_scan_kernel with `cluster` CTAs a lane (its layout for L, ri, rj)
+// the card runs at once (cudaOccupancyMaxActiveClusters), into *n_active; 0 means such a launch
+// cannot be scheduled. The wrapper picks the cluster size from it before it launches.
+int dog_scan_active_clusters(int L, int ri, int rj, int cluster, int* n_active) {
+  *n_active = 0;
+  if (cluster < 1 || cluster > kMaxCluster || L <= 0 || ri < 0 || rj < 0)
+    return (int)cudaErrorInvalidValue;
+  const ScanLayout ly = scan_layout(L, ri, rj, cluster);
+  auto kernel = dog_scan_kernel<true, true>;
+  cudaError_t e = cluster_attributes(kernel, ly.bytes, cluster);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, cluster, 1, ly.threads, ly.bytes, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(n_active, (const void*)kernel, &cfg);
+}
+
+// dog_scan_kernel: a window whose dog_scan_smem_bytes at `cluster` CTAs fit the card's limit,
+// one cluster of `cluster` CTAs a lane (grid (cluster, B)). A launch the card cannot schedule
+// returns its error; nothing runs in its place.
 int dog_scan_launch(const void* frames, long long lane_stride, int B, int T, int H, int W,
                     const void* pos0, const void* fills, const void* deltas, const void* lo,
                     const void* hi, const void* taps, int L, int ri, int rj, float direction,
                     void* out_pos, void* out_off, int S, long long frame_stride,
                     long long arg_stride, const void* ks, const void* origin0,
-                    const void* origin_last, const void* carry_in, void* carry_out,
+                    const void* origin_last, const void* carry_in, void* carry_out, int cluster,
                     void* stream) {
-  if (B <= 0 || T <= 0 || lane_stride < 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || B > 65535 || T <= 0 || lane_stride < 0 || cluster < 1 || cluster > kMaxCluster)
+    return (int)cudaErrorInvalidValue;
   Segments sg;
   cudaError_t e = make_segments(&sg, S, frame_stride, arg_stride, pos0, ks, origin0, origin_last,
                                 carry_in, carry_out);
   if (e != cudaSuccess) return (int)e;
-  const long long smem = dog_scan_smem_bytes(L, ri, rj);
+  const ScanLayout ly = scan_layout(L, ri, rj, cluster);
   const bool al = aligned_frames(frames, W, lane_stride, frame_stride);
   auto kernel = segmented(sg) ? (al ? dog_scan_kernel<true, true> : dog_scan_kernel<false, true>)
                               : (al ? dog_scan_kernel<true, false> : dog_scan_kernel<false, false>);
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  e = cluster_attributes(kernel, ly.bytes, cluster);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<B, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)frames, lane_stride, T, H, W, (const int32_t*)pos0, (const uint8_t*)fills,
-      (const int32_t*)deltas, (const int32_t*)lo, (const int32_t*)hi, (const float*)taps, L, ri,
-      rj, direction, (int32_t*)out_pos, (float*)out_off, sg);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, cluster, B, ly.threads, ly.bytes, stream);
+  e = cudaLaunchKernelEx(&cfg, kernel, (const uint8_t*)frames, lane_stride, T, H, W,
+                         (const int32_t*)pos0, (const uint8_t*)fills, (const int32_t*)deltas,
+                         (const int32_t*)lo, (const int32_t*)hi, (const float*)taps, L, ri, rj,
+                         direction, (int32_t*)out_pos, (float*)out_off, sg);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -968,11 +1074,11 @@ int dog_scan_tiled_active_clusters(int cluster, long long smem, int* n_active) {
   *n_active = 0;
   if (cluster < 1 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
   auto kernel = dog_scan_tiled_kernel<true, true>;
-  cudaError_t e = tiled_attributes(kernel, smem, cluster);
+  cudaError_t e = cluster_attributes(kernel, smem, cluster);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  tiled_config(&cfg, &attr, cluster, 1, smem, nullptr);
+  cluster_config(&cfg, &attr, cluster, 1, kThreads, smem, nullptr);
   return (int)cudaOccupancyMaxActiveClusters(n_active, (const void*)kernel, &cfg);
 }
 
@@ -1001,11 +1107,11 @@ int dog_scan_tiled_launch(const void* frames, long long lane_stride, int B, int 
                     ? (al ? dog_scan_tiled_kernel<true, true> : dog_scan_tiled_kernel<false, true>)
                     : (al ? dog_scan_tiled_kernel<true, false>
                           : dog_scan_tiled_kernel<false, false>);
-  e = tiled_attributes(kernel, smem, cluster);
+  e = cluster_attributes(kernel, smem, cluster);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  tiled_config(&cfg, &attr, cluster, B, smem, stream);
+  cluster_config(&cfg, &attr, cluster, B, kThreads, smem, stream);
   e = cudaLaunchKernelEx(&cfg, kernel, (const uint8_t*)frames, lane_stride, T, H, W,
                          (const int32_t*)pos0, (const uint8_t*)fills, (const int32_t*)deltas,
                          (const int32_t*)lo, (const int32_t*)hi, (const float*)taps, L, ri, rj,

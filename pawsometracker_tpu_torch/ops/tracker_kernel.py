@@ -11,15 +11,17 @@ unbatched configurations:
 
 On a CUDA tensor it launches one of the two kernels of ``csrc/dog_scan.cu``
 (the step loop inside the kernel, see the note there) or raises; it never
-falls back. Which kernel runs is the caller's ``kernel=`` (one of
-:data:`KERNELS`), else a matter of shape (:func:`kernel_for`): ``dog_scan``
-(register-blocked passes, the next patch prefetched) when its working set fits
-shared memory, ``dog_scan_tiled`` (one thread-block cluster a lane, the
-window's tiles spread over its CTAs, :func:`tile_plan`) for larger windows:
-the quarter-frame autodetect snap, and every chunk scan from ``target_width``
-39 up at the default window. ``dog_scan_tiled`` takes any window, so below
-the shared-memory limit both run; the ROI pipelines choose between them by
-measurement (``pipeline.pick_bounded_engine``). On a CPU
+falls back. Both run one thread-block cluster a lane. Which kernel runs is the
+caller's ``kernel=`` (one of :data:`KERNELS`), else a matter of shape
+(:func:`kernel_for`): ``dog_scan`` (the window's row blocks split over the
+cluster's CTAs, each prefetching its rows of the next patch, :func:`scan_plan`)
+when a CTA's working set fits shared memory, ``dog_scan_tiled`` (the window's
+tiles spread over the CTAs, each tile's patch loaded in the step,
+:func:`tile_plan`) for larger windows: the quarter-frame autodetect snap, and
+every chunk scan from ``target_width`` 64 up at the default window.
+``dog_scan_tiled`` takes any window, so below the limit both run; the ROI
+pipelines choose between them by measurement
+(``pipeline.pick_bounded_engine``). On a CPU
 tensor it runs :func:`dog_scan_plain`, a Python loop over steps of the :mod:`.filters`
 ops, which is also what both kernels are held against on the card; there
 ``kernel=`` is checked and has nothing to choose. :data:`launches` counts
@@ -54,7 +56,7 @@ __all__ = ["dog_scan", "dog_scan_plain", "dog_scan_cuda", "dog_scan_batch",
            "dog_scan_batch_segments_plain", "dog_scan_batch_segments_cuda", "launches",
            "launches_by_config", "launches_by_kernel", "reset_launches", "kernel_for",
            "kernels_for", "check_kernel", "probing", "is_probing", "probe_launches",
-           "tile_plan", "TilePlan", "KERNELS", "MAX_CLUSTER"]
+           "tile_plan", "TilePlan", "scan_plan", "ScanPlan", "KERNELS", "MAX_CLUSTER"]
 
 #: kernel launches since import (or the last :func:`reset_launches`)
 launches = 0
@@ -72,13 +74,19 @@ _probing = 0
 
 #: the kernels of csrc/dog_scan.cu, each with its own entry point
 KERNELS = ("dog_scan", "dog_scan_tiled")
-#: outputs per thread of dog_scan's register-blocked passes (kR in the source)
+#: outputs per thread of the kernels' register-blocked passes, and rows of one row block
+#: (kR in the source): dog_scan's CTAs own whole blocks, dog_scan_tiled's tiles are multiples
 SCAN_R = 7
-#: largest thread-block cluster of dog_scan_tiled (above 8 a non-portable size)
+#: largest thread-block cluster of either kernel (above 8 a non-portable size)
 MAX_CLUSTER = 16
+#: most threads of one CTA of either kernel (kThreads in the source)
+MAX_THREADS = 640
 #: when set, dog_scan_tiled launches clusters of exactly this many CTAs (timing and tests);
 #: None lets :func:`tile_plan` and the card pick
 tiled_cluster: int | None = None
+#: when set, dog_scan launches clusters of exactly this many CTAs (timing and tests; 1 is the
+#: whole window on one CTA); None lets :func:`scan_plan` and the card pick
+scan_cluster: int | None = None
 
 
 def reset_launches() -> None:
@@ -306,10 +314,10 @@ def dog_scan_batch_plain(frames: torch.Tensor, pos0: torch.Tensor, fills: torch.
 
 def kernel_for(radii, L: int, smem_limit: int) -> str:
     """The kernel a window of ``radii`` with L taps launches: ``dog_scan`` when
-    its two patch supersets, row-pass sums, response and taps fit
-    ``smem_limit`` bytes of shared memory, else ``dog_scan_tiled``."""
-    fits = _scan_smem_bytes(L, int(radii[0]), int(radii[1])) <= smem_limit
-    return KERNELS[0] if fits else KERNELS[1]
+    one CTA's two patch supersets, row-pass sums, taps and responses fit
+    ``smem_limit`` bytes of shared memory with the window's row blocks spread
+    over the most CTAs (:func:`scan_plan`), else ``dog_scan_tiled``."""
+    return KERNELS[0] if scan_plan(radii, L).smem <= smem_limit else KERNELS[1]
 
 
 def kernels_for(radii, L: int, smem_limit: int) -> tuple:
@@ -335,19 +343,118 @@ def _pick_kernel(kernel, radii, L: int, smem_limit: int) -> str:
     if kernel == KERNELS[0] and kernel_for(radii, L, smem_limit) != KERNELS[0]:
         raise ValueError(f"dog_scan does not take a {2 * int(radii[0]) + 1}x"
                          f"{2 * int(radii[1]) + 1} window with {L} taps: it needs "
-                         f"{_scan_smem_bytes(L, int(radii[0]), int(radii[1]))} bytes of shared "
-                         f"memory, the card has {smem_limit} a block")
+                         f"{scan_plan(radii, L).smem} bytes of shared memory a CTA, the card "
+                         f"has {smem_limit} a block")
     return kernel
 
 
-def _scan_smem_bytes(L: int, ri: int, rj: int) -> int:
-    # mirror of scan_layout in csrc/dog_scan.cu
+class ScanPlan(NamedTuple):
+    """One ``dog_scan`` launch (mirror of ``scan_layout`` in csrc/dog_scan.cu):
+    ``cluster`` CTAs a lane, each owning at most ``slots`` row blocks of
+    ``SCAN_R`` output rows (CTA r the blocks ``[r * slots, (r + 1) * slots)``),
+    with ``threads`` threads and ``smem`` bytes of dynamic shared memory."""
+
+    cluster: int
+    slots: int
+    threads: int
+    smem: int
+
+
+def scan_plan(radii, L: int, cluster: int | None = None) -> ScanPlan:
+    """The ``dog_scan`` launch of a window of ``radii`` with L taps over
+    ``cluster`` CTAs a lane; None takes the fewest CTAs that give each the
+    fewest row blocks (one a CTA up to :data:`MAX_CLUSTER` blocks)."""
+    ri, rj = int(radii[0]), int(radii[1])
     wh, ww = 2 * ri + 1, 2 * rj + 1
-    nbv, nbh = -(-wh // SCAN_R), -(-ww // SCAN_R)
-    brows = 2 * ri + nbv * SCAN_R + L
+    nbv = -(-wh // SCAN_R)
+    if cluster is None:
+        cluster = -(-nbv // -(-nbv // min(MAX_CLUSTER, nbv)))
+    slots = -(-nbv // int(cluster))
+    return ScanPlan(int(cluster), slots, _scan_threads(L, ri, rj, slots),
+                    _scan_smem_bytes(L, ri, rj, slots))
+
+
+def scan_plans(radii, L: int, smem_limit: int, max_cluster: int = MAX_CLUSTER) -> list:
+    """Every ``dog_scan`` launch of a window that fits ``smem_limit`` bytes a
+    CTA, one for each count of row blocks a CTA (fewest first), each with the
+    fewest CTAs that give it, at most ``max_cluster``. Empty when the window
+    does not fit even one block a CTA."""
+    nbv = -(-(2 * int(radii[0]) + 1) // SCAN_R)
+    plans, seen = [], set()
+    for c in range(min(max_cluster, nbv), 0, -1):
+        slots = -(-nbv // c)
+        if slots in seen:
+            continue
+        seen.add(slots)
+        plan = scan_plan(radii, L, -(-nbv // slots))
+        if plan.smem <= smem_limit:
+            plans.append(plan)
+    return plans
+
+
+def _scan_threads(L: int, ri: int, rj: int, slots: int) -> int:
+    # mirror of scan_layout in csrc/dog_scan.cu: a CTA's row-pass or column-pass items, or a
+    # quarter of its copy's 16-byte chunks
+    ww = 2 * rj + 1
+    chunks = (2 * ri + slots * SCAN_R + L) * ((4 * rj + L + 30) // 16)
+    items = max(slots * (ww + L - 1), slots * SCAN_R * -(-ww // SCAN_R), chunks // 4)
+    return min(MAX_THREADS, 32 * -(-items // 32))
+
+
+def _scan_smem_bytes(L: int, ri: int, rj: int, slots: int) -> int:
+    # mirror of scan_layout in csrc/dog_scan.cu: a CTA of `slots` row blocks
+    ww = 2 * rj + 1
+    nbh = -(-ww // SCAN_R)
+    brows = 2 * ri + slots * SCAN_R + L
     pitch = 16 * ((4 * rj + L + 30) // 16)
     pitch2 = (nbh * SCAN_R + L) | 1
-    return 2 * brows * pitch + 8 * wh * pitch2 + 8 * L + 4 * wh * ww + 8 * brows
+    band = slots * SCAN_R
+    return 2 * brows * pitch + 8 * band * pitch2 + 8 * L + 8 * band * ww + 8 * brows
+
+
+def _scan_plan(radii, L: int, smem_limit: int, lanes: int, device_index: int) -> ScanPlan:
+    """:func:`scan_plan` for the card and B = ``lanes``: of :func:`scan_plans`,
+    the one whose lanes finish first by ``cudaOccupancyMaxActiveClusters``
+    (waves of the clusters the card runs at once, times the row blocks a CTA;
+    ties to fewer blocks a CTA), or :data:`scan_cluster` when set. Raises when
+    none can be scheduled."""
+    return _scan_plan_cached((int(radii[0]), int(radii[1])), int(L), int(smem_limit),
+                             int(lanes), int(device_index), scan_cluster)
+
+
+@functools.lru_cache(maxsize=256)
+def _scan_plan_cached(radii, L, smem_limit, lanes, device_index, forced):
+    if forced is not None:
+        plan = scan_plan(radii, L, forced)
+        if (1 <= plan.cluster <= MAX_CLUSTER and plan.smem <= smem_limit
+                and _scan_active_clusters(radii, L, plan.cluster, device_index) > 0):
+            return plan
+    else:
+        best = None
+        for plan in scan_plans(radii, L, smem_limit):
+            n = _scan_active_clusters(radii, L, plan.cluster, device_index)
+            if n > 0:
+                cost = -(-lanes // n) * plan.slots
+                if best is None or cost < best[0]:
+                    best = (cost, plan)
+        if best is not None:
+            return best[1]
+        plan = scan_plan(radii, L)
+    raise RuntimeError(f"dog_scan: the card cannot run a cluster of {plan.cluster} CTAs with "
+                       f"{plan.smem} bytes of shared memory and {plan.threads} threads each")
+
+
+@functools.lru_cache(maxsize=256)
+def _scan_active_clusters(radii, L: int, cluster: int, device_index: int) -> int:
+    """Clusters of ``dog_scan`` with ``cluster`` CTAs a lane that the card runs at once."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _lib().dog_scan_active_clusters(int(L), int(radii[0]), int(radii[1]), int(cluster),
+                                              ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"dog_scan: occupancy query failed: "
+                           f"{_lib().dog_scan_error_string(err).decode()}")
+    return n.value
 
 
 class TilePlan(NamedTuple):
@@ -446,8 +553,10 @@ def _bind(lib):
     common = [vp, i64, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32,
               ctypes.c_float, vp, vp,
               i32, i64, i64, vp, vp, vp, vp, vp]  # the segments
-    lib.dog_scan_launch.argtypes = common + [vp]
+    lib.dog_scan_launch.argtypes = common + [i32, vp]
     lib.dog_scan_launch.restype = i32
+    lib.dog_scan_active_clusters.argtypes = [i32, i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
+    lib.dog_scan_active_clusters.restype = i32
     lib.dog_scan_tiled_launch.argtypes = common + [i32, i32, i32, vp]
     lib.dog_scan_tiled_launch.restype = i32
     lib.dog_scan_tiled_active_clusters.argtypes = [i32, ctypes.c_longlong,
@@ -530,7 +639,8 @@ def _launch(frames, lane_stride: int, B: int, T: int, pos0, fills, deltas, lo, h
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if kernel == "dog_scan":
-            err = lib.dog_scan_launch(*args, stream)
+            plan = _scan_plan(radii, L, limit, B, dev.index or 0)
+            err = lib.dog_scan_launch(*args, plan.cluster, stream)
         else:
             plan = _tiled_plan(radii, L, limit, subpixel, dev.index or 0)
             err = lib.dog_scan_tiled_launch(*args, *plan.tile, plan.cluster, stream)

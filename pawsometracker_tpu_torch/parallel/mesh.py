@@ -8,7 +8,7 @@ videos, one contiguous range of lanes a row of the mesh; ``space`` splits the
 rows of a frame in the whole-frame detector.
 
 :class:`ShardedBatchTracker` gives the batched tracker functions of one spec:
-on one device, B videos per launch of the CUDA kernel (one CTA per video); or,
+on one device, B videos per launch of the CUDA kernel (one cluster per video); or,
 with a mesh, one launch of the same batched function per data shard, on the
 first device of its row and in that device's context. The JAX package's
 tracker replicates over ``space``; the results are the same on every device of

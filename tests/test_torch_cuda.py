@@ -482,6 +482,255 @@ def test_one_step_140_lanes_on_shared_frames_equal_plain(card, field):
     check_batch(card, own, starts, fills, spec.radii, spec.sigma)
 
 
+# ---- dog_scan as one thread-block cluster a lane, under forced cluster sizes ---------
+
+
+def scan_clusters(radii, L):
+    """The cluster sizes the dog_scan tests force: 1 (the whole window on one
+    CTA), 2, 6 and the largest the card schedules at this window (up to 16,
+    CTAs past the window's row blocks owning no row)."""
+    limit = tk._smem_limit(0)
+    fits = [c for c in range(1, tk.MAX_CLUSTER + 1)
+            if tk.scan_plan(radii, L, c).smem <= limit
+            and tk._scan_active_clusters(tuple(radii), L, c, 0) > 0]
+    assert fits
+    return sorted({c for c in (1, 2, 6) if c in fits} | {max(fits)})
+
+
+def equal_under_clusters(monkeypatch, spec, run, run_plain, subpixel):
+    """``run()`` (one dog_scan launch) equals ``run_plain()`` bit for bit under
+    each forced cluster size of :func:`scan_clusters` and the card's own pick."""
+    want = run_plain()
+    for c in scan_clusters(spec.radii, spec.kernel_len) + [None]:
+        monkeypatch.setattr(tk, "scan_cluster", c)
+        before = tk.launches_by_kernel["dog_scan"]
+        got = run()
+        torch.cuda.synchronize()
+        assert tk.launches_by_kernel["dog_scan"] == before + 1
+        if subpixel:
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), f"C={c}"
+        else:
+            assert torch.equal(got, want), f"C={c}"
+
+
+CLUSTER_CFGS = ["unbounded", "bounded", "bounded+subpixel", "unbounded+subpixel"]
+
+
+@pytest.mark.parametrize("cfg", CLUSTER_CFGS)
+@pytest.mark.parametrize("lanes", [1, 4, 16])
+def test_dog_scan_clusters_equal_plain(card, monkeypatch, cfg, lanes):
+    """A 41x41 window (six row blocks) over 12-step chains, one lane or 4 or
+    16 with their own frames and fills, each start moving the chain across
+    the blocks: positions and offsets bit for bit under C = 1, 2, 6 and the
+    largest that schedules."""
+    h, w, T = 130, 150, 12
+    spec = make_spec((h, w), 41, 10, True)
+    kw = dict(radii=spec.radii, sigma=spec.sigma, darker_target=True)
+    sub = cfg.endswith("subpixel")
+    rng = np.random.default_rng(60 + lanes)
+    paths = [[(40 + (b * 7) % 50 + 3 * t, 50 + (b * 11) % 50 + 2 * t) for t in range(T)]
+             for b in range(lanes)]
+    frames = np.stack([ellipse_frames(h, w, p) for p in paths])
+    fills = rng.integers(60, 200, lanes)
+    for b in range(1, lanes, 2):
+        frames[b] = np.where(frames[b] == 128, fills[b], frames[b])
+    fr = torch.from_numpy(frames).to(card)
+    pos0 = torch.tensor([p[0] for p in paths], dtype=torch.int32, device=card)
+    fl = torch.from_numpy(fills.astype(np.uint8)).to(card)
+    b = {}
+    if cfg.startswith("bounded"):
+        b = {k: torch.from_numpy(v.astype(np.int32)).to(card)
+             for k, v in random_bounds(rng, (lanes, T, 2), h, w).items()}
+    if lanes == 1:
+        one = {k: v[0] for k, v in b.items()}
+        equal_under_clusters(
+            monkeypatch, spec, lambda: tk.dog_scan(fr[0], pos0[0], int(fills[0]), subpixel=sub,
+                                                   **kw, **one),
+            lambda: tk.dog_scan_plain(fr[0], pos0[0], int(fills[0]), subpixel=sub, **kw, **one),
+            sub)
+    else:
+        equal_under_clusters(
+            monkeypatch, spec, lambda: tk.dog_scan_batch(fr, pos0, fl, subpixel=sub, **kw, **b),
+            lambda: tk.dog_scan_batch_plain(fr, pos0, fl, subpixel=sub, **kw, **b), sub)
+
+
+@pytest.mark.parametrize("subpixel", [False, True])
+def test_dog_scan_clusters_140_lanes_one_step_shared_frames(card, monkeypatch, subpixel):
+    """T = 1 and 140 lanes reading one frame stream (lane stride 0) from random
+    starts on and off the frame: the clusters run in waves, and each lane's
+    CTAs prefetch nothing."""
+    h, w, B = 120, 150, 140
+    rng = np.random.default_rng(61)
+    spec = make_spec((h, w), 41, 10, True)
+    kw = dict(radii=spec.radii, sigma=spec.sigma, darker_target=True)
+    fr = torch.from_numpy(ellipse_frames(h, w, [(60, 75)])).to(card)
+    pos0 = torch.from_numpy(np.stack([rng.integers(-10, h + 10, B), rng.integers(-10, w + 10, B)],
+                                     1).astype(np.int32)).to(card)
+    fl = torch.from_numpy(rng.integers(0, 256, B).astype(np.uint8)).to(card)
+    equal_under_clusters(
+        monkeypatch, spec, lambda: tk.dog_scan_batch(fr, pos0, fl, subpixel=subpixel, **kw),
+        lambda: tk.dog_scan_batch_plain(fr, pos0, fl, subpixel=subpixel, **kw), subpixel)
+
+
+@pytest.mark.parametrize("carry", [False, True])
+@pytest.mark.parametrize("S", [1, 2, 4])
+def test_dog_scan_cluster_segments_equal_plain(card, monkeypatch, S, carry):
+    """S segments of one launch under each forced cluster size: 4 lanes with
+    the absolute carry (a lane with ks = 0 keeps it, one starting below its
+    crop), or one lane by the ks rule with short segments; bounded, with
+    subpixel offsets."""
+    h, w, T, B = 100, 120, 6, 4
+    spec = make_spec((h, w), 41, 10, True)
+    rng = np.random.default_rng(62 + S)
+    paths = [[(40 + 2 * t * (b % 2), 20 + 25 * b + 2 * t) for t in range(S * T)]
+             for b in range(B)]
+    frames = np.stack([ellipse_frames(h, w, p) for p in paths])
+    frames = np.ascontiguousarray(np.moveaxis(frames.reshape(B, S, T, h, w), 0, 1))
+    fr = torch.from_numpy(frames).to(card)
+    box = {k: torch.from_numpy(v.astype(np.int32)).to(card)
+           for k, v in random_bounds(rng, (S, B, T, 2), h, w).items()}
+    ks_np = np.tile(np.array([T, 3, T, 1][:S])[:, None], (1, B))
+    if S > 1:
+        ks_np[1, 1] = 0
+    ks = torch.from_numpy(ks_np.astype(np.int32)).to(card)
+    fills = torch.tensor([128, 100, 160, 128], dtype=torch.uint8, device=card)
+    kw = dict(radii=spec.radii, sigma=spec.sigma, darker_target=True, subpixel=True)
+    if carry:
+        origin0 = torch.from_numpy(rng.integers(-20, 20, (S, B, 2)).astype(np.int32)).to(card)
+        origin_last = torch.from_numpy(rng.integers(-20, 20, (S, B, 2)).astype(np.int32)).to(card)
+        c0 = torch.tensor([[40, 20], [40, 45], [40, 70], [h + 30, 95]], dtype=torch.int32,
+                          device=card) + origin0[0]
+        seg = dict(ks=ks, origin0=origin0, origin_last=origin_last, **box, **kw)
+        want = tk.dog_scan_batch_segments_plain(fr, None, fills, carry=c0, **seg)
+        for c in scan_clusters(spec.radii, spec.kernel_len) + [None]:
+            monkeypatch.setattr(tk, "scan_cluster", c)
+            got = tk.dog_scan_batch_segments(fr, None, fills, carry=c0.clone(), kernel="dog_scan",
+                                             **seg)
+            torch.cuda.synchronize()
+            assert torch.equal(got[1], want[1]), f"C={c}: carry"
+            _assert_same_out(got[0], want[0], True)
+        return
+    one = {k: v[:, 0].contiguous() for k, v in box.items()}
+    pos0 = torch.tensor(paths[0][0], dtype=torch.int32, device=card)
+    equal_under_clusters(
+        monkeypatch, spec,
+        lambda: tk.dog_scan_segments(fr[:, 0], pos0, 128, ks=ks[:, 0].contiguous(),
+                                     kernel="dog_scan", **one, **kw),
+        lambda: tk.dog_scan_segments_plain(fr[:, 0], pos0, 128, ks=ks[:, 0].contiguous(), **one,
+                                           **kw), True)
+
+
+@pytest.mark.parametrize("shape", [(70, 1918), (90, 641), (80, 1920)])
+def test_dog_scan_cluster_unaligned_widths_equal_plain(card, monkeypatch, shape):
+    """Widths 1918 and 641 (each row of a CTA's superset at its own offset),
+    and a 16-aligned width read at a lane base that is not 16-byte aligned,
+    under each forced cluster size, with subpixel offsets."""
+    h, w = shape
+    T = 5
+    path = [(h // 2 + 3 * t, w // 2 - 5 * t) for t in range(T)]
+    spec = make_spec((h, w), 41, 10, True)
+    kw = dict(radii=spec.radii, sigma=spec.sigma, darker_target=True, subpixel=True)
+    fr = torch.from_numpy(ellipse_frames(h, w, path)).to(card)
+    if w % 16 == 0:
+        flat = torch.zeros(fr.numel() + 3, dtype=torch.uint8, device=card)
+        flat[3:] = fr.reshape(-1)
+        fr = flat[3:].view(T, h, w)
+        assert fr.data_ptr() % 16 != 0
+    pos0 = torch.tensor(path[0], dtype=torch.int32, device=card)
+    equal_under_clusters(monkeypatch, spec, lambda: tk.dog_scan(fr, pos0, 90, **kw),
+                         lambda: tk.dog_scan_plain(fr, pos0, 90, **kw), True)
+
+
+def test_dog_scan_cluster_off_frame_starts_equal_plain(card, monkeypatch):
+    """Starts off every side and corner of the frame, 8 lanes in one launch:
+    each CTA's rows of the patch run off the frame, where they take the fill."""
+    h, w, T = 90, 118, 6
+    spec = make_spec((h, w), 41, 10, True)
+    kw = dict(radii=spec.radii, sigma=spec.sigma, darker_target=True, subpixel=True)
+    starts = [(-30, -45), (120, 160), (-8, 50), (50, -4), (103, 50), (50, 130), (-25, 140),
+              (100, -20)]
+    fr = torch.from_numpy(ellipse_frames(h, w, [(45 + t, 60 - t) for t in range(T)])).to(card)
+    pos0 = torch.tensor(starts, dtype=torch.int32, device=card)
+    fl = torch.tensor([77, 0, 255, 128, 77, 30, 200, 128], dtype=torch.uint8, device=card)
+    equal_under_clusters(monkeypatch, spec, lambda: tk.dog_scan_batch(fr, pos0, fl, **kw),
+                         lambda: tk.dog_scan_batch_plain(fr, pos0, fl, **kw), True)
+
+
+def periodic_rows(h, w, phase, period=9):
+    """128-gray with a dark 3x4 mark every ``period`` rows in columns 57-60:
+    patches ``period`` rows apart are equal, so a window's maximum ties
+    exactly across row blocks."""
+    f = np.full((h, w), 128, np.uint8)
+    rows = (np.arange(h) - phase) % period < 3
+    f[rows, 57:61] = 40
+    return f
+
+
+@pytest.mark.parametrize("field", ["flat", "ties 9 rows apart, first in block 1",
+                                   "ties 9 rows apart, first on row 6"])
+def test_dog_scan_ties_across_cta_blocks_equal_plain(card, monkeypatch, field):
+    """Exact ties that fall in different CTAs' row blocks: a flat field (every
+    window cell ties), and marks repeating every 9 rows, whose equal maxima
+    lie in every block of a 41x41 window (at step 0 the first in column-major
+    order on window row 7 or 8, in the second CTA's block at C = 6, or on row 6,
+    the last of the first block): the cluster's maximum is the first in
+    column-major order, as the plain version's, under every cluster size."""
+    h, w, T = 160, 120, 6
+    spec = make_spec((h, w), 41, 10, True)
+    kw = dict(radii=spec.radii, sigma=spec.sigma, darker_target=True)
+    phase = {"flat": None, "ties 9 rows apart, first in block 1": 3,
+             "ties 9 rows apart, first on row 6": 2}[field]
+    frame = np.full((h, w), 128, np.uint8) if phase is None else periodic_rows(h, w, phase)
+    fr = torch.from_numpy(np.repeat(frame[None], T, 0)).to(card)
+    pos0 = torch.tensor([80, 60], dtype=torch.int32, device=card)
+    first = tk.dog_scan_plain(fr[:1], pos0, 128, **kw)[0].cpu().numpy()
+    if phase is not None:  # window row of step 0's maximum: 60 + (row - 20)
+        assert first[0] - (80 - spec.radii[0]) == {3: 7, 2: 6}[phase]
+    for sub in (False, True):
+        equal_under_clusters(monkeypatch, spec,
+                             lambda: tk.dog_scan(fr, pos0, 128, subpixel=sub, **kw),
+                             lambda: tk.dog_scan_plain(fr, pos0, 128, subpixel=sub, **kw), sub)
+    fl = torch.tensor([128, 90, 128], dtype=torch.uint8, device=card)
+    starts = torch.tensor([[80, 60], [70, 55], [95, 64]], dtype=torch.int32, device=card)
+    equal_under_clusters(monkeypatch, spec, lambda: tk.dog_scan_batch(fr, starts, fl, **kw),
+                         lambda: tk.dog_scan_batch_plain(fr, starts, fl, **kw), False)
+
+
+@pytest.mark.parametrize("row", [6, 7, 13, 14, 34, 35])
+def test_dog_scan_subpixel_max_on_block_boundary_equal_plain(card, monkeypatch, row):
+    """A disc whose maximum lies on window row 6, 7, 13, 14, 34 or 35, next to
+    a row block boundary, so at C = 6 the neighbour above or below is read
+    from another CTA's responses; shades below and beside the disc make both
+    offsets nonzero: offsets bit for bit, under every cluster size."""
+    h, w, T = 130, 130, 3
+    spec = make_spec((h, w), 41, 10, True)
+    kw = dict(radii=spec.radii, sigma=spec.sigma, darker_target=True, subpixel=True)
+    p = (65, 65)
+    ci, cj = p[0] - spec.radii[0] + row, p[1] + 3
+    frames = ellipse_frames(h, w, [(ci, cj)] * T, ry=4, rx=3)
+    frames[:, ci + 5, cj - 2:cj + 3] = 70
+    frames[:, ci - 1:ci + 2, cj + 4] = 70
+    fr = torch.from_numpy(frames).to(card)
+    pos0 = torch.tensor(p, dtype=torch.int32, device=card)
+    first, off = tk.dog_scan_plain(fr[:1], pos0, 128, **kw)
+    assert tuple(first[0].tolist()) == (ci, cj) and bool((off[0].abs() > 0.1).all())
+    equal_under_clusters(monkeypatch, spec, lambda: tk.dog_scan(fr, pos0, 128, **kw),
+                         lambda: tk.dog_scan_plain(fr, pos0, 128, **kw), True)
+
+
+def test_dog_scan_forced_cluster_that_cannot_run_raises(card, monkeypatch):
+    """A cluster above the largest the kernel takes raises; nothing runs in its
+    place."""
+    spec = make_spec((60, 60), 21, 10, True)
+    monkeypatch.setattr(tk, "scan_cluster", tk.MAX_CLUSTER + 1)
+    fr = torch.zeros((2, 60, 60), dtype=torch.uint8, device=card)
+    before = tk.launches
+    with pytest.raises(RuntimeError, match="dog_scan"):
+        tk.dog_scan(fr, torch.tensor([30, 30], dtype=torch.int32, device=card), 0,
+                    radii=spec.radii, sigma=spec.sigma, darker_target=True, kernel="dog_scan")
+    assert tk.launches == before
+
+
 # ---- the speculative ROI pipeline on the card --------------------------------------
 
 
@@ -587,12 +836,15 @@ def test_roi_buffers_wait_for_copy_and_scan(card, monkeypatch):
 
 
 def test_roi_large_target_takes_tiled_bounded(card, caplog):
-    """At a window too large for dog_scan every ROI chunk launch is
+    """At a window too large for dog_scan (151x151 with L = 77: 22 row blocks,
+    two a CTA, over the shared memory a CTA may use) every ROI chunk launch is
     dog_scan_tiled's bounded configuration."""
     caplog.set_level(logging.DEBUG, logger="pawsometracker_tpu_torch")
     frames, path = _roi_clip(T=12, h=400, w=400)
-    kw = dict(fps=24, start_location=IJ(*path[0]), target_width=8, window_size=(151, 151),
+    kw = dict(fps=24, start_location=IJ(*path[0]), target_width=30, window_size=(151, 151),
               stream="roi", roi_frames=4, pipeline_depth=1)
+    spec = make_spec((400, 400), (151, 151), 30, True)
+    assert tk.kernels_for(spec.radii, spec.kernel_len, tk._smem_limit(0)) == ("dog_scan_tiled",)
     tk.reset_launches()
     _, ij = track(frames, **kw)
     stats = _roi_stats(caplog)
@@ -1103,7 +1355,7 @@ def test_either_kernel_by_name_equals_plain(card, window, crop, lanes, S, subpix
     crop, and 77x77 at the same L = 65): each named kernel's bounded scan
     equals the plain version bit for bit, launching that kernel, for one lane
     and 4, one chunk and 2 chained segments (the batched chain's carry in the
-    launch). dog_scan_tiled runs here below target_width 39 and on
+    launch). dog_scan_tiled runs here below target_width 64 and on
     one-register-block tiles (7 rows) over a cluster of 6 and 11 CTAs."""
     T, h = 12, crop
     spec = make_spec((h, h), window, 25, True)

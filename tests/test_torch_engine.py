@@ -39,7 +39,7 @@ CPU = torch.device("cpu")
 H100_SMEM = 232448
 # a crop both kernels take (dog_scan fits), and one only dog_scan_tiled takes
 SPEC = make_spec((33, 33), 15, 6, True)
-BIG = make_spec((40, 40), (151, 151), 6, True)
+BIG = make_spec((40, 40), (151, 301), 6, True)
 
 
 @pytest.fixture
@@ -426,7 +426,7 @@ def test_kernel_names_are_checked():
     assert tk._pick_kernel(None, SPEC.radii, SPEC.kernel_len, H100_SMEM) == "dog_scan"
     assert tk._pick_kernel("dog_scan_tiled", SPEC.radii, SPEC.kernel_len, H100_SMEM) == \
         "dog_scan_tiled"
-    with pytest.raises(ValueError, match="dog_scan does not take a 151x151 window"):
+    with pytest.raises(ValueError, match="dog_scan does not take a 151x301 window"):
         tk._pick_kernel("dog_scan", BIG.radii, BIG.kernel_len, H100_SMEM)
 
 

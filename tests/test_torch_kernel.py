@@ -382,21 +382,30 @@ def test_smem_formula_matches_kernel_source():
     # 7x549 float2 row sums, 65 tap pairs, 2x3x7x483 f32 responses, 72 row offsets
     assert tk._tiled_smem_bytes(65, 7, 483, 3) == (72 * 576 + 8 * 7 * 549 + 8 * 65
                                                    + 8 * 3 * 7 * 483 + 4 * 72)
-    # dog_scan_kernel: scan_layout
+    # dog_scan_kernel: scan_layout, a CTA of `slots` row blocks
     assert f"constexpr int kR = {tk.SCAN_R};" in src
-    for line in ("s.brows = 2 * ri + s.nbv * kR + L;",
+    assert f"constexpr int kThreads = {tk.MAX_THREADS};" in src
+    for line in ("s.slots = (s.nbv + cluster - 1) / cluster;",
+                 "s.brows = 2 * ri + s.slots * kR + L;",
+                 "const int items = max(max(s.slots * pw, s.slots * kR * s.nbh), "
+                 "s.brows * (s.pitch / 16) / 4);",
+                 "s.threads = min(kThreads, 32 * ((items + 31) / 32));",
                  "s.pitch = 16 * ((4 * rj + L + 30) / 16);",
                  "s.pitch2 = (s.nbh * kR + L) | 1;",
                  "s.off_rows = 2LL * s.brows * s.pitch;",
-                 "s.off_taps = s.off_rows + 8LL * wh * s.pitch2;",
+                 "s.off_taps = s.off_rows + 8LL * s.slots * kR * s.pitch2;",
                  "s.off_resp = s.off_taps + 8LL * L;",
-                 "s.off_shift = s.off_resp + 4LL * wh * ww;",
+                 "s.off_shift = s.off_resp + 8LL * s.slots * kR * ww;",
                  "s.bytes = s.off_shift + 8LL * s.brows;"):
         assert line in src, line
-    # bench shape: two 147x160 u8 supersets, 41x107 float2 row sums, 65 tap pairs,
-    # the 41x41 response, 2x147 row offsets
-    assert tk._scan_smem_bytes(65, 20, 20) == (2 * 147 * 160 + 8 * 41 * 107 + 8 * 65
-                                               + 4 * 41 * 41 + 8 * 147)
+    # bench shape, C = 6, one row block a CTA: two 112x160 u8 supersets, 7x107 float2 row
+    # sums, 65 tap pairs, 2x7x41 f32 responses, 2x112 row offsets; 105 row-pass items, and
+    # 1120 chunks to copy a step, so 9 warps (280 threads, four chunks each)
+    assert tk.scan_plan((20, 20), 65) == (6, 1, 288, 2 * 112 * 160 + 8 * 7 * 107 + 8 * 65
+                                          + 8 * 7 * 41 + 8 * 112)
+    # C = 1, the whole window on one CTA: 147-row supersets, 42 rows of sums, 630 items
+    assert tk.scan_plan((20, 20), 65, 1) == (1, 6, 640, 2 * 147 * 160 + 8 * 42 * 107 + 8 * 65
+                                             + 8 * 42 * 41 + 8 * 147)
 
 
 @pytest.mark.parametrize("radii,L,want", [
@@ -407,15 +416,98 @@ def test_smem_formula_matches_kernel_source():
     ((0, 0), 65, "dog_scan"),
 ])
 def test_kernel_for_picks_by_shape(radii, L, want):
-    """The bench window takes the register-blocked kernel, the quarter-frame
-    snap the tiled one: a shape dispatch between two kernels, each fitting."""
+    """The bench window takes dog_scan, the quarter-frame snap the tiled one:
+    a shape dispatch between two kernels, each fitting; dog_scan where its
+    fewest-blocks plan (the window's row blocks over at most 16 CTAs) fits."""
     limit = 232448
     assert tk.kernel_for(radii, L, limit) == want
     if want == "dog_scan":
-        assert tk._scan_smem_bytes(L, *radii) <= limit
+        assert tk.scan_plan(radii, L).smem <= limit
+        assert tk.scan_plans(radii, L, limit)[0] == tk.scan_plan(radii, L)
     else:
-        assert tk._scan_smem_bytes(L, *radii) > limit
+        assert tk.scan_plan(radii, L).smem > limit and tk.scan_plans(radii, L, limit) == []
         assert tk.tile_plan(radii, L, limit, subpixel=True).smem <= limit
+
+
+def scan_owners(plan, radii):
+    """Which CTA owns each output row of the window, by the kernel's indexing
+    (csrc/dog_scan.cu, dog_scan_kernel): CTA r takes the rows [a_lo, a_lo +
+    nrow) of row blocks r * slots .. (r + 1) * slots - 1; -1 where none does."""
+    wh = 2 * radii[0] + 1
+    band = plan.slots * tk.SCAN_R
+    rank = np.full(wh, -1)
+    for r in range(plan.cluster):
+        a_lo = min(r * band, wh)
+        nrow = min(band, wh - a_lo)
+        assert (rank[a_lo:a_lo + nrow] == -1).all(), "a row owned twice"
+        rank[a_lo:a_lo + nrow] = r
+    return rank
+
+
+@pytest.mark.parametrize("radii,L", PLAN_WINDOWS)
+def test_scan_plans_fit_and_own_every_row_once(radii, L):
+    """scan_plans: one plan a count of row blocks a CTA, fewest first, each
+    with the fewest CTAs (at most 16) that give it, each fitting the limit;
+    every output row of the window is owned by exactly one CTA, no CTA owns
+    more than its slots, and a CTA's threads cover its row-pass items or 640."""
+    limit = 232448
+    plans = tk.scan_plans(radii, L, limit)
+    nbv = -(-(2 * radii[0] + 1) // tk.SCAN_R)
+    assert [p.slots for p in plans] == sorted({p.slots for p in plans})
+    for plan in plans:
+        assert plan.smem == tk._scan_smem_bytes(L, *radii, plan.slots) <= limit
+        assert 1 <= plan.cluster <= min(tk.MAX_CLUSTER, nbv)
+        assert plan.slots == -(-nbv // plan.cluster) and plan == tk.scan_plan(radii, L,
+                                                                             plan.cluster)
+        assert (plan.slots - 1) * plan.cluster < nbv  # no fewer CTAs give these slots
+        assert (scan_owners(plan, radii) >= 0).all()
+        items = plan.slots * (2 * radii[1] + L)
+        assert plan.threads % 32 == 0 and min(items, 640) <= plan.threads <= 640
+    if plans:
+        assert plans[-1].cluster == 1 or plans[-1].smem == max(p.smem for p in plans)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 5, 6, 16])
+def test_scan_plan_forced_cluster_owns_every_row_once(cluster):
+    """A cluster size forced for timing or tests, even above the block count
+    (the CTAs past the window own no row and only join the barriers), still
+    covers the window's rows once; the subpixel lookup finds each row at its
+    owner (row // (slots * 7))."""
+    radii, L = (20, 20), 65
+    plan = tk.scan_plan(radii, L, cluster)
+    assert plan.cluster == cluster and plan.slots == -(-6 // cluster)
+    rank = scan_owners(plan, radii)
+    assert (rank >= 0).all()
+    assert (rank == np.arange(41) // (plan.slots * tk.SCAN_R)).all()
+
+
+def test_scan_plan_on_the_card_weighs_lanes_against_blocks(monkeypatch):
+    """The card's plan: the fewest blocks a CTA while the lanes' clusters run
+    in one wave; past that the plan whose waves times blocks is least (the
+    card's occupancy query stubbed); a forced size the card cannot schedule,
+    or no schedulable plan, raises."""
+    active = {6: 20, 3: 44, 2: 66, 1: 132}
+    monkeypatch.setattr(tk, "_scan_active_clusters", lambda radii, L, c, dev: active[c])
+    tk._scan_plan_cached.cache_clear()
+    try:
+        assert tk._scan_plan((20, 20), 65, 232448, 1, 0).cluster == 6
+        assert tk._scan_plan((20, 20), 65, 232448, 20, 0).cluster == 6
+        assert tk._scan_plan((20, 20), 65, 232448, 40, 0).cluster == 6  # 2 waves x 1 = 1 x 2
+        assert tk._scan_plan((20, 20), 65, 232448, 60, 0).cluster == 6  # 3 x 1 = 1 x 3
+        assert tk._scan_plan((20, 20), 65, 232448, 66, 0).cluster == 2  # 4 x 1 against 1 x 3
+        monkeypatch.setattr(tk, "scan_cluster", 3)
+        assert tk._scan_plan((20, 20), 65, 232448, 66, 0) == tk.scan_plan((20, 20), 65, 3)
+        active[3] = 0
+        with pytest.raises(RuntimeError, match="cannot run a cluster of 3"):
+            tk._scan_plan((20, 20), 65, 232448, 1, 0)
+        monkeypatch.setattr(tk, "scan_cluster", None)
+        for c in active:
+            active[c] = 0
+        tk._scan_plan_cached.cache_clear()
+        with pytest.raises(RuntimeError, match="dog_scan: the card cannot run"):
+            tk._scan_plan((20, 20), 65, 232448, 1, 0)
+    finally:
+        tk._scan_plan_cached.cache_clear()
 
 
 def test_bench_shapes_dispatch():
@@ -430,21 +522,25 @@ def test_bench_shapes_dispatch():
 
 
 @pytest.mark.parametrize("target_width,want", [(25, "dog_scan"), (38, "dog_scan"),
-                                               (39, "dog_scan_tiled"), (40, "dog_scan_tiled"),
-                                               (60, "dog_scan_tiled"), (100, "dog_scan_tiled")])
+                                               (39, "dog_scan"), (40, "dog_scan"),
+                                               (60, "dog_scan"), (63, "dog_scan"),
+                                               (64, "dog_scan_tiled"), (100, "dog_scan_tiled")])
 def test_default_window_switches_kernel_between_target_width_38_and_39(target_width, want):
-    """At the default window (guess_window_size) the chunk scans leave
-    dog_scan for dog_scan_tiled between target_width 38 and 39: both windows
-    are 69x69, L goes from 93 to 97, and dog_scan's working set from 229884
-    to 234204 bytes, across the 232448 a block may use."""
+    """At the default window (guess_window_size) dog_scan takes every chunk
+    scan up to target_width 63 and dog_scan_tiled from 64 on. Between 38 and
+    39 (both 69x69, L from 93 to 97) dog_scan stays: ten row blocks over ten
+    CTAs, 101096 and 103432 bytes a CTA of the 232448 a block may use. At 63
+    (109x109, L = 153) sixteen blocks take the largest cluster, one a CTA; at
+    64 (113x113, L = 157) seventeen take two a CTA, 273600 bytes."""
     from pawsometracker_tpu_torch.ops.dog_kernel import guess_window_size
 
     spec = make_spec((1080, 1920), guess_window_size(target_width), target_width, True)
     assert tk.kernel_for(spec.radii, spec.kernel_len, 232448) == want
-    if target_width in (38, 39):
-        assert spec.window_size == (69, 69)
-        assert (spec.kernel_len, tk._scan_smem_bytes(spec.kernel_len, *spec.radii)) == (
-            {38: (93, 229884), 39: (97, 234204)}[target_width])
+    plan = tk.scan_plan(spec.radii, spec.kernel_len)
+    if target_width in (38, 39, 63, 64):
+        assert (spec.window_size[0], spec.kernel_len, plan.cluster, plan.slots, plan.smem) == {
+            38: (69, 93, 10, 1, 101096), 39: (69, 97, 10, 1, 103432),
+            63: (109, 153, 16, 1, 230136), 64: (113, 157, 9, 2, 273600)}[target_width]
 
 
 # ---- the batched configurations (grid over lanes) ---------------------------

@@ -31,9 +31,13 @@ def clip(n=14, seed=3):
 
 
 def test_default_window_takes_the_tiled_kernel():
+    """The default window of a target 40 wide (69x69, L = 101): dog_scan_tiled
+    takes it, and so does dog_scan (ten row blocks over ten CTAs), which the
+    shape rule launches."""
     spec = make_spec((1080, 1920), guess_window_size(TW), TW, True)
     assert spec.window_size == (69, 69) and spec.kernel_len == 101
-    assert tk.kernel_for(spec.radii, spec.kernel_len, 232448) == "dog_scan_tiled"
+    assert tk.kernels_for(spec.radii, spec.kernel_len, 232448) == ("dog_scan", "dog_scan_tiled")
+    assert tk.kernel_for(spec.radii, spec.kernel_len, 232448) == "dog_scan"
 
 
 CASES = {

@@ -22,20 +22,23 @@ sleep of the card. The shapes are those the tiled kernel takes at 1080p:
   ``target_width=25``, one lane, unbounded) and the 185x185 ROI crop's 12-frame
   bounded chunk that ``track`` launches at 1080p (one lane).
 
-Every case must go to the kernel it is named for (``kernel_for``), or, with
-``--kernel``, every case goes to the kernel named there (the wrappers'
-``kernel=``; a case whose window that kernel cannot take is skipped, and a
-checkout whose wrappers take no ``kernel=`` refuses): so either kernel can
-be timed at the other's shapes, ``dog_scan_tiled`` on the bench shape and the
-185x185 crop. The positions and offsets of every turn must equal those of
-the first. Each chunk case is also
-timed at T = 1, which splits its time into a cost per step and a fixed cost
-per launch, and each case's host time per launch (the wrapper's Python and
-the launch call) is read on the host clock while the card is busy. With
-``--clusters`` the turns of checkouts that can force the cluster size also
-time each case with each of the sizes given. Prints the card's name and power
-limit, one line per case and turn, the medians per checkout, and writes
-``build/dog_scan_tiled_ab.json``.
+Every case goes to the kernel it is named for: by name (the wrappers'
+``kernel=``) in checkouts whose wrappers take it (PR 10 on), else it must be
+the shape rule's (``kernel_for``); with ``--kernel`` every case goes to the
+kernel named there (a case whose window that kernel cannot take in a
+checkout is skipped there, and a checkout whose wrappers take no
+``kernel=`` refuses): so either kernel can be timed at the other's shapes,
+``dog_scan_tiled`` on the bench shape and the 185x185 crop, ``dog_scan`` at
+the large targets' windows where it takes them. The positions and offsets of
+every turn must equal those of the first, for the cases the first ran. Each
+chunk case is also timed at T = 1, which splits its time into a cost per step
+and a fixed cost per launch, and each case's host time per launch (the
+wrapper's Python and the launch call) is read on the host clock while the
+card is busy. With ``--clusters`` the turns of checkouts that can force the
+cluster size of the case's kernel (``tiled_cluster``; ``scan_cluster`` from
+PR 11 on) also time each case with each of the sizes given that the card can
+run there. Prints the card's name and power limit, one line per case and
+turn, the medians per checkout, and writes ``build/dog_scan_tiled_ab.json``.
 """
 
 from __future__ import annotations
@@ -127,7 +130,6 @@ def worker(out_path: str, clusters: list, kernel: str | None = None) -> int:
     limit = tk._smem_limit(0)
     if kernel is not None and not hasattr(tk, "kernels_for"):
         raise SystemExit(f"{ROOT}: its wrappers take no kernel=, so --kernel cannot force one")
-    forced_kernel = {} if kernel is None else {"kernel": kernel}
     cases = {}
     snap_spec = autodetect_spec(make_spec((H, W), 41, 25, True))
     frames, paths = disc_frames(1, 4, 12, dev)
@@ -168,11 +170,16 @@ def worker(out_path: str, clusters: list, kernel: str | None = None) -> int:
 
     # every argument on the card before any timing: a host-to-device copy inside
     # the timed calls would wait for the queued work and time the host
+    by_name = hasattr(tk, "kernels_for")  # the wrappers take kernel=
+
+    def kernel_of(case):
+        return kernel or ("dog_scan" if case.startswith("dog_scan ") else "dog_scan_tiled")
+
     args = {}
     for case, (spec, fr, starts, b, sub) in cases.items():
         lanes = fr.shape[0]
         kw = dict(radii=spec.radii, sigma=spec.sigma, darker_target=True, subpixel=sub,
-                  **forced_kernel)
+                  **({"kernel": kernel_of(case)} if by_name else {}))
         pos0 = torch.tensor(starts, dtype=torch.int32, device=dev)
         fills = torch.full((lanes,), 128, dtype=torch.uint8, device=dev)
         for steps in {fr.shape[1], 1}:
@@ -188,26 +195,30 @@ def worker(out_path: str, clusters: list, kernel: str | None = None) -> int:
         fn, a, kw = args[case, steps]
         return fn(*a, **kw)
 
-    forced = [None] + (clusters if hasattr(tk, "tiled_cluster") else [])
+    knob = {"dog_scan_tiled": "tiled_cluster", "dog_scan": "scan_cluster"}
     result = {"card": card_line(), "torch": torch.__version__, "cases": {}}
     for case, (spec, fr, starts, b, sub) in cases.items():
         L = spec.kernel_len
-        want = "dog_scan" if case.startswith("dog_scan ") else "dog_scan_tiled"
-        if kernel is not None:
-            if kernel not in tk.kernels_for(spec.radii, L, limit):
-                print(f"  {case}: {kernel} does not take this window, skipped", flush=True)
+        want = kernel_of(case)
+        if by_name:
+            if want not in tk.kernels_for(spec.radii, L, limit):
+                print(f"  {case}: {want} does not take this window here, skipped", flush=True)
                 continue
-            want = kernel
         elif tk.kernel_for(spec.radii, L, limit) != want:
             raise SystemExit(f"{case}: kernel_for picks {tk.kernel_for(spec.radii, L, limit)},"
                              f" not {want}")
         lanes, steps = fr.shape[0], fr.shape[1]
         entry = {"radii": list(spec.radii), "L": L, "T": steps, "lanes": lanes,
                  **cost(spec.radii, L, steps, lanes), "by_cluster": {}}
-        for c in (forced if want == "dog_scan_tiled" else [None]):
+        for c in [None] + (clusters if hasattr(tk, knob[want]) else []):
             if c is not None:
-                tk.tiled_cluster = c
-            out = run(case, steps)
+                setattr(tk, knob[want], c)
+            try:
+                out = run(case, steps)
+            except RuntimeError as e:  # a forced size the card cannot run at this window
+                print(f"  {case}: C={c} cannot run ({e}), skipped", flush=True)
+                setattr(tk, knob[want], None)
+                continue
             torch.cuda.synchronize()
             outs = [o.cpu().numpy().tolist() for o in (out if sub else (out,))]
             ms, host_us = device_ms(lambda: run(case, steps), reps=200 if steps == 1 else 5)
@@ -220,9 +231,13 @@ def worker(out_path: str, clusters: list, kernel: str | None = None) -> int:
                 plan = tk._tiled_plan(spec.radii, L, limit, sub, 0)
                 rec["plan"] = plan._asdict()
                 rec["cluster_sm_bound_ms"] = entry["sm_bound_ms"] / plan.cluster
+            if want == "dog_scan" and hasattr(tk, "scan_plan"):
+                plan = tk._scan_plan(spec.radii, L, limit, lanes, 0)
+                rec["plan"] = plan._asdict()
+                rec["cluster_sm_bound_ms"] = entry["sm_bound_ms"] / plan.cluster
             entry["by_cluster"]["auto" if c is None else str(c)] = rec
             if c is not None:
-                tk.tiled_cluster = None
+                setattr(tk, knob[want], None)
         cases_out = result["cases"]
         cases_out[case] = entry
         print(f"  {case}: " + ", ".join(
@@ -283,6 +298,8 @@ def main() -> int:
     for case, entry in first.items():
         want = entry["by_cluster"]["auto"]["out"]
         for who, res in turns:
+            if case not in res["cases"]:
+                raise SystemExit(f"{case}: {who} did not run it")
             for c, rec in res["cases"][case]["by_cluster"].items():
                 if rec["out"] != want:
                     raise SystemExit(f"{case}: {who} (cluster {c}) differs from turn 0")

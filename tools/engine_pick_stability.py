@@ -2,6 +2,7 @@
 """How often the measured engine choice flips between fresh processes on one card.
 
     python3 tools/engine_pick_stability.py [--runs 6] [--target-width 25] [--window 41]
+                                           [--sweep 30,35,38]
 
 Each run is a fresh process with an empty engine cache (a
 ``$PAWSOMETRACKER_CACHE`` of its own under ``build/``), as a user's first call
@@ -9,8 +10,10 @@ on a card is: it runs ``pick_bounded_engine`` and ``pick_bounded_engine_batch``
 (B = 4) on the crop that the ROI pipeline cuts at 1080p for this target width
 and window (185x185 for the bench's ``target_width=25``, window 41), with and
 without subpixel, so each one measures ``dog_scan`` and ``dog_scan_tiled``
-against the plain version and chooses. The kernel library is built once, in
-the checkout's ``build/kernels``, and shared by the runs.
+against the plain version and chooses; and ``pick_bounded_engine`` (one chain,
+no subpixel) on the crop of each target width of ``--sweep`` at its default
+window (``guess_window_size``; empty for none). The kernel library is built
+once, in the checkout's ``build/kernels``, and shared by the runs.
 
 Prints the card's name and power limit, one line per run and geometry (the
 pick, both times and their ratio against the margin) and, per geometry, how
@@ -34,10 +37,11 @@ ROI_K = 12
 B = 4
 
 
-def child(target_width: int, window: int) -> None:
+def child(target_width: int, window: int, sweep: list) -> None:
     sys.path.insert(0, ROOT)
     from pawsometracker_tpu_torch import pipeline as pl
     from pawsometracker_tpu_torch.models.dog_tracker import make_spec
+    from pawsometracker_tpu_torch.ops.dog_kernel import guess_window_size
 
     spec = make_spec((H, W), window, target_width, True)
     ch, cw, _ = pl.roi_geometry(spec, ROI_K, 7, "predict")
@@ -52,6 +56,11 @@ def child(target_width: int, window: int) -> None:
             else:
                 _, info = pl.pick_bounded_engine_batch(rspec, ROI_K, batch, subpixel=sub)
             out[label] = info
+    for tw in sweep:
+        spec = make_spec((H, W), guess_window_size(tw), tw, True)
+        ch, cw, _ = pl.roi_geometry(spec, ROI_K, 7, "predict")
+        rspec = make_spec((ch, cw), spec.window_size, tw, True)
+        out[f"tw={tw} {ch}x{cw} L=1"] = pl.pick_bounded_engine(rspec, ROI_K)[1]
     print(json.dumps(out))
 
 
@@ -60,10 +69,13 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=6)
     ap.add_argument("--target-width", type=int, default=25)
     ap.add_argument("--window", type=int, default=41)
+    ap.add_argument("--sweep", default="30,35,38",
+                    help="target widths whose default-window crops are picked too")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
+    sweep = [int(t) for t in a.sweep.split(",") if t]
     if a.child:
-        child(a.target_width, a.window)
+        child(a.target_width, a.window, sweep)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip().splitlines()
@@ -78,7 +90,8 @@ def main() -> int:
     for i in range(a.runs):
         cache = tempfile.mkdtemp(prefix="engine_pick_", dir=build)
         r = subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
-                            "--target-width", str(a.target_width), "--window", str(a.window)],
+                            "--target-width", str(a.target_width), "--window", str(a.window),
+                            "--sweep", a.sweep],
                            env=dict(os.environ, PAWSOMETRACKER_CACHE=cache), capture_output=True,
                            text=True, timeout=600)
         if r.returncode != 0:
