@@ -44,8 +44,9 @@ non-zero:
    short one in chunk 1; positions and carry), and 1080p 64-frame chunks from
    the last step.
    Every case runs on each kernel that takes its window (the shape rule's
-   first; ``dog_scan`` takes windows up to ``target_width`` 63 at the default
-   window, so the large target's and the 461x461 crop's too), and
+   first; ``dog_scan`` runs windows up to ``target_width`` 63 at the default
+   window, so the large target's and the 461x461 crop's too, though the shape
+   rule gives it only those that fit one CTA whole, up to 35), and
    ``dog_scan`` also under each forced cluster size (``SCAN_CLUSTERS`` where
    it fits, and the largest the card schedules), each against the one plain
    run of the case. Integer positions must be equal, offsets within
@@ -135,7 +136,7 @@ E. The engine choice (``engine="auto"`` on the ROI paths), with the engine
    the bench chunk and the 185x185 crop's chunk scans; the plain
    version on the same inputs, each bound and the share of the whole card's,
    one SM's and the cluster's SMs' bound the kernel reaches, and
-   ``dog_scan``'s time in PR 10 (``PR10_MS``) beside its row; one
+   ``dog_scan``'s time in PR 10 (``PR10_MS``) in the log beside its row; one
    cuDNN ``conv2d`` with the 2-D DoG kernel plus ``argmax`` as the snap's
    library yardstick; end-to-end frames/s of the four paths; and a
    ``torch.profiler`` busy share of one ``track()``, one ``track_batch`` and
@@ -217,7 +218,8 @@ CHECKPOINT_EVERY = 5.0
 #: frames of each clip that the CLI phase writes as .npy and tracks
 CLI_FRAMES = 96
 #: the target widths of the engine choice's sweep at 1080p ROI: default windows 53, 61 and 69,
-#: where both kernels run (dog_scan takes windows up to target_width 63)
+#: where both kernels run (dog_scan runs windows up to target_width 63; the shape rule's
+#: first is dog_scan at 30 and 35, dog_scan_tiled at 38)
 SWEEP_TW = (30, 35, 38)
 #: dog_scan's cluster sizes phase 1 forces at every window where they fit, beside the card's
 #: own pick and the largest the card schedules: the whole window on one CTA, two CTAs, and
@@ -228,7 +230,8 @@ SCAN_CLUSTERS = (1, 2, 6)
 PINS = (2, 4)
 GROUP_E2E_PINS = (None, 1, 2, 4)
 #: dog_scan's ms a launch in PR 10's last chip_smoke.py run (H100 80GB HBM3, 700 W), before
-#: its redesign as a cluster, by phase-3 timing name: printed beside this run's
+#: its redesign as a cluster, by phase-3 timing name: printed in the log beside this run's
+#: (never in the kernels line, which holds only what this run measured)
 PR10_MS = {
     "unbounded": 0.5104, "bounded": 0.5125, "bounded+subpixel": 0.5211,
     "batched unbounded B=1": 0.5103, "batched unbounded B=4": 0.5105,
@@ -1284,8 +1287,7 @@ def main() -> int:
         for kname in tk.kernels_for(skw_r["radii"], case_L, smem_limit):
             ms = cuda_time_ms(functools.partial(launch, kname), reps=20)
             row = {"ms": ms, "us_per_step": 1e3 * ms / steps, "card_bound_share": c["bound_ms"] / ms,
-                   "sm_bound_share": c["sm_bound_ms"] / ms,
-                   "pr10_ms": PR10_MS.get(name) if kname == "dog_scan" else None}
+                   "sm_bound_share": c["sm_bound_ms"] / ms}
             where = ""
             if kname == "dog_scan":
                 plan = tk._scan_plan(skw_r["radii"], case_L, smem_limit, lanes_n, 0)
@@ -1500,8 +1502,9 @@ def main() -> int:
                 ok = ok and out[1].shape[:2] == (MULTI_FRAMES, B)
             if kind == "track large target":
                 # every launch at the tracking window takes the shape rule's kernel
-                # (dog_scan, one cluster of 15 CTAs a lane), the autodetect snap
-                # dog_scan_tiled; on ROI the bounded launches the chosen kernel (above)
+                # (dog_scan_tiled: the 105x105 window does not fit one CTA whole), the
+                # autodetect snap dog_scan_tiled; on ROI the bounded launches the chosen
+                # kernel (above)
                 auto = int(name == "autodetect")
                 bounded = roi_stats[path, name] if path in roi_paths else {}
                 at_window = n_launch - auto - bounded.get("bounded_launches", 0)
@@ -1841,7 +1844,7 @@ def main() -> int:
                         "T": steps, "lanes": n_lanes, "L": case_L, "ms": ms, "plain_ms": plain_ms,
                         "library_ms": None,
                         **c, "us_per_step": 1e3 * ms / steps, "sm_bound_share": c["sm_bound_ms"] / ms,
-                        "card_bound_share": c["bound_ms"] / ms, "pr10_ms": PR10_MS.get(name)}
+                        "card_bound_share": c["bound_ms"] / ms}
         where = ""
         if kname == "dog_scan":  # a chain runs on its cluster's C SMs
             plan = tk._scan_plan(k["radii"], case_L, smem_limit, n_lanes, 0)
@@ -1957,7 +1960,9 @@ def main() -> int:
             f" kernel {ms:.4f} ms/launch ({ms / S:.4f} ms a segment; S x the S=1 launch"
             f" {S * one:.4f} ms, ratio {ms / (S * one):.4f}), plain "
             + (f"{plain_ms:.3f} ms" if plain_ms is not None else "not measured")
-            + f", bound {c['bound_ms']:.6f} ms ({c['bound_by']}), host {host_us:.1f} us a launch")
+            + f", bound {c['bound_ms']:.6f} ms ({c['bound_by']}), host {host_us:.1f} us a launch"
+            + (f"; PR 10 {PR10_MS[name]:.4f} ms" if seg_kernel(name) == "dog_scan"
+               and name in PR10_MS else ""))
     record["segmented"] = seg_timing
     for name in ("batched unbounded B=16", "unbounded T=1", "bounded+subpixel T=1",
                  "batched unbounded B=4 T=1", *large_cases):

@@ -48,9 +48,9 @@
 //     frames of any width or lane base work; when the width and the lane base are multiples of
 //     16 every row starts at the same offset (the kAligned variant), otherwise each row's
 //     offset is kept beside the buffer. Out-of-frame cells are written with the fill; a chunk
-//     across the frame's edge is read whole by one 16-byte load and its outside bytes replaced
-//     (ROI crops are narrow, so most rows have one). Step 0 loads its rows synchronously, the
-//     last step prefetches nothing;
+//     across the frame's left or right edge is read whole by one 16-byte load inside the frame
+//     and its outside bytes replaced (ROI crops are narrow, so most rows have one; load_region).
+//     Step 0 loads its rows synchronously, the last step prefetches nothing;
 //   - runs register-blocked passes over its blocks: a thread computes kR adjacent outputs
 //     along the pass, keeping the kR inputs they share as a sliding window in registers (the
 //     tap loop is unrolled by kR, so the window's rotation is static). Per tap it makes one
@@ -77,9 +77,11 @@
 // the crop, whose rows are not 16-byte aligned); the rest of the step's fixed work about 1 us
 // (tools/dog_scan_split.py; PERF.md).
 //
-// dog_scan_tiled_kernel takes windows whose working set does not fit dog_scan's CTAs: the
-// quarter-frame autodetect snap (271x481 at 1080p) and every chunk scan from target_width 64 up
-// at the default window (113x113 with L = 157 and larger). A step there is 20-100 MFLOP, too
+// dog_scan_tiled_kernel takes every window: by the shape rule those that do not fit one of
+// dog_scan's CTAs whole, the quarter-frame autodetect snap (271x481 at 1080p) and every chunk
+// scan from target_width 36 up at the default window (65x65 with L = 89 and larger; dog_scan
+// runs them up to 63 over a cluster, but its CTAs' copies grow with the window's full width
+// and it is no faster there on an H100, PERF.md). A step there is 20-100 MFLOP, too
 // much for one SM, so a lane is one thread-block cluster of C <= 16 CTAs (grid (C, B), cluster
 // dims (C,1,1)):
 //   - the window is cut into output tiles of 7 rows (one kR block) by the whole window's width,
@@ -98,7 +100,7 @@
 //     and CTA 0 reads the four neighbours of the maximum from the CTAs that own them: the
 //     values the argmax saw.
 // The wrapper picks between the two kernels by shape (ops/tracker_kernel.py::kernel_for: dog_scan
-// where its fewest-slots plan fits), and picks C from the tile count and
+// where the whole window fits one CTA), and picks C from the tile count and
 // cudaOccupancyMaxActiveClusters before the launch; a launch that cannot be scheduled fails and
 // raises.
 //
@@ -287,9 +289,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // one shift (c0 mod 16) for the whole buffer when kAligned (frame rows and the lane base
 // 16-byte aligned), else each row's own, written to shift[u]. Whole 16-byte chunks inside the
 // frame go by cp.async (the caller commits and waits); chunks wholly outside are stored as
-// fill; a chunk across the frame's edge is read whole by one 16-byte load (the aligned block
-// holds a byte of the frame's row, so it lies in mapped memory) and its bytes outside the frame
-// replaced by the fill: one load's latency, not sixteen in a row. Thread tid of nthreads.
+// fill; a chunk across the frame's left or right edge is read whole by one 16-byte load when
+// all its bytes lie inside the frame's H*W bytes (the bytes past a row's end are the next row's)
+// and its bytes outside the row replaced by the fill: one load's latency, not sixteen in a row.
+// Only the frame's first chunk and its last, whose block may start before the frame or end past
+// it, go byte by byte, so no load leaves the frame. Thread tid of nthreads.
 template <bool kAligned>
 __device__ __forceinline__ void load_region(uint8_t* buf, int* shift, const uint8_t* frame, int H,
                                             int W, int r0, int nrows, int c0, int ncols,
@@ -312,6 +316,11 @@ __device__ __forceinline__ void load_region(uint8_t* buf, int* shift, const uint
       *reinterpret_cast<uint4*>(dst) = f16;
     } else if (cb >= 0 && cb + 16 <= W) {
       cp_async16(dst, frame + roff + cb);
+    } else if (roff + cb < 0 || roff + cb + 16 > (long long)H * W) {
+      for (int b = 0; b < 16; ++b) {
+        const int c = cb + b;
+        dst[b] = (c >= 0 && c < W) ? frame[roff + c] : (uint8_t)fill;
+      }
     } else {
       const uint4 v = __ldg(reinterpret_cast<const uint4*>(frame + roff + cb));
       unsigned w[4] = {v.x, v.y, v.z, v.w};

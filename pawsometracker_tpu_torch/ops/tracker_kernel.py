@@ -15,11 +15,12 @@ falls back. Both run one thread-block cluster a lane. Which kernel runs is the
 caller's ``kernel=`` (one of :data:`KERNELS`), else a matter of shape
 (:func:`kernel_for`): ``dog_scan`` (the window's row blocks split over the
 cluster's CTAs, each prefetching its rows of the next patch, :func:`scan_plan`)
-when a CTA's working set fits shared memory, ``dog_scan_tiled`` (the window's
-tiles spread over the CTAs, each tile's patch loaded in the step,
-:func:`tile_plan`) for larger windows: the quarter-frame autodetect snap, and
-every chunk scan from ``target_width`` 64 up at the default window.
-``dog_scan_tiled`` takes any window, so below the limit both run; the ROI
+when the whole window would fit one CTA's shared memory, ``dog_scan_tiled``
+(the window's tiles spread over the CTAs, each tile's patch loaded in the
+step, :func:`tile_plan`) for larger windows: the quarter-frame autodetect
+snap, and every chunk scan from ``target_width`` 36 up at the default window.
+``dog_scan_tiled`` takes any window, and ``dog_scan`` any whose row blocks
+fit a cluster's CTAs, so up to ``target_width`` 63 both run; the ROI
 pipelines choose between them by measurement
 (``pipeline.pick_bounded_engine``). On a CPU
 tensor it runs :func:`dog_scan_plain`, a Python loop over steps of the :mod:`.filters`
@@ -314,18 +315,24 @@ def dog_scan_batch_plain(frames: torch.Tensor, pos0: torch.Tensor, fills: torch.
 
 def kernel_for(radii, L: int, smem_limit: int) -> str:
     """The kernel a window of ``radii`` with L taps launches: ``dog_scan`` when
-    one CTA's two patch supersets, row-pass sums, taps and responses fit
-    ``smem_limit`` bytes of shared memory with the window's row blocks spread
-    over the most CTAs (:func:`scan_plan`), else ``dog_scan_tiled``."""
-    return KERNELS[0] if scan_plan(radii, L).smem <= smem_limit else KERNELS[1]
+    its whole window fits one CTA's ``smem_limit`` bytes of shared memory
+    (:func:`scan_plan` with one CTA), else ``dog_scan_tiled``. Above that
+    ``dog_scan`` still runs, its row blocks split over a cluster, but each
+    CTA's copy of the next patch spans the superset's full width and
+    ``2ri + L`` rows of slack, and ``dog_scan_tiled`` is as fast or faster
+    there on an H100 (PERF.md)."""
+    return KERNELS[0] if scan_plan(radii, L, 1).smem <= smem_limit else KERNELS[1]
 
 
 def kernels_for(radii, L: int, smem_limit: int) -> tuple:
     """The kernels that can run a window of ``radii`` with L taps, the shape
     rule's (:func:`kernel_for`) first: ``dog_scan_tiled`` takes any window,
-    ``dog_scan`` those that fit ``smem_limit``."""
+    ``dog_scan`` those whose fewest-blocks plan (:func:`scan_plan`) fits
+    ``smem_limit``."""
     first = kernel_for(radii, L, smem_limit)
-    return (first,) if first == KERNELS[1] else (first, KERNELS[1])
+    if first == KERNELS[0]:
+        return KERNELS
+    return (first,) if scan_plan(radii, L).smem > smem_limit else (first, KERNELS[0])
 
 
 def check_kernel(kernel) -> None:
@@ -340,7 +347,7 @@ def _pick_kernel(kernel, radii, L: int, smem_limit: int) -> str:
     if kernel is None:
         return kernel_for(radii, L, smem_limit)
     check_kernel(kernel)
-    if kernel == KERNELS[0] and kernel_for(radii, L, smem_limit) != KERNELS[0]:
+    if kernel not in kernels_for(radii, L, smem_limit):
         raise ValueError(f"dog_scan does not take a {2 * int(radii[0]) + 1}x"
                          f"{2 * int(radii[1]) + 1} window with {L} taps: it needs "
                          f"{scan_plan(radii, L).smem} bytes of shared memory a CTA, the card "
@@ -374,14 +381,14 @@ def scan_plan(radii, L: int, cluster: int | None = None) -> ScanPlan:
                     _scan_smem_bytes(L, ri, rj, slots))
 
 
-def scan_plans(radii, L: int, smem_limit: int, max_cluster: int = MAX_CLUSTER) -> list:
+def scan_plans(radii, L: int, smem_limit: int) -> list:
     """Every ``dog_scan`` launch of a window that fits ``smem_limit`` bytes a
     CTA, one for each count of row blocks a CTA (fewest first), each with the
-    fewest CTAs that give it, at most ``max_cluster``. Empty when the window
-    does not fit even one block a CTA."""
+    fewest CTAs that give it, at most :data:`MAX_CLUSTER`. Empty when the
+    window does not fit even one block a CTA."""
     nbv = -(-(2 * int(radii[0]) + 1) // SCAN_R)
     plans, seen = [], set()
-    for c in range(min(max_cluster, nbv), 0, -1):
+    for c in range(min(MAX_CLUSTER, nbv), 0, -1):
         slots = -(-nbv // c)
         if slots in seen:
             continue

@@ -74,17 +74,23 @@ def test_kernel_equals_plain(card, cfg):
 
 
 @pytest.mark.parametrize("window", [(151, 301), (65, 129), (1, 1), (3, 200)])
-def test_tiled_windows_equal_plain(card, window):
-    """Windows whose dog_scan working set does not fit shared memory take
-    dog_scan_tiled (one cluster a lane); the others take dog_scan. Either way
-    a 6-step chain equals the plain version."""
+def test_tiled_windows_equal_plain(card, monkeypatch, window):
+    """Windows that do not fit one CTA whole (151x301, 65x129) take
+    dog_scan_tiled by the shape rule (one cluster a lane); the others take
+    dog_scan, which also runs 65x129 over a cluster of its CTAs. On every
+    kernel that takes the window (the shape rule's, then the other in its
+    place) a 6-step chain equals the plain version."""
     h, w, T = 200, 360, 6
     spec = make_spec((h, w), window, 10, True)
-    kernel = tk.kernel_for(spec.radii, spec.kernel_len, tk._smem_limit(0))
-    assert (kernel == "dog_scan_tiled") == (window == (151, 301))
+    kernels = tk.kernels_for(spec.radii, spec.kernel_len, tk._smem_limit(0))
+    assert (kernels[0] == "dog_scan_tiled") == (window in ((151, 301), (65, 129)))
+    assert ("dog_scan" in kernels) == (window != (151, 301))
     frames = ellipse_frames(h, w, [(90 + 2 * t, 170 - 3 * t) for t in range(T)])
-    check(card, frames, (100, 180), spec.radii, spec.sigma, kernel=kernel)
-    check(card, frames, (100, 180), spec.radii, spec.sigma, subpixel=True, kernel=kernel)
+    for kernel in kernels:
+        if kernel != kernels[0]:
+            monkeypatch.setattr(tk, "kernel_for", lambda radii, L, limit: kernel)
+        check(card, frames, (100, 180), spec.radii, spec.sigma, kernel=kernel)
+        check(card, frames, (100, 180), spec.radii, spec.sigma, subpixel=True, kernel=kernel)
 
 
 # ---- dog_scan_tiled: one thread-block cluster a lane ----------------------------
@@ -1355,12 +1361,14 @@ def test_either_kernel_by_name_equals_plain(card, window, crop, lanes, S, subpix
     crop, and 77x77 at the same L = 65): each named kernel's bounded scan
     equals the plain version bit for bit, launching that kernel, for one lane
     and 4, one chunk and 2 chained segments (the batched chain's carry in the
-    launch). dog_scan_tiled runs here below target_width 64 and on
+    launch). The shape rule takes dog_scan at 41x41 and dog_scan_tiled at
+    77x77 (too large for one CTA whole); dog_scan_tiled runs here on
     one-register-block tiles (7 rows) over a cluster of 6 and 11 CTAs."""
     T, h = 12, crop
     spec = make_spec((h, h), window, 25, True)
     limit = tk._smem_limit(0)
-    assert tk.kernels_for(spec.radii, spec.kernel_len, limit) == tk.KERNELS
+    assert tk.kernels_for(spec.radii, spec.kernel_len, limit) == (
+        tk.KERNELS if window == 41 else tk.KERNELS[::-1])
     assert tk.tile_plan(spec.radii, spec.kernel_len, limit, subpixel).tiles == (
         {41: 6, 77: 11}[window], 1)
     rng = np.random.default_rng(window + 10 * lanes + S)

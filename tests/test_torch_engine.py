@@ -40,6 +40,9 @@ H100_SMEM = 232448
 # a crop both kernels take (dog_scan fits), and one only dog_scan_tiled takes
 SPEC = make_spec((33, 33), 15, 6, True)
 BIG = make_spec((40, 40), (151, 301), 6, True)
+# a crop both kernels take where the shape rule's is dog_scan_tiled (the window does not fit
+# one CTA whole; dog_scan runs it over a cluster)
+MID = make_spec((70, 140), (65, 129), 10, True)
 
 
 @pytest.fixture
@@ -183,6 +186,20 @@ def test_margin(chooser, tiled_ms, want, default_ms):
     eng, info = pl.pick_bounded_engine(SPEC, 4, device="cpu")
     assert (eng, info["kernel"], info["default"]) == ("pallas", want, "dog_scan")
     assert info["dog_scan_ms"] == default_ms and info["xla_ms"] == 300.0
+
+
+@pytest.mark.parametrize("scan_ms,want", [(0.76, "dog_scan_tiled"), (0.74, "dog_scan")])
+def test_margin_where_the_shape_rule_takes_tiled(chooser, scan_ms, want):
+    """Where the shape rule's kernel is dog_scan_tiled and dog_scan runs the
+    window too, both are measured, dog_scan_tiled is the default, and
+    dog_scan takes over only under 0.75 of its time."""
+    assert tk.kernels_for(MID.radii, MID.kernel_len, H100_SMEM) == ("dog_scan_tiled",
+                                                                      "dog_scan")
+    chooser.times.update({"dog_scan_tiled": 1.0, "dog_scan": scan_ms, "plain": 300.0})
+    eng, info = pl.pick_bounded_engine(MID, 4, device="cpu")
+    assert (eng, info["kernel"], info["default"]) == ("pallas", want, "dog_scan_tiled")
+    assert info["dog_scan_ms"] == scan_ms and info["dog_scan_tiled_ms"] == 1.0
+    assert {n for n, _ in chooser.calls} == {"plain", "dog_scan", "dog_scan_tiled"}
 
 
 def test_one_candidate_where_dog_scan_does_not_fit(chooser):
@@ -410,6 +427,15 @@ def test_engine_string_reaches_the_selector(tmp_path, monkeypatch):
 
 
 # ---- the kernel named by the caller -------------------------------------------------
+
+
+def test_named_dog_scan_runs_where_the_shape_rule_takes_tiled():
+    """A window dog_scan runs only over a cluster (65x129, not on one CTA
+    whole): the shape rule launches dog_scan_tiled, and dog_scan by name is
+    taken, not refused."""
+    assert tk._pick_kernel(None, MID.radii, MID.kernel_len, H100_SMEM) == "dog_scan_tiled"
+    for kernel in tk.KERNELS:
+        assert tk._pick_kernel(kernel, MID.radii, MID.kernel_len, H100_SMEM) == kernel
 
 
 def test_kernel_names_are_checked():

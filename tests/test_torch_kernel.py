@@ -412,20 +412,28 @@ def test_smem_formula_matches_kernel_source():
     ((20, 20), 65, "dog_scan"),          # bench window, target_width=25
     ((10, 10), 17, "dog_scan"),          # window 21, target_width=5
     ((20, 20), 129, "dog_scan"),         # target_width=40
+    ((52, 52), 149, "dog_scan_tiled"),   # default window of target_width=60: both run
     ((135, 240), 65, "dog_scan_tiled"),  # quarter-frame autodetect snap at 1080p
     ((0, 0), 65, "dog_scan"),
 ])
 def test_kernel_for_picks_by_shape(radii, L, want):
     """The bench window takes dog_scan, the quarter-frame snap the tiled one:
-    a shape dispatch between two kernels, each fitting; dog_scan where its
-    fewest-blocks plan (the window's row blocks over at most 16 CTAs) fits."""
+    a shape dispatch between two kernels, each fitting; dog_scan where the
+    whole window fits one CTA, though it runs wherever its fewest-blocks plan
+    (the window's row blocks over at most 16 CTAs) fits."""
     limit = 232448
     assert tk.kernel_for(radii, L, limit) == want
-    if want == "dog_scan":
-        assert tk.scan_plan(radii, L).smem <= limit
+    runs = tk.scan_plan(radii, L).smem <= limit
+    assert runs == bool(tk.scan_plans(radii, L, limit))
+    if runs:
         assert tk.scan_plans(radii, L, limit)[0] == tk.scan_plan(radii, L)
+    if want == "dog_scan":
+        assert tk.scan_plan(radii, L, 1).smem <= limit
+        assert tk.kernels_for(radii, L, limit) == tk.KERNELS
     else:
-        assert tk.scan_plan(radii, L).smem > limit and tk.scan_plans(radii, L, limit) == []
+        assert tk.scan_plan(radii, L, 1).smem > limit
+        assert tk.kernels_for(radii, L, limit) == (("dog_scan_tiled", "dog_scan") if runs
+                                                   else ("dog_scan_tiled",))
         assert tk.tile_plan(radii, L, limit, subpixel=True).smem <= limit
 
 
@@ -521,26 +529,36 @@ def test_bench_shapes_dispatch():
     assert tk.kernel_for(aspec.radii, aspec.kernel_len, 232448) == "dog_scan_tiled"
 
 
-@pytest.mark.parametrize("target_width,want", [(25, "dog_scan"), (38, "dog_scan"),
-                                               (39, "dog_scan"), (40, "dog_scan"),
-                                               (60, "dog_scan"), (63, "dog_scan"),
+@pytest.mark.parametrize("target_width,want", [(25, "dog_scan"), (35, "dog_scan"),
+                                               (36, "dog_scan_tiled"), (38, "dog_scan_tiled"),
+                                               (39, "dog_scan_tiled"), (40, "dog_scan_tiled"),
+                                               (60, "dog_scan_tiled"), (63, "dog_scan_tiled"),
                                                (64, "dog_scan_tiled"), (100, "dog_scan_tiled")])
 def test_default_window_switches_kernel_between_target_width_38_and_39(target_width, want):
-    """At the default window (guess_window_size) dog_scan takes every chunk
-    scan up to target_width 63 and dog_scan_tiled from 64 on. Between 38 and
-    39 (both 69x69, L from 93 to 97) dog_scan stays: ten row blocks over ten
-    CTAs, 101096 and 103432 bytes a CTA of the 232448 a block may use. At 63
-    (109x109, L = 153) sixteen blocks take the largest cluster, one a CTA; at
-    64 (113x113, L = 157) seventeen take two a CTA, 273600 bytes."""
+    """At the default window (guess_window_size) the chunk scans leave
+    dog_scan for dog_scan_tiled between target_width 35 and 36, where the
+    whole window stops fitting one CTA: 61x61 (L = 89) takes 205240 bytes on
+    one CTA, 65x65 (L = 89) 234976, of the 232448 a block may use. dog_scan
+    still runs up to 63 (109x109, L = 153: sixteen row blocks, one a CTA of
+    the largest cluster, 230136 bytes a CTA), so there the chooser can time
+    both; from 64 (113x113, L = 157: two blocks a CTA, 273600 bytes) only
+    dog_scan_tiled runs. Between 38 and 39 (both 69x69, L from 93 to 97),
+    where PR 10's one-CTA kernel stopped fitting, dog_scan_tiled stays."""
     from pawsometracker_tpu_torch.ops.dog_kernel import guess_window_size
 
     spec = make_spec((1080, 1920), guess_window_size(target_width), target_width, True)
     assert tk.kernel_for(spec.radii, spec.kernel_len, 232448) == want
-    plan = tk.scan_plan(spec.radii, spec.kernel_len)
-    if target_width in (38, 39, 63, 64):
-        assert (spec.window_size[0], spec.kernel_len, plan.cluster, plan.slots, plan.smem) == {
-            38: (69, 93, 10, 1, 101096), 39: (69, 97, 10, 1, 103432),
-            63: (109, 153, 16, 1, 230136), 64: (113, 157, 9, 2, 273600)}[target_width]
+    assert tk.kernels_for(spec.radii, spec.kernel_len, 232448) == {
+        "dog_scan": tk.KERNELS, "dog_scan_tiled": ("dog_scan_tiled", "dog_scan")}[want] \
+        if target_width < 64 else ("dog_scan_tiled",)
+    one, plan = (tk.scan_plan(spec.radii, spec.kernel_len, c) for c in (1, None))
+    if target_width in (35, 36, 38, 39, 63, 64):
+        assert (spec.window_size[0], spec.kernel_len, one.smem, plan.cluster, plan.slots,
+                plan.smem) == {
+            35: (61, 89, 205240, 9, 1, 83832), 36: (65, 89, 234976, 10, 1, 91336),
+            38: (69, 93, 250784, 10, 1, 101096), 39: (69, 97, 255136, 10, 1, 103432),
+            63: (109, 153, 625776, 16, 1, 230136), 64: (113, 157, 686040, 9, 2, 273600)}[
+            target_width]
 
 
 # ---- the batched configurations (grid over lanes) ---------------------------

@@ -1,8 +1,8 @@
 """Large targets on the port's CPU path against the JAX package's ``track``.
 
-At ``target_width`` 39 and up, the default window's scan does not fit one
-CTA's shared memory and takes ``dog_scan_tiled`` on the card (one cluster a
-lane, ``ops/tracker_kernel.py::kernel_for``, ``tile_plan``). On the CPU the
+From ``target_width`` 36 up, the default window does not fit one CTA's
+shared memory whole and its scan takes ``dog_scan_tiled`` on the card (one
+cluster a lane, ``ops/tracker_kernel.py::kernel_for``, ``tile_plan``). On the CPU the
 same chunk scans run the plain version; here they are held to the JAX package
 at ``target_width=40`` with its default window (69x69, L = 101): positions
 bit-identical, timestamps equal, subpixel offsets within ``atol=1e-3``."""
@@ -31,13 +31,13 @@ def clip(n=14, seed=3):
 
 
 def test_default_window_takes_the_tiled_kernel():
-    """The default window of a target 40 wide (69x69, L = 101): dog_scan_tiled
-    takes it, and so does dog_scan (ten row blocks over ten CTAs), which the
-    shape rule launches."""
+    """The default window of a target 40 wide (69x69, L = 101): the shape
+    rule launches dog_scan_tiled; dog_scan also runs it (ten row blocks over
+    ten CTAs), so the engine choice can time both."""
     spec = make_spec((1080, 1920), guess_window_size(TW), TW, True)
     assert spec.window_size == (69, 69) and spec.kernel_len == 101
-    assert tk.kernels_for(spec.radii, spec.kernel_len, 232448) == ("dog_scan", "dog_scan_tiled")
-    assert tk.kernel_for(spec.radii, spec.kernel_len, 232448) == "dog_scan"
+    assert tk.kernels_for(spec.radii, spec.kernel_len, 232448) == ("dog_scan_tiled", "dog_scan")
+    assert tk.kernel_for(spec.radii, spec.kernel_len, 232448) == "dog_scan_tiled"
 
 
 CASES = {
