@@ -23,13 +23,17 @@ non-zero:
    of ``target_width`` 40, 60 (T=12) and 100 (T=4): one chain unbounded,
    bounded and bounded+subpixel, 4 lanes with their own frames, 4 targets on
    shared frames, a lane starting off the frame, and (at 60) a flat field,
-   whose ties span tiles of different CTAs. The ROI pipeline's chunk scans:
+   whose ties span tiles of different CTAs, and 8 lanes on one stream from
+   each edge and corner of the frame (T=6, ± subpixel). The ROI pipeline's
+   chunk scans:
    bounded and bounded+subpixel at T=12 on the crops it cuts at 1080p, 185x185
    (``dog_scan``) and 461x461 at ``target_width=60`` (``dog_scan_tiled``),
    with the per-frame boxes and rebases it builds; and the batch and multi ROI
    engines' batched bounded chunk scans (T=12) at both crop sizes: B = 4
    videos' crops with lane 2 pure fill (a video past its end), bounded and
-   bounded+subpixel, and the crops of 4 targets cut from one frame stream.
+   bounded+subpixel, and the crops of 4 targets cut from one frame stream;
+   and the 461x461 chunk from 8 starts on each edge and corner of the crop
+   (± subpixel).
    The mesh: ``sharded_pallas_bounded`` (one batched bounded launch a data
    shard) on those batch ROI chunks at both crop sizes, against its plain
    version (``interpret=True``), with one launch a shard, on each mesh of the
@@ -42,7 +46,9 @@ non-zero:
    version: one chain at both ROI crop sizes by the ks rule (a short chunk),
    4 lanes with the carry in the launch (a lane with no real frame and a
    short one in chunk 1; positions and carry), and 1080p 64-frame chunks from
-   the last step.
+   the last step; and 3 segments of 12 1080p frames at ``target_width=60``'s
+   window from the last step (± subpixel), each segment's first patch read
+   where the one before left the chain.
    Every case runs on each kernel that takes its window (the shape rule's
    first; ``dog_scan`` runs windows up to ``target_width`` 63 at the default
    window, so the large target's and the 461x461 crop's too, though the shape
@@ -136,7 +142,8 @@ E. The engine choice (``engine="auto"`` on the ROI paths), with the engine
    the bench chunk and the 185x185 crop's chunk scans; the plain
    version on the same inputs, each bound and the share of the whole card's,
    one SM's and the cluster's SMs' bound the kernel reaches, and
-   ``dog_scan``'s time in PR 10 (``PR10_MS``) in the log beside its row; one
+   ``dog_scan``'s time in PR 10 (``PR10_MS``) and ``dog_scan_tiled``'s in
+   PR 11 (``PR11_MS``) in the log beside its row; one
    cuDNN ``conv2d`` with the 2-D DoG kernel plus ``argmax`` as the snap's
    library yardstick; end-to-end frames/s of the four paths; and a
    ``torch.profiler`` busy share of one ``track()``, one ``track_batch`` and
@@ -256,6 +263,51 @@ PR10_MS = {
     "ROI batch tw=35 269x269 B=4 T=12 bounded": 0.2720,
     "ROI batch tw=38 297x297 B=4 T=12 bounded": 0.3286,
 }
+#: dog_scan_tiled's ms a launch in PR 11's last chip_smoke.py run (H100 80GB HBM3, 700 W), before
+#: its step was redesigned, by phase-3 and engine-choice timing name: printed in the log beside
+#: this run's (never in the kernels line, which holds only what this run measured)
+PR11_MS = {
+    "snap quarter-frame": 0.0344, "batched snap quarter-frame B=4": 0.0348,
+    "tw=40 T=64 unbounded B=1 [dog_scan_tiled]": 0.5244,
+    "tw=40 T=64 bounded+subpixel B=1 [dog_scan_tiled]": 0.5492,
+    "tw=40 T=64 unbounded B=4 [dog_scan_tiled]": 0.5244,
+    "tw=40 T=64 bounded+subpixel B=4 [dog_scan_tiled]": 0.5497,
+    "tw=60 T=64 unbounded B=1 [dog_scan_tiled]": 0.7333,
+    "tw=60 T=64 bounded+subpixel B=1 [dog_scan_tiled]": 0.7618,
+    "tw=60 T=64 unbounded B=4 [dog_scan_tiled]": 0.7334,
+    "tw=60 T=64 bounded+subpixel B=4 [dog_scan_tiled]": 0.7611,
+    "tw=100 T=64 unbounded B=1 [dog_scan_tiled]": 2.8792,
+    "tw=100 T=64 bounded+subpixel B=1 [dog_scan_tiled]": 2.9044,
+    "tw=100 T=64 unbounded B=4 [dog_scan_tiled]": 2.8913,
+    "tw=100 T=64 bounded+subpixel B=4 [dog_scan_tiled]": 2.9161,
+    "ROI 461x461 T=12 bounded": 0.1535, "ROI 461x461 T=12 bounded+subpixel": 0.1552,
+    "ROI batch 461x461 B=4 T=12 bounded (lane 2 fill)": 0.1679,
+    "ROI batch 461x461 B=4 T=12 bounded+subpixel (lane 2 fill)": 0.1680,
+    "ROI multi 461x461 4 targets of one stream T=12 bounded": 0.1535,
+    "segments ROI 461x461 one chain T=12 S=1": 0.1560,
+    "segments ROI 461x461 one chain T=12 S=2": 0.3078,
+    "segments ROI 461x461 one chain T=12 S=4": 0.6110,
+    "segments ROI 461x461 B=4 carry T=12 S=1": 0.1560,
+    "segments ROI 461x461 B=4 carry T=12 S=2": 0.3201,
+    "segments ROI 461x461 B=4 carry T=12 S=4": 0.6253,
+    "ROI 185x185 T=12 bounded": 0.0727, "ROI 185x185 T=12 bounded+subpixel": 0.0764,
+    "ROI batch 185x185 B=4 T=12 bounded (lane 2 fill)": 0.0767,
+    "ROI batch 185x185 B=4 T=12 bounded+subpixel (lane 2 fill)": 0.0769,
+    "segments ROI 185x185 one chain T=12 S=2": 0.1496,
+    "segments ROI 185x185 B=4 carry T=12 S=2": 0.1529,
+    "ROI tw=30 233x233 T=12 bounded": 0.0922, "ROI batch tw=30 233x233 B=4 T=12 bounded": 0.0924,
+    "ROI tw=35 269x269 T=12 bounded": 0.1014, "ROI batch tw=35 269x269 B=4 T=12 bounded": 0.1014,
+    "ROI tw=38 297x297 T=12 bounded": 0.1041, "ROI batch tw=38 297x297 B=4 T=12 bounded": 0.1042,
+}
+#: steps of phase 1's dog_scan_tiled cases from starts on each edge and corner of the frame
+EDGE_STEPS = 6
+
+
+def pr11(name) -> str:
+    """dog_scan_tiled's PR 11 time of a timing name, for the log."""
+    return f"PR 11 {PR11_MS[name]:.4f} ms" if name in PR11_MS else "PR 11 not measured"
+
+
 #: H100 SXM published peaks: f32 outside the tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -865,6 +917,21 @@ def main() -> int:
                                                                      False, False)
             cases[f"tw={tw} flat field (ties across CTAs) +subpixel"] = (
                 tflat, centre, fill, tkw, {}, True, False)
+            # 8 lanes on one stream from each edge and corner of the frame, a disc drawn whole
+            # next to each: every step's first tiles run off the frame
+            edge_starts = [(0, 0), (0, W - 1), (H - 1, 0), (H - 1, W - 1), (0, W // 2),
+                           (H - 1, W // 2), (H // 2, 0), (H // 2, W - 1)]
+            r = tw // 2
+            tedge = draw_discs(np.full((EDGE_STEPS + 1, H, W), 128, np.uint8),
+                               [[(min(max(i, r), H - 1 - r), min(max(j, r), W - 1 - r))]
+                                * (EDGE_STEPS + 1) for i, j in edge_starts], r)
+            tedge = torch.from_numpy(np.ascontiguousarray(tedge[1:])).to(dev)
+            estarts = torch.tensor(edge_starts, dtype=torch.int32, device=dev)
+            efills = torch.full((len(edge_starts),), 128, dtype=torch.uint8, device=dev)
+            for sub in (False, True):
+                cases[f"tw={tw} batched starts on each edge and corner"
+                      + (" +subpixel" if sub else "")] = (tedge, estarts, efills, tkw, {}, sub,
+                                                          True)
 
     # the ROI pipeline's chunk scans at the crops it cuts at 1080p: the bench
     # shape (185x185, dog_scan) and the large target (461x461, dog_scan_tiled)
@@ -878,6 +945,18 @@ def main() -> int:
             name = f"ROI {label} T={ROI_K} {'bounded+subpixel' if sub else 'bounded'}"
             cases[name] = (crops, rpos0, fill, skw, rbnd, sub, False)
             roi_cases.append(name)
+    # the 461x461 crop's chunk from starts on each edge and corner of the crop (8 lanes on
+    # it, its boxes): the first tiles run off the crop
+    crops461, _, _, _, rbnd461, _, _ = cases[f"ROI 461x461 T={ROI_K} bounded"]
+    e = crops461.shape[-1] - 1
+    cstarts = torch.tensor([(0, 0), (0, e), (e, 0), (e, e), (0, e // 2), (e, e // 2), (e // 2, 0),
+                            (e // 2, e)], dtype=torch.int32, device=dev)
+    cbnd = {k: v[None].expand(len(cstarts), -1, -1).contiguous() for k, v in rbnd461.items()}
+    for sub in (False, True):
+        cases[f"ROI 461x461 B=8 starts on each edge and corner T={ROI_K}"
+              f" {'bounded+subpixel' if sub else 'bounded'}"] = (
+            crops461, cstarts, torch.full((len(cstarts),), fill, dtype=torch.uint8, device=dev),
+            lkw, cbnd, sub, True)
     # the batch and multi ROI engines' chunk scans (batched bounded, each lane
     # reading its own crops) at both crop sizes: in the batch, lane 2 is pure
     # fill, as a video past its end is; the 4 targets' crops are cut from one
@@ -1070,7 +1149,17 @@ def main() -> int:
             seg_cases[f"segments ROI {label} B={B} carry T={ROI_K} {tail}"] = ("carry", lanes_d,
                                                                             skw, S, sub)
     for S in (2, 4):
-        seg_cases[f"segments full 1080p T={CHUNK} S={S}"] = ("full", full_segments, kw, S, False)
+        seg_cases[f"segments full 1080p T={CHUNK} S={S}"] = ("full", (full_segments, pos0), kw,
+                                                            S, False)
+    # the large target's window on full frames, 3 segments of TILED_STEPS[60], each from the
+    # step before's position: a segment's first patch follows the chain across the boundary
+    lsteps = TILED_STEPS[LARGE_TW]
+    large_segments = torch.from_numpy(large_np[1:1 + 3 * lsteps]).to(dev).view(3, lsteps, H, W)
+    large_p0 = torch.tensor(large_truth[0], dtype=torch.int32, device=dev)
+    for sub in (False, True):
+        seg_cases[f"segments full 1080p tw={LARGE_TW} T={lsteps} S=3"
+                  + (" +subpixel" if sub else "")] = ("full", (large_segments, large_p0), lkw,
+                                                      3, sub)
 
     def run_segments(name, plain=False, carry_out=None, kernel=None):
         kind, d, skw, S, sub = seg_cases[name]
@@ -1079,7 +1168,7 @@ def main() -> int:
         batch = (tk.dog_scan_batch_segments_plain if plain
                  else functools.partial(tk.dog_scan_batch_segments_cuda, kernel=kernel))
         if kind == "full":
-            return one(d[:S], pos0, fill, subpixel=sub, **skw)
+            return one(d[0][:S], d[1], fill, subpixel=sub, **skw)
         if kind == "one":
             return one(d["crops"][:S, 0], d["pos0"][0], fill, deltas=d["single_deltas"][:S, 0],
                        lo=d["lo"][:S, 0], hi=d["hi"][:S, 0], ks=d["ks"][:S, 0], subpixel=sub,
@@ -1131,7 +1220,7 @@ def main() -> int:
                                  " disagree")
     for name in [n for n in cases if n.startswith("tw=")]:
         del cases[name]
-    del flat, mirror, narrow, own, tshared, tflat
+    del flat, mirror, narrow, own, tshared, tflat, tedge, large_segments
     record["phase1"] = phase1
 
     phase_done("phase 1")
@@ -1302,7 +1391,7 @@ def main() -> int:
                 row.update(cluster=plan.cluster, tile=list(plan.tile),
                            cluster_bound_share=c["sm_bound_ms"] / plan.cluster / ms)
                 where = (f", its cluster of {plan.cluster} SMs {c['sm_bound_ms'] / plan.cluster:.4f}"
-                         f" ms ({100 * row['cluster_bound_share']:.1f}%)")
+                         f" ms ({100 * row['cluster_bound_share']:.1f}%); {pr11(name)}")
             engine_timing[name][kname] = row
             log(f"engine choice timing {name} ({kname}): {ms:.4f} ms a launch"
                 f" ({row['us_per_step']:.2f} us/step), bound {c['bound_ms']:.6f} ms ({c['bound_by']},"
@@ -1862,7 +1951,8 @@ def main() -> int:
                                 cluster_bound_share=c["sm_bound_ms"] / plan.cluster / ms)
             where = (f"; its cluster of {plan.cluster} SMs {c['sm_bound_ms'] / plan.cluster:.4f}"
                      f" ms ({100 * c['sm_bound_ms'] / plan.cluster / ms:.1f}% of it reached,"
-                     f" tiles {plan.tile[0]}x{plan.tile[1]}, work {plan.work:.3f}x the direct taps)")
+                     f" tiles {plan.tile[0]}x{plan.tile[1]}, work {plan.work:.3f}x the direct taps);"
+                     f" {pr11(name)}")
         log(f"phase 3 {name} ({kname}): T={steps} lanes={n_lanes} kernel {ms:.4f}"
             f" ms/launch ({1e3 * ms / steps:.2f} us/step), plain "
             + (f"{plain_ms:.3f} ms" if plain_ms is not None else "not measured")
@@ -1962,7 +2052,8 @@ def main() -> int:
             + (f"{plain_ms:.3f} ms" if plain_ms is not None else "not measured")
             + f", bound {c['bound_ms']:.6f} ms ({c['bound_by']}), host {host_us:.1f} us a launch"
             + (f"; PR 10 {PR10_MS[name]:.4f} ms" if seg_kernel(name) == "dog_scan"
-               and name in PR10_MS else ""))
+               and name in PR10_MS else "")
+            + (f"; {pr11(name)}" if seg_kernel(name) == "dog_scan_tiled" else ""))
     record["segmented"] = seg_timing
     for name in ("batched unbounded B=16", "unbounded T=1", "bounded+subpixel T=1",
                  "batched unbounded B=4 T=1", *large_cases):

@@ -88,17 +88,35 @@
 //     or by a few column tiles when that does not fit, so a tile's row pass recomputes at most
 //     the L - 1 apron columns of its column tiles (tile_plan in ops/tracker_kernel.py counts the
 //     work against the direct taps); CTA r owns tiles r, r + C, ...;
-//   - per tile, dog_scan's register-blocked passes; the tile's patch is copied with cp.async by
-//     load_region (out-of-frame cells take the fill), and the next tile's patch is copied into
-//     the same buffer while the column pass runs, since the row pass is done with it by then;
-//   - per step, each CTA reduces its (max, column-major index) with keep_better, the C pairs
-//     are exchanged through distributed shared memory after one cluster barrier, and every CTA
-//     computes the same new position from them: no round trip through global memory, no second
-//     kernel. keep_better is a total order, so the result does not depend on the tiling;
+//   - per tile, dog_scan's register-blocked passes (kR outputs a thread in each), on a CTA of
+//     as many threads as its row-pass or column-pass items, in whole warps (256 at the large
+//     target's 7x105 tile, where 640 spent a step's scalar work on 20 warps); the step's first
+//     tile's patch is copied with cp.async after the exchange that places it (load_tile: each
+//     thread one chunk column of the rows, no division a chunk; load_region at the frame's
+//     edges, where out-of-frame cells take the fill), and a CTA's next tile (slots > 1) is
+//     copied into the same buffer while the column pass runs, since the row pass is done with
+//     it by then. The copy costs its issue, not its latency: warming L2 with the next step's
+//     rows a step ahead, copying each row as one bulk copy, and giving a thread fewer outputs
+//     in either pass (3 or 5 columns, 4 + 3 rows) were measured and each was slower (PERF.md,
+//     tools/dog_scan_split.py);
+//   - per step, each warp reduces its (max, column-major index) with two warp reductions on
+//     a key that orders as keep_better and sends the pair by st.async into every CTA's shared
+//     memory, counted on that CTA's transaction barrier (an mbarrier) of the step's parity;
+//     every warp waits until its own CTA holds all the cluster's pairs and computes the same
+//     new position: no barrier of the whole cluster on the step's path, no round trip through
+//     global memory, no second kernel. The order is a total one, so the result does not depend on the tiling.
+//     The pairs are double-buffered by step parity: a CTA sends parity p's pairs again two
+//     steps on, after a wait that needs every CTA's pairs of the step between, which each
+//     sends after it has read these;
 //   - with subpixel offsets each CTA keeps its tiles' responses (double-buffered by step
-//     parity, so the next step's writes wait for the reads behind the next cluster barrier),
-//     and CTA 0 reads the four neighbours of the maximum from the CTAs that own them: the
-//     values the argmax saw.
+//     parity), and CTA 0 reads the four neighbours of the maximum from the CTAs that own them,
+//     the values the argmax saw, made visible by the senders' release on the barrier.
+// A step has two CTA barriers (the first tile landed, the row sums written; a third where a
+// CTA has a next tile) and no barrier of the whole cluster. On an H100 a step at the large
+// target's window (105x105, L = 149, C = 15) takes about 9.1 us against a cluster FMA bound of
+// 2.9 us: the passes about 5.5, each thread's 149-tap chain on one or two warps a scheduler
+// (fewer outputs a thread were bound by I2F or shared memory), the first copy 1.3, the rest
+// 1.0 (tools/dog_scan_split.py --kernel dog_scan_tiled; PERF.md).
 // The wrapper picks between the two kernels by shape (ops/tracker_kernel.py::kernel_for: dog_scan
 // where the whole window fits one CTA), and picks C from the tile count and
 // cudaOccupancyMaxActiveClusters before the launch; a launch that cannot be scheduled fails and
@@ -252,6 +270,14 @@ constexpr int kMaxCluster = 16;  // CTAs of one cluster; above 8 a non-portable 
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The same barrier in halves: arrive (nothing released), and later wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // Address of `p` (this CTA's shared memory) in CTA `rank`'s shared memory, and loads from it.
@@ -697,6 +723,101 @@ dog_scan_kernel(const uint8_t* __restrict__ frames, long long lane_stride, int T
 
 // ---- dog_scan_tiled_kernel: one thread-block cluster per lane --------------------------------
 
+// (max, column-major index) as two words that order as keep_better does: the larger key
+// (the response's bits made monotone) wins, then the smaller index. Every response of a launch
+// is dir * (a difference of sums of non-negative products from +0.0), so its zeros all carry
+// one sign and the order is keep_better's.
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float key_value(unsigned h) {
+  return __uint_as_float((h & 0x80000000u) ? (h & 0x7fffffffu) : ~h);
+}
+__device__ __forceinline__ void keep_better_key(unsigned h, unsigned k, unsigned& bh,
+                                                unsigned& bk) {
+  if (h > bh || (h == bh && k < bk)) {
+    bh = h;
+    bk = k;
+  }
+}
+// The warp's best pair in every lane: two warp reductions, not five rounds of shuffles.
+__device__ __forceinline__ void warp_best(unsigned& h, unsigned& k) {
+  const unsigned m = __reduce_max_sync(0xffffffffu, h);
+  k = __reduce_min_sync(0xffffffffu, h == m ? k : 0xffffffffu);
+  h = m;
+}
+
+// The exchange's transaction barriers (mbarriers in this CTA's shared memory): each step's
+// pairs arrive by st.async, which counts their bytes on the receiver's barrier, so a CTA waits
+// for exactly the data it reads and no CTA waits on a barrier of the whole cluster.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// One arrival of this CTA on `bar`, announcing `bytes` to come for the phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait until the phase of `bar` with this parity completes; what the senders wrote before their
+// st.async is then visible (acquire at cluster scope).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done)
+                 : "r"(smem_u32(bar)), "r"(parity)
+                 : "memory");
+}
+// Store 8 bytes at `addr` in another CTA's shared memory (addresses from dsmem_addr), counted on
+// its barrier at `bar_addr`; the count releases this thread's earlier writes at cluster scope.
+__device__ __forceinline__ void st_async_b64(unsigned addr, unsigned long long v,
+                                             unsigned bar_addr) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];\n" ::"r"(
+                   addr),
+               "l"(v), "r"(bar_addr)
+               : "memory");
+}
+
+// load_region for a step's first tile: where the region lies inside the frame (rows and
+// columns, and the chunks of its first and last row inside the frame's bytes, so no load
+// leaves the frame), every chunk is one cp.async and each thread keeps one chunk column and
+// steps down the rows, with no division in the loop (a CTA sized to its passes issues ten
+// chunks a thread, PERF.md); elsewhere load_region's chunks and fills. Thread tid of nthreads.
+template <bool kAligned>
+__device__ __forceinline__ void load_tile(uint8_t* buf, int* shift, const uint8_t* frame, int H,
+                                          int W, int r0, int nrows, int c0, int ncols, int pitch,
+                                          int fill, int tid, int nthreads) {
+  const uintptr_t base = reinterpret_cast<uintptr_t>(frame);
+  const uintptr_t first = base + (uintptr_t)((long long)r0 * W + c0);
+  const uintptr_t end = base + (uintptr_t)((long long)(r0 + nrows - 1) * W + c0 + ncols);
+  const bool inside = r0 >= 0 && r0 + nrows <= H && c0 >= 0 && c0 + ncols <= W &&
+                      (first & ~(uintptr_t)15) >= base &&
+                      ((end + 15) & ~(uintptr_t)15) <= base + (uintptr_t)((long long)H * W);
+  if (!inside) {
+    load_region<kAligned>(buf, shift, frame, H, W, r0, nrows, c0, ncols, pitch, fill, tid,
+                          nthreads);
+    return;
+  }
+  const int nch = pitch >> 4, per = nthreads / nch;
+  if (tid >= per * nch) return;
+  const int j = tid % nch;
+  for (int u = tid / nch; u < nrows; u += per) {
+    const uintptr_t a = first + (uintptr_t)((long long)u * W);
+    const int sh = (int)(a & 15);
+    if (!kAligned && j == 0) shift[u] = sh;
+    if (16 * j < sh + ncols)
+      cp_async16(buf + u * pitch + 16 * j, reinterpret_cast<const void*>(a - sh + 16 * j));
+  }
+}
+
 // Shared-memory layout of one CTA of dog_scan_tiled_kernel, from L, the output tile (th x tw,
 // both multiples of kR) and the response slots (tiles a CTA owns; 0 without subpixel offsets).
 struct TiledLayout {
@@ -704,7 +825,7 @@ struct TiledLayout {
   int pitch;   // bytes of one patch row: its tw + L - 1 columns, up to 15 bytes of row offset,
                // in whole 16-byte chunks
   int pitch2;  // float2 pairs of one row-sum row: tw + L, odd (no bank conflicts)
-  long long off_rows, off_taps, off_resp, off_shift, bytes;
+  long long off_rows, off_taps, off_pairs, off_resp, off_shift, bytes;
 };
 
 __host__ __device__ inline TiledLayout tiled_layout(int L, int th, int tw, int resp_slots) {
@@ -714,7 +835,8 @@ __host__ __device__ inline TiledLayout tiled_layout(int L, int th, int tw, int r
   s.pitch2 = (tw + L) | 1;
   s.off_rows = (long long)s.brows * s.pitch;                 // [brows][pitch] u8 tile patch
   s.off_taps = s.off_rows + 8LL * th * s.pitch2;             // [th][pitch2] float2 row sums
-  s.off_resp = s.off_taps + 8LL * L;                         // [L] float2 (centre, surround) taps
+  s.off_pairs = s.off_taps + 8LL * L;                        // [L] float2 (centre, surround) taps
+  s.off_resp = s.off_pairs + 16LL * kMaxCluster * kWarps;    // [2][16 * 20] (key, index) pairs
   s.off_shift = s.off_resp + 8LL * resp_slots * th * tw;     // [2][slots][th][tw] f32 response
   s.bytes = s.off_shift + 4LL * s.brows;                     // [brows] i32 row offsets
   return s;
@@ -733,8 +855,8 @@ dog_scan_tiled_kernel(const uint8_t* __restrict__ frames, long long lane_stride,
   extern __shared__ __align__(16) unsigned char smem[];
   const int chain = blockIdx.y, B = gridDim.y;
   const int rank = blockIdx.x, C = gridDim.x;  // the grid's x dimension is one cluster
-  // the lane's rows and frames of step (seg, t), as in dog_scan_kernel; without kSeg the
-  // lane's pointers move to its rows once, as the plain chunk scan had them
+  // the lane's rows and frames of step (s, t), as in dog_scan_kernel; without kSeg the lane's
+  // pointers move to its rows once, as the plain chunk scan had them
   const long long lane_rows = 2LL * T * chain;
   frames += chain * lane_stride;
   const int fill = fills[chain];
@@ -745,11 +867,18 @@ dog_scan_tiled_kernel(const uint8_t* __restrict__ frames, long long lane_stride,
     out_pos += lane_rows;
     if (out_off) out_off += lane_rows;
   }
+  const int G = kSeg ? sg.S * T : T;  // the lane's steps, segment after segment
   auto arg_row = [&](int s, int t) {
     return kSeg ? s * sg.arg_stride + lane_rows + 2 * t : 2LL * t;
   };
   auto out_row = [&](int s, int t) {
     return kSeg ? 2LL * T * ((long long)s * B + chain) + 2 * t : 2LL * t;
+  };
+  auto next = [&](int& s, int& t) {
+    if (++t == T) {
+      t = 0;
+      ++s;
+    }
   };
 
   const int wh = 2 * ri + 1, ww = 2 * rj + 1;
@@ -758,23 +887,31 @@ dog_scan_tiled_kernel(const uint8_t* __restrict__ frames, long long lane_stride,
   const int slots = (nt + C - 1) / C;
   const int pw = tw + L - 1;  // row sums a tile needs per row
   const int nbv = th / kR, nbh = tw / kR;
+  // the warps that can hold a column-pass item: only their maxima are exchanged
+  const int nthreads = blockDim.x;
+  const int nwx = min(nthreads >> 5, (th * nbh + 31) / 32);
   const TiledLayout ly = tiled_layout(L, th, tw, out_off ? slots : 0);
-  uint8_t* patch = smem;                                         // [brows][pitch]
-  float2* rows = reinterpret_cast<float2*>(smem + ly.off_rows);  // [th][pitch2]
-  float2* tp = reinterpret_cast<float2*>(smem + ly.off_taps);    // [L] (centre, surround)
-  float* resp = reinterpret_cast<float*>(smem + ly.off_resp);    // [2][slots][th][tw]
-  int* shifts = reinterpret_cast<int*>(smem + ly.off_shift);     // [brows]
-  __shared__ float s_v[kWarps];
-  __shared__ int s_k[kWarps];
-  __shared__ float s_best_v[2];  // this CTA's (max, column-major index), by step parity
-  __shared__ int s_best_k[2];
+  uint8_t* patch = smem;                                           // [brows][pitch]
+  float2* rows = reinterpret_cast<float2*>(smem + ly.off_rows);    // [th][pitch2]
+  float2* tp = reinterpret_cast<float2*>(smem + ly.off_taps);      // [L] (centre, surround)
+  uint2* pairs = reinterpret_cast<uint2*>(smem + ly.off_pairs);    // [2][16 * 20], C * nwx used
+  float* resp = reinterpret_cast<float*>(smem + ly.off_resp);      // [2][slots][th][tw]
+  int* shifts = reinterpret_cast<int*>(smem + ly.off_shift);       // [brows]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int k = tid; k < L; k += kThreads) tp[k] = make_float2(taps[k], taps[L + k]);
+  for (int k = tid; k < L; k += nthreads) tp[k] = make_float2(taps[k], taps[L + k]);
+  __shared__ uint64_t s_bar[2];  // the exchange's barriers, by step parity
+  if (tid == 0) {
+    mbar_init(&s_bar[0], 1);
+    mbar_init(&s_bar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
+  cluster_arrive_relaxed();  // this CTA runs; the first step's exchange waits for all of them
 
   // every thread of every CTA computes each step's position from the cluster's exchange, so
-  // every thread holds the same chain between segments
+  // every thread holds the same chain between segments; and this step's deltas and box, the
+  // next step's read while this one runs
   SegmentChain sc(sg, chain, T);
   int pi = 0, pj = 0;
   if (!kSeg || pos0) {  // (a carry replaces pos0)
@@ -782,47 +919,58 @@ dog_scan_tiled_kernel(const uint8_t* __restrict__ frames, long long lane_stride,
     pj = pos0[2 * chain + 1];
   }
   if constexpr (kSeg) sc.begin(sg, 0, pi, pj);
-  // segment seg, step t (the tile loop has its own s); without kSeg one segment, and the
-  // loops are the plain chunk scan's
-  for (int seg = 0; seg < (kSeg ? sg.S : 1); ++seg)
-  for (int t = 0; t < T; ++t) {
-    const uint8_t* frame = frames + (kSeg ? seg * sg.frame_stride : 0LL) + (size_t)t * H * W;
-    int qi = pi, qj = pj;  // p
-    int lo_i = 0, lo_j = 0, hi_i = H - 1, hi_j = W - 1;
-    if (deltas) {
-      const long long a = arg_row(seg, t);
-      qi += deltas[a];
-      qj += deltas[a + 1];
-      lo_i = lo[a];
-      lo_j = lo[a + 1];
-      hi_i = hi[a];
-      hi_j = hi[a + 1];
-    }
+  int d0i = 0, d0j = 0, lo_i = 0, lo_j = 0, hi_i = H - 1, hi_j = W - 1;
+  if (deltas) {
+    const long long a = arg_row(0, 0);
+    d0i = deltas[a];
+    d0j = deltas[a + 1];
+    lo_i = lo[a];
+    lo_j = lo[a + 1];
+    hi_i = hi[a];
+    hi_j = hi[a + 1];
+  }
+
+  int s = 0, t = 0;  // this step's segment and step in it
+  for (int g = 0; g < G; ++g) {
+    int sn = s, tn = t;  // step g+1's
+    next(sn, tn);
+    const uint8_t* frame = frames + (kSeg ? s * sg.frame_stride : 0LL) + (size_t)t * H * W;
+    const int qi = pi + d0i, qj = pj + d0j;  // p
     const int r0 = clampi(qi, 0, H - 1) - pad_i;  // frame row and column of the patch origin
     const int c0 = clampi(qj, 0, W - 1) - pad_j;
-    const int par = (kSeg ? seg * T + t : t) & 1;
+    const int par = g & 1;
     float* rcur = resp + par * slots * th * tw;
+    int d1i = 0, d1j = 0, nlo_i = 0, nlo_j = 0, nhi_i = H - 1, nhi_j = W - 1;
+    if (deltas && g + 1 < G) {  // step g+1's, read now, off the step's path
+      const long long a = arg_row(sn, tn);
+      d1i = deltas[a];
+      d1j = deltas[a + 1];
+      nlo_i = lo[a];
+      nlo_j = lo[a + 1];
+      nhi_i = hi[a];
+      nhi_j = hi[a + 1];
+    }
 
-    // the first tile's patch, loaded synchronously; each next one is copied while the
-    // current tile's column pass runs (the row pass is done with the patch by then)
+    // the first tile's patch, loaded synchronously; each next one is copied while the current
+    // tile's column pass runs (the row pass is done with the patch by then)
     if (rank < nt) {
       const int tr = rank / ntc, tc = rank - tr * ntc;
-      load_region<kAligned>(patch, shifts, frame, H, W, r0 + tr * th, ly.brows, c0 + tc * tw, pw,
-                            ly.pitch, fill, tid, kThreads);
+      load_tile<kAligned>(patch, shifts, frame, H, W, r0 + tr * th, ly.brows, c0 + tc * tw, pw,
+                          ly.pitch, fill, tid, nthreads);
     }
     cp_async_wait_all();
     __syncthreads();
 
     float bv = -INFINITY;
     int bk = INT_MAX;
-    for (int s = 0; s < slots; ++s) {
-      const int id = rank + s * C;
+    for (int sl = 0; sl < slots; ++sl) {
+      const int id = rank + sl * C;
       if (id >= nt) break;
       const int tr = id / ntc, tc = id - tr * ntc;
 
       // Row pass: rows[a][x] = (sum_k gc[k] P[a+k][x], sum_k gs[k] P[a+k][x]), kR rows a thread.
       const int ocol = kAligned ? ((c0 + tc * tw) & 15) : 0;
-      for (int it = tid; it < nbv * pw; it += kThreads) {
+      for (int it = tid; it < nbv * pw; it += nthreads) {
         const int blk = it / pw, x = it - blk * pw;
         const int a0 = blk * kR;
         const uint8_t* col = patch + a0 * ly.pitch + ocol + x;
@@ -838,10 +986,11 @@ dog_scan_tiled_kernel(const uint8_t* __restrict__ frames, long long lane_stride,
       __syncthreads();
 
       const int nid = id + C;
-      if (s + 1 < slots && nid < nt) {
+      const bool more = sl + 1 < slots && nid < nt;
+      if (more) {
         const int nr = nid / ntc, nc = nid - nr * ntc;
         load_region<kAligned>(patch, shifts, frame, H, W, r0 + nr * th, ly.brows, c0 + nc * tw,
-                              pw, ly.pitch, fill, tid, kThreads);
+                              pw, ly.pitch, fill, tid, nthreads);
         cp_async_commit();
       }
 
@@ -849,7 +998,7 @@ dog_scan_tiled_kernel(const uint8_t* __restrict__ frames, long long lane_stride,
       // running first maximum in column-major order (and in its response slot). Neighbouring
       // threads take neighbouring column blocks of one row: float2 reads 7 pairs apart, which
       // fall in distinct banks (a tile has too few rows to spread a warp along them).
-      for (int it = tid; it < th * nbh; it += kThreads) {
+      for (int it = tid; it < th * nbh; it += nthreads) {
         const int a = it / nbh, blk = it - a * nbh;
         const int b0 = blk * kR;
         const float2* rp = rows + a * ly.pitch2 + b0;
@@ -861,45 +1010,41 @@ dog_scan_tiled_kernel(const uint8_t* __restrict__ frames, long long lane_stride,
           const int gc = tc * tw + b0 + i;
           if (gr < wh && gc < ww) {
             const float v = direction * (rc[i] - rs[i]);
-            if (out_off) rcur[(s * th + a) * tw + b0 + i] = v;
+            if (out_off) rcur[(sl * th + a) * tw + b0 + i] = v;
             keep_better(v, gc * wh + gr, bv, bk);
           }
         }
       }
-      cp_async_wait_all();  // the next tile's patch has landed (this thread's copies)
-      __syncthreads();      // ... and everyone's; the row sums are free again
-    }
-
-    // This CTA's maximum, then the cluster's: every warp reads the C pairs through distributed
-    // shared memory after one cluster barrier. keep_better is a total order, so the result
-    // does not depend on which CTA held which tile.
-    warp_argmax(bv, bk);
-    if (lane == 0) {
-      s_v[warp] = bv;
-      s_k[warp] = bk;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < kWarps ? s_v[lane] : -INFINITY;
-      bk = lane < kWarps ? s_k[lane] : INT_MAX;
-      warp_argmax(bv, bk);
-      if (lane == 0) {
-        s_best_v[par] = bv;
-        s_best_k[par] = bk;
+      if (more) {
+        cp_async_wait_all();  // the next tile's patch has landed (this thread's copies)
+        __syncthreads();      // ... and everyone's; the row sums are free again
       }
     }
-    cluster_sync();
-    bv = -INFINITY;
-    bk = INT_MAX;
-    if (lane < C) {
-      bv = dsmem_f32(dsmem_addr(&s_best_v[par], lane));
-      bk = dsmem_s32(dsmem_addr(&s_best_k[par], lane));
+
+    // The exchange: each warp that can hold a column item sends its pair into every CTA's
+    // slot for it by st.async, counted on that CTA's barrier of this parity; every warp waits
+    // for its own CTA's C * nwx pairs and reduces them from its own shared memory. The order
+    // is a total one, so the result does not depend on which CTA held which tile. A CTA writes
+    // parity p's slots again two steps on, after a wait that needs every CTA's next pairs,
+    // which each sends after it has read these.
+    unsigned h = order_key(bv), k = (unsigned)bk;
+    warp_best(h, k);
+    if (g == 0) cluster_wait();  // every CTA of the cluster runs: its barriers are there
+    __syncwarp();                // the warp's responses are written before its sends release
+    if (warp < nwx && lane < C)
+      st_async_b64(dsmem_addr(&pairs[par * kMaxCluster * kWarps + rank * nwx + warp], lane),
+                   ((unsigned long long)k << 32) | h, dsmem_addr(&s_bar[par], lane));
+    if (tid == 0) mbar_expect_tx(&s_bar[par], 8u * C * nwx);
+    mbar_wait(&s_bar[par], (g >> 1) & 1);
+    h = 0;
+    k = 0xffffffffu;
+    for (int i = lane, n = C * nwx; i < n; i += 32) {
+      const uint2 p = pairs[par * kMaxCluster * kWarps + i];
+      keep_better_key(p.x, p.y, h, k);
     }
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-      const int ok = __shfl_xor_sync(0xffffffffu, bk, o);
-      keep_better(ov, ok, bv, bk);
-    }
+    warp_best(h, k);
+    bv = key_value(h);
+    bk = (int)k;
     const int row = bk % wh, col = bk / wh;
     const int ni = clampi(qi - ri + row, lo_i, hi_i);
     const int nj = clampi(qj - rj + col, lo_j, hi_j);
@@ -919,7 +1064,7 @@ dog_scan_tiled_kernel(const uint8_t* __restrict__ frames, long long lane_stride,
       const float rm = __shfl_sync(0xffffffffu, nv, 0), rp = __shfl_sync(0xffffffffu, nv, 1);
       const float cm = __shfl_sync(0xffffffffu, nv, 2), cp = __shfl_sync(0xffffffffu, nv, 3);
       if (lane == 0) {
-        const long long o = out_row(seg, t);
+        const long long o = out_row(s, t);
         out_pos[o] = ni;
         out_pos[o + 1] = nj;
         if (out_off) {
@@ -936,9 +1081,17 @@ dog_scan_tiled_kernel(const uint8_t* __restrict__ frames, long long lane_stride,
     pi = ni;
     pj = nj;
     if constexpr (kSeg) {
-      sc.step(sg, seg, t, ni, nj);
-      if (t == T - 1 && seg + 1 < sg.S) sc.begin(sg, seg + 1, pi, pj);
+      sc.step(sg, s, t, ni, nj);
+      if (t == T - 1 && s + 1 < sg.S) sc.begin(sg, s + 1, pi, pj);
     }
+    s = sn;
+    t = tn;
+    d0i = d1i;
+    d0j = d1j;
+    lo_i = nlo_i;
+    lo_j = nlo_j;
+    hi_i = nhi_i;
+    hi_j = nhi_j;
   }
   // every CTA read carry_in before the first cluster barrier, so it may be overwritten now
   if (kSeg && sg.carry_out && rank == 0 && threadIdx.x == 0) {
@@ -1120,7 +1273,10 @@ int dog_scan_tiled_launch(const void* frames, long long lane_stride, int B, int 
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cluster_config(&cfg, &attr, cluster, B, kThreads, smem, stream);
+  // threads a CTA: its row-pass or column-pass items, whichever are more, in whole warps
+  // (dog_scan_tiled_active_clusters counts kThreads, the most a launch takes)
+  const int items = max(tile_h / kR * (tile_w + L - 1), tile_h * (tile_w / kR));
+  cluster_config(&cfg, &attr, cluster, B, min(kThreads, 32 * ((items + 31) / 32)), smem, stream);
   e = cudaLaunchKernelEx(&cfg, kernel, (const uint8_t*)frames, lane_stride, T, H, W,
                          (const int32_t*)pos0, (const uint8_t*)fills, (const int32_t*)deltas,
                          (const int32_t*)lo, (const int32_t*)hi, (const float*)taps, L, ri, rj,

@@ -509,10 +509,15 @@ def tile_plan(radii, L: int, smem_limit: int, subpixel: bool = False,
                      f"of shared memory per block")
 
 
+#: bytes of the exchange's (key, index) pairs a CTA: 2 parities x 16 CTAs x 20 warps x 8
+TILED_PAIRS_BYTES = 16 * MAX_CLUSTER * (MAX_THREADS // 32)
+
+
 def _tiled_smem_bytes(L: int, th: int, tw: int, resp_slots: int) -> int:
     # mirror of tiled_layout in csrc/dog_scan.cu
     brows, pitch, pitch2 = th + L, 16 * ((tw + L + 29) // 16), (tw + L) | 1
-    return brows * pitch + 8 * th * pitch2 + 8 * L + 8 * resp_slots * th * tw + 4 * brows
+    return (brows * pitch + 8 * th * pitch2 + 8 * L + TILED_PAIRS_BYTES
+            + 8 * resp_slots * th * tw + 4 * brows)
 
 
 def _tiled_plan(radii, L: int, smem_limit: int, subpixel: bool, device_index: int) -> TilePlan:

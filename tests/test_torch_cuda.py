@@ -232,6 +232,195 @@ def test_tiled_launch_that_cannot_run_raises(tiled, monkeypatch):
     assert tk.launches == before
 
 
+# ---- dog_scan_tiled's step: the first tile's copy, CTAs sized to their passes, the exchange
+# by st.async -------------------------------------------------------------------------------
+
+
+def large_spec(shape):
+    """The large target's default window: target_width=60, 105x105, L = 149."""
+    from pawsometracker_tpu_torch.ops.dog_kernel import guess_window_size
+
+    return make_spec(shape, guess_window_size(60), 60, True)
+
+
+CROP_EDGE_STARTS = {
+    "top left corner": (0, 0), "top right corner": (0, 460), "bottom left corner": (460, 0),
+    "bottom right corner": (460, 460), "top edge": (0, 230), "bottom edge": (460, 230),
+    "left edge": (230, 0), "right edge": (230, 460), "off the crop, above left": (-40, -70),
+    "off the crop, below right": (500, 520),
+}
+
+
+@pytest.mark.parametrize("where", list(CROP_EDGE_STARTS))
+def test_tiled_first_tiles_off_each_edge_equal_plain(card, where):
+    """A 461x461 crop at the large target's window (15 CTAs, one 7-row tile
+    each): starts on each side and corner
+    and off the crop, a disc there, so that every step's first tiles run off
+    the crop (the copy's edge path), where cells take the fill; unbounded, and
+    bounded+subpixel with random deltas."""
+    h = w = 461
+    T = 5
+    spec = large_spec((h, w))
+    plan = tk._tiled_plan(spec.radii, spec.kernel_len, tk._smem_limit(0), True, 0)
+    assert tk.kernel_for(spec.radii, spec.kernel_len, tk._smem_limit(0)) == "dog_scan_tiled"
+    assert plan.cluster == 15
+    p0 = CROP_EDGE_STARTS[where]
+    i0, j0 = min(max(p0[0], 0), h - 1), min(max(p0[1], 0), w - 1)
+    frames = ellipse_frames(h, w, [(i0, j0)] * T, ry=26, rx=22)
+    rng = np.random.default_rng(11)
+    bounds = {"deltas": rng.integers(-3, 4, (T, 2)), "lo": np.zeros((T, 2)),
+              "hi": np.tile([h - 1, w - 1], (T, 1))}
+    check(card, frames, p0, spec.radii, spec.sigma, fill=77, kernel="dog_scan_tiled")
+    check(card, frames, p0, spec.radii, spec.sigma, subpixel=True, bounds=bounds, fill=77,
+          kernel="dog_scan_tiled")
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 8, 16])
+@pytest.mark.parametrize("field", ["disc", "flat (ties across CTAs)"])
+def test_tiled_forced_clusters_at_the_large_window_equal_plain(card, monkeypatch, cluster, field):
+    """The large target's window on its 461x461 crop under forced clusters of
+    1, 2, 8 and 16 CTAs (its 15 tiles on one CTA, 8 or 2 a CTA, or one CTA
+    owning none), on a disc and on a flat field whose exact ties span the
+    CTAs: one chain bounded+subpixel, and 2 lanes, bit for bit."""
+    h = w = 461
+    T = 4
+    spec = large_spec((h, w))
+    monkeypatch.setattr(tk, "tiled_cluster", cluster)
+    assert tk._tiled_plan(spec.radii, spec.kernel_len, tk._smem_limit(0), True, 0).cluster \
+        == cluster
+    if field == "disc":
+        path = [(230 + 3 * t, 230 - 2 * t) for t in range(T)]
+        frames = ellipse_frames(h, w, path, ry=26, rx=22)
+    else:
+        frames = np.full((T, h, w), 128, np.uint8)
+    rng = np.random.default_rng(13)
+    check(card, frames, (230, 230), spec.radii, spec.sigma, subpixel=True,
+          bounds=random_bounds(rng, (T, 2), h, w), kernel="dog_scan_tiled")
+    check_batch(card, frames, [(230, 230), (100, 380)], [128, 90], spec.radii, spec.sigma)
+
+
+@pytest.mark.parametrize("row", [6, 7, 13, 14, 34, 35])
+def test_tiled_subpixel_max_on_tile_boundary_equal_plain(tiled, monkeypatch, row):
+    """A disc whose maximum lies on window row 6, 7, 13, 14, 34 or 35 of a
+    41x41 window cut in 7-row tiles, so the neighbour above or below is read
+    from another CTA's response slot; shades below and beside the disc make
+    both offsets nonzero: offsets bit for bit, under the plan's cluster and
+    forced clusters of 2 and 16."""
+    h, w, T = 130, 130, 3
+    spec = make_spec((h, w), 41, 10, True)
+    p = (65, 65)
+    ci, cj = p[0] - spec.radii[0] + row, p[1] + 3
+    frames = ellipse_frames(h, w, [(ci, cj)] * T, ry=4, rx=3)
+    frames[:, ci + 5, cj - 2:cj + 3] = 70
+    frames[:, ci - 1:ci + 2, cj + 4] = 70
+    first, off = tk.dog_scan_plain(torch.from_numpy(frames[:1]).to(tiled),
+                                   torch.tensor(p, dtype=torch.int32, device=tiled), 128,
+                                   radii=spec.radii, sigma=spec.sigma, darker_target=True,
+                                   subpixel=True)
+    assert tuple(first[0].tolist()) == (ci, cj) and bool((off[0].abs() > 0.1).all())
+    for cluster in (None, 2, 16):
+        monkeypatch.setattr(tk, "tiled_cluster", cluster)
+        check(tiled, frames, p, spec.radii, spec.sigma, subpixel=True, kernel="dog_scan_tiled")
+
+
+def test_tiled_batch_fill_only_lane_equal_plain(card):
+    """B = 4 on the large target's 461x461 crops, lane 2 pure fill (a video
+    past its end, as the batch ROI engine launches it), bounded and
+    bounded+subpixel."""
+    h = w = 461
+    T, B = 4, 4
+    spec = large_spec((h, w))
+    paths = [[(200 + 20 * b + 3 * t, 260 - 15 * b - 2 * t) for t in range(T)] for b in range(B)]
+    frames = np.stack([ellipse_frames(h, w, p, ry=26, rx=22) for p in paths])
+    frames[2] = 100
+    rng = np.random.default_rng(14)
+    for sub in (False, True):
+        check_batch(card, frames, [p[0] for p in paths], [128, 128, 100, 128], spec.radii,
+                    spec.sigma, subpixel=sub, bounds=random_bounds(rng, (B, T, 2), h, w))
+
+
+def test_tiled_batched_snap_equal_plain(card):
+    """The quarter-frame autodetect snap (271x481 window, L = 65: 39 tiles of
+    7x483 over 13 CTAs, three a CTA) on 4 lanes of 1080p frames
+    with their own discs and fills, and with subpixel offsets."""
+    from pawsometracker_tpu_torch.models.dog_tracker import autodetect_spec
+
+    h, w, B = 1080, 1920, 4
+    spec = autodetect_spec(make_spec((h, w), 41, 25, True))
+    plan = tk._tiled_plan(spec.radii, spec.kernel_len, tk._smem_limit(0), False, 0)
+    assert plan.slots == 3
+    frames = np.stack([ellipse_frames(h, w, [(400 + 80 * b, 700 + 150 * b)], ry=12, rx=12)
+                       for b in range(B)])
+    frames[1] = np.where(frames[1] == 128, 100, frames[1])
+    centre = [(h // 2 - 1, w // 2 - 1)] * B
+    check_batch(card, frames, centre, [128, 100, 128, 128], spec.radii, spec.sigma)
+    check_batch(card, frames, centre, [128, 100, 128, 128], spec.radii, spec.sigma,
+                subpixel=True)
+
+
+@pytest.mark.parametrize("shape", [(1080, 1918), (360, 641), "lane base + 5"])
+def test_tiled_large_window_unaligned_frames_equal_plain(card, shape):
+    """Frames 1918 and 641 wide, and 480-wide frames at a base 5 bytes past a
+    16-byte boundary (each patch row read at its own offset, the per-row
+    variant), at the large target's window: unbounded+subpixel and bounded,
+    a disc moving."""
+    h, w = (200, 480) if shape == "lane base + 5" else shape
+    T = 4
+    spec = large_spec((h, w))
+    path = [(h // 2 + 3 * t, w // 2 - 2 * t) for t in range(T)]
+    frames = ellipse_frames(h, w, path, ry=26, rx=22)
+    if shape == "lane base + 5":
+        flat = torch.zeros(frames.size + 5, dtype=torch.uint8, device=card)
+        flat[5:] = torch.from_numpy(frames.reshape(-1)).to(card)
+        frames = flat[5:].view(T, h, w)
+        assert frames.data_ptr() % 16 != 0
+    rng = np.random.default_rng(15)
+    check(card, frames, path[0], spec.radii, spec.sigma, subpixel=True, kernel="dog_scan_tiled")
+    check(card, frames, path[0], spec.radii, spec.sigma, bounds=random_bounds(rng, (T, 2), h, w),
+          kernel="dog_scan_tiled")
+
+
+@pytest.mark.parametrize("carry", [False, True])
+def test_tiled_segments_rebase_equal_plain(card, carry):
+    """Segments at the large window on 461x461 crops, S = 3 of T = 4: the ks
+    rule with a short segment (the next start one the chain holds) and a
+    segment of one step, or 2 lanes with the absolute carry and origins that
+    jump up to 90 px between segments, so each segment's first patch lies
+    across the rebase; bounded+subpixel, bit for bit, one launch each."""
+    h = w = 461
+    S, T, B = 3, 4, 2
+    spec = large_spec((h, w))
+    rng = np.random.default_rng(16)
+    paths = [[(230 + 2 * t, 200 + 40 * b + 3 * t) for t in range(S * T)] for b in range(B)]
+    frames = np.stack([ellipse_frames(h, w, p, ry=26, rx=22) for p in paths])
+    frames = np.ascontiguousarray(np.moveaxis(frames.reshape(B, S, T, h, w), 0, 1))
+    fr = torch.from_numpy(frames).to(card)
+    box = {k: torch.from_numpy(v.astype(np.int32)).to(card)
+           for k, v in random_bounds(rng, (S, B, T, 2), h, w).items()}
+    ks = torch.tensor([[T, T], [2, 3], [1, T]], dtype=torch.int32, device=card)
+    kw = dict(radii=spec.radii, sigma=spec.sigma, darker_target=True, subpixel=True)
+    before = tk.launches_by_kernel["dog_scan_tiled"]
+    if carry:
+        origin0 = torch.from_numpy(rng.integers(-90, 91, (S, B, 2)).astype(np.int32)).to(card)
+        origin_last = torch.from_numpy(rng.integers(-90, 91, (S, B, 2)).astype(np.int32)).to(
+            card)
+        c = torch.tensor([[230, 200], [230, 240]], dtype=torch.int32, device=card) + origin0[0]
+        fills = torch.tensor([128, 90], dtype=torch.uint8, device=card)
+        seg = dict(ks=ks, origin0=origin0, origin_last=origin_last, **box, **kw)
+        got, got_c = tk.dog_scan_batch_segments(fr, None, fills, carry=c, **seg)
+        want, want_c = tk.dog_scan_batch_segments_plain(fr, None, fills, carry=c, **seg)
+        assert torch.equal(got_c, want_c)
+    else:
+        one = {k: v[:, 0].contiguous() for k, v in box.items()}
+        p0 = torch.tensor([230, 200], dtype=torch.int32, device=card)
+        got = tk.dog_scan_segments(fr[:, 0], p0, 128, ks=ks[:, 0].contiguous(), **one, **kw)
+        want = tk.dog_scan_segments_plain(fr[:, 0], p0, 128, ks=ks[:, 0].contiguous(), **one,
+                                          **kw)
+    torch.cuda.synchronize()
+    _assert_same_out(got, want, True)
+    assert tk.launches_by_kernel["dog_scan_tiled"] == before + 1
+
+
 def test_flat_field_ties(card):
     spec = make_spec((90, 90), 21, 10, True)
     frames = np.full((12, 90, 90), 128, np.uint8)

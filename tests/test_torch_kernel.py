@@ -356,6 +356,65 @@ def test_cluster_argmax_equals_column_major_first_maximum(field, cluster, rng):
     assert (k % wh, k // wh) == tuple(want)
 
 
+@pytest.mark.parametrize("radii,L", PLAN_WINDOWS)
+def test_pass_items_cover_the_tile_once_within_the_layout(radii, L):
+    """The kernel's pass indexing, mirrored: the row pass's items (7 rows of
+    one patch column) write every row sum of the tile once and read no patch
+    row past the layout's; the column pass's items (7 columns of one tile row)
+    write every output of the tile once and read no row sum past the row's
+    pitch."""
+    plan = tk.tile_plan(radii, L, 232448)
+    (th, tw), pw = plan.tile, plan.tile[1] + L - 1
+    brows = th + L
+    pitch2 = (tw + L) | 1
+    written = np.zeros((th, pw), int)
+    nbv = th // tk.SCAN_R
+    items = [(blk * 7, 7, x) for blk in range(nbv) for x in range(pw)]
+    for a0, R, x in items:
+        written[a0:a0 + R, x] += 1
+        assert a0 + L + R - 1 <= brows - 1  # the last look-ahead load
+    assert (written == 1).all()
+    R = tk.SCAN_R
+    ng = -(-tw // R)
+    out = np.zeros((th, tw), int)
+    for it in range(th * ng):
+        a, b0 = divmod(it, ng)
+        b0 *= R
+        assert b0 + L + R - 1 <= pitch2 - 1
+        out[a, b0:b0 + R] += 1
+    assert (out == 1).all()
+
+
+def order_key(v):
+    """The kernel's order_key: float32 bits made monotone as uint32."""
+    u = np.asarray(v, np.float32).view(np.uint32).astype(np.uint64)
+    return np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000).astype(np.uint64)
+
+
+@pytest.mark.parametrize("field", ["noise", "ties", "zeros and -inf", "negative"])
+def test_exchange_key_orders_as_keep_better(field, rng):
+    """The exchange's (key, index) pairs, the larger key then the smaller
+    index winning, pick the pair keep_better picks (larger value, then the
+    smaller column-major index) on any finite responses with -inf for empty
+    slots, and key_value gives the value back bit for bit."""
+    n = 300
+    if field == "noise":
+        v = rng.standard_normal(n).astype(np.float32)
+    elif field == "ties":
+        v = rng.integers(-2, 3, n).astype(np.float32)
+    elif field == "zeros and -inf":
+        v = np.where(rng.random(n) < 0.5, np.float32(0), np.float32(-np.inf)).astype(np.float32)
+    else:
+        v = -rng.random(n).astype(np.float32) * 1e3
+    k = rng.permutation(n).astype(np.uint64)
+    keys = order_key(v)
+    best = max(range(n), key=lambda i: (keys[i], -int(k[i])))
+    want = max(range(n), key=lambda i: (float(v[i]), -int(k[i])))
+    assert best == want
+    back = np.where(keys & 0x80000000, keys & 0x7FFFFFFF, ~keys & 0xFFFFFFFF).astype(np.uint32)
+    assert np.array_equal(back, v.view(np.uint32))
+
+
 def test_tile_shape_rejects_oversized_kernel():
     with pytest.raises(ValueError, match="shared memory"):
         tk.tile_plan((20, 20), 601, 232448)
@@ -367,20 +426,27 @@ def test_smem_formula_matches_kernel_source():
     import os
 
     src = open(os.path.join(os.path.dirname(tk.__file__), "..", "csrc", "dog_scan.cu")).read()
-    # dog_scan_tiled_kernel: tiled_layout
+    # dog_scan_tiled_kernel: tiled_layout, the warps that exchange, and a CTA's threads
     for line in ("s.brows = th + L;",
                  "s.pitch = 16 * ((tw + L + 29) / 16);",
                  "s.pitch2 = (tw + L) | 1;",
                  "s.off_rows = (long long)s.brows * s.pitch;",
                  "s.off_taps = s.off_rows + 8LL * th * s.pitch2;",
-                 "s.off_resp = s.off_taps + 8LL * L;",
+                 "s.off_pairs = s.off_taps + 8LL * L;",
+                 "s.off_resp = s.off_pairs + 16LL * kMaxCluster * kWarps;",
                  "s.off_shift = s.off_resp + 8LL * resp_slots * th * tw;",
                  "s.bytes = s.off_shift + 4LL * s.brows;",
-                 f"constexpr int kMaxCluster = {tk.MAX_CLUSTER};"):
+                 f"constexpr int kMaxCluster = {tk.MAX_CLUSTER};",
+                 "const int nwx = min(nthreads >> 5, (th * nbh + 31) / 32);",
+                 "const int items = max(tile_h / kR * (tile_w + L - 1), tile_h * (tile_w / kR));",
+                 "cluster_config(&cfg, &attr, cluster, B, min(kThreads, 32 * ((items + 31) / 32)),"
+                 " smem, stream);"):
         assert line in src, line
+    assert tk.TILED_PAIRS_BYTES == 2 * 8 * tk.MAX_CLUSTER * (tk.MAX_THREADS // 32) == 5120
     # the quarter-frame snap's tile, 7x483 with L = 65, 3 response slots: a 72x576 u8 patch,
-    # 7x549 float2 row sums, 65 tap pairs, 2x3x7x483 f32 responses, 72 row offsets
-    assert tk._tiled_smem_bytes(65, 7, 483, 3) == (72 * 576 + 8 * 7 * 549 + 8 * 65
+    # 7x549 float2 row sums, 65 tap pairs, the exchange's pairs, 2x3x7x483 f32 responses, 72
+    # row offsets
+    assert tk._tiled_smem_bytes(65, 7, 483, 3) == (72 * 576 + 8 * 7 * 549 + 8 * 65 + 5120
                                                    + 8 * 3 * 7 * 483 + 4 * 72)
     # dog_scan_kernel: scan_layout, a CTA of `slots` row blocks
     assert f"constexpr int kR = {tk.SCAN_R};" in src

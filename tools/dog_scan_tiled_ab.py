@@ -18,6 +18,10 @@ sleep of the card. The shapes are those the tiled kernel takes at 1080p:
 - 64-frame chunk scans at the default windows of ``target_width`` 40, 60 and
   100 (69x69, L = 101; 105x105, L = 149; 173x173, L = 245), unbounded and
   bounded with subpixel offsets, one lane and 4 lanes with their own frames;
+- the 12-frame bounded chunks of the ROI crops ``track`` cuts at 1080p for
+  ``target_width`` 60 (461x461), one lane ± subpixel and 4 lanes with their
+  own crops ± subpixel, and for 30, 35 and 38 (233x233, 269x269, 297x297; one
+  lane), each on the shape rule's kernel (``dog_scan`` at 30 and 35);
 - and two shapes of ``dog_scan``: the bench shape's 64-frame chunk (41x41,
   ``target_width=25``, one lane, unbounded) and the 185x185 ROI crop's 12-frame
   bounded chunk that ``track`` launches at 1080p (one lane).
@@ -154,6 +158,40 @@ def worker(out_path: str, clusters: list, kernel: str | None = None) -> int:
                 spec, frames[:lanes], starts[:lanes], None, False)
             cases[f"target_width={tw} T=64 bounded+subpixel B={lanes}"] = (
                 spec, frames[:lanes], starts[:lanes], b, True)
+        if tw == 60:
+            large = (spec, frames, paths)
+    # the ROI crops' bounded 12-frame chunks (boxes inside the crop, no rebase), each lane's
+    # crop about its disc's start; at target_width 60 also 4 lanes, and with subpixel offsets
+    from pawsometracker_tpu_torch.pipeline import roi_geometry
+
+    case_kernel = {}
+
+    def crop_chunk(spec, frames, paths, lanes):
+        ch, cw, _ = roi_geometry(spec, 12, 7, "predict")
+        crops = torch.stack([frames[b, :12, paths[b][0][0] - ch // 2:paths[b][0][0] - ch // 2 + ch,
+                                    paths[b][0][1] - cw // 2:paths[b][0][1] - cw // 2 + cw]
+                             for b in range(lanes)]).contiguous()
+        box = {"deltas": torch.zeros((lanes, 12, 2), dtype=torch.int32, device=dev),
+               "lo": torch.zeros((lanes, 12, 2), dtype=torch.int32, device=dev),
+               "hi": torch.tensor([ch - 1, cw - 1], dtype=torch.int32,
+                                  device=dev).expand(lanes, 12, 2).contiguous()}
+        rspec = make_spec((ch, cw), spec.window_size, spec.target_width, True)
+        return rspec, crops, [[ch // 2, cw // 2]] * lanes, box, f"{ch}x{cw}"
+
+    spec, frames, paths = large
+    for lanes in (1, 4):
+        rspec, crops, starts, box, size = crop_chunk(spec, frames, paths, lanes)
+        for sub in (False, True):
+            cases[f"ROI {size} T=12 bounded{'+subpixel' if sub else ''} B={lanes}"] = (
+                rspec, crops, starts, box, sub)
+    del frames, large
+    for tw in (30, 35, 38):
+        spec = make_spec((H, W), guess_window_size(tw), tw, True)
+        frames, paths = disc_frames(12, 1, tw // 2, dev)
+        rspec, crops, starts, box, size = crop_chunk(spec, frames, paths, 1)
+        name = f"ROI target_width={tw} {size} T=12 bounded B=1"
+        cases[name] = (rspec, crops, starts, box, False)
+        case_kernel[name] = tk.kernel_for(rspec.radii, rspec.kernel_len, limit)
     del frames
     # dog_scan: the bench chunk, and a 185x185 crop's bounded chunk (boxes inside the crop)
     bench = make_spec((H, W), 41, 25, True)
@@ -173,7 +211,8 @@ def worker(out_path: str, clusters: list, kernel: str | None = None) -> int:
     by_name = hasattr(tk, "kernels_for")  # the wrappers take kernel=
 
     def kernel_of(case):
-        return kernel or ("dog_scan" if case.startswith("dog_scan ") else "dog_scan_tiled")
+        return kernel or case_kernel.get(case) or ("dog_scan" if case.startswith("dog_scan ")
+                                                   else "dog_scan_tiled")
 
     args = {}
     for case, (spec, fr, starts, b, sub) in cases.items():
