@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Run the PyTorch port on one NVIDIA card and check it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the port's CUDA kernels (``dog_scan`` and ``dog_scan_tiled``, one
-source) from ``pawsometracker_tpu_torch/csrc`` and runs three phases on the
-card, with the engine choice between the first two; any failure exits
-non-zero:
+source) and its native crop (``roi_crop.cpp``), both at once, from
+``pawsometracker_tpu_torch/csrc`` and runs three phases on the card, with the
+engine choice between the first two; any failure exits non-zero:
 
 1. Each kernel against its plain PyTorch version on the same card tensors, at
    the bench shape (1080p frames, ``target_width=25``, 41x41 window, T=64).
@@ -100,7 +100,8 @@ E. The engine choice (``engine="auto"`` on the ROI paths), with the engine
    lane a target), the same three ways each. Each ROI call must report
    ``stream="roi"``, launch its snaps (two where a batch lane autodetects)
    plus the pipeline's dispatches, every chunk a bounded launch (probe and
-   replays included), and equal the same call on ``stream="full"``.
+   replays included), cut its crops with the native crop, and equal the same
+   call on ``stream="full"``.
    Each call must launch the kernel as often as its chunking says and never
    run the plain version, land within RMSE < 1 px of the drawn truth per
    video or target, equal the port's single-video ``track()`` of each video
@@ -166,7 +167,14 @@ E. The engine choice (``engine="auto"`` on the ROI paths), with the engine
    beside S times its S = 1 launch (the plain version at S = 2, the
    wrapper's host time a launch), and e2e frames/s of the group paths of
    phase 2 unpinned and under pins 1, 2 and 4, in turns, with their timer
-   sections a chunk and their launches.
+   sections a chunk and their launches; and the ROI path's host work by cell
+   (track ROI, the large target's, track_batch ROI, track_multi ROI): the
+   set-up a call and outside the sections, crop, device and upload a chunk
+   from the e2e runs, the chunk's crops alone natively (equal to numpy on
+   every chunk) and in numpy, and a chunk launch's host microseconds through
+   the scan the engines stage once over a device group and through the public
+   wrapper (equal outputs); with ``--parent DIR``, the same cells against
+   that checkout in turns (``tools/host_path_ab.py``).
 
 Prints the card's name and power limit, the build time and ``ptxas``'s
 registers, the kernels' configurations with their launch counts, one JSON
@@ -176,6 +184,7 @@ full record goes to ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import json
 import logging
@@ -725,6 +734,37 @@ def host_us_per_launch(fn, n=200) -> float:
     return us
 
 
+def crop_timing(roi_crop, lane_frames, lane_truths, fills, crop, margin):
+    """The ROI path's chunk crops at ``crop`` x ``crop``, K = ROI_K, one lane a
+    clip of ``lane_frames`` (cropped around its truth, one frame back, as the
+    pipeline aims), on successive chunks of the clips, so that their frames
+    come from memory as a call's do: the native crop (csrc/roi_crop.cpp) must
+    equal the numpy one byte for byte on every chunk. Returns the median
+    microseconds a chunk of each into pinned buffers, and the threads the
+    native call took."""
+    import torch
+
+    L, n = len(lane_frames), min(len(f) for f in lane_frames) - 1
+    out_np = torch.empty((L, ROI_K, crop, crop), dtype=torch.uint8, pin_memory=True).numpy()
+    out_nat = torch.empty((L, ROI_K, crop, crop), dtype=torch.uint8, pin_memory=True).numpy()
+    fills = np.asarray(fills, np.uint8)
+    times = {"numpy": [], "native": []}
+    for t0 in range(0, n - ROI_K + 1, ROI_K):
+        chunks = [f[1 + t0:1 + t0 + ROI_K] for f in lane_frames]
+        origins = np.stack([np.asarray(tr[t0:t0 + ROI_K], np.int64) - margin
+                            for tr in lane_truths])
+        for name, fn, out in (("numpy", roi_crop.crop_lanes_plain, out_np),
+                              ("native", roi_crop.crop_lanes_native, out_nat)):
+            t = time.perf_counter()
+            fn(chunks, [ROI_K] * L, origins, fills, out)
+            times[name].append(time.perf_counter() - t)
+        if not np.array_equal(out_np, out_nat):
+            raise SystemExit(f"phase 3: the native crop differs from numpy at {crop}x{crop},"
+                             f" {L} lane(s), frames {1 + t0}..{t0 + ROI_K}")
+    threads = roi_crop.crop_threads(L * ROI_K * crop * crop)
+    return {k: 1e6 * statistics.median(v[1:]) for k, v in times.items()}, threads
+
+
 def log_profile(name, prof):
     dev, wall_us = prof["device_us_by_name"], prof["wall_us"]
     if not dev:
@@ -737,8 +777,16 @@ def log_profile(name, prof):
         + ", ".join(f"{k[:40]} {v / 1e3:.2f} ms" for k, v in top))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="Run the port on one card and check it end to end.")
+    ap.add_argument("--parent", help="another checkout (e.g. the parent commit's, unpacked with"
+                                     " git archive under build/): phase 3 then times the ROI"
+                                     " host path against it in turns (tools/host_path_ab.py)")
+    parent = ap.parse_args(argv).parent
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -752,7 +800,7 @@ def main() -> int:
                                                             sharded_pallas_bounded)
         from pawsometracker_tpu_torch.models import dog_tracker
         from pawsometracker_tpu_torch.models.dog_tracker import autodetect_spec, make_spec
-        from pawsometracker_tpu_torch.ops import _build, tracker_kernel as tk
+        from pawsometracker_tpu_torch.ops import _build, roi_crop, tracker_kernel as tk
         from pawsometracker_tpu_torch.ops.dog_kernel import dog_kernel_2d, guess_window_size
         from pawsometracker_tpu_torch.ops.filters import mode_u8_host
         from pawsometracker_tpu_torch import pipeline as pl
@@ -781,10 +829,13 @@ def main() -> int:
     # paths never took them on the card
     plain_runs = count_plain_runs(tk, dog_tracker)
 
+    # both sources build at once, one nvcc each: the kernels and the native crop
     t0 = time.perf_counter()
-    tk._lib()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for built in [pool.submit(tk._lib), pool.submit(roi_crop._lib)]:
+            built.result()
     record["build_s"] = time.perf_counter() - t0
-    log(f"build: dog_scan.cu in {record['build_s']:.2f} s")
+    log(f"build: dog_scan.cu and roi_crop.cpp at once in {record['build_s']:.2f} s")
     for line in _build.build_log.get("dog_scan", "").splitlines():
         entry = re.search(r"Compiling entry function .*\d(dog_scan(?:_tiled)?_kernel)"
                           r"(ILb([01])ELb([01]))?", line)
@@ -1486,6 +1537,7 @@ def main() -> int:
             before, plain_before = tk.launches, plain_runs["n"]
             tiled_before = tk.launches_by_kernel["dog_scan_tiled"]
             bounded_before = bounded_by_kernel()
+            crops_before = roi_crop.native_calls
             stats_log.last = None
             t0 = time.perf_counter()
             out = entry[path](**extra)
@@ -1499,7 +1551,8 @@ def main() -> int:
                              if n > bounded_before.get(k, 0)}
                 roi_stats[path, name] = dict(stats_log.last or {},
                                              bounded_launches=sum(by_kernel.values()),
-                                             bounded_by_kernel=by_kernel)
+                                             bounded_by_kernel=by_kernel,
+                                             native_crops=roi_crop.native_calls - crops_before)
         main_counts[path] = {"total": tk.launches, "by_config": dict(tk.launches_by_config),
                              "by_kernel": dict(tk.launches_by_kernel),
                              "plain_runs": plain_runs["n"], "probe_runs": plain_runs["probe"],
@@ -1570,14 +1623,17 @@ def main() -> int:
                 equal_pallas = all(same(a[1], f[1], sub) and np.array_equal(a[0], f[0])
                                    for a, f in pairs)
                 st["equals_engine_pallas"] = equal_pallas
-                # unpinned, a group is one chunk: one launch a dispatch
+                # unpinned, a group is one chunk: one launch a dispatch; the
+                # chunks' crops cut natively (csrc/roi_crop.cpp)
                 roi_ok = (st.get("stream") == "roi" and equal_full and equal_pallas
                           and st["bounded_launches"] == st.get("groups") == st.get("dispatches")
-                          and list(st["bounded_by_kernel"]) == [want_kernel])
+                          and list(st["bounded_by_kernel"]) == [want_kernel]
+                          and st["native_crops"] > 0)
                 roi_note = (f", stream={st.get('stream')} crop={st.get('crop')} K={st.get('K')}"
                             f" dispatches={st.get('dispatches')} (bounded launches"
                             f" {st['bounded_by_kernel']}, the chosen kernel {want_kernel})"
-                            f" replays={st.get('replays')} depth={st.get('depth')}, equals"
+                            f" replays={st.get('replays')} depth={st.get('depth')}, native crop"
+                            f" calls={st['native_crops']}, equals"
                             f" stream='full'={equal_full}, equals engine='pallas'={equal_pallas}")
             else:
                 want_n = want_launches[path][name]
@@ -2149,6 +2205,94 @@ def main() -> int:
             f" {len(walls)}, {frames_per_call} frames of {W}x{H}"
             + (", summed over 4 videos)" if kind == "track_batch" else
                ", clip frames with 4 targets)" if kind == "track_multi" else ")") + note)
+    # the ROI path's host work a chunk and a call, by cell: the crops (native
+    # against numpy), the launch (the scan the engines stage once over a device
+    # group, against the public wrapper the engines called before: its checks,
+    # conversions and repacking), and from the e2e runs above the set-up a
+    # call and the time outside the sections a chunk
+    host_path = {}
+    geoms = {"track ROI": (spec, f"ROI 185x185 T={ROI_K} bounded"),
+             "track large target ROI": (lspec, f"ROI 461x461 T={ROI_K} bounded"),
+             "track_batch ROI": (spec, f"ROI batch 185x185 B={B} T={ROI_K} bounded (lane 2 fill)"),
+             "track_multi ROI": (spec, f"ROI multi 185x185 {B} targets of one stream T={ROI_K}"
+                                       " bounded")}
+    crop_inputs = {"track ROI": ([frames_np], [truth], [fill]),
+                   "track large target ROI": ([large_np], [large_truth], [fill]),
+                   "track_batch ROI": (clips, truths, BATCH_FILLS),
+                   "track_multi ROI": ([multi_np] * B, multi_truths, [128] * B)}
+    for cell, (cspec, case) in geoms.items():
+        crops, p0, fl, _, bnd, _, batched = cases[case]
+        ch, cw, margin = roi_geometry(cspec, ROI_K, 7, "predict")
+        crop_us, crop_threads = crop_timing(roi_crop, *crop_inputs[cell], ch, margin)
+        rspec = make_spec((ch, cw), cspec.window_size, cspec.target_width, True)
+        fns = dog_tracker.tracker_fns(rspec, dev, "pallas")
+        if batched:
+            eng = pl._BatchedEngine(fns.scan_bounded_batch, (ch, cw), (H, W), fl.cpu().numpy(),
+                                    False, None, dev,
+                                    segments=functools.partial(fns.scan_bounded_batch_super,
+                                                               subpixel=False))
+        else:
+            eng = pl._SingleEngine(fns.scan_bounded, (ch, cw), (H, W), fl, False, None, dev,
+                                   segments=fns.scan_bounded_super)
+        group = eng._new_group(1, ROI_K)
+        group.frames[0][0].copy_(crops if batched else crops[None])
+        if batched:  # the carry starts each lane at its position, as the chain does
+            a = pl._batch_args(group.args[0], B, ROI_K)
+            for k in ("deltas", "lo", "hi"):
+                a._asdict()[k][0].copy_(bnd[k])
+            a.ks.fill_(ROI_K)
+            a.origin0.zero_()
+            a.origin_last.zero_()
+            carries = [p0.clone() for _ in range(2)]
+            staged = functools.partial(group.staged[0].run, 1, carry=carries[0],
+                                       carry_out=carries[0])
+            public = functools.partial(fns.scan_bounded_batch_super, group.frames[0][:1],
+                                       carries[1], eng.fills[0], a.deltas[:1], a.lo[:1],
+                                       a.hi[:1], a.ks[:1], a.origin0[:1], a.origin_last[:1],
+                                       carry_out=carries[1])
+            got, want = staged().clone(), public()[0]
+        else:
+            a = pl._single_args(group.args[0], ROI_K)
+            for k in ("deltas", "lo", "hi"):
+                a._asdict()[k][0].copy_(bnd[k])
+            a.ks.fill_(ROI_K)
+            staged = functools.partial(group.staged[0].run, 1, pos0=p0)
+            public = functools.partial(fns.scan_bounded, group.frames[0][0, 0], p0, fill,
+                                       a.deltas[0], a.lo[0], a.hi[0])
+            got, want = staged()[0].clone(), public()
+        if not torch.equal(got, want):
+            raise SystemExit(f"phase 3 {cell}: the staged launch differs from the public wrapper")
+        launch_us = {"staged": host_us_per_launch(staged),
+                     "public wrapper": host_us_per_launch(public)}
+        run = e2e[cell]
+        per = run.get("host_us_per_dispatch", {})
+        host_path[cell] = {"crop_us_per_chunk": crop_us, "crop_threads": crop_threads,
+                           "launch_host_us": launch_us,
+                           "setup_ms_per_call": run.get("ms_per_call", {}).get("setup"),
+                           "us_per_chunk": per, "frames_per_s": run["frames_per_s"]}
+        log(f"phase 3 host path {cell} ({ch}x{cw}, {eng.lanes[0]} lane(s),"
+            f" {group.staged[0].kernel}): set-up"
+            f" {host_path[cell]['setup_ms_per_call'] or float('nan'):.2f} ms a call; us a chunk:"
+            f" outside {per.get('outside the sections', float('nan')):.1f}, crop"
+            f" {per.get('crop', float('nan')):.1f}, device {per.get('device', float('nan')):.1f},"
+            f" upload {per.get('upload', float('nan')):.1f}; the chunk's crops alone: native"
+            f" {crop_us['native']:.1f} us on {crop_threads} thread(s), numpy"
+            f" {crop_us['numpy']:.1f} us (equal); a launch's host time: staged"
+            f" {launch_us['staged']:.1f} us, the public wrapper {launch_us['public wrapper']:.1f}"
+            f" us; {run['frames_per_s']:.1f} frames/s")
+        eng.close()
+    record["host_path"] = host_path
+    if parent is not None:  # before/after against another checkout, in turns
+        r = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "host_path_ab.py"),
+                            "--parent", parent], capture_output=True, text=True, timeout=900)
+        lines = r.stdout.strip().splitlines()
+        if r.returncode != 0 or not lines:
+            raise SystemExit(f"phase 3: tools/host_path_ab.py failed ({r.returncode}):"
+                             f" {r.stderr[-2000:]}")
+        for line in lines[:-1]:
+            log(f"phase 3 host path A/B: {line}")
+        record["host_path_ab"] = json.loads(lines[-1])
+        log(f"phase 3 host path before/after (parent, change, change, parent): {lines[-1]}")
     # group dispatch end to end: track (full frames), the ROI cells and
     # track_batch ROI over 4 shards of cuda:0, unpinned and under pins 1, 2 and
     # 4, in turns, 3 runs each; the median run's timer sections a dispatch. Each

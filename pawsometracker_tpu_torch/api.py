@@ -68,6 +68,25 @@ DEFAULT_PIPELINE_DEPTH = "auto"
 __all__ = ["track", "IJ", "DEFAULT_MAX_DURATION_SECONDS"]
 
 
+def grid_prefix(start: float, stop: float, n: int, k: int) -> np.ndarray:
+    """The first ``k`` entries of ``np.linspace(start, stop, n)``, bit for
+    bit, without computing the other ``n - k``: a call tracks its frames on
+    the grid of its whole ``[start, stop]`` range (24 hours by default) and
+    keeps only the tracked prefix. The rule is numpy's own: entry i is
+    ``i * step + start`` with ``step = (stop - start) / (n - 1)`` (0 for
+    n = 1), and the last of n > 1 entries is ``stop`` itself. Past n
+    (``k > n``) the same rule goes on, as ``track_resumable``'s grid has it.
+    A step that underflows to zero, which numpy computes another way, takes
+    ``np.linspace``."""
+    step = (stop - start) / (n - 1) if n > 1 else 0.0
+    if step == 0 and n > 1:
+        return np.linspace(start, stop, n)[:k]
+    ts = np.arange(k, dtype=np.float64) * step + start
+    if k == n > 1:
+        ts[-1] = stop
+    return ts
+
+
 class IJ(NamedTuple):
     """A raw (row, col) frame index, 0-based: the ``CartesianIndex`` analog."""
 
@@ -226,7 +245,6 @@ def _track_one(
     n = int(np.round(fps * t))
     if n < 1:
         raise ValueError(f"no frames to track in [{start}, {stop}] at fps={fps}")
-    ts = np.linspace(start, stop, n)
 
     if pipeline_depth == "auto" and speculate == "contain":
         # contain-mode crops grow with the depth: "auto" stays at depth 1
@@ -364,8 +382,8 @@ def _track_one(
         off_all = np.concatenate(offsets, axis=0)
         sz = np.array(frame_shape) - 1
         ij_f = np.clip(ij[:last_frame].astype(np.float64) + off_all[:last_frame], 0, sz)
-        return ts[:last_frame], ij_f
-    return ts[:last_frame], ij[:last_frame]
+        return grid_prefix(start, stop, n, last_frame), ij_f
+    return grid_prefix(start, stop, n, last_frame), ij[:last_frame]
 
 
 def track(

@@ -37,12 +37,14 @@ from .api import (
     _resolve_guess,
     _resolve_roi_frames,
     _views_available,
+    grid_prefix,
 )
 from .diagnose import Diagnose, Dont
 from .io.decode import ChunkPrefetcher, open_source
 from .models.dog_tracker import full_frame_sub_scan, make_spec, resolve_device
 from .ops.dog_kernel import fix_window_size, guess_window_size
 from .ops.filters import mode_u8_host
+from .ops.roi_crop import lane_cropper
 from .parallel.mesh import Mesh, Sharded, ShardedBatchTracker, make_mesh, mesh_device
 from .pipeline import (
     AUTO_DEPTH_MAX,
@@ -470,7 +472,8 @@ def _track_batch_uniform(
                                           device, segments=segments),
                     source=PerVideoSource(sources, K=roi_frames, ch=ch, cw=cw, fills=fills,
                                           dias=dias, ns=ns, nat_retained=nat_retained,
-                                          prefetcher_objs=prefetchers),
+                                          prefetcher_objs=prefetchers,
+                                          crop=lane_cropper(device)),
                     sink=sink,
                     timer=timer,
                 )
@@ -511,7 +514,7 @@ def _track_batch_uniform(
     sz = np.array(frame_shape) - 1
     for b in range(B):
         n_b = 1 + counts[b]
-        ts = np.linspace(starts[b], stops[b], ns[b])[:n_b]
+        ts = grid_prefix(starts[b], stops[b], ns[b], n_b)
         ij = np.concatenate([pos_host[b].reshape(1, 2)] + pos_blocks[b], axis=0)[:n_b]
         if subpixel:
             off = np.concatenate([off0[b].reshape(1, 2)] + off_blocks[b], axis=0)[:n_b]

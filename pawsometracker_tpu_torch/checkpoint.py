@@ -28,7 +28,7 @@ import os
 import numpy as np
 import torch
 
-from .api import DEFAULT_MAX_DURATION_SECONDS, IJ, track
+from .api import DEFAULT_MAX_DURATION_SECONDS, IJ, grid_prefix, track
 from .models.dog_tracker import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -133,13 +133,9 @@ def track_resumable(
     # the single-run timestamp grid: linspace(start, stop, n_total) — slice
     # results are re-labeled on this grid so ts match an uninterrupted run
     n_total = max(1, int(np.round(fps * (stop - start))))
-    step = (stop - start) / (n_total - 1) if n_total > 1 else 0.0
 
     def _grid_ts(n: int) -> np.ndarray:
-        ts = float(start) + step * np.arange(n)
-        if n == n_total and n > 1:
-            ts[-1] = stop  # linspace pins the endpoint exactly
-        return ts
+        return grid_prefix(float(start), stop, n_total, n)
 
     state = load_checkpoint(checkpoint_path)
     if state is not None and state["done"]:

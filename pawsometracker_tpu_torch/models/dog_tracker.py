@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.dog_kernel import default_gaussian_len, get_sigma
-from ..ops.tracker_kernel import (KERNELS, check_kernel, dog_scan, dog_scan_batch,
+from ..ops.tracker_kernel import (KERNELS, StagedScan, check_kernel, dog_scan, dog_scan_batch,
                                   dog_scan_batch_plain, dog_scan_batch_segments,
                                   dog_scan_batch_segments_plain, dog_scan_plain, dog_scan_segments,
                                   dog_scan_segments_plain)
@@ -203,6 +203,13 @@ class TrackerFns:
       carry [L,2])``: the absolute carry across segments;
     - ``scan_super(frames [S,T,H,W], pos0 [2], fill) -> int32 [S,T,2]``: whole frames,
       each segment from the last one's last step (with ``subpixel``, clamped to the frame).
+
+    The two bounded ones also come staged, for buffers that stay put from
+    launch to launch (the ROI engines' device groups), as
+    :class:`~..ops.tracker_kernel.StagedScan` s whose checks run once:
+    ``scan_bounded_super.stage(crops [cap,K,ch,cw], fill, deltas, lo, hi, ks)`` and
+    ``scan_bounded_batch_super.stage(crops [cap,L,K,ch,cw], fills, deltas, lo, hi, ks,
+    origin0, origin_last)``, each with ``subpixel=``.
     """
 
     spec: TrackerSpec
@@ -325,6 +332,18 @@ def _build(spec: TrackerSpec, device: torch.device, engine: str) -> TrackerFns:
         return run_bs(u8(crops_u8), None, u8(fills), deltas=seg(deltas), lo=seg(lo), hi=seg(hi),
                       ks=seg(ks), origin0=seg(origin0), origin_last=seg(origin_last),
                       carry=seg(carry), carry_out=carry_out, subpixel=subpixel, **kw)
+
+    def stage_bounded_super(crops_u8, fill, deltas, lo, hi, ks, *, subpixel=False):
+        return StagedScan(crops_u8, int(fill), deltas=deltas, lo=lo, hi=hi, ks=ks,
+                          subpixel=subpixel, plain=plain, **kw)
+
+    def stage_bounded_batch_super(crops_u8, fills, deltas, lo, hi, ks, origin0, origin_last, *,
+                                  subpixel=False):
+        return StagedScan(crops_u8, fills, deltas=deltas, lo=lo, hi=hi, ks=ks, origin0=origin0,
+                          origin_last=origin_last, subpixel=subpixel, plain=plain, **kw)
+
+    scan_bounded_super.stage = stage_bounded_super
+    scan_bounded_batch_super.stage = stage_bounded_batch_super
 
     def scan_super(frames_u8, pos0, fill, *, subpixel=False):
         f = u8(frames_u8)

@@ -36,6 +36,7 @@ from .api import (
     _resolve_guess,
     _resolve_roi_frames,
     _views_available,
+    grid_prefix,
 )
 from .diagnose import Diagnose, Dont
 from .io.decode import open_source
@@ -143,7 +144,6 @@ def track_multi(
     n = int(np.round(fps * t))
     if n < 1:
         raise ValueError(f"no frames to track in [{start}, {stop}] at fps={fps}")
-    ts = np.linspace(start, stop, n)
 
     if pipeline_depth == "auto":
         depth_gate = AUTO_DEPTH_MAX
@@ -283,10 +283,11 @@ def track_multi(
             dia.close()
 
     positions = np.concatenate(out, axis=0)
+    ts = grid_prefix(start, stop, n, last_frame)
     if subpixel:
         off_all = np.concatenate(offs, axis=0)
         sz = np.array(frame_shape) - 1
-        return ts[:last_frame], np.clip(
+        return ts, np.clip(
             positions[:last_frame].astype(np.float64) + off_all[:last_frame], 0, sz
         )
-    return ts[:last_frame], positions[:last_frame]
+    return ts, positions[:last_frame]

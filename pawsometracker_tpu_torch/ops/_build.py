@@ -1,7 +1,8 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and native host helpers.
 
-Each ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface and loaded with :mod:`ctypes`. The
+Each ``csrc/*.cu`` source (and each host-only ``csrc/*.cpp`` one, which
+``nvcc`` hands to the host compiler) is compiled with ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface and loaded with :mod:`ctypes`. The
 build happens at first use, into ``build/kernels/`` beside the package, or the
 per-user cache where that cannot be written (see :func:`build_dir`), under a
 name that carries a hash of the source and flags, so an edited source is
@@ -20,13 +21,15 @@ import threading
 
 from ..utils.compilecache import default_cache_dir
 
-__all__ = ["kernel_library", "library_digest", "nvcc_path", "build_dir", "CSRC"]
+__all__ = ["kernel_library", "library_digest", "source_path", "nvcc_path", "build_dir",
+           "CSRC"]
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}  # one a library: different sources build at once
 _libs: dict[str, ctypes.CDLL] = {}
 #: compiler output (``-Xptxas -v``: registers, shared memory, spills) per source
 build_log: dict[str, str] = {}
@@ -61,22 +64,31 @@ def nvcc_path() -> str:
                        "(set CUDA_HOME) on the machine with the card")
 
 
+def source_path(name: str) -> str:
+    """``csrc/<name>.cu``, else the host-only ``csrc/<name>.cpp``."""
+    cu = os.path.join(CSRC, f"{name}.cu")
+    return cu if os.path.exists(cu) else os.path.join(CSRC, f"{name}.cpp")
+
+
 def library_digest(name: str) -> str:
-    """The hash of ``csrc/<name>.cu`` and the build flags that names its
-    library: an edited source gets another."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+    """The hash of the source of ``name`` (:func:`source_path`) and the build
+    flags that names its library: an edited source gets another."""
+    with open(source_path(name), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return digest.hexdigest()[:16]
 
 
 def kernel_library(name: str) -> ctypes.CDLL:
-    """Load ``csrc/<name>.cu`` as a shared library, building it first if the
-    build directory has no library for this source and these flags."""
+    """Load the source of ``name`` (:func:`source_path`) as a shared library,
+    building it first if the build directory has no library for this source
+    and these flags. Two sources build at once from two threads."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        src = os.path.join(CSRC, f"{name}.cu")
+        src = source_path(name)
         out_dir = build_dir()
         so = os.path.join(out_dir, f"lib{name}_{library_digest(name)}.so")
         if not os.path.exists(so):

@@ -100,15 +100,31 @@ def mode_u8(frame: torch.Tensor) -> torch.Tensor:
     return flat[winner].to(torch.uint8)
 
 
+def _counts_u8(flat: np.ndarray) -> np.ndarray:
+    """``np.bincount(flat, minlength=256)`` of a 1-D uint8 array, counted two
+    bytes at a time: the bytes as uint16 pairs go into 65536 bins, and each
+    bin adds to the counts of both its bytes. Half the elements to bin, and
+    on a near-flat frame half the increments of one counter in a row."""
+    counts = np.zeros(256, np.int64)
+    if flat.size % 2:
+        counts[flat[-1]] += 1
+        flat = flat[:-1]
+    pairs = np.bincount(flat.view(np.uint16), minlength=65536).reshape(256, 256)
+    return counts + pairs.sum(axis=0) + pairs.sum(axis=1)
+
+
 def mode_u8_host(frame: np.ndarray) -> int:
-    """Host-side mode of a uint8 frame (StatsBase tie semantics, see mode_u8)."""
-    flat = np.asarray(frame, dtype=np.uint8).ravel(order="F")
-    counts = np.bincount(flat, minlength=256)
+    """Host-side mode of a uint8 frame (StatsBase tie semantics, see mode_u8).
+    The counts do not depend on the scan order, so they are taken over the
+    frame as it lies; only a tie scans it in column-major order."""
+    frame = np.asarray(frame, dtype=np.uint8)
+    counts = _counts_u8(np.ascontiguousarray(frame).reshape(-1))
     cmax = int(counts.max())
     tied = np.flatnonzero(counts == cmax)
     if tied.size == 1:
         return int(tied[0])
     # Tie: first value to reach cmax = earliest cmax-th occurrence in scan order.
+    flat = frame.ravel(order="F")
     best_v = best_pos = None
     for v in tied:
         pos = int(np.flatnonzero(flat == v)[cmax - 1])

@@ -57,7 +57,8 @@ __all__ = ["dog_scan", "dog_scan_plain", "dog_scan_cuda", "dog_scan_batch",
            "dog_scan_batch_segments_plain", "dog_scan_batch_segments_cuda", "launches",
            "launches_by_config", "launches_by_kernel", "reset_launches", "kernel_for",
            "kernels_for", "check_kernel", "probing", "is_probing", "probe_launches",
-           "tile_plan", "TilePlan", "scan_plan", "ScanPlan", "KERNELS", "MAX_CLUSTER"]
+           "tile_plan", "TilePlan", "scan_plan", "ScanPlan", "KERNELS", "MAX_CLUSTER",
+           "StagedScan"]
 
 #: kernel launches since import (or the last :func:`reset_launches`)
 launches = 0
@@ -631,7 +632,6 @@ def _launch(frames, lane_stride: int, B: int, T: int, pos0, fills, deltas, lo, h
     of ``seg.S`` segments of T steps on the current stream; returns ``out_pos
     [S,B,T,2]`` (and ``out_off``). Counts the launch (in :data:`probe_launches`
     inside :func:`probing`)."""
-    global launches
     H, W = frames.shape[-2:]
     dev = frames.device
     out_pos = torch.empty((seg.S, B, T, 2), dtype=torch.int32, device=dev)
@@ -658,13 +658,20 @@ def _launch(frames, lane_stride: int, B: int, T: int, pos0, fills, deltas, lo, h
             err = lib.dog_scan_tiled_launch(*args, *plan.tile, plan.cluster, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: {lib.dog_scan_error_string(err).decode()}")
+    _count(kernel, config)
+    return out_pos, out_off
+
+
+def _count(kernel: str, config: str) -> None:
+    """Count one launch of ``kernel`` in ``config`` (in :data:`probe_launches`
+    inside :func:`probing`)."""
+    global launches
     if _probing:
         probe_launches[kernel] += 1
-        return out_pos, out_off
+        return
     launches += 1
     launches_by_kernel[kernel] += 1
     launches_by_config[f"{kernel}: {config}"] += 1
-    return out_pos, out_off
 
 
 def dog_scan_cuda(frames: torch.Tensor, pos0: torch.Tensor, fill: int, *, radii, sigma: float,
@@ -954,3 +961,138 @@ def dog_scan_batch_segments_cuda(frames: torch.Tensor, pos0, fills: torch.Tensor
         _config_name(bounded, subpixel, batched=True, segmented=True), kernel=kernel)
     out = (out_pos, out_off) if subpixel else out_pos
     return out if carry is None else (out, carry_out)
+
+
+class StagedScan:
+    """S chained chunk scans (:func:`dog_scan_segments` of one lane, or
+    :func:`dog_scan_batch_segments` of B lanes with the carry) over buffers
+    that stay put from launch to launch, as the ROI engines' device groups do:
+    ``frames [cap, (B,) T, H, W]`` u8 and the int32 per-segment arguments,
+    views of one buffer that share one segment stride. The wrapper's checks
+    (shapes, types, devices, layout) run once, here, over all ``cap``
+    segments, and so do the kernel's choice, the taps and the outputs'
+    allocation; :meth:`run` launches the first S segments with them, one
+    ctypes call. On the CPU, and with ``plain=True`` (``engine="xla"``),
+    :meth:`run` calls the plain version on the same views.
+
+    One lane: ``fill`` an int; ``run(S, pos0=[2])``, where S = 1 launches the
+    unsegmented chunk scan, as :func:`dog_scan` does, and S > 1 segment s > 0
+    from segment s-1's row ``max(ks-1, 0)``. B lanes: ``fill`` a uint8
+    ``[B]`` tensor, ``origin0``/``origin_last [cap, B, 2]``; ``run(S,
+    carry=[B, 2], carry_out=[B, 2])``. ``kernel`` as in :func:`dog_scan`."""
+
+    def __init__(self, frames, fill, *, deltas, lo, hi, ks, origin0=None, origin_last=None,
+                 radii, sigma: float, darker_target: bool, subpixel: bool = False, kernel=None,
+                 plain: bool = False):
+        check_kernel(kernel)
+        self.batched = origin0 is not None
+        dev = frames.device
+        self.device = dev
+        self.subpixel = bool(subpixel)
+        self.plain = bool(plain) or not frames.is_cuda
+        self.fill = fill
+        self.cap = frames.shape[0]
+        self.args = dict(deltas=deltas, lo=lo, hi=hi, ks=ks, origin0=origin0,
+                         origin_last=origin_last)
+        self.frames = frames
+        self.kw = dict(radii=radii, sigma=sigma, darker_target=darker_target,
+                       subpixel=self.subpixel)
+        if self.batched:
+            fills = fill
+            B = fills.shape[0]
+            chain = torch.zeros((B, 2), dtype=torch.int32, device=dev)
+            _, S, B, T = _check_segment_args(frames, None, fills, deltas, lo, hi, ks, origin0,
+                                             origin_last, chain, chain, batched=True)
+        else:
+            fills = _fill_tensor(int(fill), dev)
+            chain = torch.zeros(2, dtype=torch.int32, device=dev)
+            _, S, B, T = _check_segment_args(frames, chain, None, deltas, lo, hi, ks, None,
+                                             None, None, None, batched=False)
+        self.lanes = B
+        # the views of every S, made once
+        self._frames = [frames[:n] for n in range(1, S + 1)]
+        self._args = [{k: None if v is None else v[:n] for k, v in self.args.items()}
+                      for n in range(1, S + 1)]
+        if not self.plain:
+            _check_cuda(dict(frames=frames[0], fills=fills, pos0=chain,
+                             **{k: v if v is None else v[0] for k, v in self.args.items()}))
+        # the layout the launch reads: each segment contiguous, the arguments
+        # one segment stride apart (a stride of one segment is never read)
+        present = [v for v in self.args.values() if v is not None]
+        strides = {v.stride(0) for v in present}
+        if (not frames[0].is_contiguous() or not all(v[0].is_contiguous() for v in present)
+                or (S > 1 and len(strides) != 1)):
+            raise ValueError("the staged buffers must hold each segment contiguous, the "
+                             "per-segment arguments views of one buffer with one segment stride")
+        if self.plain:
+            return
+        self._arg_stride = strides.pop()
+        self._frame_stride = frames.stride(0)
+        taps, direction, L = _taps(float(sigma), bool(darker_target), dev)
+        self._taps = taps  # kept alive: the launches read it
+        self._index = dev.index if dev.index is not None else 0
+        self._limit = _smem_limit(self._index)
+        self.kernel = _pick_kernel(kernel, radii, L, self._limit)
+        self._L, self._radii = L, (int(radii[0]), int(radii[1]))
+        self._out_pos = torch.empty((S, B, T, 2), dtype=torch.int32, device=dev)
+        self._out_off = (torch.empty((S, B, T, 2), dtype=torch.float32, device=dev)
+                         if self.subpixel else None)
+        out = [(self._out_pos[:n], None if self._out_off is None else self._out_off[:n])
+               for n in range(1, S + 1)]
+        self._out = [(p, o) if self.batched else (p[:, 0], None if o is None else o[:, 0])
+                     for p, o in out]
+        H, W = frames.shape[-2:]
+        lane_stride = frames.stride(1) if self.batched and frames.dim() == 5 else 0
+        a = self.args
+        # the launch's arguments (csrc/dog_scan.cu's common interface) but for
+        # the chain's start, the segment count and the two strides
+        self._head = (frames.data_ptr(), lane_stride, B, T, H, W)
+        self._mid = (fills.data_ptr(), a["deltas"].data_ptr(), a["lo"].data_ptr(),
+                     a["hi"].data_ptr(), taps.data_ptr(), L, self._radii[0], self._radii[1],
+                     direction, self._out_pos.data_ptr(), _ptr(self._out_off))
+        self._tail = (a["ks"].data_ptr(), _ptr(a["origin0"]), _ptr(a["origin_last"]))
+        self._configs = [_config_name(True, self.subpixel, self.batched,
+                                      segmented=self.batched or n > 1) for n in (1, 2)]
+
+    def run(self, S: int, pos0=None, carry=None, carry_out=None):
+        """Launch segments ``[0, S)`` from ``pos0`` (one lane) or ``carry``
+        into ``carry_out`` (B lanes). Returns positions ``[S, (B,) T, 2]`` (a
+        pair with offsets under subpixel): on the card, views of outputs the
+        next run of this object overwrites."""
+        if not 1 <= S <= self.cap:
+            raise ValueError(f"S must lie in [1, {self.cap}], got {S}")
+        frames, args = self._frames[S - 1], self._args[S - 1]
+        if self.plain:
+            if self.batched:
+                out, _ = dog_scan_batch_segments_plain(frames, None, self.fill, carry=carry,
+                                                       carry_out=carry_out, **args, **self.kw)
+                return out
+            return dog_scan_segments_plain(frames, pos0, self.fill, deltas=args["deltas"],
+                                           lo=args["lo"], hi=args["hi"],
+                                           ks=None if S == 1 else args["ks"], **self.kw)
+        single = not self.batched and S == 1  # the unsegmented chunk scan
+        if self.batched:
+            chain = (None, S, self._frame_stride if S > 1 else 0,
+                     self._arg_stride if S > 1 else 0, *self._tail, carry.data_ptr(),
+                     carry_out.data_ptr())
+        else:
+            chain = (pos0.data_ptr(), S, self._frame_stride if S > 1 else 0,
+                     self._arg_stride if S > 1 else 0,
+                     None if single else self._tail[0], None, None, None, None)
+        lib = _lib()
+        with torch.cuda.device(self._index):
+            stream = torch.cuda.current_stream(self._index).cuda_stream
+            args = (*self._head, chain[0], *self._mid, *chain[1:])
+            if self.kernel == "dog_scan":
+                plan = _scan_plan(self._radii, self._L, self._limit, self.lanes, self._index)
+                err = lib.dog_scan_launch(*args, plan.cluster, stream)
+            else:
+                plan = _tiled_plan(self._radii, self._L, self._limit, self.subpixel,
+                                   self._index)
+                err = lib.dog_scan_tiled_launch(*args, *plan.tile, plan.cluster, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.kernel} launch failed: "
+                               f"{lib.dog_scan_error_string(err).decode()}")
+        _count(self.kernel, self._configs[0 if S == 1 else 1])
+        pos, off = self._out[S - 1]
+        return (pos, off) if self.subpixel else pos

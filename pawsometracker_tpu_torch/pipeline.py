@@ -60,8 +60,10 @@ Without a counterpart, as there is nothing on the card for them to do:
   ``PAWS_SUPER_PREWARM``): a segmented launch is the same kernel, with no
   program to compile per group size.
 
-Also here: the ring-budget cap on the pipeline depth, and ``_crop_with_fill``,
-which the parallel decoder imports.
+Also here: the ring-budget cap on the pipeline depth, and ``_crop_with_fill``
+(:func:`.ops.roi_crop.crop_with_fill`), which the parallel decoder imports.
+The lane sources cut a chunk's crops of every lane in one call of the
+device's cropper (:func:`.ops.roi_crop.lane_cropper`: native on the card).
 """
 
 from __future__ import annotations
@@ -80,6 +82,8 @@ import torch
 from .io.decode import ChunkPrefetcher
 from .models.dog_tracker import make_spec, resolve_device, tracker_fns
 from .ops import tracker_kernel as tk
+from .ops.roi_crop import crop_lanes_plain, lane_cropper
+from .ops.roi_crop import crop_with_fill as _crop_with_fill  # noqa: F401  (io/parallel_decode.py)
 from .parallel.mesh import BatchSharding, Sharded, ShardedBatchTracker, ShardedFn, on_device
 from .utils.compilecache import cache_root
 
@@ -169,20 +173,6 @@ def roi_geometry(spec, k_frames: int, depth: int = 0, mode: str = "contain"):
         mi = (depth + 1) * k_frames * ri + half
         mj = (depth + 1) * k_frames * rj + half
     return 2 * mi + 1, 2 * mj + 1, (mi, mj)
-
-
-def _crop_with_fill(frame: np.ndarray, o, ch: int, cw: int, fill: int, out=None) -> np.ndarray:
-    """Crop ``frame`` at origin ``o`` (may be out of bounds) to ``(ch, cw)``,
-    filling out-of-frame cells with the mode fill value."""
-    H, W = frame.shape
-    if out is None:
-        out = np.empty((ch, cw), np.uint8)
-    out.fill(fill)
-    r0, c0 = max(0, o[0]), max(0, o[1])
-    r1, c1 = min(H, o[0] + ch), min(W, o[1] + cw)
-    if r1 > r0 and c1 > c0:
-        out[r0 - o[0] : r1 - o[0], c0 - o[1] : c1 - o[1]] = frame[r0:r1, c0:c1]
-    return out
 
 
 def _lane_shards(scan, lanes, device) -> list:
@@ -374,12 +364,13 @@ class _ShardedEngine:
             self._group = self._ring[i]
         return self._group, s
 
-    def _copy_in(self, group, s: int, copies) -> list:
+    def _copy_in(self, group, s: int, copies, events=None) -> list:
         """Per shard i, on its device's side stream: (for a group's first
         chunk) wait for the launch that last read ``group``, start the
-        ``(dst, src)`` copies ``copies[i]`` and record their event, which the
-        shard's scan stream waits for. Returns the events."""
-        events = []
+        ``(dst, src)`` copies ``copies[i]`` and record their event (new, or
+        ``events[i]`` recorded again), which the shard's scan stream waits
+        for. Returns the events."""
+        out = []
         for i, (_, dev, _) in enumerate(self.shards):
             stream = self._copy_streams[dev]
             with torch.cuda.device(dev), torch.cuda.stream(stream):
@@ -387,9 +378,13 @@ class _ShardedEngine:
                     stream.wait_event(group.consumed[i])
                 for dst, src in copies[i]:
                     dst.copy_(src, non_blocking=True)
-                events.append(_record(stream))
-            torch.cuda.current_stream(dev).wait_event(events[-1])
-        return events
+                if events is None:
+                    out.append(_record(stream))
+                else:
+                    events[i].record(stream)
+                    out.append(events[i])
+            torch.cuda.current_stream(dev).wait_event(out[-1])
+        return out
 
     def _results(self, outs, bufs) -> list:
         """The handles' results of a launched group whose scans gave, per
@@ -1081,6 +1076,13 @@ def _select_sharded_bounded(tracker, roi_spec, k_frames: int, batch: int, fill: 
     return tracker.scan_sub if subpixel else tracker.scan_bounded
 
 
+def _staged(seg, *args, subpixel: bool):
+    """The staged form of the segmented scan ``seg`` (a tracker function, or
+    a ``functools.partial`` of one; its function's ``stage``, see
+    :class:`~.models.dog_tracker.TrackerFns`) over the buffers ``args``."""
+    return getattr(seg, "func", seg).stage(*args, subpixel=subpixel)
+
+
 class _CropBuffer(np.ndarray):
     """A crop buffer ``[L, K, ch, cw]`` u8 in pinned host memory, carrying the
     :class:`_RoiSlot` through which its chunk goes to the card."""
@@ -1088,23 +1090,52 @@ class _CropBuffer(np.ndarray):
     slot = None
 
 
+def _crop_bytes(shape) -> tuple:
+    """The bytes of crops of ``shape``, and where the int32 arguments start
+    after them in one staged buffer: the next multiple of 16."""
+    n = int(np.prod(shape))
+    return n, -(-n // 16) * 16
+
+
 class _RoiSlot:
-    """The host side of one crop buffer ``[L, K, ch, cw]`` on the card: the
-    pinned crops ``host`` and the scan's int32 arguments ``args`` (one flat
-    buffer, laid out by the engine, a span a shard), pinned buffers for the
-    positions ``[L, K, 2]`` (and offsets) coming back, and per shard the event
-    that marks its copy to the card done."""
+    """The host side of one crop buffer ``[L, K, ch, cw]`` on the card: one
+    pinned buffer ``raw`` holding the crops ``host`` and, after them, the
+    scan's int32 arguments ``args`` (laid out by the engine, a span a shard),
+    as a device group's row holds them, so that one copy takes both to the
+    card; pinned buffers for the positions ``[L, K, 2]`` (and offsets) coming
+    back; and per shard an event recorded after its copies to the card
+    (``copied``, the last ones) and one after its results' copies back
+    (``done``)."""
 
-    __slots__ = ("host", "args", "pos", "off", "copied")
+    __slots__ = ("raw", "host", "args", "args_np", "pos", "off", "copied", "copy_events",
+                 "done")
 
-    def __init__(self, shape, n_args: int, subpixel: bool):
+    def __init__(self, shape, n_args: int, subpixel: bool, shards: int):
         lanes_steps = tuple(shape[:2]) + (2,)
-        self.host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
-        self.args = torch.empty(n_args, dtype=torch.int32, pin_memory=True)
+        n, at = _crop_bytes(shape)
+        self.raw = torch.empty(at + 4 * n_args, dtype=torch.uint8, pin_memory=True)
+        self.host = self.raw[:n].view(tuple(shape))
+        self.args = self.raw[at:].view(torch.int32)
+        self.args_np = self.args.numpy()
         self.pos = torch.empty(lanes_steps, dtype=torch.int32, pin_memory=True)
         self.off = (torch.empty(lanes_steps, dtype=torch.float32, pin_memory=True)
                     if subpixel else None)
         self.copied = []
+        self.copy_events = [torch.cuda.Event() for _ in range(shards)]
+        self.done = [torch.cuda.Event() for _ in range(shards)]
+
+
+class _RoiGroup(_DeviceGroup):
+    """A ROI engine's device group: per shard one buffer ``[cap, row]`` u8 whose
+    row s holds chunk s's crops and, after them, its int32 arguments (the
+    slot's ``raw`` layout); ``frames`` and ``args`` are its views, ``rows``
+    its rows. ``staged`` holds per shard the engine's segmented scan over it
+    (:class:`~.ops.tracker_kernel.StagedScan`, checked once, here) and
+    ``starts`` the view of slot 0's chain start (a chain's first chunk is
+    staged at slot 0). ``launched`` holds per shard the event re-recorded
+    after each launch, which ``consumed`` then names."""
+
+    __slots__ = ("rows", "staged", "starts", "launched")
 
 
 class _RoiEntry(NamedTuple):
@@ -1127,12 +1158,16 @@ class _RoiEngine(_ShardedEngine):
     :class:`~.parallel.mesh.ShardedFn` scan's own ``segments``). On the card
     every crop buffer comes from :meth:`alloc`, pinned, with a
     :class:`_RoiSlot`: each shard's crops and int32 arguments go to its slot
-    of the device group in one non-blocking copy each on that device's side
-    stream, the group's launch waits on their events, and the positions come
-    back into the buffer's pinned ones behind an event a shard that
-    :meth:`ready` queries and :meth:`to_host` waits on. A buffer is refilled
-    only after :meth:`claim` (its last copies done). On the CPU the staged
-    chunks keep their buffers, which the launch stacks."""
+    of the device group (:class:`_RoiGroup`) in non-blocking copies on that
+    device's side stream, one where there is one shard, the group's launch
+    waits on their events, and the positions come back into the buffer's
+    pinned ones behind an event a shard that :meth:`ready` queries and
+    :meth:`to_host` waits on. The launch is the segmented scan staged over the
+    group's buffers when the group was made (``segments``' ``stage``, checked
+    once), so a launch converts, checks and repacks nothing. A buffer is
+    refilled only after :meth:`claim` (its last copies done). On the CPU the
+    staged chunks keep their buffers, which the launch stacks and hands to
+    the scans as arguments."""
 
     def __init__(self, scan, crop_shape, frame_shape, subpixel, timer, device, lanes: int,
                  segments):
@@ -1157,7 +1192,7 @@ class _RoiEngine(_ShardedEngine):
         :class:`_CropBuffer` on the card, a plain array on the CPU."""
         if not self._cuda:
             return np.empty(shape, np.uint8)
-        slot = _RoiSlot(shape, self._spans(shape[1])[-1][1], self.subpixel)
+        slot = _RoiSlot(shape, self._spans(shape[1])[-1][1], self.subpixel, len(self.shards))
         buf = slot.host.numpy().view(_CropBuffer)
         buf.slot = slot
         return buf
@@ -1177,37 +1212,50 @@ class _RoiEngine(_ShardedEngine):
         hi = np.minimum([self.ch - 1, self.cw - 1], self.frame_max - o)
         return lo, hi
 
-    def _new_group(self, cap: int, K: int) -> _DeviceGroup:
-        shape = (cap, K, self.ch, self.cw)
-        return _DeviceGroup(
-            cap, [torch.empty(shape[:1] + (n,) + shape[1:], dtype=torch.uint8, device=dev)
-                  for n, (_, dev, _) in zip(self.lanes, self.shards)],
-            [torch.empty((cap, self._n_args(n, K)), dtype=torch.int32, device=dev)
-             for n, (_, dev, _) in zip(self.lanes, self.shards)])
+    def _new_group(self, cap: int, K: int) -> _RoiGroup:
+        """A device group of ``cap`` chunks: per shard its buffer, the views
+        of it and the staged segmented scan over them."""
+        group = _RoiGroup(cap, [], [])
+        group.rows, group.staged, group.starts, group.launched = [], [], [], []
+        for i, (n, (_, dev, _)) in enumerate(zip(self.lanes, self.shards)):
+            crop, at = _crop_bytes((n, K, self.ch, self.cw))
+            raw = torch.empty((cap, at + 4 * self._n_args(n, K)), dtype=torch.uint8, device=dev)
+            frames = raw[:, :crop].view(cap, n, K, self.ch, self.cw)
+            args = raw[:, at:].view(torch.int32)
+            staged, start = self._staged_scan(i, frames, args)
+            group.frames.append(frames)
+            group.args.append(args)
+            group.rows.append(list(raw.unbind(0)))
+            group.staged.append(staged)
+            group.starts.append(start)
+            group.launched.append(torch.cuda.Event() if dev.type == "cuda" else None)
+        group.consumed = [None] * len(self.shards)
+        return group
 
     def _stage(self, buf, args):
         """Stage the chunk's crops ``buf [L, K, ch, cw]`` and flat arguments:
-        on the card, start their copies from the pinned buffers into the
+        on the card, start their copies from the pinned buffer into the
         chunk's slot of each shard's device group, on the shard's side stream,
-        with its scan stream waiting for them."""
+        with its scan stream waiting for them: one copy for one shard (the
+        slot's buffer is the group's row), else two a shard (its lanes' crops,
+        and its span of the arguments, lie apart in the slot)."""
         K = buf.shape[1]
         group, s = self._slot(lambda cap: self._new_group(cap, K))
         if not self._cuda:
             return
         slot = buf.slot
-        slot.args.numpy()[...] = args
-        slot.copied = self._copy_in(group, s, [
-            [(group.frames[i][s], slot.host[sl]), (group.args[i][s], slot.args[a0:a1])]
-            for i, ((sl, _, _), (a0, a1)) in enumerate(zip(self.shards, self._spans(K)))])
+        slot.args_np[...] = args
+        if len(self.shards) == 1:
+            copies = [[(group.rows[0][s], slot.raw)]]
+        else:
+            copies = [[(group.frames[i][s], slot.host[sl]), (group.args[i][s], slot.args[a0:a1])]
+                      for i, ((sl, _, _), (a0, a1)) in enumerate(zip(self.shards,
+                                                                      self._spans(K)))]
+        slot.copied = self._copy_in(group, s, copies, slot.copy_events)
 
     def _inputs(self, entries) -> list:
         """Per shard, ``(crops [S, L_i, K, ch, cw], args [S, n_i])`` of the
-        staged ``entries``: views of the device group on the card, stacks of
-        the staged host buffers on the CPU."""
-        S = len(entries)
-        if self._cuda:
-            g = self._group
-            return [(g.frames[i][:S], g.args[i][:S]) for i in range(len(self.shards))]
+        staged ``entries`` on the CPU: stacks of their host buffers."""
         spans = self._spans(entries[0].buf.shape[1])
         return [(torch.from_numpy(np.stack([e.buf[sl] for e in entries])),
                  torch.from_numpy(np.stack([e.args[a0:a1] for e in entries])))
@@ -1215,9 +1263,26 @@ class _RoiEngine(_ShardedEngine):
 
     def _finish(self, entries, outs) -> list:
         """The results of launched ``entries`` whose scans gave, per shard,
-        ``(positions [S, L_i, K, 2], offsets)``, through their buffers' pinned ones."""
-        bufs = [(e.buf.slot.pos, e.buf.slot.off) for e in entries] if self._cuda else None
-        return self._results(outs, bufs)
+        ``(positions [S, L_i, K, 2], offsets)``: on the CPU the rows; on the
+        card, after marking the device group consumed once the work queued so
+        far has run, the copies of each chunk's rows into its lanes of its
+        buffer's pinned ones, each behind its slot's ``done`` events."""
+        if not self._cuda:
+            return self._results(outs, None)
+        group = self._group
+        one = len(self.shards) == 1
+        for i, ((sl, dev, _), (pos, off)) in enumerate(zip(self.shards, outs)):
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev)
+                group.launched[i].record(stream)
+                group.consumed[i] = group.launched[i]
+                for s, e in enumerate(entries):
+                    slot = e.buf.slot
+                    (slot.pos if one else slot.pos[sl]).copy_(pos[s], non_blocking=True)
+                    if off is not None:
+                        (slot.off if one else slot.off[sl]).copy_(off[s], non_blocking=True)
+                    slot.done[i].record(stream)
+        return [(e.buf.slot.pos, e.buf.slot.off, e.buf.slot.done) for e in entries]
 
 
 class _SingleArgs(NamedTuple):
@@ -1306,7 +1371,18 @@ class _SingleEngine(_RoiEngine):
         self._prev_origin = o[max(k - 1, 0)]
         return self._stage_entry(_RoiEntry(buf, args, first, max(k, 1)))
 
+    def _staged_scan(self, i: int, frames, args):
+        a = _single_args(args, frames.shape[2])
+        return (_staged(self.seg_fns[0], frames[:, 0], self.fill, a.deltas, a.lo, a.hi, a.ks,
+                        subpixel=self.subpixel), a.start[0])
+
     def _launch(self, entries) -> list:
+        if self._cuda:  # the staged scan of the group, from its start or the chain
+            pos0 = self._group.starts[0] if entries[0].first else self._prev[self._prev_k - 1]
+            out = self._group.staged[0].run(len(entries), pos0=pos0)
+            pos, off = out if self.subpixel else (out, None)
+            self._prev, self._prev_k = pos[-1], entries[-1].k
+            return self._finish(entries, [(pos[:, None], None if off is None else off[:, None])])
         [(frames, flat)] = self._inputs(entries)  # [S, 1, K, ch, cw], [S, n]
         a = _single_args(flat, frames.shape[2])
         if len(entries) == 1:
@@ -1442,7 +1518,22 @@ class _BatchedEngine(_RoiEngine):
             self._stage(buf, args)
         return self._stage_entry(_RoiEntry(buf, args, first, 0))
 
+    def _staged_scan(self, i: int, frames, args):
+        a = _batch_args(args, self.lanes[i], frames.shape[2])
+        return (_staged(self.seg_fns[i], frames, self.fills[i], a.deltas, a.lo, a.hi, a.ks,
+                        a.origin0, a.origin_last, subpixel=self.subpixel), a.seed[0])
+
     def _launch(self, entries) -> list:
+        if self._cuda:  # each shard's staged scan of the group, from its seed or carry
+            outs = []
+            for i, carry in enumerate(self._carry):
+                if entries[0].first:
+                    carry_in = self._group.starts[i]
+                else:
+                    carry_in = carry
+                out = self._group.staged[i].run(len(entries), carry=carry_in, carry_out=carry)
+                outs.append(out if self.subpixel else (out, None))
+            return self._finish(entries, outs)
         K = entries[0].buf.shape[1]
         outs = []
         for i, ((_, dev, _), n, (frames, flat), seg) in enumerate(
@@ -1459,16 +1550,19 @@ class _BatchedEngine(_RoiEngine):
 class SingleVideoSource:
     """One video, one target lane. Delivery: the native decoder's retained
     ring (predict mode), its direct ROI reads (contain mode), or a prefetched
-    chunk cropped here (with per-frame diagnostics when asked). Fills
-    ``buf [1, K, ch, cw]`` at per-frame origins, re-crops retained frames for a
-    replay, and releases, recycles and diagnoses accepted frames."""
+    chunk cropped here by ``crop`` (:func:`.ops.roi_crop.lane_cropper`; with
+    per-frame diagnostics when asked). Fills ``buf [1, K, ch, cw]`` at
+    per-frame origins, re-crops retained frames for a replay, and releases,
+    recycles and diagnoses accepted frames."""
 
     def __init__(self, src, *, K, ch, cw, fill, dia, mode, native_roi, depth, n_rest,
-                 prefetchers):
+                 prefetchers, crop=crop_lanes_plain):
         from .diagnose import Dont
 
         self.src = src
         self.K, self.ch, self.cw, self.fill = K, ch, cw, fill
+        self.crop = crop
+        self._fills = np.array([fill], np.uint8)
         self.dia = dia
         self.mode = mode
         self.keep_for_dia = not isinstance(dia, Dont)
@@ -1508,9 +1602,7 @@ class SingleVideoSource:
             return None
         k = chunk.shape[0]
         with timer.section("crop"):
-            for i in range(k):
-                _crop_with_fill(chunk[i], o[i], self.ch, self.cw, self.fill, out=buf[0, i])
-        buf[0, k:] = buf[0, k - 1]
+            self.crop([chunk], [k], origins, self._fills, buf)
         # predict mode retains the frames for an exact replay; diagnostics
         # need them too; otherwise they go back to the prefetcher now
         if not (self.mode == "predict" or self.keep_for_dia):
@@ -1520,19 +1612,17 @@ class SingleVideoSource:
 
     def recrop(self, tokens, valid, origins, rbuf, timer, base, off):
         k = int(valid[0])
-        o = origins[0]  # [K, 2]
         f0 = int(off[0])  # frame offset within tokens (split sub-chunks)
         with timer.section("crop"):
             if tokens is RETAINED:
                 # the entry's frames sit behind the re-dispatched chunks still
                 # in flight (unaccepted, hence unreleased): ``base`` is their
                 # frame count, the offset into the retained window
-                self.src.recrop(int(base[0]), k, o, self.ch, self.cw, self.fill, out=rbuf[0])
+                self.src.recrop(int(base[0]), k, origins[0], self.ch, self.cw, self.fill,
+                                out=rbuf[0])
+                rbuf[0, k:] = rbuf[0, k - 1]
             else:
-                for i in range(k):
-                    _crop_with_fill(tokens[f0 + i], o[i], self.ch, self.cw, self.fill,
-                                    out=rbuf[0, i])
-            rbuf[0, k:] = rbuf[0, k - 1]
+                self.crop([tokens[f0:]], [k], origins, self._fills, rbuf)
 
     def accept(self, tokens, valid, abs_pos, timer, off):
         k = int(valid[0])
@@ -1561,11 +1651,14 @@ class FanoutSource:
     prefetched chunk cropped here. The shared overlay is drawn at accept time
     with all N positions of a frame."""
 
-    def __init__(self, src, *, N, K, ch, cw, fill, mode, depth, n_rest, prefetchers, dia=None):
+    def __init__(self, src, *, N, K, ch, cw, fill, mode, depth, n_rest, prefetchers, dia=None,
+                 crop=crop_lanes_plain):
         from .diagnose import Dont
 
         self.src = src
         self.N, self.K, self.ch, self.cw, self.fill = N, K, ch, cw, fill
+        self.crop = crop
+        self._fills = np.full(N, fill, np.uint8)
         self.mode = mode
         self.dia = dia
         self.keep_for_dia = dia is not None and not isinstance(dia, Dont)
@@ -1585,14 +1678,11 @@ class FanoutSource:
 
     def _crop_lanes(self, frames, k, origins, buf, base, timer, f0=0):
         with timer.section("crop"):
+            if frames is not RETAINED:  # every lane's crops of the chunk in one call
+                self.crop([frames[f0:]] * self.N, [k] * self.N, origins, self._fills, buf)
+                return
             for t in range(self.N):
-                o = origins[t]  # [K, 2] per-frame origins for this lane
-                if frames is RETAINED:
-                    self.src.recrop(base, k, o, self.ch, self.cw, self.fill, out=buf[t])
-                else:
-                    for i in range(k):
-                        _crop_with_fill(frames[f0 + i], o[i], self.ch, self.cw, self.fill,
-                                        out=buf[t, i])
+                self.src.recrop(base, k, origins[t], self.ch, self.cw, self.fill, out=buf[t])
                 buf[t, k:] = buf[t, k - 1]
 
     def acquire(self, remaining, origins, buf, timer):
@@ -1640,16 +1730,19 @@ class PerVideoSource:
     """B videos, one lane each: per-lane end of stream, fill values and
     diagnostics. A lane's delivery is its native decoder's retained ring
     (``nat_retained``, decided for all lanes by the caller) or its own
-    prefetcher, cropped here. A lane with no frames in a chunk gets a crop of
-    pure fill: its steps are discarded and its chain carry stays put."""
+    prefetcher, cropped here by ``crop`` (:func:`.ops.roi_crop.lane_cropper`),
+    every lane's chunk in one call. A lane with no frames in a chunk gets a
+    crop of pure fill: its steps are discarded and its chain carry stays put."""
 
-    def __init__(self, sources, *, K, ch, cw, fills, dias, ns, nat_retained, prefetcher_objs):
+    def __init__(self, sources, *, K, ch, cw, fills, dias, ns, nat_retained, prefetcher_objs,
+                 crop=crop_lanes_plain):
         from .diagnose import Dont
 
         B = len(sources)
         self.sources = sources
         self.B, self.K, self.ch, self.cw = B, K, ch, cw
-        self.fills = fills
+        self.fills = np.ascontiguousarray(fills, np.uint8)
+        self.crop = crop
         self.dias = dias
         self.keeps = [d is not None and not isinstance(d, Dont) for d in dias]
         self.nat_retained = nat_retained
@@ -1666,39 +1759,38 @@ class PerVideoSource:
         valid = np.zeros(self.B, np.int64)
         tokens = [None] * self.B
         with timer.section("crop"):
+            if not self.nat_retained:
+                for b in range(self.B):
+                    chunk = next(self._its[b], None) if self.active[b] else None
+                    if chunk is None or chunk.shape[0] == 0:
+                        self.active[b] = False
+                        continue
+                    tokens[b] = chunk
+                    valid[b] = chunk.shape[0]
+                    if valid[b] < self.K:
+                        self.active[b] = False
+                if valid.sum() == 0:
+                    return None
+                self.crop(tokens, valid, origins, self.fills, buf)
+                return (tokens, valid)
             for b in range(self.B):
                 k = 0
                 if self.active[b]:
-                    fill = int(self.fills[b])
-                    if self.nat_retained:
-                        base = self._retained[b]
-                        want = min(self.K, self._left[b], max(int(remaining), 1))
-                        k = self.sources[b].advance_retained(want)
-                        if k == 0:
-                            self.active[b] = False
-                        else:
-                            self._retained[b] += k
-                            self._left[b] -= k
-                            # short of the request means the decoder's end
-                            # (a probe short of K by request is not)
-                            if k < want or self._left[b] == 0:
-                                self.active[b] = False
-                            tokens[b] = RETAINED
-                            self.sources[b].recrop(base, k, origins[b], self.ch, self.cw,
-                                                   fill, out=buf[b])
+                    base = self._retained[b]
+                    want = min(self.K, self._left[b], max(int(remaining), 1))
+                    k = self.sources[b].advance_retained(want)
+                    if k == 0:
+                        self.active[b] = False
                     else:
-                        chunk = next(self._its[b], None)
-                        if chunk is None or chunk.shape[0] == 0:
+                        self._retained[b] += k
+                        self._left[b] -= k
+                        # short of the request means the decoder's end
+                        # (a probe short of K by request is not)
+                        if k < want or self._left[b] == 0:
                             self.active[b] = False
-                        else:
-                            k = chunk.shape[0]
-                            tokens[b] = chunk
-                            if k < self.K:
-                                self.active[b] = False
-                            o = origins[b]  # [K, 2]
-                            for i in range(k):
-                                _crop_with_fill(chunk[i], o[i], self.ch, self.cw, fill,
-                                                out=buf[b, i])
+                        tokens[b] = RETAINED
+                        self.sources[b].recrop(base, k, origins[b], self.ch, self.cw,
+                                               int(self.fills[b]), out=buf[b])
                 if k > 0:
                     valid[b] = k
                     buf[b, k:] = buf[b, k - 1]
@@ -1710,21 +1802,17 @@ class PerVideoSource:
 
     def recrop(self, tokens, valid, origins, rbuf, timer, base, off):
         with timer.section("crop"):
+            if not self.nat_retained:
+                self.crop([None if t is None else t[int(f0):] for t, f0 in zip(tokens, off)],
+                          valid, origins, self.fills, rbuf)
+                return
             for b in range(self.B):
                 k = int(valid[b])
                 if k > 0:
-                    o = origins[b]  # [K, 2]
-                    f0 = int(off[b])
-                    fill = int(self.fills[b])
-                    if tokens[b] is RETAINED:
-                        # the offset into this lane's retained window is its
-                        # own in-flight frame count
-                        self.sources[b].recrop(int(base[b]), k, o, self.ch, self.cw, fill,
-                                               out=rbuf[b])
-                    else:
-                        for i in range(k):
-                            _crop_with_fill(tokens[b][f0 + i], o[i], self.ch, self.cw, fill,
-                                            out=rbuf[b, i])
+                    # the offset into this lane's retained window is its own
+                    # in-flight frame count
+                    self.sources[b].recrop(int(base[b]), k, origins[b], self.ch, self.cw,
+                                           int(self.fills[b]), out=rbuf[b])
                     rbuf[b, k:] = rbuf[b, k - 1]
                 else:
                     rbuf[b] = self.fills[b]
@@ -2268,7 +2356,7 @@ def run_roi_pipeline(
                                                             subpixel=subpixel)),
             source=SingleVideoSource(src, K=K, ch=ch, cw=cw, fill=fill, dia=dia, mode=mode,
                                      native_roi=native_roi, depth=depth_max, n_rest=n_rest,
-                                     prefetchers=prefetchers),
+                                     prefetchers=prefetchers, crop=lane_cropper(device)),
             sink=sink,
             timer=timer,
         )
@@ -2344,7 +2432,8 @@ def run_multi_roi_pipeline(
             engine=_BatchedEngine(scan, (ch, cw), spec.frame_shape, np.full(N, fill, np.uint8),
                                   subpixel, timer, device, segments=segments),
             source=FanoutSource(src, N=N, K=K, ch=ch, cw=cw, fill=fill, mode=mode, depth=depth_max,
-                                n_rest=n_rest, prefetchers=prefetchers, dia=dia),
+                                n_rest=n_rest, prefetchers=prefetchers, dia=dia,
+                                crop=lane_cropper(device)),
             sink=sink,
             timer=timer,
         )

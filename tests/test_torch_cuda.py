@@ -1691,3 +1691,209 @@ def test_roi_auto_launches_the_chosen_kernel(card, caplog, tmp_path, monkeypatch
     assert tk.launches_by_config[f"{info['kernel']}: bounded"] == stats["dispatches"]
     np.testing.assert_array_equal(ij, track(frames, engine="pallas", **kw)[1])
     np.testing.assert_array_equal(ij, track(frames, device="cpu", **kw)[1])
+
+
+# ---- the ROI path's host work: the native crop and the staged scans ------------------
+
+
+#: crop origins at every edge and corner of a 1080p frame, and wholly outside it
+CROP_ORIGINS = {"inside": (400, 700), "top": (-60, 700), "bottom": (1000, 700),
+                "left": (400, -90), "right": (400, 1850), "top-left": (-30, -40),
+                "top-right": (-30, 1800), "bottom-left": (990, -12),
+                "bottom-right": (1020, 1890), "outside": (-600, 2500), "below": (1200, 30)}
+
+
+@pytest.mark.parametrize("crop", [185, 461])
+@pytest.mark.parametrize("K", [1, 12])
+def test_native_crop_equals_numpy(card, crop, K):
+    """The native chunk crop (csrc/roi_crop.cpp) equals the numpy one on the
+    same frames, origins and fills, byte for byte: lanes with every count
+    (none, short, full), origins at every edge and corner and wholly outside
+    the frame, frames as views of one array and as copies, on one thread and
+    on the pool's."""
+    from pawsometracker_tpu_torch.ops import roi_crop
+
+    rng = np.random.default_rng(crop + K)
+    frames = rng.integers(0, 256, (K + 3, 1080, 1920), dtype=np.uint8)
+    names = list(CROP_ORIGINS)
+    L = len(names)
+    origins = np.array([[np.add(CROP_ORIGINS[n], (i, -2 * i)) for i in range(K)] for n in names])
+    counts = [(b % (K + 1)) if b % 3 else K for b in range(L)]
+    fills = rng.integers(0, 256, L, dtype=np.uint8)
+    chunks = [frames[b % 3:] if b % 2 else np.ascontiguousarray(frames[b % 3:b % 3 + K])
+              for b in range(L)]
+    want = np.empty((L, K, crop, crop), np.uint8)
+    roi_crop.crop_lanes_plain(chunks, counts, origins, fills, want)
+    for threads in (1, roi_crop.THREADS, 8):
+        got = np.full((L, K, crop, crop), 7, np.uint8)
+        before = roi_crop.native_calls
+        roi_crop.crop_lanes_native(chunks, counts, origins, fills, got, threads=threads)
+        assert roi_crop.native_calls == before + 1
+        np.testing.assert_array_equal(got, want)
+
+
+def _staged_buffers(dev, cap, lanes, K, crop, rng):
+    """A device group's buffer as the ROI engines lay it out (crops, then the
+    int32 arguments in one row a segment), filled with blobs and the boxes of
+    each crop."""
+    from pawsometracker_tpu_torch import pipeline
+
+    n_args = (6 * lanes * K + 7 * lanes) if lanes > 1 else 6 * K + 4
+    n, at = pipeline._crop_bytes((lanes, K, crop, crop))
+    raw = torch.empty((cap, at + 4 * n_args), dtype=torch.uint8, device=dev)
+    frames = raw[:, :n].view(cap, lanes, K, crop, crop)
+    args = raw[:, at:].view(torch.int32)
+    args.zero_()
+    frames.copy_(torch.from_numpy(ellipse_frames(crop, crop, [
+        (int(crop // 2 + 9 * np.sin(t)), int(crop // 2 + 9 * np.cos(t)))
+        for t in range(cap * lanes * K)]).reshape(cap, lanes, K, crop, crop)))
+    return frames, args
+
+
+@pytest.mark.parametrize("subpixel", [False, True])
+@pytest.mark.parametrize("lanes", [1, 4])
+def test_staged_scan_equals_the_wrapper(card, subpixel, lanes):
+    """The ROI engines' staged scan (StagedScan, checked once over a device
+    group's buffers) launches what the public segmented wrappers launch on the
+    same views, for every S up to the group's room: equal positions and
+    offsets, equal carry, and the same launch counts by configuration."""
+    from pawsometracker_tpu_torch import pipeline
+
+    rng = np.random.default_rng(lanes)
+    cap, K, crop = 4, 12, 185
+    spec = make_spec((crop, crop), (41, 41), 25, True)
+    fns = tracker_fns(spec, card, "pallas")
+    frames, args = _staged_buffers(card, cap, lanes, K, crop, rng)
+    if lanes == 1:
+        a = pipeline._single_args(args, K)
+        a.hi[...] = crop - 1
+        a.ks[...] = torch.tensor([12, 5, 12, 9], dtype=torch.int32)
+        staged = fns.scan_bounded_super.stage(frames[:, 0], 128, a.deltas, a.lo, a.hi, a.ks,
+                                              subpixel=subpixel)
+        pos0 = torch.tensor([90, 95], dtype=torch.int32, device=card)
+        for S in range(1, cap + 1):
+            tk.reset_launches()
+            got = staged.run(S, pos0=pos0)
+            got = tuple(g.clone() for g in got) if subpixel else got.clone()
+            counts = dict(tk.launches_by_config)
+            tk.reset_launches()
+            if S == 1:
+                want = fns.scan_sub(frames[0, 0], pos0, 128, a.deltas[0], a.lo[0], a.hi[0]) \
+                    if subpixel else fns.scan_bounded(frames[0, 0], pos0, 128, a.deltas[0],
+                                                      a.lo[0], a.hi[0])
+                want = tuple(w[None] for w in want) if subpixel else want[None]
+            else:
+                want = fns.scan_bounded_super(frames[:S, 0], pos0, 128, a.deltas[:S], a.lo[:S],
+                                              a.hi[:S], a.ks[:S], subpixel=subpixel)
+            assert counts == dict(tk.launches_by_config)
+            for g, w in zip(*((got, want) if subpixel else ((got,), (want,)))):
+                np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+        return
+    a = pipeline._batch_args(args, lanes, K)
+    a.hi[...] = crop - 1
+    a.ks[...] = torch.from_numpy(rng.integers(0, K + 1, (cap, lanes)).astype(np.int32))
+    a.origin0[...] = torch.from_numpy(rng.integers(-5, 5, (cap, lanes, 2)).astype(np.int32))
+    a.origin_last[...] = a.origin0
+    fills = torch.tensor([128, 100, 160, 128], dtype=torch.uint8, device=card)
+    staged = fns.scan_bounded_batch_super.stage(frames, fills, a.deltas, a.lo, a.hi, a.ks,
+                                                a.origin0, a.origin_last, subpixel=subpixel)
+    for S in range(1, cap + 1):
+        carry = torch.tensor([[90, 95]] * lanes, dtype=torch.int32, device=card)
+        carry_w = carry.clone()
+        tk.reset_launches()
+        got = staged.run(S, carry=carry, carry_out=carry)
+        got = tuple(g.clone() for g in got) if subpixel else got.clone()
+        counts = dict(tk.launches_by_config)
+        tk.reset_launches()
+        want, _ = fns.scan_bounded_batch_super(frames[:S], carry_w, fills, a.deltas[:S],
+                                               a.lo[:S], a.hi[:S], a.ks[:S], a.origin0[:S],
+                                               a.origin_last[:S], carry_out=carry_w,
+                                               subpixel=subpixel)
+        assert counts == dict(tk.launches_by_config)
+        np.testing.assert_array_equal(carry.cpu().numpy(), carry_w.cpu().numpy())
+        for g, w in zip(*((got, want) if subpixel else ((got,), (want,)))):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+
+
+def test_staged_scan_refuses_buffers_the_kernel_does_not_take(card):
+    """The staged scan checks its buffers once, when it is made: arguments
+    that are not views of one buffer with one segment stride, or of another
+    type, raise the wrapper's ValueError there."""
+    cap, K, crop = 2, 12, 61
+    spec = make_spec((crop, crop), (21, 21), 10, True)
+    fns = tracker_fns(spec, card, "pallas")
+    frames = torch.full((cap, K, crop, crop), 128, dtype=torch.uint8, device=card)
+    box = torch.zeros((cap, K, 2), dtype=torch.int32, device=card)
+    ks = torch.full((cap,), K, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="one buffer"):
+        fns.scan_bounded_super.stage(frames, 128, box, box.clone(), box.clone(), ks)
+    with pytest.raises(ValueError, match="int32"):
+        fns.scan_bounded_super.stage(frames, 128, box.float(), box, box, ks)
+    with pytest.raises(ValueError, match="shape"):
+        fns.scan_bounded_super.stage(frames, 128, box[:, :5], box, box, ks)
+
+
+@pytest.mark.parametrize("entry", ["track", "track_batch", "track_multi"])
+def test_roi_paths_equal_full_on_card(card, caplog, entry):
+    """Each ROI path on the card (the native crop, the one-copy staging and
+    the staged scans) gives the positions of stream="full": the chunks are
+    cropped natively, one call a chunk, and every chunk is one launch."""
+    from pawsometracker_tpu_torch import track_batch, track_multi
+    from pawsometracker_tpu_torch.ops import roi_crop
+
+    caplog.set_level(logging.DEBUG, logger="pawsometracker_tpu_torch")
+    kw = dict(fps=24, target_width=8, window_size=21, roi_frames=4, pipeline_depth=2)
+    clips, locs = _lane_clips()
+    frames, targets = _two_targets()
+    run = {"track": lambda **k: track(clips[0], start_location=locs[0], **kw, **k),
+           "track_batch": lambda **k: track_batch(clips, start_location=locs, **kw, **k),
+           "track_multi": lambda **k: track_multi(frames, targets, **kw, **k)}[entry]
+    before = roi_crop.native_calls
+    tk.reset_launches()
+    got = run(stream="roi")
+    stats = _roi_stats(caplog)
+    assert stats["stream"] == "roi"
+    assert tk.launches == 1 + stats["dispatches"]
+    assert roi_crop.native_calls - before >= stats["dispatches"]
+    want = run(stream="full")
+    pairs = list(zip(got, want)) if entry == "track_batch" else [(got, want)]
+    for (ts, ij), (ts_f, ij_f) in pairs:
+        np.testing.assert_array_equal(ts, ts_f)
+        np.testing.assert_array_equal(ij, ij_f)
+
+
+def test_native_crop_from_threads_at_once(card):
+    """Eight Python threads, more than the card machine's cores left to the
+    pool, each cutting 4-lane 461x461 chunks (so each call takes the pool)
+    60 times at once: every chunk equals the numpy crop, and every thread
+    ends within its time."""
+    import threading
+
+    from pawsometracker_tpu_torch.ops import roi_crop
+
+    rng = np.random.default_rng(3)
+    frames = rng.integers(0, 256, (16, 1080, 1920), dtype=np.uint8)
+    failures, done = [], []
+
+    def cut(seed):
+        r = np.random.default_rng(seed)
+        out = np.empty((4, 12, 461, 461), np.uint8)
+        want = np.empty_like(out)
+        for _ in range(60):
+            origins = r.integers(-500, 1900, (4, 12, 2))
+            counts = r.integers(0, 13, 4)
+            fills = r.integers(0, 256, 4).astype(np.uint8)
+            chunks = [frames[b:] for b in range(4)]
+            roi_crop.crop_lanes_native(chunks, counts, origins, fills, out)
+            roi_crop.crop_lanes_plain(chunks, counts, origins, fills, want)
+            if not np.array_equal(out, want):
+                failures.append(seed)
+        done.append(seed)
+
+    threads = [threading.Thread(target=cut, args=(s,)) for s in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and sorted(done) == list(range(8))
+    assert not failures
