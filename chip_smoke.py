@@ -91,7 +91,9 @@ E. The engine choice (``engine="auto"`` on the ROI paths), with the engine
      shape rule's kernel (``dog_scan``), the autodetect snap
      ``dog_scan_tiled``, and the ``device="cpu"`` cross-check runs the first
      33 frames.
-   These four stream full frames (``stream="full"``). Then each entry point
+   These four stream full frames (``stream="full"``), each chunk staged by
+   its prefetcher into a pinned ring by one native copy (the clips are
+   arrays served as views): the copies must number the chunks. Then each entry point
    through ``stream="auto"``, which takes the speculative ROI pipeline at
    1080p (as the JAX package does when the crops are under half the frame):
    ``track()`` on the bench clip ("track ROI") and the large target ("track
@@ -113,7 +115,10 @@ E. The engine choice (``engine="auto"`` on the ROI paths), with the engine
    and resumed, uninterrupted, and with ``subpixel=True``; each must equal
    "track ROI"'s uninterrupted ``track()`` (offsets within ``atol=1e-3``,
    ``ts`` exactly), leave a done checkpoint, and launch per slice its snap
-   plus one bounded launch a dispatch. And the CLI ("CLI"): the first 96
+   plus one bounded launch a dispatch. Then the same call from frame 37 (an
+   on-grid start past 0): every slice served as views from its first frame,
+   equal to the same call forced down the resampler's walk from frame 0
+   (``ArrayFrameSource.views_allowed``, a test hook), both timed. And the CLI ("CLI"): the first 96
    frames of the bench clip and of two ``track_batch`` clips as ``.npy``
    files, ``python -m pawsometracker_tpu_torch --format json`` with no
    ``--device`` (so on the card) in fresh processes, single-file, ``--batch``
@@ -156,7 +161,9 @@ E. The engine choice (``engine="auto"`` on the ROI paths), with the engine
    multi ROI paths beside their ``stream="full"`` figures; a cuDNN
    ``conv2d`` + ``argmax`` yardstick for the snaps at the bench window;
    ``track_resumable`` ROI frames/s over the 4-slice call beside "track ROI",
-   with its per-slice set-up and snap; and the CLI's wall time a process,
+   with its per-slice set-up and snap; a full-frame chunk's staging copy
+   into pinned memory, native (the kept route) and numpy's (the route before
+   it), beside its host-to-device copy and its kernel; and the CLI's wall time a process,
    split into process start, imports, CUDA initialisation, the kernel
    library's load (a build-cache hit or not) and tracking; and the mesh:
    ``sharded_pallas_bounded`` a call on each mesh (card time by CUDA events
@@ -231,6 +238,8 @@ BOUNDED_T = 16
 ROI_K = 12
 #: track_resumable's slices: 5 s at 24 fps, 120 frames, so 4 over the clip
 CHECKPOINT_EVERY = 5.0
+#: the on-grid frame past 0 that phase 2's track_resumable check starts from
+RESUME_K0 = 37
 #: frames of each clip that the CLI phase writes as .npy and tracks
 CLI_FRAMES = 96
 #: the target widths of the engine choice's sweep at 1080p ROI: default windows 53, 61 and 69,
@@ -804,6 +813,7 @@ def main(argv=None) -> int:
         from pawsometracker_tpu_torch.ops.dog_kernel import dog_kernel_2d, guess_window_size
         from pawsometracker_tpu_torch.ops.filters import mode_u8_host
         from pawsometracker_tpu_torch import pipeline as pl
+        from pawsometracker_tpu_torch.io.decode import ArrayFrameSource
         from pawsometracker_tpu_torch.pipeline import (_AUTO_DEPTH_MEMO, _crop_with_fill,
                                                        roi_geometry)
     except ImportError as e:
@@ -1529,7 +1539,13 @@ def main(argv=None) -> int:
     roi_geoms = {"track ROI": "185x185 L=1", "track large target ROI": "461x461 L=1",
                  "track_batch ROI": f"185x185 B={B}", "track_multi ROI": f"185x185 B={B}"}
 
-    results, main_counts, roi_stats = {}, {}, {}
+    # the full-frame paths' chunks, each staged into a pinned ring by one native copy on its
+    # prefetcher's thread (the clips are arrays served as views); the ROI paths stage none
+    want_copies = {"track": math.ceil((N_FRAMES - 1) / CHUNK),
+                   "track large target": math.ceil((N_FRAMES - 1) / CHUNK),
+                   "track_batch": sum(math.ceil((n - 1) / CHUNK) for n in BATCH_LENS),
+                   "track_multi": math.ceil((MULTI_FRAMES - 1) / MULTI_CHUNK)}
+    results, main_counts, roi_stats, staged = {}, {}, {}, {}
     for path, runs in paths.items():
         tk.reset_launches()  # counts to 0 just before the path, read just after
         plain_runs["n"] = plain_runs["probe"] = 0
@@ -1537,11 +1553,12 @@ def main(argv=None) -> int:
             before, plain_before = tk.launches, plain_runs["n"]
             tiled_before = tk.launches_by_kernel["dog_scan_tiled"]
             bounded_before = bounded_by_kernel()
-            crops_before = roi_crop.native_calls
+            crops_before, copies_before = roi_crop.native_calls, roi_crop.copy_calls
             stats_log.last = None
             t0 = time.perf_counter()
             out = entry[path](**extra)
             torch.cuda.synchronize()
+            staged[path, name] = roi_crop.copy_calls - copies_before
             results[path, name] = (out, tk.launches - before, plain_runs["n"] - plain_before,
                                    time.perf_counter() - t0,
                                    tk.launches_by_kernel["dog_scan_tiled"] - tiled_before)
@@ -1637,8 +1654,10 @@ def main(argv=None) -> int:
                             f" stream='full'={equal_full}, equals engine='pallas'={equal_pallas}")
             else:
                 want_n = want_launches[path][name]
+            n_copies = staged[path, name]
             ok = (n_launch == want_n and n_plain == 0 and max(errs) < 1.0 and equal_single
-                  and equal_cpu is not False and roi_ok)
+                  and equal_cpu is not False and roi_ok
+                  and n_copies == want_copies.get(path, 0))
             if kind in ("track", "track large target"):
                 ok = ok and len(out[1]) == N_FRAMES
             elif kind == "track_batch":
@@ -1657,14 +1676,15 @@ def main(argv=None) -> int:
                               + (at_window if large_kernel == "dog_scan_tiled" else 0))
                 ok = ok and n_tiled == want_tiled
             phase2[f"{path} {name}"] = {"launches": n_launch, "want_launches": want_n,
-                                        "tiled_launches": n_tiled,
+                                        "tiled_launches": n_tiled, "staged_copies": n_copies,
                                         "plain_runs": n_plain, "rmse_px": errs,
                                         "equals_single_track": equal_single,
                                         "equals_cpu_run": equal_cpu, "wall_s": wall, "ok": ok,
                                         **({"roi": roi_stats[path, name]}
                                            if path in roi_paths else {})}
             log(f"phase 2 {path}({name}): launches={n_launch} (want {want_n}, dog_scan_tiled"
-                f" {n_tiled}), plain runs={n_plain},"
+                f" {n_tiled}), plain runs={n_plain}, native staging copies={n_copies} (want"
+                f" {want_copies.get(path, 0)}),"
                 f" rmse max={max(errs):.4f} px over {len(errs)}, equals single track()="
                 f"{equal_single}, equals device='cpu' run={equal_cpu}, {wall:.3f} s{roi_note}"
                 f" (checks {time.perf_counter() - t_checks:.1f} s) -> {'ok' if ok else 'FAIL'}")
@@ -1839,6 +1859,45 @@ def main(argv=None) -> int:
             raise SystemExit(f"phase 2 {path} {name} failed")
     main_counts[path] = {"total": tk.launches, "by_config": dict(tk.launches_by_config),
                          "by_kernel": dict(tk.launches_by_kernel), "plain_runs": plain_runs["n"]}
+    # track_resumable ROI from an on-grid start past 0 (frame RESUME_K0): each slice served as
+    # views from its first frame on, against the same call forced down the resampler's walk
+    # from frame 0 (ArrayFrameSource.views_allowed, a test hook); equal positions and ts
+    served, runs_past0 = [], {}
+    init = ArrayFrameSource.__init__
+
+    def spy(self, *a, **k):
+        init(self, *a, **k)
+        served.append(self.serves_views)
+
+    ArrayFrameSource.__init__ = spy
+    try:
+        for way in ("views", "walk"):
+            ArrayFrameSource.views_allowed = way == "views"
+            served.clear()
+            cp = os.path.join(work.name, f"resumable past 0 {way}.npz")
+            t0 = time.perf_counter()
+            runs_past0[way] = track_resumable(frames_np, checkpoint_path=cp,
+                                              start=RESUME_K0 / FPS, start_location=IJ(
+                                                  *map(int, truth[RESUME_K0])), **resumable_kw)
+            torch.cuda.synchronize()
+            runs_past0[way] += (time.perf_counter() - t0, list(served))
+    finally:
+        ArrayFrameSource.__init__ = init
+        ArrayFrameSource.views_allowed = True
+    (ts_v, ij_v, wall_v, served_v), (ts_w, ij_w, wall_w, served_w) = (runs_past0["views"],
+                                                                       runs_past0["walk"])
+    equal = np.array_equal(ij_v, ij_w) and np.array_equal(ts_v, ts_w)
+    ok = (equal and len(ij_v) == N_FRAMES - RESUME_K0 and served_v and all(served_v)
+          and not any(served_w))
+    phase2[f"{path} from frame {RESUME_K0}"] = {
+        "equals_walk": equal, "slices": len(served_v), "served_views": served_v,
+        "walk_served_views": served_w, "wall_s": {"views": wall_v, "walk": wall_w}, "ok": ok}
+    log(f"phase 2 {path}(from frame {RESUME_K0}, start={RESUME_K0 / FPS}): {len(served_v)} slices"
+        f" served as views {served_v}, equal to the same call down the resampler's walk"
+        f" ({len(served_w)} slices, views {served_w})={equal}, {len(ij_v)} frames; views"
+        f" {wall_v:.3f} s, walk {wall_w:.3f} s -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"phase 2 {path} from frame {RESUME_K0} failed")
 
     # the CLI in fresh processes with no --device, so on the card: each loads
     # the kernel library that this process built from the build cache
@@ -2378,18 +2437,31 @@ def main(argv=None) -> int:
         + f"; the timed single-file process {pr['wall_s']:.2f} s: "
         + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items())
         + f" (the library {'from the build cache' if pr['cache_hit'] else 'built'})")
-    # where one chunk's time goes: the host copy into a pinned staging buffer,
-    # the host-to-device copy, the kernel (above)
+    # where one full-frame chunk's time goes: the staging copy of a view into a pinned
+    # buffer, by the kept route (the native copy, on the prefetch thread in the pipeline) and
+    # by numpy's (the route before it), the host-to-device copy, the kernel (above); each
+    # copy of the next chunk of the clip, in turns, so that its frames come from memory
     pinned = torch.empty((CHUNK, H, W), dtype=torch.uint8, pin_memory=True)
-    t0 = time.perf_counter()
-    for _ in range(3):
-        pinned.numpy()[...] = frames_np[1:1 + CHUNK]
-    host_ms = 1e3 * (time.perf_counter() - t0) / 3
+    copies = {"native": lambda src: roi_crop.copy_frames_native(src, pinned.numpy()),
+              "numpy": lambda src: np.copyto(pinned.numpy(), src)}
+    copy_ms = {k: [] for k in copies}
+    for i in range(6):
+        for name, fn in copies.items():
+            src = frames_np[1 + CHUNK * (i % 6):1 + CHUNK * (i % 6 + 1)]
+            t0 = time.perf_counter()
+            fn(src)
+            copy_ms[name].append(1e3 * (time.perf_counter() - t0))
+    host_ms = {k: statistics.median(v) for k, v in copy_ms.items()}
     h2d_ms = cuda_time_ms(lambda: chunk.copy_(pinned, non_blocking=True), reps=5)
-    record["staging_per_chunk_ms"] = {"host_copy": host_ms, "h2d": h2d_ms,
-                                      "kernel": timing["unbounded"]["ms"], "frames": CHUNK}
-    log(f"phase 3 per {CHUNK}-frame chunk: host copy to pinned {host_ms:.2f} ms,"
-        f" host-to-device {h2d_ms:.2f} ms, kernel {timing['unbounded']['ms']:.2f} ms")
+    record["staging_per_chunk_ms"] = {"native_copy": host_ms["native"],
+                                      "numpy_copy": host_ms["numpy"], "h2d": h2d_ms,
+                                      "kernel": timing["unbounded"]["ms"], "frames": CHUNK,
+                                      "copy_threads": roi_crop.crop_threads(CHUNK * H * W)}
+    log(f"phase 3 per {CHUNK}-frame chunk: the staging copy into pinned memory, native"
+        f" {host_ms['native']:.2f} ms on {roi_crop.crop_threads(CHUNK * H * W)} threads (the"
+        f" kept route, on the prefetch thread), numpy {host_ms['numpy']:.2f} ms (the route"
+        f" before it), medians of 6 in turns; host-to-device {h2d_ms:.2f} ms, kernel"
+        f" {timing['unbounded']['ms']:.2f} ms")
     record["profile"] = {}
     for path, extra in (("track", paths["track"]["start_location"]),
                         ("track_batch", paths["track_batch"]["start_location"]),

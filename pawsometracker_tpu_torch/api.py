@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from .diagnose import Dont, diagnose
-from .io.decode import open_source
+from .io.decode import open_source, view_origin
 from .models.dog_tracker import (
     autodetect_spec,
     center_guess,
@@ -132,7 +132,7 @@ def _initial_position(frame0: np.ndarray, guess, auto: bool, spec, fill: int,
     tracker runs one step, so ``positions[0]`` is the *detected* position near
     the given location (reference: src/PawsomeTracker.jl:92-107).
     Returns ``(pos int32 [2], offsets float32 [2])`` as numpy arrays."""
-    frame = torch.from_numpy(np.ascontiguousarray(frame0)).to(device)
+    frame = torch.tensor(frame0, device=device)  # a copy: frame 1 may be a read-only view
     g = np.asarray(guess, np.int32)
     fns = tracker_fns(autodetect_spec(spec) if auto else spec, device, engine)
     if subpixel:
@@ -261,8 +261,8 @@ def _track_one(
         stream != "full" and depth_gate > 0 and speculate == "predict"
         and (isinstance(dia, Dont) or _views_available())
     )
-    zero_copy_input = (isinstance(file, np.ndarray) and file.ndim == 3
-                       and input_fps is None and start == 0.0)
+    # an array whose chunks are served as views (from its start's frame on)
+    zero_copy_input = view_origin(file, start=start, fps=fps, input_fps=input_fps) is not None
     if pipeline_depth == "auto" and stream != "full":
         depth_gate = _auto_ring_gate(file, roi_frames, depth_gate, zero_copy=zero_copy_input)
     ring = (depth_gate + 2) * roi_frames + 8 if retention_possible else None

@@ -40,7 +40,7 @@ from .api import (
     grid_prefix,
 )
 from .diagnose import Diagnose, Dont
-from .io.decode import ChunkPrefetcher, open_source
+from .io.decode import ChunkPrefetcher, open_source, view_origin
 from .models.dog_tracker import full_frame_sub_scan, make_spec, resolve_device
 from .ops.dog_kernel import fix_window_size, guess_window_size
 from .ops.filters import mode_u8_host
@@ -339,8 +339,8 @@ def _track_batch_uniform(
         # lanes; the shapes come from the caller's probes (no second read)
         depth_gate = min(
             (_auto_ring_gate(f, roi_frames, depth_gate, lanes=B, info=i,
-                             zero_copy=(isinstance(f, np.ndarray) and f.ndim == 3
-                                        and input_fps is None and t0 == 0.0))
+                             zero_copy=view_origin(f, start=t0, fps=fps,
+                                                   input_fps=input_fps) is not None)
              for f, i, t0 in zip(files, infos, starts)),
             default=depth_gate)
     ring = (depth_gate + 2) * roi_frames + 8 if retention_possible else None
@@ -422,11 +422,9 @@ def _track_batch_uniform(
             and getattr(s, "ring_frames", 0) >= (depth_gate + 2) * roi_frames
             and (p is None or getattr(s, "can_view_retained", False))
             for s, p in zip(sources, diagnostic_files))
-        if use_roi:
-            chunk_size = roi_frames
-        if not nat_retained:
-            prefetchers = [ChunkPrefetcher(s, chunk_size, max_frames=n - 1)
-                           for s, n in zip(sources, ns)]
+        if use_roi and not nat_retained:
+            prefetchers.extend(ChunkPrefetcher(s, roi_frames, max_frames=n - 1)
+                               for s, n in zip(sources, ns))
         stats = {"stream": "roi" if use_roi else "full",
                  "shards": 1 if mesh is None else mesh.shape["data"]}
         if use_roi:
@@ -494,9 +492,9 @@ def _track_batch_uniform(
                 scan = tracker.scan_sub.map(
                     lambda fn, dev: full_frame_sub_scan(fn, frame_shape, dev))
             pos_blocks, off_blocks, counts = run_batch_pipeline(
-                prefetchers, pos, fills_dev, chunk_size=chunk_size, depth=depth, scan=scan,
-                subpixel=subpixel, dias=dias, timer=timer, device=tracker.device,
-                progress=progress,
+                sources, [n - 1 for n in ns], pos, fills_dev, chunk_size=chunk_size,
+                depth=depth, scan=scan, subpixel=subpixel, dias=dias, timer=timer,
+                device=tracker.device, prefetchers=prefetchers, progress=progress,
             )
         stats["sections"] = dict(timer.totals)
         # the record carries the numbers as ``paws_stats`` for a handler

@@ -17,8 +17,11 @@
 //   thread goes on while the crops are cut.
 //
 // A lane's frames past its real count repeat its last crop; a lane with none
-// holds fill. Built with nvcc like the kernels (ops/_build.py), host code
-// only, with a plain C interface bound by ctypes.
+// holds fill. A crop of the whole frame at origin (0, 0) has no border: the
+// full-frame engine's staging copy of frames served as views into a pinned
+// buffer is this call too (ops/roi_crop.py::copy_frames_native). Built with
+// nvcc like the kernels (ops/_build.py), host code only, with a plain C
+// interface bound by ctypes.
 
 #include <algorithm>
 #include <atomic>

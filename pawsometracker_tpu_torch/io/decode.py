@@ -58,6 +58,7 @@ __all__ = [
     "open_source",
     "ChunkPrefetcher",
     "fps_slot",
+    "view_origin",
 ]
 
 
@@ -345,6 +346,39 @@ def is_frame_stack(obj) -> bool:
     )
 
 
+def _frac(x) -> Fraction:
+    """A rate or a time as the resampler holds it (module docstring)."""
+    return Fraction(float(x)).limit_denominator(1001000)
+
+
+def view_origin(frames, *, start: float = 0.0, fps: float = 24.0,
+                input_fps: float | None = None) -> int | None:
+    """The input frame ``k0`` from which :class:`ArrayFrameSource` serves views
+    of ``frames`` over ``[start, ...)`` at ``fps``, or None where it walks the
+    exact per-frame resampler.
+
+    Views need a plain 3-D ``np.ndarray`` (``np.memmap`` included) at the
+    output rate (``input_fps`` None, or equal to ``fps`` as the resampler's
+    fractions see it) and ``start * fps`` within LESS than half a slot of an
+    integer ``k0 >= 0``. Then every gate of the resampler is exact: the keep
+    window ``tp >= -1/(2 fps)`` first keeps input frame ``k0``, each kept frame
+    ``k0 + m`` takes slot ``round(m + k0 - start * fps) = m`` (anchored at
+    ``max(slot, 0) = 0``), so nothing is dropped or repeated, and output frame
+    ``m`` is input frame ``k0 + m``. A half-slot tie, a negative ``k0``, RGB or
+    lazy stacks and resampled arrays keep the walk. ``track``, ``track_batch``
+    and ``track_resumable``'s slices all decide by this one rule."""
+    if not (isinstance(frames, np.ndarray) and frames.ndim == 3):
+        return None
+    fps_frac = _frac(fps)
+    if input_fps is not None and _frac(input_fps) != fps_frac:
+        return None
+    x = _frac(start) * fps_frac
+    k0 = round(x)
+    if k0 < 0 or abs(x - k0) >= Fraction(1, 2):
+        return None
+    return int(k0)
+
+
 class ArrayFrameSource(_ResamplingSource):
     """In-memory frames ``[T, H, W]`` (GRAY8) or ``[T, H, W, 3]`` (RGB) uint8
     as a frame source — for recordings that never were video files (HDF5/zarr
@@ -361,6 +395,10 @@ class ArrayFrameSource(_ResamplingSource):
     h5py/zarr datasets, ``np.memmap``); frames materialize ONE AT A TIME, so
     an 8-hour dataset streams with the same bounded memory as a video file.
     """
+
+    #: serve views where :func:`view_origin` allows them; a test hook, which
+    #: ``False`` turns into the per-frame resampler for every new source
+    views_allowed = True
 
     def __init__(self, frames, *, start: float = 0.0, stop: float = math.inf,
                  fps: float = 24.0, input_fps: float | None = None, sar: float = 1.0):
@@ -392,42 +430,39 @@ class ArrayFrameSource(_ResamplingSource):
         self._start_frac = Fraction(self.start).limit_denominator(1001000)
         self._in_idx = 0
         self._init_resampler_state()
-        # Zero-copy passthrough: a plain gray ndarray at the output rate with
-        # start=0 maps 1:1 onto the output grid (k0=0, anchor slot 0, no
-        # drops/dups), so reads can serve VIEWS of the backing array instead
-        # of 2 MB/frame copies — the dominant host cost for in-memory batch
-        # tracking. n_out: frames m with m/fps < duration (strict, matching
-        # the resampler's emit clamp). Resampling/start/RGB/lazy stacks fall
-        # back to the exact per-frame resampler.
-        self.serves_views = (
-            isinstance(self.frames, np.ndarray)
-            and self.frames.ndim == 3
-            and self._native_frac == self._fps_frac
-            and self._start_frac == 0
-        )
+        # Zero-copy passthrough: where the start maps 1:1 onto the output grid
+        # (view_origin), output frame m is input frame k0 + m, so reads serve
+        # read-only VIEWS of the backing array instead of 2 MB/frame copies —
+        # the dominant host cost for in-memory tracking, and for every slice of
+        # track_resumable past the first. Resampling, off-grid starts, RGB and
+        # lazy stacks keep the exact per-frame resampler.
+        k0 = (view_origin(self.frames, start=self.start, fps=self.fps, input_fps=input_fps)
+              if self.views_allowed else None)
+        self.serves_views = k0 is not None
         if self.serves_views:
+            avail = max(0, t_total - k0)
             if math.isinf(self.duration):
-                n_out = t_total
+                n_out = avail
             else:
-                # frame m is emitted iff BOTH resampler gates pass, evaluated
-                # with the EXACT float expressions those gates use — the
-                # input keep check float(Fraction(m)/native_frac) < duration
-                # (_next_input) and the emit clamp m/fps < duration — so the
-                # two paths cannot disagree even by 1 ulp at a boundary
-                # (m/fps and float(Fraction(m)/frac) differ by 1 ulp for
-                # NTSC-style rates; a Fraction round trip of the duration
-                # would break tiny durations: limit_denominator(1e-9) == 0)
+                # output frame m is emitted iff BOTH resampler gates pass for
+                # input frame k0 + m, evaluated with the EXACT expressions those
+                # gates use — the input keep check float(Fraction(k0 + m) /
+                # native_frac - start_frac) < duration (_next_input) and the
+                # emit clamp m/fps < duration (read) — so the two paths cannot
+                # disagree even by 1 ulp at a boundary (m/fps and the Fraction
+                # form differ by 1 ulp for NTSC-style rates; a Fraction round
+                # trip of the duration would break tiny durations:
+                # limit_denominator(1e-9) == 0)
                 def _emitted(m: int) -> bool:
-                    return (
-                        float(Fraction(m) / self._native_frac) < self.duration
-                        and m / self.fps < self.duration
-                    )
+                    tp = Fraction(k0 + m) / self._native_frac - self._start_frac
+                    return float(tp) < self.duration and m / self.fps < self.duration
 
-                n_out = min(t_total, max(0, math.ceil(self.duration * self.fps)))
+                n_out = min(avail, max(0, math.ceil(self.duration * self.fps)))
                 while n_out > 0 and not _emitted(n_out - 1):
                     n_out -= 1
-                while n_out < t_total and _emitted(n_out):
+                while n_out < avail and _emitted(n_out):
                     n_out += 1
+            self._zc_k0 = k0
             self._zc_n = n_out
             self._zc_pos = 0
 
@@ -453,19 +488,24 @@ class ArrayFrameSource(_ResamplingSource):
             return super().read()
         if self._zc_pos >= self._zc_n:
             return None
-        f = self.frames[self._zc_pos]  # VIEW of the backing array
+        f = self.frames[self._zc_k0 + self._zc_pos]  # VIEW of the backing array
+        f.flags.writeable = False
         self._zc_pos += 1
         return f
 
     def read_chunk(self, n: int, out: np.ndarray | None = None) -> np.ndarray:
-        """Zero-copy: up to ``n`` frames as a VIEW ``[k, H, W]`` of the
-        backing array (``out`` ignored — do not mutate the result; the
-        prefetcher's recycle pool skips view-serving sources)."""
+        """Zero-copy: up to ``n`` frames as a read-only VIEW ``[k, H, W]`` of
+        the backing array (``out`` ignored; the caller's array stays
+        writable, and the prefetcher's recycle pool skips view-serving
+        sources). The JAX package's views are writable: a deliberate
+        divergence, so that no consumer can write into the caller's frames."""
         if not self.serves_views:
             return super().read_chunk(n, out)
-        k = min(int(n), self._zc_n - self._zc_pos)
-        view = self.frames[self._zc_pos : self._zc_pos + max(k, 0)]
-        self._zc_pos += max(k, 0)
+        k = max(0, min(int(n), self._zc_n - self._zc_pos))
+        at = self._zc_k0 + self._zc_pos
+        view = self.frames[at : at + k]
+        view.flags.writeable = False
+        self._zc_pos += k
         return view
 
 
@@ -568,12 +608,22 @@ class ChunkPrefetcher:
     The host decodes the next chunk while the device tracks the current one —
     the analog of the reference's out-of-process ffmpeg pipe overlapping
     decode with compute (reference: src/PawsomeTracker.jl:155-157).
+
+    ``staging``, when given, is where the chunks land: an object whose
+    ``read(source, k)`` returns the source's next up to ``k`` frames in a
+    buffer of its own (the full-frame engine's pinned ring on the card,
+    :class:`~..pipeline.StagingRing`: a decoder writes into it, a view is
+    copied into it on this thread) and whose ``recycle(chunk)`` takes one
+    back. Without it the chunks lie in the source's buffers, recycled through
+    the pool below.
     """
 
-    def __init__(self, source, chunk_size: int, max_frames: int | None = None, depth: int = 2):
+    def __init__(self, source, chunk_size: int, max_frames: int | None = None, depth: int = 2,
+                 staging=None):
         self.source = source
         self.chunk_size = int(chunk_size)
         self.max_frames = max_frames
+        self.staging = staging
         # a view-serving source's chunks alias ITS backing array: pooling
         # their base and handing it out as a write buffer would overwrite
         # the user's frames — recycle becomes a no-op for those sources
@@ -595,19 +645,28 @@ class ChunkPrefetcher:
             return None
 
     def recycle(self, chunk: np.ndarray):
-        """Return a consumed chunk's underlying buffer for reuse (no-op for
-        view-serving sources — their chunks alias the user's array)."""
+        """Return a consumed chunk's underlying buffer for reuse (to the
+        staging ring where there is one; a no-op for view-serving sources
+        without one — their chunks alias the user's array)."""
+        if self.staging is not None:
+            self.staging.recycle(chunk)
+            return
         if not self._recyclable:
             return
         base = chunk.base if chunk.base is not None else chunk
         self._free.put(base)
+
+    def _read(self, k: int) -> np.ndarray:
+        if self.staging is not None:
+            return self.staging.read(self.source, k)
+        return self.source.read_chunk(k, out=self._buffer())
 
     def _run(self):
         try:
             remaining = self.max_frames if self.max_frames is not None else math.inf
             while remaining > 0 and not self._stop.is_set():
                 k = int(min(self.chunk_size, remaining))
-                chunk = self.source.read_chunk(k, out=self._buffer())
+                chunk = self._read(k)
                 if chunk.shape[0] == 0:
                     break
                 remaining -= chunk.shape[0]

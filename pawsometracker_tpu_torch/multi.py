@@ -192,7 +192,7 @@ def track_multi(
             fill = mode_u8_host(frame0)
             spec = make_spec(frame_shape, window_size, target_width, darker_target)
             fns = tracker_fns(spec, dev, engine)
-            frame0_dev = torch.from_numpy(np.ascontiguousarray(frame0)).to(dev)
+            frame0_dev = torch.tensor(frame0, device=dev)  # a copy: a read-only view, maybe
 
         with timer.section("snap"):
             if autodetect:

@@ -12,6 +12,11 @@ prefetches each crop's rows, spreads a large chunk's crops over up to
 gives the pipelines the native one on the card and the plain one on the CPU;
 a native library that does not build raises, it never hands over to numpy on
 the card.
+
+The same call copies whole frames: a crop of the whole frame at origin
+(0, 0) has no border. :func:`copy_frames_native` is the full-frame engine's
+staging copy of frames served as views into a pinned buffer on the card
+(:func:`frame_copier`); on the CPU the engine copies each chunk itself.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ import os
 import numpy as np
 
 __all__ = ["crop_with_fill", "crop_lanes_plain", "crop_lanes_native", "crop_threads",
-           "lane_cropper", "native_calls", "THREADS", "BYTES_PER_THREAD"]
+           "lane_cropper", "copy_frames_native", "frame_copier",
+           "native_calls", "copy_calls", "THREADS", "BYTES_PER_THREAD"]
 
 #: most threads one native call spreads its crops over (the caller's and
 #: helpers), leaving two of the host's cores to the caller's other threads: a
@@ -33,8 +39,10 @@ THREADS = max(1, min(6, (os.cpu_count() or 1) - 2))
 #: of microseconds to wake, which a 12-frame 185x185 chunk (410 KB) of one
 #: lane does not pay back
 BYTES_PER_THREAD = 512 * 1024
-#: native calls since import (each one chunk of every lane)
+#: native crop calls since import (each one chunk of every lane)
 native_calls = 0
+#: native frame copies since import (each one staged chunk)
+copy_calls = 0
 
 
 def crop_threads(nbytes: int) -> int:
@@ -97,15 +105,8 @@ def _lib():
     return lib
 
 
-def crop_lanes_native(chunks, counts, origins, fills, out: np.ndarray,
-                      threads: int | None = None) -> None:
-    """:func:`crop_lanes_plain` in one call of ``csrc/roi_crop.cpp`` on
-    ``threads`` threads (by default one for each :data:`BYTES_PER_THREAD` of
-    crops, up to :data:`THREADS`): every lane's crops of the chunk, with
-    Python's lock released. ``out`` is C-contiguous; each chunk's frames have
-    1-byte columns. Raises when the library does not build or load, or the
-    call refuses its arguments."""
-    global native_calls
+def _native(chunks, counts, origins, fills, out: np.ndarray, threads) -> None:
+    """One call of ``roi_crop_lanes`` (:func:`crop_lanes_native`)."""
     L, K, ch, cw = out.shape
     if out.dtype != np.uint8 or not out.flags.c_contiguous:
         raise ValueError(f"out must be a C-contiguous uint8 [L, K, ch, cw], got {out.dtype}")
@@ -135,7 +136,42 @@ def crop_lanes_native(chunks, counts, origins, fills, out: np.ndarray,
     if err:
         raise ValueError(f"roi_crop_lanes refused its arguments: counts {list(counts)}, K={K},"
                          f" frames {H}x{W}, crops {ch}x{cw}")
+
+
+def crop_lanes_native(chunks, counts, origins, fills, out: np.ndarray,
+                      threads: int | None = None) -> None:
+    """:func:`crop_lanes_plain` in one call of ``csrc/roi_crop.cpp`` on
+    ``threads`` threads (by default one for each :data:`BYTES_PER_THREAD` of
+    crops, up to :data:`THREADS`): every lane's crops of the chunk, with
+    Python's lock released. ``out`` is C-contiguous; each chunk's frames have
+    1-byte columns. Raises when the library does not build or load, or the
+    call refuses its arguments."""
+    global native_calls
+    _native(chunks, counts, origins, fills, out, threads)
     native_calls += 1
+
+
+def copy_frames_native(src: np.ndarray, dst: np.ndarray, threads: int | None = None) -> None:
+    """Copy the frames ``src [k, H, W]`` into ``dst`` of the same shape in one
+    call of ``csrc/roi_crop.cpp``: each frame cropped whole at origin (0, 0),
+    so with no border, on up to :data:`THREADS` threads with Python's lock
+    released. ``dst`` is C-contiguous; ``src``'s frames have 1-byte columns.
+    Raises as :func:`crop_lanes_native` does."""
+    global copy_calls
+    if src.shape != dst.shape:
+        raise ValueError(f"copy of frames {src.shape} into {dst.shape}")
+    k = len(src)
+    _native([src], [k], np.zeros((1, k, 2), np.int64), np.zeros(1, np.uint8), dst[None],
+            threads)
+    copy_calls += 1
+
+
+def frame_copier():
+    """The full-frame engine's staging copy on the card,
+    :func:`copy_frames_native`, its library built now, so that a failed build
+    raises here."""
+    _lib()
+    return copy_frames_native
 
 
 def lane_cropper(device):

@@ -4,14 +4,17 @@ Full frames: the counterpart of the JAX package's ``run_full_pipeline``
 (``pawsometracker_tpu/pipeline.py``) and of the full-frame loop of its
 ``track_batch`` (``pawsometracker_tpu/batch.py:493-569``): each chunk's scan
 starts from the previous chunk's last position, read on the device, and the
-host takes the positions ``depth`` chunks behind. On the card a chunk travels
-through a ring of staging slots: the host copies it into a pinned buffer
-(padded to the scan length by repeating its last frame), a side stream copies
-that to the device (``non_blocking``) and records an event, and the kernel's
-stream waits on that event before the scan. A slot is refilled only after its
-copy's event has completed and after the scan that read it. A batch of videos
-stages one chunk per video into the rows of one slot and runs them in one
-launch.
+host takes the positions ``depth`` chunks behind. On the card a chunk lands on
+the prefetch thread in a pinned buffer of its stream's :class:`StagingRing`
+(a decoder writes it there; frames served as views of the caller's array are
+copied in by the native copy, without Python's lock), so the controller's
+thread copies no frame. At dispatch a side stream copies its real frames to
+the device (``non_blocking``), pads the short last chunk there by repeating
+its last frame, and records an event, which the kernel's stream waits on
+before the scan. A buffer goes back to its ring once the chunk's positions
+are in, and is handed out again only once its copy's event has completed. A
+batch of videos has a ring a video, each lane's rows copied to its row of the
+device slot, and runs them in one launch.
 
 ROI streaming: the counterpart of the JAX package's speculative pipeline.
 Each chunk of K frames is cut into crops around where each lane's target is
@@ -72,6 +75,7 @@ import functools
 import json
 import logging
 import os
+import queue
 import time
 from collections import deque
 from typing import NamedTuple
@@ -82,7 +86,7 @@ import torch
 from .io.decode import ChunkPrefetcher
 from .models.dog_tracker import make_spec, resolve_device, tracker_fns
 from .ops import tracker_kernel as tk
-from .ops.roi_crop import crop_lanes_plain, lane_cropper
+from .ops.roi_crop import crop_lanes_plain, frame_copier, lane_cropper
 from .ops.roi_crop import crop_with_fill as _crop_with_fill  # noqa: F401  (io/parallel_decode.py)
 from .parallel.mesh import BatchSharding, Sharded, ShardedBatchTracker, ShardedFn, on_device
 from .utils.compilecache import cache_root
@@ -93,7 +97,7 @@ __all__ = ["auto_depth_cap", "run_full_pipeline", "run_batch_pipeline", "run_roi
            "run_multi_roi_pipeline", "roi_geometry", "chain_batch", "last_rows",
            "pick_bounded_engine", "pick_bounded_engine_batch",
            "SpeculativePipeline", "SingleVideoSource", "FanoutSource", "PerVideoSource",
-           "AUTO_DEPTH_MAX"]
+           "StagingRing", "AUTO_DEPTH_MAX"]
 
 #: mispredict replays since import (observability: tests and debugging)
 replay_count = 0
@@ -442,15 +446,78 @@ class _ShardedEngine:
         self._group = None
 
 
-class _Slot:
-    """One pinned staging slot of the full-frame engine on the card, and per
-    shard the event that marks its copy to the card done."""
+class StagingRing:
+    """The pinned buffers one frame stream's chunks land in on their way to
+    the card: the full-frame engine's staging, filled on the prefetch thread
+    (:class:`~.io.decode.ChunkPrefetcher` with ``staging=``).
 
-    __slots__ = ("host", "copied")
+    :meth:`read` takes a free buffer ``[T, H, W]`` and has the source read its
+    next up to ``k`` frames into it: a decoder or a resampler writes them
+    there itself; a source that serves views of the caller's array hands one
+    back, which ``copy`` (:func:`.ops.roi_crop.copy_frames_native` on the card:
+    up to 6 threads, without Python's lock) copies in. So the
+    controller's thread copies no frame, and the copy overlaps the card's work
+    on the chunks before. The engine copies the chunk from its buffer
+    (:meth:`tensor`) to the card and marks it with the copy's event
+    (:meth:`copied`); the consumer hands the chunk back (:meth:`recycle`) once
+    it is done with it, after its positions are in, and :meth:`take` hands a
+    buffer out again only once that event has completed. The ring grows as
+    the flow needs, which the prefetcher's queue and the pipeline's depth
+    bound. ``alloc(shape)`` makes a buffer (pinned memory by default) and
+    ``copy(src, dst)`` copies frames; both may be replaced (the CPU tests)."""
 
-    def __init__(self, shape):
-        self.host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
-        self.copied = []
+    def __init__(self, frame_shape, T: int, copy, alloc=None):
+        self.shape = (int(T),) + tuple(int(x) for x in frame_shape)
+        self._copy = copy
+        self._alloc = alloc or (lambda shape: torch.empty(shape, dtype=torch.uint8,
+                                                          pin_memory=True))
+        self._free: queue.SimpleQueue = queue.SimpleQueue()  # (buffer, event or None)
+        self._tensors: dict = {}  # data address -> the buffer, a CPU tensor
+        self._events: dict = {}  # data address -> the event of its last copy to the card
+        #: buffers made (observability: tests)
+        self.made = 0
+
+    def take(self) -> np.ndarray:
+        """A free buffer, once its last copy to the card is done."""
+        try:
+            buf, event = self._free.get_nowait()
+        except queue.Empty:
+            buf, event = self._alloc(self.shape), None
+            self._tensors[buf.data_ptr()] = buf
+            self.made += 1
+        if event is not None:
+            event.synchronize()
+        return buf.numpy()
+
+    def read(self, source, k: int) -> np.ndarray:
+        """The source's next up to ``k`` frames, in a buffer of the ring."""
+        buf = self.take()
+        chunk = source.read_chunk(k, out=buf)
+        if len(chunk) == 0:
+            self._free.put((self._tensors[buf.ctypes.data], None))
+            return chunk
+        if chunk.ctypes.data != buf.ctypes.data:  # frames served as views: copy them in
+            self._copy(chunk, buf[:len(chunk)])
+            chunk = buf[:len(chunk)]
+        return chunk
+
+    def tensor(self, chunk: np.ndarray) -> torch.Tensor:
+        """The buffer ``chunk`` lies in, as a tensor; raises for a chunk that
+        did not come from :meth:`read`."""
+        buf = self._tensors.get(chunk.ctypes.data)
+        if buf is None:
+            raise ValueError("the chunk does not lie in this staging ring")
+        return buf
+
+    def copied(self, chunk: np.ndarray, event) -> None:
+        """Mark ``chunk``'s buffer with the event of its copy to the card."""
+        self._events[chunk.ctypes.data] = event
+
+    def recycle(self, chunk: np.ndarray) -> None:
+        """Take ``chunk``'s buffer back; it is handed out again once the event
+        :meth:`copied` gave it has completed."""
+        buf = self.tensor(chunk)
+        self._free.put((buf, self._events.pop(chunk.ctypes.data, None)))
 
 
 class _FullEntry(NamedTuple):
@@ -475,16 +542,16 @@ class _FullFrameEngine(_ShardedEngine):
     launch, each from the last one's last step (the JAX package's
     ``make_super_full``).
 
-    Every chunk is copied once, into a host buffer padded to the scan length
-    by repeating its last frame: on the CPU a new array, which the scan reads;
-    on the card one of a ring of ``slots`` pinned :class:`_Slot` s, refilled
-    once its copies are done, from which each shard's lanes go to its slot of
-    the device group on that device's side stream. The dispatch returns before
-    the scans end, the results coming back into pinned buffers behind an event
-    a shard that :meth:`to_host` waits on."""
+    Every chunk is padded to the scan length by repeating its last frame. On
+    the CPU it is copied into a new host array, which the scan reads. On the
+    card it lies in a buffer of its stream's pinned :class:`StagingRing`
+    (``staging``, one a stream, filled on the prefetch thread); its real
+    frames go from there to their slot of each shard's device group on that
+    device's side stream, which then pads the slot on the card. The dispatch
+    returns before the scans end, the results coming back into pinned buffers
+    behind an event a shard that :meth:`to_host` waits on."""
 
-    def __init__(self, scan, pos0, fill, subpixel, timer, device, slots: int, lanes=None,
-                 segments=None):
+    def __init__(self, scan, pos0, fill, subpixel, timer, device, lanes=None, segments=None):
         super().__init__(scan, lanes, device, group_allowed=segments is not None)
         self.segments = segments
         self.pos0 = [torch.as_tensor(p).to(device=dev, dtype=torch.int32)
@@ -493,42 +560,64 @@ class _FullFrameEngine(_ShardedEngine):
         self.subpixel = subpixel
         self.timer = timer
         self.lanes = lanes
-        self._n_slots = max(2, int(slots))
-        self._slots: list[_Slot] = []
-        self._next = 0
+        self.staging = None  # the card's rings, one a stream (staging_for)
+
+    def staging_for(self, frame_shape, T: int) -> list:
+        """Each stream's staging, for its prefetcher: on the card a pinned
+        :class:`StagingRing` of ``[T, *frame_shape]`` buffers (the native frame
+        copy built now, so that a failed build raises here); on the CPU None,
+        the chunks copied at dispatch."""
+        n = 1 if self.lanes is None else self.lanes
+        if not self._cuda:
+            return [None] * n
+        copy = frame_copier()
+        self.staging = [StagingRing(frame_shape, T, copy) for _ in range(n)]
+        return self.staging
 
     def _new_group(self, cap: int, shape) -> _DeviceGroup:
         return _DeviceGroup(cap, [torch.empty((cap,) + _shard_shape(shape, sl), dtype=torch.uint8,
                                               device=dev) for sl, dev, _ in self.shards], None)
 
     def _stage(self, chunks, T: int):
-        """Copy one chunk per stream (``None`` for a lane past its end) into a
-        host buffer, each padded to ``T`` steps by repeating its last frame,
-        and on the card on to its slot of each shard's device group; returns
-        the staged entry."""
+        """Stage one chunk per stream (``None`` for a lane past its end), each
+        padded to ``T`` steps by repeating its last frame: on the CPU into a
+        new host array; on the card from its staging buffer to its slot of
+        each shard's device group, padded there; returns the staged entry."""
         frame_shape = next(c.shape[1:] for c in chunks if c is not None)
         shape = ((T,) if self.lanes is None else (self.lanes, T)) + tuple(frame_shape)
         group, s = self._slot(lambda cap: self._new_group(cap, shape))
-        if self._cuda:
-            if len(self._slots) < self._n_slots:
-                self._slots.append(_Slot(shape))
-            slot = self._slots[self._next]
-            self._next = (self._next + 1) % self._n_slots
-            for copied in slot.copied:
-                copied.synchronize()  # the pinned buffer is free once its copies are done
-            host = slot.host.numpy()
-        else:
-            host = np.empty(shape, np.uint8)
-        for row, chunk in zip([host] if self.lanes is None else host, chunks):
-            # a lane past its end keeps whatever its row holds: its steps are discarded
-            if chunk is not None:
-                row[:len(chunk)] = chunk
-                row[len(chunk):] = chunk[-1]
         valid = [0 if c is None else len(c) for c in chunks]
         if not self._cuda:
+            host = np.empty(shape, np.uint8)
+            for row, chunk in zip([host] if self.lanes is None else host, chunks):
+                # a lane past its end keeps whatever its row holds: its steps are discarded
+                if chunk is not None:
+                    row[:len(chunk)] = chunk
+                    row[len(chunk):] = chunk[-1]
             return _FullEntry(host, valid)
-        slot.copied = self._copy_in(group, s, [[(group.frames[i][s], slot.host[sl])]
-                                               for i, (sl, _, _) in enumerate(self.shards)])
+        if self.staging is None:
+            raise RuntimeError("on the card the full-frame engine stages chunks from its"
+                               " staging rings only (staging_for)")
+        copies, lanes_of = [], []
+        for i, (sl, _, _) in enumerate(self.shards):
+            dst = group.frames[i][s]
+            pairs, mine = [], []
+            lanes = (0,) if self.lanes is None else range(self.lanes)[sl]
+            for r, b in enumerate(lanes):
+                chunk = chunks[b]
+                if chunk is None:  # a lane past its end keeps whatever its row holds
+                    continue
+                row, k = (dst if self.lanes is None else dst[r]), len(chunk)
+                pairs.append((row[:k], self.staging[b].tensor(chunk)[:k]))
+                if k < T:  # pad on the card, behind the copy on the same stream
+                    pairs.append((row[k:], row[k - 1:k].expand(T - k, *row.shape[1:])))
+                mine.append(b)
+            copies.append(pairs)
+            lanes_of.append(mine)
+        events = self._copy_in(group, s, copies)
+        for event, mine in zip(events, lanes_of):
+            for b in mine:
+                self.staging[b].copied(chunks[b], event)
         return _FullEntry(None, valid)
 
     def _chain(self, pos0, pos, valid, T: int):
@@ -579,9 +668,6 @@ class _FullFrameEngine(_ShardedEngine):
                              if self.subpixel else None))
         return self._results(outs, bufs)
 
-    def close(self):
-        super().close()
-        self._slots.clear()
 
 
 def run_full_pipeline(
@@ -622,8 +708,7 @@ def run_full_pipeline(
     from .diagnose import Dont
 
     keep = not isinstance(dia, Dont)
-    eng = _FullFrameEngine(scan, pos0_abs, fill, subpixel, timer, device, slots=depth + 2,
-                           segments=segments)
+    eng = _FullFrameEngine(scan, pos0_abs, fill, subpixel, timer, device, segments=segments)
     grow_groups = _grouping_pays()
     group_cap = max(1, (depth + 1) // 2)
 
@@ -646,16 +731,17 @@ def run_full_pipeline(
             with timer.section("diagnose"):
                 for i in range(k):
                     dia(frames[i], out_np[i])
-        # the chunk was copied into a staging slot at dispatch, so the
+        # the chunk's positions are in, so its copy to the card is done: the
         # prefetcher may refill its buffer now
         prefetch.recycle(frames)
         tracked += k
         if progress is not None:
             progress(tracked, n_rest)
 
-    prefetch = ChunkPrefetcher(src, chunk_size, max_frames=n_rest)
-    prefetchers.append(prefetch)
     try:
+        prefetch = ChunkPrefetcher(src, chunk_size, max_frames=n_rest,
+                                   staging=eng.staging_for(src.info.frame_shape, chunk_size)[0])
+        prefetchers.append(prefetch)
         for chunk in prefetch:
             while len(pending) > depth:
                 drain_one()
@@ -672,7 +758,8 @@ def run_full_pipeline(
 
 
 def run_batch_pipeline(
-    prefetchers: list,
+    sources: list,
+    n_rest: list,
     pos0,
     fills,
     *,
@@ -683,28 +770,32 @@ def run_batch_pipeline(
     dias: list,
     timer,
     device,
+    prefetchers: list,
     progress=None,
 ):
     """Full-frame streaming of B videos in lockstep, one launch per chunk
     for all of them (the JAX package's ``track_batch`` loop,
     ``pawsometracker_tpu/batch.py:493-569``, with the host draining ``depth``
-    chunks behind). ``prefetchers[b]`` yields video b's chunks; a video whose
-    chunk comes back short has ended, and its lane runs on with discarded
-    steps while the others continue. ``scan(frames [B,T,H,W], pos0 [B,2],
-    fills)`` returns ``[B,T,2]`` (and offsets with ``subpixel``).
+    chunks behind). Video b's chunks, its next ``n_rest[b]`` frames of
+    ``sources[b]``, come from a prefetcher that this appends to
+    ``prefetchers`` (the caller closes them), each staging on the card into
+    its own ring; a video whose chunk comes back short has ended, and its lane
+    runs on with discarded steps while the others continue. ``scan(frames
+    [B,T,H,W], pos0 [B,2], fills)`` returns ``[B,T,2]`` (and offsets with
+    ``subpixel``).
 
     Returns per video ``(position blocks, offset blocks, frames tracked)`` as
     three lists."""
     from .diagnose import Dont
 
-    B = len(prefetchers)
-    iters = [iter(p) for p in prefetchers]
+    B = len(sources)
     active = [True] * B
     positions: list[list] = [[] for _ in range(B)]
     offsets: list[list] = [[] for _ in range(B)]
     counts = [0] * B
     pending: deque = deque()  # (handle, chunks)
-    eng = _FullFrameEngine(scan, pos0, fills, subpixel, timer, device, slots=depth + 2, lanes=B)
+    eng = _FullFrameEngine(scan, pos0, fills, subpixel, timer, device, lanes=B)
+    mine, iters = [], []  # video b's prefetcher, its iterator
 
     def gather():
         """One chunk per active video; marks videos at their end inactive."""
@@ -735,11 +826,16 @@ def run_batch_pipeline(
                 with timer.section("diagnose"):
                     for i in range(k):
                         dias[b](chunk[i], out_np[b, i])
-            prefetchers[b].recycle(chunk)
+            mine[b].recycle(chunk)
         if progress is not None:
             progress(sum(counts))
 
     try:
+        rings = eng.staging_for(sources[0].info.frame_shape, chunk_size)
+        for src, n, ring in zip(sources, n_rest, rings):
+            mine.append(ChunkPrefetcher(src, chunk_size, max_frames=n, staging=ring))
+            prefetchers.append(mine[-1])
+            iters.append(iter(mine[-1]))
         while True:
             chunks = gather()
             if all(c is None for c in chunks):

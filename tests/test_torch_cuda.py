@@ -1897,3 +1897,118 @@ def test_native_crop_from_threads_at_once(card):
         t.join(timeout=300)
     assert not any(t.is_alive() for t in threads) and sorted(done) == list(range(8))
     assert not failures
+
+
+# ---- full frames staged through the prefetcher's pinned rings ----------------------------
+
+
+def _full_clip(n, h=120, w=160, phase=0.0):
+    return ellipse_frames(h, w, [(60 + round(25 * np.sin(t / 9 + phase)),
+                                  80 + round(40 * np.cos(t / 9 + phase))) for t in range(n)])
+
+
+FULL_INPUTS = {
+    "views from frame 0": dict(),
+    "views from an on-grid start past 0": dict(start=19 / 24),
+    "a resampled array (written into the ring)": dict(input_fps=30.0),
+    "an RGB array (written into the ring)": dict(rgb=True),
+}
+
+
+@pytest.mark.parametrize("inputs", list(FULL_INPUTS))
+@pytest.mark.parametrize("entry", ["track", "track_batch", "track_multi"])
+def test_staged_full_frames_equal_cpu(card, monkeypatch, entry, inputs):
+    """stream="full" on the card, every chunk staged by the prefetcher into
+    its pinned ring (views copied in natively, decoded or resampled frames
+    written there by the source), the short last chunk padded on the card:
+    positions and ts equal to device="cpu", with the plain version never run.
+    track_batch has a video that ends early."""
+    from pawsometracker_tpu_torch import track_batch, track_multi
+    from pawsometracker_tpu_torch.ops import roi_crop
+
+    opts = dict(FULL_INPUTS[inputs])
+    rgb = opts.pop("rgb", False)
+    clips = [_full_clip(75 - 20 * b, phase=b) for b in range(3)]
+    if rgb:
+        clips = [np.repeat(c[..., None], 3, axis=-1) for c in clips]
+    kw = dict(fps=24, target_width=10, chunk_size=16, stream="full", **opts)
+    if entry == "track":
+        call = lambda **k: track(clips[0], start_location=None, **kw, **k)  # noqa: E731
+    elif entry == "track_batch":
+        call = lambda **k: track_batch(clips, start_location=None, **kw, **k)  # noqa: E731
+    else:
+        two = np.minimum(clips[0], np.roll(clips[0], 40, axis=2))
+        call = lambda **k: track_multi(two, n_targets=2, **kw, **k)  # noqa: E731
+    want = call(device="cpu")
+    forbid_plain(monkeypatch)
+    before = roi_crop.copy_calls
+    got = call()
+    views = not rgb and "input_fps" not in opts
+    assert (roi_crop.copy_calls > before) == views
+    for (ts, ij), (ts_c, ij_c) in zip(*((g,) if entry != "track_batch" else g
+                                        for g in (got, want))):
+        np.testing.assert_array_equal(ts, ts_c)
+        np.testing.assert_array_equal(ij, ij_c)
+
+
+def test_native_frame_copy_equals_numpy(card):
+    """The staging copy (csrc/roi_crop.cpp, each frame cropped whole) equals
+    the frames it copies: views of a contiguous array, views whose rows lie
+    apart, one frame and 64, on one thread and on the pool's."""
+    from pawsometracker_tpu_torch.ops import roi_crop
+
+    rng = np.random.default_rng(5)
+    frames = rng.integers(0, 256, (70, 1080, 1920), dtype=np.uint8)
+    for src in (frames[3:67], frames[5:6], frames[2:66, :, :1918], frames[4:20, 7:1000, 1:]):
+        for threads in (1, roi_crop.THREADS):
+            dst = np.full(src.shape, 7, np.uint8)
+            before = roi_crop.copy_calls
+            roi_crop.copy_frames_native(src, dst, threads=threads)
+            assert roi_crop.copy_calls == before + 1
+            np.testing.assert_array_equal(dst, src)
+
+
+class _Refusing:
+    """A native library whose crop refuses every call."""
+
+    class roi_crop_lanes:  # noqa: N801  (the C function's name)
+        def __new__(cls, *a):
+            return 1
+
+
+@pytest.mark.parametrize("entry", ["track", "track_batch"])
+def test_staging_copy_that_fails_raises_on_card(card, monkeypatch, entry):
+    """No fallback: a native staging copy that the library refuses raises
+    from the call; it never gives way to numpy's copy on the card."""
+    from pawsometracker_tpu_torch import track_batch
+    from pawsometracker_tpu_torch.ops import roi_crop
+
+    monkeypatch.setattr(roi_crop, "_lib", lambda: _Refusing)
+    clips = [_full_clip(40), _full_clip(40, phase=1.0)]
+    kw = dict(fps=24, target_width=10, chunk_size=16, stream="full", start_location=None)
+    with pytest.raises(ValueError, match="refused"):
+        if entry == "track":
+            track(clips[0], **kw)
+        else:
+            track_batch(clips, **kw)
+
+
+def test_staging_buffers_wait_for_their_copy_on_card(card, monkeypatch):
+    """A slow side stream (every staged copy held back by a sleep on the card)
+    and a pipeline 3 deep: a ring buffer refilled before its copy to the card
+    had completed would change the positions."""
+    from pawsometracker_tpu_torch import pipeline
+
+    stage = pipeline._FullFrameEngine._stage
+
+    def slow_stage(self, chunks, T):
+        if self._cuda:
+            with torch.cuda.stream(self._copy_stream):
+                torch.cuda._sleep(400_000)
+        return stage(self, chunks, T)
+
+    monkeypatch.setattr(pipeline._FullFrameEngine, "_stage", slow_stage)
+    frames = _full_clip(150)
+    kw = dict(fps=24, target_width=10, chunk_size=8, stream="full", pipeline_depth=3,
+              start_location=None)
+    np.testing.assert_array_equal(track(frames, **kw)[1], track(frames, device="cpu", **kw)[1])

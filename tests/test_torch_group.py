@@ -513,7 +513,7 @@ def _engines():
                                                    segments=fns.scan_bounded_batch_super),
         "full": lambda: pipeline._FullFrameEngine(
             tracker_fns(make_spec((200, 200), 21, 10, True), "cpu").scan, np.array([50, 50]),
-            128, False, _T(), cpu, slots=3,
+            128, False, _T(), cpu,
             segments=tracker_fns(make_spec((200, 200), 21, 10, True), "cpu").scan_super),
     }
 
@@ -560,7 +560,7 @@ def test_engine_without_segmented_scan_never_groups(monkeypatch):
     monkeypatch.setenv("PAWS_DISPATCH_GROUP", "3")
     spec = make_spec((200, 200), 21, 10, True)
     eng = pipeline._FullFrameEngine(tracker_fns(spec, "cpu").scan_multi, np.array([[50, 50]]),
-                                    128, False, _T(), torch.device("cpu"), slots=3)
+                                    128, False, _T(), torch.device("cpu"))
     assert eng.group_target == 1
     eng.grow_group()
     assert eng.group_target == 1

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the ROI path's host work of two checkouts of the port on one card, in turns.
+"""Time the host work of two checkouts of the port on one card, in turns.
 
     python3 tools/host_path_ab.py --parent DIR [--order parent,change,change,parent]
                                   [--runs 3] [--device cpu --frames 14]
@@ -9,14 +9,17 @@ one checkout (``change`` is this one, ``parent`` is ``--parent``, for example
 a ``git archive`` of the parent commit unpacked under ``build/``, which
 ``.gitignore`` lists), builds its kernels into a build directory of its own
 and keeps its engine decisions in a cache of its own. It draws
-``chip_smoke.py``'s 1080p clips and drives the four ROI cells of
-``chip_smoke.py`` phase 3 through the public entry points on
-``stream="auto"``: ``track`` ROI (185x185 crops), ``track`` of the large
-target ROI (``target_width=60``, 461x461), ``track_batch`` ROI (4 videos) and
-``track_multi`` ROI (4 targets). Each cell runs once to warm up, then
-``--runs`` times; each run's wall time and the timer sections the call logs
-(``paws_stats``) are kept. Every turn's positions and ``ts`` must equal the
-first turn's.
+``chip_smoke.py``'s 1080p clips and drives through the public entry points
+the four ROI cells of ``chip_smoke.py`` phase 3 on ``stream="auto"``:
+``track`` ROI (185x185 crops), ``track`` of the large target ROI
+(``target_width=60``, 461x461), ``track_batch`` ROI (4 videos) and
+``track_multi`` ROI (4 targets); ``track_resumable`` ROI (the bench clip in 4
+slices of 120 frames); and the four full-frame cells on ``stream="full"``:
+``track``, ``track`` of the large target, ``track_batch`` and ``track_multi``.
+Each cell runs once to warm up, then ``--runs`` times; each run's wall time
+and the timer sections the call logs (``paws_stats``, summed over the slices
+of ``track_resumable``) are kept. Every turn's positions and ``ts`` must equal
+the first turn's.
 
 Prints the card's name and power limit, one line per cell with each
 checkout's median frames/s over its runs (each turn's median beside it) and
@@ -34,6 +37,7 @@ import hashlib
 import importlib.util
 import json
 import logging
+import math
 import os
 import statistics
 import subprocess
@@ -41,7 +45,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CELLS = ("track ROI", "track large target ROI", "track_batch ROI", "track_multi ROI")
+CELLS = ("track ROI", "track large target ROI", "track_batch ROI", "track_multi ROI",
+         "track_resumable ROI", "track", "track large target", "track_batch", "track_multi")
 #: the timer sections read a chunk (the rest are once a call)
 PER_CHUNK = ("outside the sections", "crop", "device", "upload", "aim", "drain")
 
@@ -63,7 +68,7 @@ def worker(root: str, out_path: str, runs: int, device, n) -> int:
 
     cs = _chip_smoke()
     sys.path.insert(0, root)
-    from pawsometracker_tpu_torch import IJ, track, track_batch, track_multi
+    from pawsometracker_tpu_torch import IJ, track, track_batch, track_multi, track_resumable
 
     stats_log = cs.StatsLog()
     port_logger = logging.getLogger("pawsometracker_tpu_torch")
@@ -79,6 +84,15 @@ def worker(root: str, out_path: str, runs: int, device, n) -> int:
     multi = multi[cut]
     roi = dict(fps=cs.FPS, target_width=cs.TARGET_WIDTH, window_size=cs.WINDOW, device=device)
     start = IJ(int(truth[0][0]), int(truth[0][1]))
+    full = dict(roi, stream="full")
+    cp = os.path.join(os.path.dirname(out_path), "host_ab_resumable.npz")
+
+    def resumable():
+        if os.path.exists(cp):
+            os.remove(cp)
+        return track_resumable(frames, checkpoint_path=cp, start_location=start,
+                               checkpoint_every=cs.CHECKPOINT_EVERY, **roi)
+
     calls = {
         "track ROI": (len(frames), lambda: track(frames, start_location=start, **roi)),
         "track large target ROI": (len(large), lambda: track(
@@ -87,6 +101,15 @@ def worker(root: str, out_path: str, runs: int, device, n) -> int:
             clips, start_location=[IJ(int(t[0][0]), int(t[0][1])) for t in truths], **roi)),
         "track_multi ROI": (len(multi), lambda: track_multi(
             multi, [IJ(int(t[0][0]), int(t[0][1])) for t in multi_truths], **roi)),
+        "track_resumable ROI": (len(frames), resumable),
+        "track": (len(frames), lambda: track(frames, start_location=start, **full)),
+        "track large target": (len(large), lambda: track(
+            large, start_location=start, fps=cs.FPS, target_width=cs.LARGE_TW, stream="full",
+            device=device)),
+        "track_batch": (sum(map(len, clips)), lambda: track_batch(
+            clips, start_location=[IJ(int(t[0][0]), int(t[0][1])) for t in truths], **full)),
+        "track_multi": (len(multi), lambda: track_multi(
+            multi, [IJ(int(t[0][0]), int(t[0][1])) for t in multi_truths], **full)),
     }
     out = {"cells": {}}
     for cell, (n_frames, call) in calls.items():
@@ -100,18 +123,25 @@ def worker(root: str, out_path: str, runs: int, device, n) -> int:
             digest.update(np.ascontiguousarray(ij).tobytes())
         rows = []
         for _ in range(runs):
-            stats_log.last = None
+            stats_log.all.clear()
             t0 = time.perf_counter()
             call()
             if device is None:
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            st = stats_log.last or {}
-            sec = dict(st.get("sections", {}))
+            sts = list(stats_log.all) or [{}]  # a call's records (one a slice)
+            sec = {}
+            for st in sts:
+                for k, v in st.get("sections", {}).items():
+                    sec[k] = sec.get(k, 0.0) + v
             sec["outside the sections"] = wall - sum(sec.values())
+            disp = [st["dispatches"] for st in sts if "dispatches" in st]
+            # a full-frame call's chunks: its frames after the first over the chunk
+            chunk = cs.MULTI_CHUNK if cell == "track_multi" else cs.CHUNK
+            chunks = sum(disp) if disp else math.ceil((n_frames - 1) / chunk)
             rows.append({"wall_s": wall, "frames_per_s": n_frames / wall,
-                         "dispatches": st.get("dispatches"), "sections_s": sec,
-                         "stream": st.get("stream")})
+                         "dispatches": chunks, "sections_s": sec,
+                         "stream": sts[-1].get("stream"), "calls": len(sts)})
         out["cells"][cell] = {"digest": digest.hexdigest(), "runs": rows}
     with open(out_path, "w") as f:
         json.dump(out, f)
@@ -119,10 +149,13 @@ def worker(root: str, out_path: str, runs: int, device, n) -> int:
 
 
 def summarize(runs: list) -> dict:
-    """Medians over ``runs``: frames/s, set-up ms a call, sections us a chunk."""
+    """Medians over ``runs``: frames/s, set-up and upload ms a call, sections us
+    a chunk."""
     row = {"frames_per_s": statistics.median(r["frames_per_s"] for r in runs),
            "setup_ms_per_call": statistics.median(1e3 * r["sections_s"].get("setup", 0.0)
-                                                  for r in runs)}
+                                                  for r in runs),
+           "upload_ms_per_call": statistics.median(1e3 * r["sections_s"].get("upload", 0.0)
+                                                   for r in runs)}
     for k in PER_CHUNK:
         row[f"{k} us_per_chunk"] = statistics.median(
             1e6 * r["sections_s"].get(k, 0.0) / max(r["dispatches"] or 1, 1) for r in runs)
@@ -189,7 +222,8 @@ def main() -> int:
             v = row[who]
             line += (f" {who} {v['frames_per_s']:.1f} frames/s (turns "
                      + ", ".join(f"{x:.1f}" for x in v["turn_frames_per_s"])
-                     + f"), set-up {v['setup_ms_per_call']:.2f} ms, us a chunk: "
+                     + f"), set-up {v['setup_ms_per_call']:.2f} ms, upload"
+                     f" {v['upload_ms_per_call']:.2f} ms a call, us a chunk: "
                      + ", ".join(f"{k} {v[f'{k} us_per_chunk']:.1f}" for k in PER_CHUNK) + ";")
         if "parent" in roots:
             line += (f" change/parent frames/s"
