@@ -132,7 +132,8 @@ def _initial_position(frame0: np.ndarray, guess, auto: bool, spec, fill: int,
     tracker runs one step, so ``positions[0]`` is the *detected* position near
     the given location (reference: src/PawsomeTracker.jl:92-107).
     Returns ``(pos int32 [2], offsets float32 [2])`` as numpy arrays."""
-    frame = torch.tensor(frame0, device=device)  # a copy: frame 1 may be a read-only view
+    # a C-ordered copy: frame 1 may be a read-only view, or strided
+    frame = torch.from_numpy(np.array(frame0, order="C")).to(device)
     g = np.asarray(guess, np.int32)
     fns = tracker_fns(autodetect_spec(spec) if auto else spec, device, engine)
     if subpixel:

@@ -56,6 +56,7 @@ from .pipeline import (
     auto_depth_cap,
     roi_geometry,
     run_batch_pipeline,
+    staging_ring,
 )
 from .utils.profiling import Timer
 
@@ -422,9 +423,13 @@ def _track_batch_uniform(
             and getattr(s, "ring_frames", 0) >= (depth_gate + 2) * roi_frames
             and (p is None or getattr(s, "can_view_retained", False))
             for s, p in zip(sources, diagnostic_files))
-        if use_roi and not nat_retained:
-            prefetchers.extend(ChunkPrefetcher(s, roi_frames, max_frames=n - 1)
-                               for s, n in zip(sources, ns))
+        if use_roi:
+            chunk_size = roi_frames
+        if not nat_retained:
+            # full frames land in each video's staging ring (pinned on the card)
+            prefetchers = [ChunkPrefetcher(s, chunk_size, max_frames=n - 1,
+                                           ring=None if use_roi else staging_ring(tracker.device))
+                           for s, n in zip(sources, ns)]
         stats = {"stream": "roi" if use_roi else "full",
                  "shards": 1 if mesh is None else mesh.shape["data"]}
         if use_roi:
@@ -492,9 +497,9 @@ def _track_batch_uniform(
                 scan = tracker.scan_sub.map(
                     lambda fn, dev: full_frame_sub_scan(fn, frame_shape, dev))
             pos_blocks, off_blocks, counts = run_batch_pipeline(
-                sources, [n - 1 for n in ns], pos, fills_dev, chunk_size=chunk_size,
-                depth=depth, scan=scan, subpixel=subpixel, dias=dias, timer=timer,
-                device=tracker.device, prefetchers=prefetchers, progress=progress,
+                prefetchers, pos, fills_dev, chunk_size=chunk_size, depth=depth, scan=scan,
+                subpixel=subpixel, dias=dias, timer=timer, device=tracker.device,
+                progress=progress,
             )
         stats["sections"] = dict(timer.totals)
         # the record carries the numbers as ``paws_stats`` for a handler

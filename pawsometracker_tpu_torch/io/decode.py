@@ -57,6 +57,7 @@ __all__ = [
     "ArrayFrameSource",
     "open_source",
     "ChunkPrefetcher",
+    "ChunkRing",
     "fps_slot",
     "view_origin",
 ]
@@ -357,9 +358,11 @@ def view_origin(frames, *, start: float = 0.0, fps: float = 24.0,
     of ``frames`` over ``[start, ...)`` at ``fps``, or None where it walks the
     exact per-frame resampler.
 
-    Views need a plain 3-D ``np.ndarray`` (``np.memmap`` included) at the
-    output rate (``input_fps`` None, or equal to ``fps`` as the resampler's
-    fractions see it) and ``start * fps`` within LESS than half a slot of an
+    Views need a plain 3-D ``np.ndarray`` (``np.memmap`` included) whose
+    columns lie 1 byte apart (the native copies' layout: not a mirrored,
+    column-strided or Fortran-ordered array) at the output rate
+    (``input_fps`` None, or equal to ``fps`` as the resampler's fractions see
+    it) and ``start * fps`` within LESS than half a slot of an
     integer ``k0 >= 0``. Then every gate of the resampler is exact: the keep
     window ``tp >= -1/(2 fps)`` first keeps input frame ``k0``, each kept frame
     ``k0 + m`` takes slot ``round(m + k0 - start * fps) = m`` (anchored at
@@ -367,7 +370,7 @@ def view_origin(frames, *, start: float = 0.0, fps: float = 24.0,
     ``m`` is input frame ``k0 + m``. A half-slot tie, a negative ``k0``, RGB or
     lazy stacks and resampled arrays keep the walk. ``track``, ``track_batch``
     and ``track_resumable``'s slices all decide by this one rule."""
-    if not (isinstance(frames, np.ndarray) and frames.ndim == 3):
+    if not (isinstance(frames, np.ndarray) and frames.ndim == 3 and frames.strides[2] == 1):
         return None
     fps_frac = _frac(fps)
     if input_fps is not None and _frac(input_fps) != fps_frac:
@@ -462,6 +465,10 @@ class ArrayFrameSource(_ResamplingSource):
                     n_out -= 1
                 while n_out < avail and _emitted(n_out):
                     n_out += 1
+            # served views are read-only: the flag set once, on a view of the
+            # whole array, which every frame and chunk sliced from it inherits
+            self._zc_frames = self.frames.view()
+            self._zc_frames.flags.writeable = False
             self._zc_k0 = k0
             self._zc_n = n_out
             self._zc_pos = 0
@@ -488,23 +495,21 @@ class ArrayFrameSource(_ResamplingSource):
             return super().read()
         if self._zc_pos >= self._zc_n:
             return None
-        f = self.frames[self._zc_k0 + self._zc_pos]  # VIEW of the backing array
-        f.flags.writeable = False
+        f = self._zc_frames[self._zc_k0 + self._zc_pos]  # VIEW of the backing array
         self._zc_pos += 1
         return f
 
     def read_chunk(self, n: int, out: np.ndarray | None = None) -> np.ndarray:
         """Zero-copy: up to ``n`` frames as a read-only VIEW ``[k, H, W]`` of
         the backing array (``out`` ignored; the caller's array stays
-        writable, and the prefetcher's recycle pool skips view-serving
-        sources). The JAX package's views are writable: a deliberate
-        divergence, so that no consumer can write into the caller's frames."""
+        writable, and the prefetcher's ring never pools a view). The JAX
+        package's views are writable: a deliberate divergence, so that no
+        consumer can write into the caller's frames."""
         if not self.serves_views:
             return super().read_chunk(n, out)
         k = max(0, min(int(n), self._zc_n - self._zc_pos))
         at = self._zc_k0 + self._zc_pos
-        view = self.frames[at : at + k]
-        view.flags.writeable = False
+        view = self._zc_frames[at : at + k]
         self._zc_pos += k
         return view
 
@@ -602,71 +607,105 @@ def open_source(
     return OpenCVFrameSource(path, start=start, stop=stop, fps=fps)
 
 
+class ChunkRing:
+    """The buffers ``[rows, H, W]`` one frame stream's chunks land in, each
+    handed out again once the consumer has returned it (:meth:`recycle`) and
+    the event of its last copy to the card (:meth:`copied`), where one was
+    given, has completed; so steady state runs on as many buffers as the flow
+    holds, with no fresh page-faulting allocation a chunk.
+
+    ``alloc(shape)`` makes a uint8 buffer (``np.empty``; pinned memory for the
+    full-frame engine on the card). A decoder or the resampler writes the
+    frames into the buffer itself; a source that serves views of the
+    caller's array hands them back as they are, or, with ``copy(src, dst)``
+    given (the engine's native copy on the card), copied into the buffer.
+    Views are never pooled: a buffer of the caller's frames must not be
+    handed out to be written."""
+
+    def __init__(self, alloc=None, copy=None):
+        self._alloc = alloc or (lambda shape: np.empty(shape, np.uint8))
+        self._copy = copy
+        self._free: queue.SimpleQueue = queue.SimpleQueue()  # (buffer, event or None)
+        self._mine: dict = {}  # data address -> the ring's buffer there
+        self._events: dict = {}  # data address -> the event of its last copy to the card
+        #: buffers made (observability: tests)
+        self.made = 0
+
+    def holds(self, chunk: np.ndarray) -> bool:
+        """Whether ``chunk`` lies at the start of a buffer of the ring."""
+        return chunk.ctypes.data in self._mine
+
+    def _take(self, shape) -> np.ndarray:
+        try:
+            buf, event = self._free.get_nowait()
+        except queue.Empty:
+            buf, event = self._alloc(shape), None
+            self._mine[buf.ctypes.data] = buf
+            self.made += 1
+        if event is not None:
+            event.synchronize()  # the buffer is free once its copy to the card is done
+        return buf
+
+    def read(self, source, k: int, rows: int) -> np.ndarray:
+        """The source's next up to ``k`` frames, in a buffer of ``rows``
+        frames of the ring, or views of the caller's array without ``copy``."""
+        if self._copy is None and getattr(source, "serves_views", False):
+            return source.read_chunk(k)
+        buf = self._take((rows,) + tuple(source.info.frame_shape))
+        chunk = source.read_chunk(k, out=buf)
+        if len(chunk) and chunk.ctypes.data != buf.ctypes.data and self._copy is not None:
+            self._copy(chunk, buf[:len(chunk)])  # frames served as views: copied in
+            chunk = buf[:len(chunk)]
+        if not self.holds(chunk) or len(chunk) == 0:
+            self._free.put((buf, None))
+        return chunk
+
+    def copied(self, chunk: np.ndarray, event) -> None:
+        """Mark ``chunk``'s buffer with the event of its copy to the card."""
+        self._events[chunk.ctypes.data] = event
+
+    def recycle(self, chunk: np.ndarray) -> None:
+        """Take ``chunk``'s buffer back (a chunk that is not in one, a view,
+        is let go); it is handed out again once the event :meth:`copied` gave
+        it has completed."""
+        at = chunk.ctypes.data
+        if at in self._mine:
+            self._free.put((self._mine[at], self._events.pop(at, None)))
+
+
 class ChunkPrefetcher:
     """Background decode-ahead: a bounded queue of frame chunks.
 
     The host decodes the next chunk while the device tracks the current one —
     the analog of the reference's out-of-process ffmpeg pipe overlapping
-    decode with compute (reference: src/PawsomeTracker.jl:155-157).
-
-    ``staging``, when given, is where the chunks land: an object whose
-    ``read(source, k)`` returns the source's next up to ``k`` frames in a
-    buffer of its own (the full-frame engine's pinned ring on the card,
-    :class:`~..pipeline.StagingRing`: a decoder writes into it, a view is
-    copied into it on this thread) and whose ``recycle(chunk)`` takes one
-    back. Without it the chunks lie in the source's buffers, recycled through
-    the pool below.
+    decode with compute (reference: src/PawsomeTracker.jl:155-157). The chunks
+    land in ``ring`` (:class:`ChunkRing`; a plain one by default, the
+    full-frame engine's pinned one on the card), and the consumer hands each
+    back with :meth:`recycle` once it is done with it.
     """
 
     def __init__(self, source, chunk_size: int, max_frames: int | None = None, depth: int = 2,
-                 staging=None):
+                 ring: ChunkRing | None = None):
         self.source = source
         self.chunk_size = int(chunk_size)
         self.max_frames = max_frames
-        self.staging = staging
-        # a view-serving source's chunks alias ITS backing array: pooling
-        # their base and handing it out as a write buffer would overwrite
-        # the user's frames — recycle becomes a no-op for those sources
-        self._recyclable = not getattr(source, "serves_views", False)
+        self.ring = ChunkRing() if ring is None else ring
         self._q: queue.Queue = queue.Queue(maxsize=depth)
-        # recycled chunk buffers: the consumer returns them via recycle() once
-        # it is done, so steady state runs with ~depth+1 buffers and no fresh
-        # page-faulting allocations per chunk
-        self._free: queue.Queue = queue.Queue()
         self._err: BaseException | None = None
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
-    def _buffer(self):
-        try:
-            return self._free.get_nowait()
-        except queue.Empty:
-            return None
-
     def recycle(self, chunk: np.ndarray):
-        """Return a consumed chunk's underlying buffer for reuse (to the
-        staging ring where there is one; a no-op for view-serving sources
-        without one — their chunks alias the user's array)."""
-        if self.staging is not None:
-            self.staging.recycle(chunk)
-            return
-        if not self._recyclable:
-            return
-        base = chunk.base if chunk.base is not None else chunk
-        self._free.put(base)
-
-    def _read(self, k: int) -> np.ndarray:
-        if self.staging is not None:
-            return self.staging.read(self.source, k)
-        return self.source.read_chunk(k, out=self._buffer())
+        """Return a consumed chunk's buffer to the ring for reuse."""
+        self.ring.recycle(chunk)
 
     def _run(self):
         try:
             remaining = self.max_frames if self.max_frames is not None else math.inf
             while remaining > 0 and not self._stop.is_set():
                 k = int(min(self.chunk_size, remaining))
-                chunk = self._read(k)
+                chunk = self.ring.read(self.source, k, self.chunk_size)
                 if chunk.shape[0] == 0:
                     break
                 remaining -= chunk.shape[0]

@@ -192,7 +192,8 @@ def track_multi(
             fill = mode_u8_host(frame0)
             spec = make_spec(frame_shape, window_size, target_width, darker_target)
             fns = tracker_fns(spec, dev, engine)
-            frame0_dev = torch.tensor(frame0, device=dev)  # a copy: a read-only view, maybe
+            # a C-ordered copy: frame 1 may be a read-only view, or strided
+            frame0_dev = torch.from_numpy(np.array(frame0, order="C")).to(dev)
 
         with timer.section("snap"):
             if autodetect:

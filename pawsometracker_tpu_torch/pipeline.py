@@ -5,8 +5,8 @@ Full frames: the counterpart of the JAX package's ``run_full_pipeline``
 ``track_batch`` (``pawsometracker_tpu/batch.py:493-569``): each chunk's scan
 starts from the previous chunk's last position, read on the device, and the
 host takes the positions ``depth`` chunks behind. On the card a chunk lands on
-the prefetch thread in a pinned buffer of its stream's :class:`StagingRing`
-(a decoder writes it there; frames served as views of the caller's array are
+the prefetch thread in a pinned buffer of its stream's ring (:func:`staging_ring`:
+a decoder writes it there; frames served as views of the caller's array are
 copied in by the native copy, without Python's lock), so the controller's
 thread copies no frame. At dispatch a side stream copies its real frames to
 the device (``non_blocking``), pads the short last chunk there by repeating
@@ -75,7 +75,6 @@ import functools
 import json
 import logging
 import os
-import queue
 import time
 from collections import deque
 from typing import NamedTuple
@@ -83,7 +82,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .io.decode import ChunkPrefetcher
+from .io.decode import ChunkPrefetcher, ChunkRing
 from .models.dog_tracker import make_spec, resolve_device, tracker_fns
 from .ops import tracker_kernel as tk
 from .ops.roi_crop import crop_lanes_plain, frame_copier, lane_cropper
@@ -97,7 +96,7 @@ __all__ = ["auto_depth_cap", "run_full_pipeline", "run_batch_pipeline", "run_roi
            "run_multi_roi_pipeline", "roi_geometry", "chain_batch", "last_rows",
            "pick_bounded_engine", "pick_bounded_engine_batch",
            "SpeculativePipeline", "SingleVideoSource", "FanoutSource", "PerVideoSource",
-           "StagingRing", "AUTO_DEPTH_MAX"]
+           "staging_ring", "AUTO_DEPTH_MAX"]
 
 #: mispredict replays since import (observability: tests and debugging)
 replay_count = 0
@@ -446,78 +445,20 @@ class _ShardedEngine:
         self._group = None
 
 
-class StagingRing:
-    """The pinned buffers one frame stream's chunks land in on their way to
-    the card: the full-frame engine's staging, filled on the prefetch thread
-    (:class:`~.io.decode.ChunkPrefetcher` with ``staging=``).
-
-    :meth:`read` takes a free buffer ``[T, H, W]`` and has the source read its
-    next up to ``k`` frames into it: a decoder or a resampler writes them
-    there itself; a source that serves views of the caller's array hands one
-    back, which ``copy`` (:func:`.ops.roi_crop.copy_frames_native` on the card:
-    up to 6 threads, without Python's lock) copies in. So the
-    controller's thread copies no frame, and the copy overlaps the card's work
-    on the chunks before. The engine copies the chunk from its buffer
-    (:meth:`tensor`) to the card and marks it with the copy's event
-    (:meth:`copied`); the consumer hands the chunk back (:meth:`recycle`) once
-    it is done with it, after its positions are in, and :meth:`take` hands a
-    buffer out again only once that event has completed. The ring grows as
-    the flow needs, which the prefetcher's queue and the pipeline's depth
-    bound. ``alloc(shape)`` makes a buffer (pinned memory by default) and
-    ``copy(src, dst)`` copies frames; both may be replaced (the CPU tests)."""
-
-    def __init__(self, frame_shape, T: int, copy, alloc=None):
-        self.shape = (int(T),) + tuple(int(x) for x in frame_shape)
-        self._copy = copy
-        self._alloc = alloc or (lambda shape: torch.empty(shape, dtype=torch.uint8,
-                                                          pin_memory=True))
-        self._free: queue.SimpleQueue = queue.SimpleQueue()  # (buffer, event or None)
-        self._tensors: dict = {}  # data address -> the buffer, a CPU tensor
-        self._events: dict = {}  # data address -> the event of its last copy to the card
-        #: buffers made (observability: tests)
-        self.made = 0
-
-    def take(self) -> np.ndarray:
-        """A free buffer, once its last copy to the card is done."""
-        try:
-            buf, event = self._free.get_nowait()
-        except queue.Empty:
-            buf, event = self._alloc(self.shape), None
-            self._tensors[buf.data_ptr()] = buf
-            self.made += 1
-        if event is not None:
-            event.synchronize()
-        return buf.numpy()
-
-    def read(self, source, k: int) -> np.ndarray:
-        """The source's next up to ``k`` frames, in a buffer of the ring."""
-        buf = self.take()
-        chunk = source.read_chunk(k, out=buf)
-        if len(chunk) == 0:
-            self._free.put((self._tensors[buf.ctypes.data], None))
-            return chunk
-        if chunk.ctypes.data != buf.ctypes.data:  # frames served as views: copy them in
-            self._copy(chunk, buf[:len(chunk)])
-            chunk = buf[:len(chunk)]
-        return chunk
-
-    def tensor(self, chunk: np.ndarray) -> torch.Tensor:
-        """The buffer ``chunk`` lies in, as a tensor; raises for a chunk that
-        did not come from :meth:`read`."""
-        buf = self._tensors.get(chunk.ctypes.data)
-        if buf is None:
-            raise ValueError("the chunk does not lie in this staging ring")
-        return buf
-
-    def copied(self, chunk: np.ndarray, event) -> None:
-        """Mark ``chunk``'s buffer with the event of its copy to the card."""
-        self._events[chunk.ctypes.data] = event
-
-    def recycle(self, chunk: np.ndarray) -> None:
-        """Take ``chunk``'s buffer back; it is handed out again once the event
-        :meth:`copied` gave it has completed."""
-        buf = self.tensor(chunk)
-        self._free.put((buf, self._events.pop(chunk.ctypes.data, None)))
+def staging_ring(device) -> ChunkRing:
+    """The ring a full-frame stream's prefetcher fills (:class:`_FullFrameEngine`):
+    on the card pinned buffers, into which a decoder or the resampler writes
+    and frames served as views are copied by the native copy
+    (:func:`.ops.roi_crop.copy_frames_native`: up to 6 threads, without
+    Python's lock), on the prefetch thread, so the controller's thread copies
+    no frame and the copy overlaps the card's work on the chunks before; the
+    copy built now, so that a failed build raises here. Off the card the
+    prefetcher's plain ring."""
+    if torch.device(device).type != "cuda":
+        return ChunkRing()
+    return ChunkRing(alloc=lambda shape: torch.empty(shape, dtype=torch.uint8,
+                                                     pin_memory=True).numpy(),
+                     copy=frame_copier())
 
 
 class _FullEntry(NamedTuple):
@@ -544,14 +485,16 @@ class _FullFrameEngine(_ShardedEngine):
 
     Every chunk is padded to the scan length by repeating its last frame. On
     the CPU it is copied into a new host array, which the scan reads. On the
-    card it lies in a buffer of its stream's pinned :class:`StagingRing`
-    (``staging``, one a stream, filled on the prefetch thread); its real
-    frames go from there to their slot of each shard's device group on that
-    device's side stream, which then pads the slot on the card. The dispatch
+    card it lies in a pinned buffer of its stream's ring (``rings``, one a
+    stream, each a :func:`staging_ring` its prefetcher fills); its real frames
+    go from there to their slot of each shard's device group on that device's
+    side stream, which then pads the slot on the card, and the ring hands the
+    buffer out again only once that copy's event has completed. The dispatch
     returns before the scans end, the results coming back into pinned buffers
     behind an event a shard that :meth:`to_host` waits on."""
 
-    def __init__(self, scan, pos0, fill, subpixel, timer, device, lanes=None, segments=None):
+    def __init__(self, scan, pos0, fill, subpixel, timer, device, lanes=None, segments=None,
+                 rings=None):
         super().__init__(scan, lanes, device, group_allowed=segments is not None)
         self.segments = segments
         self.pos0 = [torch.as_tensor(p).to(device=dev, dtype=torch.int32)
@@ -560,19 +503,7 @@ class _FullFrameEngine(_ShardedEngine):
         self.subpixel = subpixel
         self.timer = timer
         self.lanes = lanes
-        self.staging = None  # the card's rings, one a stream (staging_for)
-
-    def staging_for(self, frame_shape, T: int) -> list:
-        """Each stream's staging, for its prefetcher: on the card a pinned
-        :class:`StagingRing` of ``[T, *frame_shape]`` buffers (the native frame
-        copy built now, so that a failed build raises here); on the CPU None,
-        the chunks copied at dispatch."""
-        n = 1 if self.lanes is None else self.lanes
-        if not self._cuda:
-            return [None] * n
-        copy = frame_copier()
-        self.staging = [StagingRing(frame_shape, T, copy) for _ in range(n)]
-        return self.staging
+        self.rings = rings
 
     def _new_group(self, cap: int, shape) -> _DeviceGroup:
         return _DeviceGroup(cap, [torch.empty((cap,) + _shard_shape(shape, sl), dtype=torch.uint8,
@@ -581,7 +512,7 @@ class _FullFrameEngine(_ShardedEngine):
     def _stage(self, chunks, T: int):
         """Stage one chunk per stream (``None`` for a lane past its end), each
         padded to ``T`` steps by repeating its last frame: on the CPU into a
-        new host array; on the card from its staging buffer to its slot of
+        new host array; on the card from its ring's buffer to its slot of
         each shard's device group, padded there; returns the staged entry."""
         frame_shape = next(c.shape[1:] for c in chunks if c is not None)
         shape = ((T,) if self.lanes is None else (self.lanes, T)) + tuple(frame_shape)
@@ -595,9 +526,6 @@ class _FullFrameEngine(_ShardedEngine):
                     row[:len(chunk)] = chunk
                     row[len(chunk):] = chunk[-1]
             return _FullEntry(host, valid)
-        if self.staging is None:
-            raise RuntimeError("on the card the full-frame engine stages chunks from its"
-                               " staging rings only (staging_for)")
         copies, lanes_of = [], []
         for i, (sl, _, _) in enumerate(self.shards):
             dst = group.frames[i][s]
@@ -607,8 +535,11 @@ class _FullFrameEngine(_ShardedEngine):
                 chunk = chunks[b]
                 if chunk is None:  # a lane past its end keeps whatever its row holds
                     continue
+                if not self.rings[b].holds(chunk):
+                    raise RuntimeError("on the card the full-frame engine stages chunks from"
+                                       " their pinned rings only (staging_ring)")
                 row, k = (dst if self.lanes is None else dst[r]), len(chunk)
-                pairs.append((row[:k], self.staging[b].tensor(chunk)[:k]))
+                pairs.append((row[:k], torch.from_numpy(chunk)))
                 if k < T:  # pad on the card, behind the copy on the same stream
                     pairs.append((row[k:], row[k - 1:k].expand(T - k, *row.shape[1:])))
                 mine.append(b)
@@ -617,7 +548,7 @@ class _FullFrameEngine(_ShardedEngine):
         events = self._copy_in(group, s, copies)
         for event, mine in zip(events, lanes_of):
             for b in mine:
-                self.staging[b].copied(chunks[b], event)
+                self.rings[b].copied(chunks[b], event)
         return _FullEntry(None, valid)
 
     def _chain(self, pos0, pos, valid, T: int):
@@ -708,7 +639,9 @@ def run_full_pipeline(
     from .diagnose import Dont
 
     keep = not isinstance(dia, Dont)
-    eng = _FullFrameEngine(scan, pos0_abs, fill, subpixel, timer, device, segments=segments)
+    ring = staging_ring(device)
+    eng = _FullFrameEngine(scan, pos0_abs, fill, subpixel, timer, device, segments=segments,
+                           rings=[ring])
     grow_groups = _grouping_pays()
     group_cap = max(1, (depth + 1) // 2)
 
@@ -739,8 +672,7 @@ def run_full_pipeline(
             progress(tracked, n_rest)
 
     try:
-        prefetch = ChunkPrefetcher(src, chunk_size, max_frames=n_rest,
-                                   staging=eng.staging_for(src.info.frame_shape, chunk_size)[0])
+        prefetch = ChunkPrefetcher(src, chunk_size, max_frames=n_rest, ring=ring)
         prefetchers.append(prefetch)
         for chunk in prefetch:
             while len(pending) > depth:
@@ -758,8 +690,7 @@ def run_full_pipeline(
 
 
 def run_batch_pipeline(
-    sources: list,
-    n_rest: list,
+    prefetchers: list,
     pos0,
     fills,
     *,
@@ -770,17 +701,15 @@ def run_batch_pipeline(
     dias: list,
     timer,
     device,
-    prefetchers: list,
     progress=None,
 ):
     """Full-frame streaming of B videos in lockstep, one launch per chunk
     for all of them (the JAX package's ``track_batch`` loop,
     ``pawsometracker_tpu/batch.py:493-569``, with the host draining ``depth``
-    chunks behind). Video b's chunks, its next ``n_rest[b]`` frames of
-    ``sources[b]``, come from a prefetcher that this appends to
-    ``prefetchers`` (the caller closes them), each staging on the card into
-    its own ring; a video whose chunk comes back short has ended, and its lane
-    runs on with discarded steps while the others continue. ``scan(frames
+    chunks behind). ``prefetchers[b]`` yields video b's chunks, on the card
+    into its :func:`staging_ring`; a video whose chunk comes back short has
+    ended, and its lane runs on with discarded steps while the others
+    continue. ``scan(frames
     [B,T,H,W], pos0 [B,2], fills)`` returns ``[B,T,2]`` (and offsets with
     ``subpixel``).
 
@@ -788,14 +717,15 @@ def run_batch_pipeline(
     three lists."""
     from .diagnose import Dont
 
-    B = len(sources)
+    B = len(prefetchers)
+    iters = [iter(p) for p in prefetchers]
     active = [True] * B
     positions: list[list] = [[] for _ in range(B)]
     offsets: list[list] = [[] for _ in range(B)]
     counts = [0] * B
     pending: deque = deque()  # (handle, chunks)
-    eng = _FullFrameEngine(scan, pos0, fills, subpixel, timer, device, lanes=B)
-    mine, iters = [], []  # video b's prefetcher, its iterator
+    eng = _FullFrameEngine(scan, pos0, fills, subpixel, timer, device, lanes=B,
+                           rings=[p.ring for p in prefetchers])
 
     def gather():
         """One chunk per active video; marks videos at their end inactive."""
@@ -826,16 +756,11 @@ def run_batch_pipeline(
                 with timer.section("diagnose"):
                     for i in range(k):
                         dias[b](chunk[i], out_np[b, i])
-            mine[b].recycle(chunk)
+            prefetchers[b].recycle(chunk)
         if progress is not None:
             progress(sum(counts))
 
     try:
-        rings = eng.staging_for(sources[0].info.frame_shape, chunk_size)
-        for src, n, ring in zip(sources, n_rest, rings):
-            mine.append(ChunkPrefetcher(src, chunk_size, max_frames=n, staging=ring))
-            prefetchers.append(mine[-1])
-            iters.append(iter(mine[-1]))
         while True:
             chunks = gather()
             if all(c is None for c in chunks):

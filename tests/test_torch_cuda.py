@@ -1951,6 +1951,37 @@ def test_staged_full_frames_equal_cpu(card, monkeypatch, entry, inputs):
         np.testing.assert_array_equal(ij, ij_c)
 
 
+ARRAY_LAYOUTS = {
+    "mirrored columns": lambda f: f[:, :, ::-1],
+    "Fortran order": np.asfortranarray,
+    "mirrored rows": lambda f: f[:, ::-1],
+    "frames in reverse": lambda f: f[::-1],
+}
+
+
+@pytest.mark.parametrize("start", [0.0, 19 / 24], ids=["start 0", "start past 0"])
+@pytest.mark.parametrize("layout", list(ARRAY_LAYOUTS))
+@pytest.mark.parametrize("stream", ["full", "roi"])
+@pytest.mark.parametrize("entry", ["track", "track_batch"])
+def test_array_layouts_equal_cpu(card, entry, stream, layout, start):
+    """Arrays whose columns do not lie 1 byte apart (mirrored, Fortran-ordered)
+    walk the resampler into the rings or the ROI crops' buffers; arrays with
+    rows or frames in reverse order are served as views that the native copy
+    and crop read with their strides. Each equals device="cpu"."""
+    from pawsometracker_tpu_torch import track_batch
+
+    clips = [ARRAY_LAYOUTS[layout](_full_clip(60 - 15 * b, phase=b)) for b in range(2)]
+    kw = dict(fps=24, target_width=10, chunk_size=16, stream=stream, start=start,
+              start_location=None)
+    if entry == "track":
+        got, want = [track(clips[0], **kw)], [track(clips[0], device="cpu", **kw)]
+    else:
+        got, want = track_batch(clips, **kw), track_batch(clips, device="cpu", **kw)
+    for (ts, ij), (ts_c, ij_c) in zip(got, want):
+        np.testing.assert_array_equal(ts, ts_c)
+        np.testing.assert_array_equal(ij, ij_c)
+
+
 def test_native_frame_copy_equals_numpy(card):
     """The staging copy (csrc/roi_crop.cpp, each frame cropped whole) equals
     the frames it copies: views of a contiguous array, views whose rows lie

@@ -10,9 +10,12 @@
   views), ``stream="full"`` ``track``/``track_batch``/``track_multi`` at a
   start past 0 and on ``input_fps`` arrays: positions and ``ts`` equal to the
   JAX package's, offsets within ``atol=1e-3``.
-- The full-frame engine's staging ring (``pipeline.StagingRing``) behind a
-  ``ChunkPrefetcher``, with mock events: no buffer is written while its copy
-  to the card is pending.
+- Arrays whose columns do not lie 1 byte apart (mirrored, column-strided,
+  Fortran-ordered) walk, since the native copies need that layout; rows or
+  frames in reverse order are still served as views.
+- The prefetcher's ring (``io/decode.py::ChunkRing``, the full-frame engine's
+  pinned staging on the card), with mock events: no buffer is written while
+  its copy to the card is pending.
 - Both packages' native decoders give byte-equal frames, into a buffer of
   the caller's (``read_chunk(out=...)``), from start 0 and past it.
 - No fallback: a native staging copy that does not build or is refused
@@ -23,14 +26,12 @@ import math
 
 import numpy as np
 import pytest
-import torch
 
 import helpers
 import pawsometracker_tpu as jax_pkg
 import pawsometracker_tpu_torch as port
 from pawsometracker_tpu.checkpoint import track_resumable as jax_resumable
 from pawsometracker_tpu.io import decode as jax_decode
-from pawsometracker_tpu_torch import pipeline
 from pawsometracker_tpu_torch.io import decode as port_decode
 from pawsometracker_tpu_torch.ops import roi_crop
 
@@ -201,6 +202,34 @@ def test_views_allowed_hook_forces_the_walk(monkeypatch):
     np.testing.assert_array_equal(emitted(walked, "chunks"), views)
 
 
+#: array layouts: the first three have columns that do not lie 1 byte apart
+LAYOUTS = {
+    "mirrored columns": lambda f: f[:, :, ::-1],
+    "every other column": lambda f: f[:, :, ::2],
+    "Fortran order": np.asfortranarray,
+    "mirrored rows": lambda f: f[:, ::-1],
+    "frames in reverse": lambda f: f[::-1],
+}
+WALKING_LAYOUTS = ("mirrored columns", "every other column", "Fortran order")
+
+
+@pytest.mark.parametrize("start_k", [0, 9])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_view_origin_needs_one_byte_columns(layout, start_k):
+    """The native copies read rows of 1-byte columns, so an array whose
+    columns lie otherwise walks the resampler at any start; rows or frames in
+    reverse order are still served as views. Either way the frames emitted
+    equal the JAX package's."""
+    frames = LAYOUTS[layout](numbered(80, 6, 5))
+    start = start_k / 24
+    k0 = port_decode.view_origin(frames, start=start, fps=24)
+    assert k0 == (None if layout in WALKING_LAYOUTS else start_k)
+    src = port_decode.ArrayFrameSource(frames, start=start, fps=24)
+    ref = jax_decode.ArrayFrameSource(frames, start=start, fps=24)
+    assert src.serves_views == (k0 is not None)
+    np.testing.assert_array_equal(emitted(src, "chunks"), emitted(ref, "chunks"))
+
+
 # ---- the entry points on arrays, against the JAX package --------------------------------
 
 
@@ -306,6 +335,19 @@ def test_full_frames_equal_jax(served, entry, inputs, subpixel):
     assert served and all(served) == ("start" in opts)
 
 
+@pytest.mark.parametrize("stream", ["full", "roi"])
+@pytest.mark.parametrize("layout", [k for k in LAYOUTS if k != "every other column"])
+def test_track_on_array_layouts_equals_jax(layout, stream):
+    """track at a start past 0 on mirrored, Fortran-ordered and reversed
+    arrays, on full frames and on ROI: positions and ts equal the JAX
+    package's."""
+    clip = LAYOUTS[layout](spiral_clip(60, 3))
+    kw = dict(fps=24, target_width=10, chunk_size=16, stream=stream, start=7 / 24)
+    got = port.track(clip, start_location=None, device="cpu", **kw)
+    want = jax_pkg.track(clip, start_location=None, **kw)
+    assert_same(got, want)
+
+
 # ---- the staging ring behind the prefetcher ----------------------------------------------
 
 
@@ -360,13 +402,12 @@ def test_prefetcher_never_hands_out_a_buffer_whose_copy_is_pending(source):
         return read_chunk(n, out)
 
     src.read_chunk = read_into
-    ring = pipeline.StagingRing(src.info.frame_shape, 8, copy,
-                                alloc=lambda shape: torch.empty(shape, dtype=torch.uint8))
-    pf = port_decode.ChunkPrefetcher(src, 8, max_frames=100, staging=ring)
+    ring = port_decode.ChunkRing(copy=copy)
+    pf = port_decode.ChunkPrefetcher(src, 8, max_frames=100, ring=ring)
     got = []
     try:
         for chunk in pf:
-            assert ring.tensor(chunk).data_ptr() == chunk.ctypes.data
+            assert ring.holds(chunk) and chunk.dtype == np.uint8
             assert not np.shares_memory(chunk, frames)
             got.extend(np.array(chunk))
             event = MockEvent()
@@ -381,10 +422,42 @@ def test_prefetcher_never_hands_out_a_buffer_whose_copy_is_pending(source):
 
 
 def test_staging_ring_refuses_a_chunk_it_did_not_stage():
-    ring = pipeline.StagingRing((4, 3), 2, np.copyto,
-                                alloc=lambda shape: torch.empty(shape, dtype=torch.uint8))
-    with pytest.raises(ValueError, match="staging ring"):
-        ring.tensor(numbered(2))
+    """A chunk that lies in no buffer of the ring (a view of the caller's
+    frames) is never pooled: recycling it hands nothing out to be written."""
+    ring = port_decode.ChunkRing(copy=lambda src, dst: np.copyto(dst, src))
+    frames = numbered(20)
+    foreign = frames[:2]
+    assert not ring.holds(foreign)
+    ring.recycle(foreign)
+    src = port_decode.ArrayFrameSource(frames, fps=24)
+    chunk = ring.read(src, 4, 4)
+    assert ring.holds(chunk) and ring.made == 1
+    assert not np.shares_memory(chunk, frames)
+    np.testing.assert_array_equal(chunk, frames[:4])
+
+
+@pytest.mark.parametrize("views", [False, True], ids=["source buffers", "views"])
+def test_plain_ring_recycles_source_buffers_and_passes_views(views):
+    """Without a copy (the ROI and CPU paths) a view-serving source's chunks
+    are the views themselves, never pooled; any other source writes into the
+    ring's buffers, which come back with recycle and are reused."""
+    frames = numbered(60)
+    src = port_decode.ArrayFrameSource(frames, fps=24, input_fps=None if views else 30.0)
+    want = emitted(port_decode.ArrayFrameSource(frames, fps=24,
+                                                input_fps=None if views else 30.0), "chunks")
+    pf = port_decode.ChunkPrefetcher(src, 8)
+    got, seen = [], set()
+    try:
+        for chunk in pf:
+            assert np.shares_memory(chunk, frames) == views
+            assert pf.ring.holds(chunk) != views and chunk.dtype == np.uint8
+            seen.add(chunk.ctypes.data)
+            got.extend(np.array(chunk))
+            pf.recycle(chunk)
+    finally:
+        pf.close()
+    np.testing.assert_array_equal(np.array(got), want)
+    assert pf.ring.made == (0 if views else len(seen)) and (views or len(seen) <= 4)
 
 
 # ---- both packages' native decoders --------------------------------------------------------
@@ -412,17 +485,16 @@ def test_native_decoders_give_byte_equal_frames(ffv1, start, chunk):
         pytest.skip("the native libav decoder did not build here")
     ours = port_native.NativeFrameSource(ffv1, start=start, fps=24)
     theirs = jax_native.NativeFrameSource(ffv1, start=start, fps=24)
-    ring = pipeline.StagingRing(ours.info.frame_shape, chunk, np.copyto,
-                                alloc=lambda shape: torch.empty(shape, dtype=torch.uint8))
+    ring = port_decode.ChunkRing(copy=lambda src, dst: np.copyto(dst, src))
     n = 0
     try:
         while True:
-            got = ring.read(ours, chunk)
+            got = ring.read(ours, chunk, chunk)
             want = theirs.read_chunk(chunk, out=np.empty((chunk,) + got.shape[1:], np.uint8))
             np.testing.assert_array_equal(got, want)
             if len(got) == 0:
                 break
-            assert ring.tensor(got).data_ptr() == got.ctypes.data  # decoded in place
+            assert ring.holds(got)  # decoded in place
             n += len(got)
             ring.recycle(got)
     finally:

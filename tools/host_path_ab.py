@@ -2,7 +2,8 @@
 """Time the host work of two checkouts of the port on one card, in turns.
 
     python3 tools/host_path_ab.py --parent DIR [--order parent,change,change,parent]
-                                  [--runs 3] [--device cpu --frames 14]
+                                  [--runs 3] [--cells "track ROI,track"]
+                                  [--device cpu --frames 14]
 
 Each turn is a fresh process that imports ``pawsometracker_tpu_torch`` from
 one checkout (``change`` is this one, ``parent`` is ``--parent``, for example
@@ -14,18 +15,30 @@ the four ROI cells of ``chip_smoke.py`` phase 3 on ``stream="auto"``:
 ``track`` ROI (185x185 crops), ``track`` of the large target ROI
 (``target_width=60``, 461x461), ``track_batch`` ROI (4 videos) and
 ``track_multi`` ROI (4 targets); ``track_resumable`` ROI (the bench clip in 4
-slices of 120 frames); and the four full-frame cells on ``stream="full"``:
-``track``, ``track`` of the large target, ``track_batch`` and ``track_multi``.
-Each cell runs once to warm up, then ``--runs`` times; each run's wall time
-and the timer sections the call logs (``paws_stats``, summed over the slices
-of ``track_resumable``) are kept. Every turn's positions and ``ts`` must equal
-the first turn's.
+slices of 120 frames); the four full-frame cells on ``stream="full"``:
+``track``, ``track`` of the large target, ``track_batch`` and ``track_multi``;
+and ``track resampled``, ``track`` on full frames of the bench clip with each
+frame twice at ``input_fps`` 48, which the resampler walks (every other frame
+kept), so its frames are written into the prefetcher's buffers as a decoder's
+are. ``--cells`` picks some of them. Each cell runs once to warm up, then
+``--runs`` times; each run's wall time and the timer sections the call logs
+(``paws_stats``, summed over the slices of ``track_resumable``) are kept.
+Every turn's positions and ``ts`` must equal the first turn's.
+
+Host speed drifts within a call, and a fresh process may run faster or
+slower as a whole, so each cell's line also gives, for each pair of turns
+in the order (turns 0-1, 2-3, ...), the change's turn median over the
+parent's: with an order such as ``p,c,c,p,c,p,p,c`` every pair holds one
+turn of each and a drift cancels. Two checkouts of the same tree give the
+spread a null difference shows. The state each checkout's turns ran in, the
+hash of its built kernel libraries and its engine decisions, is printed
+beside them.
 
 Prints the card's name and power limit, one line per cell with each
 checkout's median frames/s over its runs (each turn's median beside it) and
 the medians of its set-up (ms a call) and of outside the sections, crop,
-device and upload (us a chunk), and, last, one JSON object of the same
-numbers. Writes ``build/host_path_ab.json``. ``--device cpu --frames N``
+device and upload (us a chunk), the pairs' ratios, and, last, one JSON object
+of the same numbers. Writes ``build/host_path_ab.json``. ``--device cpu --frames N``
 rehearses it on the host with each clip cut to N frames (the plain version is
 slow there, and no time it prints is the card's).
 """
@@ -46,7 +59,8 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELLS = ("track ROI", "track large target ROI", "track_batch ROI", "track_multi ROI",
-         "track_resumable ROI", "track", "track large target", "track_batch", "track_multi")
+         "track_resumable ROI", "track", "track large target", "track_batch", "track_multi",
+         "track resampled")
 #: the timer sections read a chunk (the rest are once a call)
 PER_CHUNK = ("outside the sections", "crop", "device", "upload", "aim", "drain")
 
@@ -59,8 +73,8 @@ def _chip_smoke():
     return mod
 
 
-def worker(root: str, out_path: str, runs: int, device, n) -> int:
-    """One turn: the cells on the checkout at ``root``, on ``device`` (the card
+def worker(root: str, out_path: str, runs: int, device, n, cells) -> int:
+    """One turn: ``cells`` on the checkout at ``root``, on ``device`` (the card
     when None), each clip cut to ``n`` frames when given, written to
     ``out_path``."""
     import numpy as np
@@ -82,6 +96,7 @@ def worker(root: str, out_path: str, runs: int, device, n) -> int:
     clips = [c[cut] for c in clips]
     multi, multi_truths = cs.synth_multi()
     multi = multi[cut]
+    doubled = np.repeat(frames, 2, axis=0)  # at input_fps 2 * FPS: the walk keeps every other
     roi = dict(fps=cs.FPS, target_width=cs.TARGET_WIDTH, window_size=cs.WINDOW, device=device)
     start = IJ(int(truth[0][0]), int(truth[0][1]))
     full = dict(roi, stream="full")
@@ -110,9 +125,12 @@ def worker(root: str, out_path: str, runs: int, device, n) -> int:
             clips, start_location=[IJ(int(t[0][0]), int(t[0][1])) for t in truths], **full)),
         "track_multi": (len(multi), lambda: track_multi(
             multi, [IJ(int(t[0][0]), int(t[0][1])) for t in multi_truths], **full)),
+        "track resampled": (len(frames), lambda: track(
+            doubled, start_location=start, input_fps=2 * cs.FPS, **full)),
     }
     out = {"cells": {}}
-    for cell, (n_frames, call) in calls.items():
+    for cell in cells:
+        n_frames, call = calls[cell]
         result = call()  # warm-up: the kernel build, the engine choice, caches
         if device is None:
             torch.cuda.synchronize()
@@ -148,6 +166,23 @@ def worker(root: str, out_path: str, runs: int, device, n) -> int:
     return 0
 
 
+def slot_state(out_dir: str, who: str) -> dict:
+    """The state ``who``'s turns ran in: a hash of the kernel libraries built
+    in its build directory, and the engine decisions in its cache."""
+    digest = hashlib.sha256()
+    build = os.path.join(out_dir, f"host_ab_{who}")
+    for name in sorted(os.listdir(build)) if os.path.isdir(build) else []:
+        if name.endswith(".so"):
+            with open(os.path.join(build, name), "rb") as f:
+                digest.update(name.encode() + f.read())
+    try:
+        with open(os.path.join(out_dir, f"host_ab_cache_{who}", "engine_cache_torch.json")) as f:
+            engine = {key: entry.get("engine") for key, entry in json.load(f).items()}
+    except (OSError, ValueError, AttributeError):
+        engine = None
+    return {"kernels": digest.hexdigest()[:16], "engine": engine}
+
+
 def summarize(runs: list) -> dict:
     """Medians over ``runs``: frames/s, set-up and upload ms a call, sections us
     a chunk."""
@@ -168,13 +203,19 @@ def main() -> int:
     ap.add_argument("--order", default=None,
                     help="turns, comma-separated (default parent,change,change,parent)")
     ap.add_argument("--runs", type=int, default=3, help="timed runs of each cell a turn")
+    ap.add_argument("--cells", default=",".join(CELLS),
+                    help="cells, comma-separated (default all: " + ", ".join(CELLS) + ")")
     ap.add_argument("--device", default=None, help="cpu to rehearse; the card by default")
     ap.add_argument("--frames", type=int, default=None, help="cut each clip to this many frames")
     ap.add_argument("--worker", nargs=2, metavar=("ROOT", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args()
+    cells = [c.strip() for c in args.cells.split(",")]
+    unknown = sorted(set(cells) - set(CELLS))
+    if unknown:
+        ap.error(f"unknown cells {unknown}; the cells are {list(CELLS)}")
     if args.worker:
         return worker(os.path.abspath(args.worker[0]), args.worker[1], args.runs, args.device,
-                      args.frames)
+                      args.frames, cells)
     import torch
 
     if args.device is None and not torch.cuda.is_available():
@@ -197,14 +238,21 @@ def main() -> int:
         extra = (["--device", args.device] if args.device else []) + (
             ["--frames", str(args.frames)] if args.frames else [])
         r = subprocess.run([sys.executable, os.path.abspath(__file__), "--runs", str(args.runs),
-                            *extra, "--worker", roots[who], out], env=env)
+                            "--cells", ",".join(cells), *extra, "--worker", roots[who], out],
+                           env=env)
         if r.returncode != 0:
             raise SystemExit(f"turn {n} ({who}) failed with {r.returncode}")
         with open(out) as f:
             turns.append((who, json.load(f)))
         print(f"turn {n}: {who} ({roots[who]}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    state = {who: slot_state(out_dir, who) for who in roots}
+    for who in roots:
+        print(f"{who}: kernels {state[who]['kernels']}, engine decisions"
+              f" {state[who]['engine']}", flush=True)
+    pairs = [(i, i + 1) for i in range(0, len(order) - 1, 2)
+             if {order[i], order[i + 1]} == {"change", "parent"}]
     summary = {}
-    for cell in CELLS:
+    for cell in cells:
         want = turns[0][1]["cells"][cell]["digest"]
         for n, (who, res) in enumerate(turns):
             if res["cells"][cell]["digest"] != want:
@@ -216,6 +264,12 @@ def main() -> int:
             row[who] = dict(summarize([r for runs in mine for r in runs]),
                             turn_frames_per_s=[statistics.median(r["frames_per_s"] for r in runs)
                                                for runs in mine])
+        if pairs:
+            turn_median = [statistics.median(r["frames_per_s"] for r in res["cells"][cell]["runs"])
+                           for _, res in turns]
+            ratios = [turn_median[i if order[i] == "change" else j]
+                      / turn_median[j if order[i] == "change" else i] for i, j in pairs]
+            row["pair_ratios"] = ratios
         summary[cell] = row
         line = f"{cell}:"
         for who in roots:
@@ -228,8 +282,13 @@ def main() -> int:
         if "parent" in roots:
             line += (f" change/parent frames/s"
                      f" {row['change']['frames_per_s'] / row['parent']['frames_per_s']:.3f}x")
+        if pairs:
+            line += (f"; pairs {statistics.median(ratios):.3f}x (median; "
+                     + ", ".join(f"{x:.3f}" for x in ratios)
+                     + f"; {sum(x > 1 for x in ratios)} of {len(ratios)} above 1)")
         print(line, flush=True)
-    record = {"card": card, "order": order, "runs_per_turn": args.runs, "cells": summary}
+    record = {"card": card, "order": order, "runs_per_turn": args.runs, "state": state,
+              "cells": summary}
     with open(os.path.join(out_dir, "host_path_ab.json"), "w") as f:
         json.dump(record, f, indent=1)
     print(json.dumps(record))
