@@ -127,19 +127,23 @@ def _resolve_guess(start_location, sar: float, frame_shape) -> tuple[int, int]:
 
 
 def _initial_position(frame0: np.ndarray, guess, auto: bool, spec, fill: int,
-                      subpixel: bool = False, *, device, engine: str = "auto"):
+                      subpixel: bool = False, *, device, engine: str = "auto", timer):
     """Snap onto the target in frame 1. Even with a user-provided location the
     tracker runs one step, so ``positions[0]`` is the *detected* position near
     the given location (reference: src/PawsomeTracker.jl:92-107).
-    Returns ``(pos int32 [2], offsets float32 [2])`` as numpy arrays."""
+    Returns ``(pos int32 [2], offsets float32 [2])`` as numpy arrays; the
+    wait for them is ``timer``'s span ``snap.wait``."""
     # a C-ordered copy: frame 1 may be a read-only view, or strided
     frame = torch.from_numpy(np.array(frame0, order="C")).to(device)
     g = np.asarray(guess, np.int32)
     fns = tracker_fns(autodetect_spec(spec) if auto else spec, device, engine)
     if subpixel:
         pos, off = fns.snap_sub(frame, g, fill)
-        return pos.cpu().numpy(), off.cpu().numpy()
-    return fns.snap(frame, g, fill).cpu().numpy(), np.zeros(2, np.float32)
+        with timer.span("snap.wait"):
+            return pos.cpu().numpy(), off.cpu().numpy()
+    pos = fns.snap(frame, g, fill)
+    with timer.span("snap.wait"):
+        return pos.cpu().numpy(), np.zeros(2, np.float32)
 
 
 def _scan_fn_for(spec, engine: str, device, subpixel: bool = False):
@@ -240,6 +244,7 @@ def _track_one(
 ):
     """Track one file (reference pipeline: src/PawsomeTracker.jl:148-174),
     streaming crops or full frames."""
+    timer = Timer(entry="track", videos=1)
     t = stop - start
     # length-based timestamp range: step = t/(n-1), slightly != 1/fps by design
     # (reference: src/PawsomeTracker.jl:149-152)
@@ -288,19 +293,20 @@ def _track_one(
             def progress(done, _t, _cb=user_cb, _est=est_total):
                 _cb(done, _est)
 
-        timer = Timer()
         with timer.section("setup"):
-            frame0 = src.read()
+            with timer.span("frame1"):
+                frame0 = src.read()
             if frame0 is None:
                 raise EOFError(f"no frames decoded from {file}")
             frame_shape = frame0.shape
             dia.update_ratio(frame_shape)
-            fill = mode_u8_host(frame0)  # mode of FIRST frame, used for all frames
+            with timer.span("mode", lane=0):
+                fill = mode_u8_host(frame0)  # mode of FIRST frame, used for all frames
             spec = make_spec(frame_shape, window_size, target_width, darker_target)
             guess = _resolve_guess(start_location, sar_val, frame_shape)
         with timer.section("snap"):
             pos, off0 = _initial_position(frame0, guess, start_location is None, spec, fill,
-                                          subpixel, device=device, engine=engine)
+                                          subpixel, device=device, engine=engine, timer=timer)
 
         positions = [np.asarray(pos)]
         offsets = [off0.reshape(1, 2)]
@@ -370,13 +376,14 @@ def _track_one(
             offsets.extend(off_blocks)
             last_frame += tracked
         stats["sections"] = dict(timer.totals)
-        # the record carries the numbers as ``paws_stats`` for a handler
-        logger.debug("track %s: %d frames on %s, %s", file, last_frame, device, stats,
-                     extra={"paws_stats": stats})
     finally:
         for p in prefetchers:
             p.close()
         src.close()
+    timer.finish(stats)
+    # the record carries the numbers as ``paws_stats`` for a handler
+    logger.debug("track %s: %d frames on %s, %s", file, last_frame, device, stats,
+                 extra={"paws_stats": stats})
 
     ij = np.concatenate([p.reshape(-1, 2) for p in positions], axis=0)
     if subpixel:

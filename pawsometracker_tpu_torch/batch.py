@@ -309,6 +309,7 @@ def _track_batch_uniform(
     ``start``, ``stop``, ``start_location`` and ``diagnostic_files`` are
     per-video lists)."""
     B = len(files)
+    timer = Timer(entry="track_batch", videos=B)
     mesh = _resolve_mesh(mesh, B, device)
     tracker_engine = engine
     if mesh is not None:
@@ -347,7 +348,6 @@ def _track_batch_uniform(
     ring = (depth_gate + 2) * roi_frames + 8 if retention_possible else None
 
     sources, prefetchers, dias = [], [], []
-    timer = Timer()
     try:
         with timer.section("setup"):
             for f, t0, t1 in zip(files, starts, stops):
@@ -364,16 +364,20 @@ def _track_batch_uniform(
 
             ns = [int(np.round(fps * (t1 - t0))) for t0, t1 in zip(starts, stops)]
             frames0 = []
-            for f, s in zip(files, sources):
-                fr = s.read()
-                if fr is None:
-                    raise EOFError(f"no frames decoded from {f}")
-                frames0.append(fr)
-            frames0 = np.stack(frames0)
-            fills = np.array([mode_u8_host(f) for f in frames0], np.uint8)
+            with timer.span("frame1"):
+                for f, s in zip(files, sources):
+                    fr = s.read()
+                    if fr is None:
+                        raise EOFError(f"no frames decoded from {f}")
+                    frames0.append(fr)
+                frames0 = np.stack(frames0)
+            fills = np.empty(B, np.uint8)
+            for b, f in enumerate(frames0):
+                with timer.span("mode", lane=b):
+                    fills[b] = mode_u8_host(f)
 
             spec = make_spec(frame_shape, window_size, target_width, darker_target)
-            tracker = ShardedBatchTracker(spec, mesh, tracker_engine, device=device)
+            tracker = ShardedBatchTracker(spec, mesh, tracker_engine, device=device, timer=timer)
 
             guesses = np.array(
                 [
@@ -396,13 +400,15 @@ def _track_batch_uniform(
                     pos_det, off_det = tracker.snap_detect_sub(f0, g_dev, fills_dev)
                     pos = _per_lane(auto, pos_det, pos)
                     off = _per_lane(auto, off_det, off)
-                off0 = off.cpu().numpy()
+                with timer.span("snap.wait"):
+                    off0 = off.cpu().numpy()
             else:
                 pos = tracker.snap(f0, g_dev, fills_dev)
                 if auto.any():
                     pos = _per_lane(auto, tracker.snap_detect(f0, g_dev, fills_dev), pos)
                 off0 = np.zeros((B, 2), np.float32)
-            pos_host = pos.cpu().numpy()
+            with timer.span("snap.wait"):
+                pos_host = pos.cpu().numpy()
 
         with timer.section("setup"):
             for p, fr0 in zip(diagnostic_files, frames0):
@@ -428,8 +434,9 @@ def _track_batch_uniform(
         if not nat_retained:
             # full frames land in each video's staging ring (pinned on the card)
             prefetchers = [ChunkPrefetcher(s, chunk_size, max_frames=n - 1,
-                                           ring=None if use_roi else staging_ring(tracker.device))
-                           for s, n in zip(sources, ns)]
+                                           ring=None if use_roi else staging_ring(tracker.device),
+                                           timer=timer, lane=b)
+                           for b, (s, n) in enumerate(zip(sources, ns))]
         stats = {"stream": "roi" if use_roi else "full",
                  "shards": 1 if mesh is None else mesh.shape["data"]}
         if use_roi:
@@ -467,20 +474,21 @@ def _track_batch_uniform(
                 # kernel measured at the shard's batch
                 scan = _select_sharded_bounded(roi_engine, roi_spec, roi_frames, B,
                                                int(fills[0]), engine, mesh, subpixel=subpixel)
-            with timer.section("buffers"):  # the controller, its pinned crop buffers
-                pipe = SpeculativePipeline(
-                    L=B, K=roi_frames, crop_shape=(ch, cw), margin=margin, spec=spec, mode=mode,
-                    depth="auto" if auto_depth else depth_gate, auto_cap=auto_cap,
-                    engine=_BatchedEngine(scan, (ch, cw), frame_shape, fills, subpixel, timer,
-                                          device, segments=segments),
-                    source=PerVideoSource(sources, K=roi_frames, ch=ch, cw=cw, fills=fills,
-                                          dias=dias, ns=ns, nat_retained=nat_retained,
-                                          prefetcher_objs=prefetchers,
-                                          crop=lane_cropper(device)),
-                    sink=sink,
-                    timer=timer,
-                )
-            pipe.run(pos_host.astype(np.int64), max(ns) - 1)
+            with timer.span("pipeline", stream="roi"):
+                with timer.section("buffers"):  # the controller, its pinned crop buffers
+                    pipe = SpeculativePipeline(
+                        L=B, K=roi_frames, crop_shape=(ch, cw), margin=margin, spec=spec,
+                        mode=mode, depth="auto" if auto_depth else depth_gate, auto_cap=auto_cap,
+                        engine=_BatchedEngine(scan, (ch, cw), frame_shape, fills, subpixel, timer,
+                                              device, segments=segments),
+                        source=PerVideoSource(sources, K=roi_frames, ch=ch, cw=cw, fills=fills,
+                                              dias=dias, ns=ns, nat_retained=nat_retained,
+                                              prefetcher_objs=prefetchers,
+                                              crop=lane_cropper(device)),
+                        sink=sink,
+                        timer=timer,
+                    )
+                pipe.run(pos_host.astype(np.int64), max(ns) - 1)
             pipe.report(stats)
             counts = counts.tolist()
         else:
@@ -502,9 +510,6 @@ def _track_batch_uniform(
                 progress=progress,
             )
         stats["sections"] = dict(timer.totals)
-        # the record carries the numbers as ``paws_stats`` for a handler
-        logger.debug("track_batch B=%d: %d frames on %s, %s", B, sum(counts) + B,
-                     tracker.device, stats, extra={"paws_stats": stats})
     finally:
         for p in prefetchers:
             p.close()  # join decode threads BEFORE destroying the sources
@@ -512,6 +517,10 @@ def _track_batch_uniform(
             s.close()
         for d in dias:
             d.close()
+    timer.finish(stats)
+    # the record carries the numbers as ``paws_stats`` for a handler
+    logger.debug("track_batch B=%d: %d frames on %s, %s", B, sum(counts) + B,
+                 tracker.device, stats, extra={"paws_stats": stats})
 
     out = []
     sz = np.array(frame_shape) - 1

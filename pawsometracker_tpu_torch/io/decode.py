@@ -43,6 +43,8 @@ from fractions import Fraction
 
 import numpy as np
 
+from ..utils.profiling import OFF
+
 logger = logging.getLogger(__name__)
 
 # one-time flags: fast_decode on a non-native path warns once per process,
@@ -635,7 +637,7 @@ class ChunkRing:
         """Whether ``chunk`` lies at the start of a buffer of the ring."""
         return chunk.ctypes.data in self._mine
 
-    def _take(self, shape) -> np.ndarray:
+    def _take(self, shape, timer) -> np.ndarray:
         try:
             buf, event = self._free.get_nowait()
         except queue.Empty:
@@ -643,18 +645,25 @@ class ChunkRing:
             self._mine[buf.ctypes.data] = buf
             self.made += 1
         if event is not None:
-            event.synchronize()  # the buffer is free once its copy to the card is done
+            with timer.span("ring.wait"):
+                event.synchronize()  # the buffer is free once its copy to the card is done
         return buf
 
-    def read(self, source, k: int, rows: int) -> np.ndarray:
+    def read(self, source, k: int, rows: int, timer=OFF) -> np.ndarray:
         """The source's next up to ``k`` frames, in a buffer of ``rows``
-        frames of the ring, or views of the caller's array without ``copy``."""
+        frames of the ring, or views of the caller's array without ``copy``.
+        ``timer``'s spans: ``stage.read`` (the source's read), ``stage.copy``
+        (the copy of viewed frames in), ``ring.wait`` (a buffer's last copy
+        to the card)."""
         if self._copy is None and getattr(source, "serves_views", False):
-            return source.read_chunk(k)
-        buf = self._take((rows,) + tuple(source.info.frame_shape))
-        chunk = source.read_chunk(k, out=buf)
+            with timer.span("stage.read"):
+                return source.read_chunk(k)
+        buf = self._take((rows,) + tuple(source.info.frame_shape), timer)
+        with timer.span("stage.read"):
+            chunk = source.read_chunk(k, out=buf)
         if len(chunk) and chunk.ctypes.data != buf.ctypes.data and self._copy is not None:
-            self._copy(chunk, buf[:len(chunk)])  # frames served as views: copied in
+            with timer.span("stage.copy"):
+                self._copy(chunk, buf[:len(chunk)])  # frames served as views: copied in
             chunk = buf[:len(chunk)]
         if not self.holds(chunk) or len(chunk) == 0:
             self._free.put((buf, None))
@@ -682,39 +691,56 @@ class ChunkPrefetcher:
     land in ``ring`` (:class:`ChunkRing`; a plain one by default, the
     full-frame engine's pinned one on the card), and the consumer hands each
     back with :meth:`recycle` once it is done with it.
+
+    ``timer``, the call's :class:`~..utils.profiling.Timer` (None: no spans),
+    records the consumer's waits for a chunk (``prefetch.wait``), and on the
+    thread, whose spans take as parent the span that made the prefetcher, the
+    ring's spans and its blocked hand-overs (``prefetch.full``); each with the
+    stream's ``lane``.
     """
 
     def __init__(self, source, chunk_size: int, max_frames: int | None = None, depth: int = 2,
-                 ring: ChunkRing | None = None):
+                 ring: ChunkRing | None = None, timer=None, lane: int = 0):
         self.source = source
         self.chunk_size = int(chunk_size)
         self.max_frames = max_frames
         self.ring = ChunkRing() if ring is None else ring
+        self.timer = OFF if timer is None else timer
+        self.lane = lane
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._err: BaseException | None = None
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread = threading.Thread(target=self._run, args=(self.timer.current(),),
+                                        name=f"paws-prefetch-{lane}", daemon=True)
         self._thread.start()
 
     def recycle(self, chunk: np.ndarray):
         """Return a consumed chunk's buffer to the ring for reuse."""
         self.ring.recycle(chunk)
 
-    def _run(self):
+    def _run(self, parent: int):
+        timer = self.timer
+        timer.adopt(parent)
         try:
             remaining = self.max_frames if self.max_frames is not None else math.inf
             while remaining > 0 and not self._stop.is_set():
                 k = int(min(self.chunk_size, remaining))
-                chunk = self.ring.read(self.source, k, self.chunk_size)
+                chunk = self.ring.read(self.source, k, self.chunk_size, timer)
                 if chunk.shape[0] == 0:
                     break
                 remaining -= chunk.shape[0]
-                while not self._stop.is_set():
-                    try:
-                        self._q.put(chunk, timeout=0.1)
-                        break
-                    except queue.Full:
-                        pass
+                try:
+                    self._q.put_nowait(chunk)
+                    continue
+                except queue.Full:
+                    pass
+                with timer.span("prefetch.full", lane=self.lane):
+                    while not self._stop.is_set():
+                        try:
+                            self._q.put(chunk, timeout=0.1)
+                            break
+                        except queue.Full:
+                            pass
         except BaseException as e:  # surface decode errors to the consumer
             self._err = e
         finally:
@@ -732,7 +758,8 @@ class ChunkPrefetcher:
 
     def __iter__(self):
         while True:
-            item = self._q.get()
+            with self.timer.span("prefetch.wait", lane=self.lane):
+                item = self._q.get()
             if item is None:
                 if self._err is not None:
                     raise self._err

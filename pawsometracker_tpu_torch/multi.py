@@ -108,6 +108,7 @@ def track_multi(
     (keyword-only): ``None`` is the CUDA card and raises when there is none;
     ``"cpu"`` runs the plain PyTorch version on the host.
     """
+    timer = Timer(entry="track_multi", videos=1)
     autodetect = start_locations is None
     if autodetect:
         if not n_targets or int(n_targets) < 1:
@@ -165,14 +166,14 @@ def track_multi(
     )
     prefetchers: list = []  # joined in finally BEFORE src.close()
     dia = None  # made INSIDE the try, so a failed open leaves no encoder behind; closed last
-    timer = Timer()
     try:
         with timer.section("setup"):
             # one shared overlay video, N markers/trails per frame
             dia = (Dont() if diagnostic_file is None
                    else Diagnose(diagnostic_file, darker_target, fps))
             sar_val = float(sar) if sar is not None else src.info.sar
-            frame0 = src.read()
+            with timer.span("frame1"):
+                frame0 = src.read()
             if frame0 is None:
                 raise EOFError(f"no frames decoded from {file}")
             frame_shape = frame0.shape
@@ -189,7 +190,8 @@ def track_multi(
                 _cb(done, _est)
 
         with timer.section("setup"):
-            fill = mode_u8_host(frame0)
+            with timer.span("mode", lane=0):
+                fill = mode_u8_host(frame0)
             spec = make_spec(frame_shape, window_size, target_width, darker_target)
             fns = tracker_fns(spec, dev, engine)
             # a C-ordered copy: frame 1 may be a read-only view, or strided
@@ -220,7 +222,8 @@ def track_multi(
                 pos = fns.snap_multi(frame0_dev, guesses, fill)
                 offs = []
 
-        out = [pos.cpu().numpy()[None]]
+        with timer.span("snap.wait"):
+            out = [pos.cpu().numpy()[None]]
         last_frame = 1
         # ROI streaming where the JAX package takes it: N crops a frame under
         # half the frame
@@ -273,15 +276,16 @@ def track_multi(
             offs.extend(off_blocks)
             last_frame += tracked
         stats["sections"] = dict(timer.totals)
-        # the record carries the numbers as ``paws_stats`` for a handler
-        logger.debug("track_multi %s: N=%d, %d frames on %s, %s", file, N, last_frame, dev,
-                     stats, extra={"paws_stats": stats})
     finally:
         for p in prefetchers:
             p.close()
         src.close()
         if dia is not None:
             dia.close()
+    timer.finish(stats)
+    # the record carries the numbers as ``paws_stats`` for a handler
+    logger.debug("track_multi %s: N=%d, %d frames on %s, %s", file, N, last_frame, dev,
+                 stats, extra={"paws_stats": stats})
 
     positions = np.concatenate(out, axis=0)
     ts = grid_prefix(start, stop, n, last_frame)

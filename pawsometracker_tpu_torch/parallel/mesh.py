@@ -33,6 +33,7 @@ import torch
 from ..models.dog_tracker import TrackerSpec, autodetect_spec, resolve_device, tracker_fns
 from ..ops.dog_kernel import dog_kernel_separable
 from ..ops.filters import argmax_colmajor
+from ..utils.profiling import OFF
 
 __all__ = [
     "Mesh",
@@ -224,20 +225,22 @@ class ShardedFn:
     ``segments[i]`` is shard i's ``scan_bounded_batch_super`` (S chained
     scans a launch, see :class:`~..models.dog_tracker.TrackerFns`), which the
     lane engines call a shard at a time and :meth:`segmented` calls over the
-    whole batch."""
+    whole batch. ``timer`` (a call's :class:`~..utils.profiling.Timer`;
+    None: no spans) records each shard's turn of a call as ``shard.launch``."""
 
-    def __init__(self, fns, mesh: Mesh, segments=None):
+    def __init__(self, fns, mesh: Mesh, segments=None, timer=None):
         self.fns = list(fns)
         self.mesh = mesh
         self.devices = mesh.data_devices()
         self.segments = None if segments is None else list(segments)
+        self.timer = OFF if timer is None else timer
 
     def __call__(self, *args):
         batch = args[0].shape[0]
         parts = [shard_lanes(a, BatchSharding(self.mesh, 1), batch) for a in args]
         outs = []
         for i, (fn, dev) in enumerate(zip(self.fns, self.devices)):
-            with on_device(dev):
+            with self.timer.span("shard.launch", shard=i), on_device(dev):
                 outs.append(fn(*(p[i] for p in parts)))
 
         def wrap(shards):
@@ -287,7 +290,8 @@ class ShardedFn:
 
     def map(self, make) -> "ShardedFn":
         """A new ShardedFn of ``make(fn, device)`` for each shard's function."""
-        return ShardedFn([make(f, d) for f, d in zip(self.fns, self.devices)], self.mesh)
+        return ShardedFn([make(f, d) for f, d in zip(self.fns, self.devices)], self.mesh,
+                         timer=self.timer)
 
 
 def _frame_response_parts(spec: TrackerSpec):
@@ -506,9 +510,11 @@ class ShardedBatchTracker:
     :func:`~..models.dog_tracker.tracker_fns`, except that ``"pallas"`` with a
     mesh raises, as in the JAX package. ``device``: without a mesh, as in
     ``tracker_fns``; with one, ``None`` or one of its devices (``.device``,
-    where single-device work goes)."""
+    where single-device work goes). ``timer``: the call's, for the per-shard
+    spans of the snaps over a mesh."""
 
-    def __init__(self, spec: TrackerSpec, mesh=None, engine: str = "auto", *, device=None):
+    def __init__(self, spec: TrackerSpec, mesh=None, engine: str = "auto", *, device=None,
+                 timer=None):
         self.spec = spec
         self.mesh = mesh
         if mesh is None:
@@ -538,7 +544,7 @@ class ShardedBatchTracker:
         det = _mesh_fns(autodetect_spec(spec), mesh, engine)
 
         def sharded(name, src):
-            return ShardedFn([getattr(f, name) for f in src], mesh)
+            return ShardedFn([getattr(f, name) for f in src], mesh, timer=timer)
 
         self.snap = sharded("snap_batch", fns)
         self.snap_detect = sharded("snap_batch", det)

@@ -376,17 +376,18 @@ class _ShardedEngine:
         out = []
         for i, (_, dev, _) in enumerate(self.shards):
             stream = self._copy_streams[dev]
-            with torch.cuda.device(dev), torch.cuda.stream(stream):
-                if s == 0 and group.consumed[i] is not None:
-                    stream.wait_event(group.consumed[i])
-                for dst, src in copies[i]:
-                    dst.copy_(src, non_blocking=True)
-                if events is None:
-                    out.append(_record(stream))
-                else:
-                    events[i].record(stream)
-                    out.append(events[i])
-            torch.cuda.current_stream(dev).wait_event(out[-1])
+            with self.timer.span("shard.copy_in", shard=i):
+                with torch.cuda.device(dev), torch.cuda.stream(stream):
+                    if s == 0 and group.consumed[i] is not None:
+                        stream.wait_event(group.consumed[i])
+                    for dst, src in copies[i]:
+                        dst.copy_(src, non_blocking=True)
+                    if events is None:
+                        out.append(_record(stream))
+                    else:
+                        events[i].record(stream)
+                        out.append(events[i])
+                torch.cuda.current_stream(dev).wait_event(out[-1])
         return out
 
     def _results(self, outs, bufs) -> list:
@@ -405,7 +406,7 @@ class _ShardedEngine:
                     for s in range(outs[0][0].shape[0])]
         done = []
         for i, ((sl, dev, _), (pos, off)) in enumerate(zip(self.shards, outs)):
-            with torch.cuda.device(dev):
+            with self.timer.span("shard.results", shard=i), torch.cuda.device(dev):
                 stream = torch.cuda.current_stream(dev)
                 self._group.consumed[i] = _record(stream)
                 for s, (pos_h, off_h) in enumerate(bufs):
@@ -428,8 +429,10 @@ class _ShardedEngine:
         if handle.result is None:
             self._flush()
         pos, off, done = handle.result
-        for e in done or ():
-            e.synchronize()
+        with self.timer.span("drain.wait"):
+            for i, e in enumerate(done or ()):
+                with self.timer.span("shard.wait", shard=i):
+                    e.synchronize()
         return pos.numpy().copy(), (None if off is None else off.numpy().copy())
 
     def _sync(self):
@@ -579,7 +582,7 @@ class _FullFrameEngine(_ShardedEngine):
                 frames = torch.from_numpy(entries[0].host[sl][None] if S == 1 else
                                           np.stack([e.host[sl] for e in entries]))
             T = frames.shape[-3]
-            with on_device(dev):
+            with self.timer.span("shard.launch", shard=i), on_device(dev):
                 if S == 1:
                     out = scan(frames[0], self.pos0[i], self.fill[i])
                     out = tuple(o[None] for o in out) if self.subpixel else out[None]
@@ -649,41 +652,43 @@ def run_full_pipeline(
         nonlocal tracked, drained
         handle, frames = pending.popleft()
         k = len(frames)
-        with timer.section("drain"):
-            t0 = time.perf_counter()
-            out_np, off_np = eng.to_host(handle)
-            blocked = time.perf_counter() - t0
-        drained += 1
-        # the first drains wait for the pipeline to fill, not for a round trip
-        if grow_groups and drained > depth + 2 and blocked > AUTO_DRAIN_BLOCK_S:
-            eng.grow_group(group_cap)
-        positions.append(out_np[:k])
-        if off_np is not None:
-            offsets.append(off_np[:k])
-        if keep:
-            with timer.section("diagnose"):
-                for i in range(k):
-                    dia(frames[i], out_np[i])
-        # the chunk's positions are in, so its copy to the card is done: the
-        # prefetcher may refill its buffer now
-        prefetch.recycle(frames)
-        tracked += k
-        if progress is not None:
-            progress(tracked, n_rest)
+        with timer.span("drain", seq=drained):
+            with timer.section("drain"):
+                t0 = time.perf_counter()
+                out_np, off_np = eng.to_host(handle)
+                blocked = time.perf_counter() - t0
+            drained += 1
+            # the first drains wait for the pipeline to fill, not for a round trip
+            if grow_groups and drained > depth + 2 and blocked > AUTO_DRAIN_BLOCK_S:
+                eng.grow_group(group_cap)
+            positions.append(out_np[:k])
+            if off_np is not None:
+                offsets.append(off_np[:k])
+            if keep:
+                with timer.section("diagnose"):
+                    for i in range(k):
+                        dia(frames[i], out_np[i])
+            # the chunk's positions are in, so its copy to the card is done: the
+            # prefetcher may refill its buffer now
+            prefetch.recycle(frames)
+            tracked += k
+            if progress is not None:
+                progress(tracked, n_rest)
 
-    try:
-        prefetch = ChunkPrefetcher(src, chunk_size, max_frames=n_rest, ring=ring)
-        prefetchers.append(prefetch)
-        for chunk in prefetch:
-            while len(pending) > depth:
+    with timer.span("pipeline", stream="full"):
+        try:
+            prefetch = ChunkPrefetcher(src, chunk_size, max_frames=n_rest, ring=ring, timer=timer)
+            prefetchers.append(prefetch)
+            for chunk in prefetch:
+                while len(pending) > depth:
+                    drain_one()
+                while pending and eng.ready(pending[0][0]):
+                    drain_one()
+                pending.append((eng.dispatch([chunk], chunk_size), chunk))
+            while pending:
                 drain_one()
-            while pending and eng.ready(pending[0][0]):
-                drain_one()
-            pending.append((eng.dispatch([chunk], chunk_size), chunk))
-        while pending:
-            drain_one()
-    finally:
-        eng.close()
+        finally:
+            eng.close()
     if stats is not None:
         stats["groups"] = eng.groups
     return positions, offsets, tracked
@@ -723,7 +728,7 @@ def run_batch_pipeline(
     positions: list[list] = [[] for _ in range(B)]
     offsets: list[list] = [[] for _ in range(B)]
     counts = [0] * B
-    pending: deque = deque()  # (handle, chunks)
+    pending: deque = deque()  # (handle, chunks, dispatch seq)
     eng = _FullFrameEngine(scan, pos0, fills, subpixel, timer, device, lanes=B,
                            rings=[p.ring for p in prefetchers])
 
@@ -741,39 +746,43 @@ def run_batch_pipeline(
         return chunks
 
     def drain_one():
-        handle, chunks = pending.popleft()
-        with timer.section("drain"):
-            out_np, off_np = eng.to_host(handle)
-        for b, chunk in enumerate(chunks):
-            if chunk is None:
-                continue
-            k = len(chunk)
-            positions[b].append(out_np[b, :k])
-            if off_np is not None:
-                offsets[b].append(off_np[b, :k])
-            counts[b] += k
-            if not isinstance(dias[b], Dont):
-                with timer.section("diagnose"):
-                    for i in range(k):
-                        dias[b](chunk[i], out_np[b, i])
-            prefetchers[b].recycle(chunk)
-        if progress is not None:
-            progress(sum(counts))
+        handle, chunks, seq = pending.popleft()
+        with timer.span("drain", seq=seq):
+            with timer.section("drain"):
+                out_np, off_np = eng.to_host(handle)
+            for b, chunk in enumerate(chunks):
+                if chunk is None:
+                    continue
+                k = len(chunk)
+                positions[b].append(out_np[b, :k])
+                if off_np is not None:
+                    offsets[b].append(off_np[b, :k])
+                counts[b] += k
+                if not isinstance(dias[b], Dont):
+                    with timer.section("diagnose"):
+                        for i in range(k):
+                            dias[b](chunk[i], out_np[b, i])
+                prefetchers[b].recycle(chunk)
+            if progress is not None:
+                progress(sum(counts))
 
-    try:
-        while True:
-            chunks = gather()
-            if all(c is None for c in chunks):
-                break
-            while len(pending) > depth:
+    with timer.span("pipeline", stream="full"):
+        try:
+            seq = 0
+            while True:
+                chunks = gather()
+                if all(c is None for c in chunks):
+                    break
+                while len(pending) > depth:
+                    drain_one()
+                while pending and eng.ready(pending[0][0]):
+                    drain_one()
+                pending.append((eng.dispatch(chunks, chunk_size), chunks, seq))
+                seq += 1
+            while pending:
                 drain_one()
-            while pending and eng.ready(pending[0][0]):
-                drain_one()
-            pending.append((eng.dispatch(chunks, chunk_size), chunks))
-        while pending:
-            drain_one()
-    finally:
-        eng.close()
+        finally:
+            eng.close()
     return positions, offsets, counts
 
 
@@ -1293,7 +1302,7 @@ class _RoiEngine(_ShardedEngine):
         group = self._group
         one = len(self.shards) == 1
         for i, ((sl, dev, _), (pos, off)) in enumerate(zip(self.shards, outs)):
-            with torch.cuda.device(dev):
+            with self.timer.span("shard.results", shard=i), torch.cuda.device(dev):
                 stream = torch.cuda.current_stream(dev)
                 group.launched[i].record(stream)
                 group.consumed[i] = group.launched[i]
@@ -1400,19 +1409,21 @@ class _SingleEngine(_RoiEngine):
     def _launch(self, entries) -> list:
         if self._cuda:  # the staged scan of the group, from its start or the chain
             pos0 = self._group.starts[0] if entries[0].first else self._prev[self._prev_k - 1]
-            out = self._group.staged[0].run(len(entries), pos0=pos0)
+            with self.timer.span("shard.launch", shard=0):
+                out = self._group.staged[0].run(len(entries), pos0=pos0)
             pos, off = out if self.subpixel else (out, None)
             self._prev, self._prev_k = pos[-1], entries[-1].k
             return self._finish(entries, [(pos[:, None], None if off is None else off[:, None])])
         [(frames, flat)] = self._inputs(entries)  # [S, 1, K, ch, cw], [S, n]
         a = _single_args(flat, frames.shape[2])
-        if len(entries) == 1:
-            pos0 = a.start[0] if entries[0].first else self._prev[self._prev_k - 1]
-            out = self.scan(frames[0, 0], pos0, self.fill, a.deltas[0], a.lo[0], a.hi[0])
-            out = tuple(x[None] for x in out) if self.subpixel else out[None]
-        else:  # a chained group: the chain started before it
-            out = self.seg_fns[0](frames[:, 0], self._prev[self._prev_k - 1], self.fill,
-                                  a.deltas, a.lo, a.hi, a.ks)
+        with self.timer.span("shard.launch", shard=0):
+            if len(entries) == 1:
+                pos0 = a.start[0] if entries[0].first else self._prev[self._prev_k - 1]
+                out = self.scan(frames[0, 0], pos0, self.fill, a.deltas[0], a.lo[0], a.hi[0])
+                out = tuple(x[None] for x in out) if self.subpixel else out[None]
+            else:  # a chained group: the chain started before it
+                out = self.seg_fns[0](frames[:, 0], self._prev[self._prev_k - 1], self.fill,
+                                      a.deltas, a.lo, a.hi, a.ks)
         pos, off = out if self.subpixel else (out, None)
         self._prev, self._prev_k = pos[-1], entries[-1].k
         return self._finish(entries, [(pos[:, None], None if off is None else off[:, None])])
@@ -1552,7 +1563,8 @@ class _BatchedEngine(_RoiEngine):
                     carry_in = self._group.starts[i]
                 else:
                     carry_in = carry
-                out = self._group.staged[i].run(len(entries), carry=carry_in, carry_out=carry)
+                with self.timer.span("shard.launch", shard=i):
+                    out = self._group.staged[i].run(len(entries), carry=carry_in, carry_out=carry)
                 outs.append(out if self.subpixel else (out, None))
             return self._finish(entries, outs)
         K = entries[0].buf.shape[1]
@@ -1561,7 +1573,7 @@ class _BatchedEngine(_RoiEngine):
                 zip(self.shards, self.lanes, self._inputs(entries), self.seg_fns)):
             a = _batch_args(flat, n, K)  # each [S, ...]
             carry = a.seed[0] if entries[0].first else self._carry[i]
-            with on_device(dev):
+            with self.timer.span("shard.launch", shard=i), on_device(dev):
                 out, _ = seg(frames, carry, self.fills[i], a.deltas, a.lo, a.hi, a.ks, a.origin0,
                              a.origin_last, carry_out=self._carry[i])
             outs.append(out if self.subpixel else (out, None))
@@ -1574,10 +1586,11 @@ class SingleVideoSource:
     chunk cropped here by ``crop`` (:func:`.ops.roi_crop.lane_cropper`; with
     per-frame diagnostics when asked). Fills ``buf [1, K, ch, cw]`` at
     per-frame origins, re-crops retained frames for a replay, and releases,
-    recycles and diagnoses accepted frames."""
+    recycles and diagnoses accepted frames. ``timer``: the call's, for the
+    prefetcher's spans."""
 
     def __init__(self, src, *, K, ch, cw, fill, dia, mode, native_roi, depth, n_rest,
-                 prefetchers, crop=crop_lanes_plain):
+                 prefetchers, crop=crop_lanes_plain, timer=None):
         from .diagnose import Dont
 
         self.src = src
@@ -1602,7 +1615,7 @@ class SingleVideoSource:
         )
         self._pf = None
         if not (self.use_native_roi or self.use_native_retained):
-            self._pf = ChunkPrefetcher(src, K, max_frames=n_rest)
+            self._pf = ChunkPrefetcher(src, K, max_frames=n_rest, timer=timer)
             prefetchers.append(self._pf)
             self._it = iter(self._pf)
 
@@ -1670,10 +1683,11 @@ class FanoutSource:
     retained ring (``advance_retained``, then ``recrop`` per lane, at every
     depth, contain mode included: its gate is the ring's size), or a shared
     prefetched chunk cropped here. The shared overlay is drawn at accept time
-    with all N positions of a frame."""
+    with all N positions of a frame. ``timer``: the call's, for the
+    prefetcher's spans."""
 
     def __init__(self, src, *, N, K, ch, cw, fill, mode, depth, n_rest, prefetchers, dia=None,
-                 crop=crop_lanes_plain):
+                 crop=crop_lanes_plain, timer=None):
         from .diagnose import Dont
 
         self.src = src
@@ -1693,7 +1707,7 @@ class FanoutSource:
         self._retained = 0  # frames advanced into the ring and not yet released
         self._pf = None
         if not self.native:
-            self._pf = ChunkPrefetcher(src, K, max_frames=n_rest)
+            self._pf = ChunkPrefetcher(src, K, max_frames=n_rest, timer=timer)
             prefetchers.append(self._pf)
             self._it = iter(self._pf)
 
@@ -1876,11 +1890,13 @@ class _Pending:
     candidate). ``blind``: aimed before any velocity estimate existed (the
     run-start probe), so the error-gated depth controller does not learn from
     its miss. ``off [L]``: this entry's frame offset within its ``tokens``
-    (non-zero only for the second half of a split)."""
+    (non-zero only for the second half of a split). ``seq``: the pipeline's
+    dispatch count when it was dispatched (the spans' ``seq``)."""
 
-    __slots__ = ("handle", "origins", "valid", "tokens", "buf", "exact", "off", "blind")
+    __slots__ = ("handle", "origins", "valid", "tokens", "buf", "exact", "off", "blind", "seq")
 
-    def __init__(self, handle, origins, valid, tokens, buf, exact=False, off=None, blind=False):
+    def __init__(self, handle, origins, valid, tokens, buf, exact=False, off=None, blind=False,
+                 seq=0):
         self.handle = handle
         self.origins = origins
         self.valid = valid
@@ -1889,6 +1905,7 @@ class _Pending:
         self.exact = exact
         self.off = np.zeros(len(valid), np.int64) if off is None else off
         self.blind = blind
+        self.seq = seq
 
 
 class SpeculativePipeline:
@@ -2154,10 +2171,11 @@ class SpeculativePipeline:
         j = max(1, k // 2)
         v1 = np.minimum(ent.valid, j)
         v2 = ent.valid - v1
-        first = _Pending(None, ent.origins, v1, ent.tokens, ent.buf, off=ent.off)
+        first = _Pending(None, ent.origins, v1, ent.tokens, ent.buf, off=ent.off, seq=ent.seq)
         if v2.max() <= 0:
             return [first]
-        return [first, _Pending(None, ent.origins, v2, ent.tokens, None, off=ent.off + v1)]
+        return [first, _Pending(None, ent.origins, v2, ent.tokens, None, off=ent.off + v1,
+                                seq=ent.seq)]
 
     def _dispatch_rewind(self):
         """Re-dispatch the oldest replayed chunk. Its frames are not the
@@ -2165,46 +2183,51 @@ class SpeculativePipeline:
         the source gets their frame counts as the ``base`` offset."""
         ent = self._rewind.popleft()
         exact = not self._pending  # frame 0's aim degenerates to P - margin
-        with self.timer.section("aim"):
-            origins = self._aim()
-        base = np.zeros(self.L, np.int64)
-        for p in self._pending:
-            base += p.valid
-        buf = self._take_buffer()
-        self.source.recrop(ent.tokens, ent.valid, origins, buf, self.timer, base, ent.off)
-        handle = self.engine.dispatch(buf, origins, self.P, ent.valid)
+        seq = self.dispatches
+        with self.timer.span("dispatch", seq=seq, replay=True):
+            with self.timer.section("aim"):
+                origins = self._aim()
+            base = np.zeros(self.L, np.int64)
+            for p in self._pending:
+                base += p.valid
+            buf = self._take_buffer()
+            self.source.recrop(ent.tokens, ent.valid, origins, buf, self.timer, base, ent.off)
+            handle = self.engine.dispatch(buf, origins, self.P, ent.valid)
         self.dispatches += 1
         self._pending.append(_Pending(handle, origins, ent.valid, ent.tokens, buf, exact=exact,
-                                      off=ent.off))
+                                      off=ent.off, seq=seq))
         self._give_buffer(ent.buf)
 
     def _drain_one(self):
         entry = self._pending.popleft()
-        with self.timer.section("drain"):
-            t0 = time.perf_counter()
-            pos_np, off_np = self.engine.to_host(entry.handle)
-            blocked = time.perf_counter() - t0
-        if self.auto_depth and blocked > AUTO_DRAIN_BLOCK_S:
-            if self.depth_cur < min(self.depth_max, self._depth_soft_cap):
-                # the lagged drain still blocked: add a chunk of slack (up to
-                # the replay-learned soft cap)
-                self.depth_cur += 1
-            else:
-                # blocked at the ceiling: the soft cap may be explored, and
-                # where groups pay, more chunks a launch (capped so that two
-                # groups stay in flight); never in the same event as deepening
-                if self._depth_soft_cap < self.depth_max:
-                    self._cap_wanted = True
-                grow = getattr(self.engine, "grow_group", None)
-                if self._grow_groups and grow is not None:
-                    grow(max(1, (self.depth_cur + 1) // 2))
-        if self.mode == "predict" and not self._contained(pos_np, entry.origins, entry.valid):
-            head = self._split_exact(entry) if entry.exact else [entry]
-            rest = list(self._pending)
-            self._pending.clear()
-            self._replay(head + rest)
-            return
-        self._accept(pos_np, off_np, entry)
+        with self.timer.span("drain", seq=entry.seq):
+            with self.timer.section("drain"):
+                t0 = time.perf_counter()
+                pos_np, off_np = self.engine.to_host(entry.handle)
+                blocked = time.perf_counter() - t0
+            if self.auto_depth and blocked > AUTO_DRAIN_BLOCK_S:
+                if self.depth_cur < min(self.depth_max, self._depth_soft_cap):
+                    # the lagged drain still blocked: add a chunk of slack (up to
+                    # the replay-learned soft cap)
+                    self.depth_cur += 1
+                else:
+                    # blocked at the ceiling: the soft cap may be explored, and
+                    # where groups pay, more chunks a launch (capped so that two
+                    # groups stay in flight); never in the same event as deepening
+                    if self._depth_soft_cap < self.depth_max:
+                        self._cap_wanted = True
+                    grow = getattr(self.engine, "grow_group", None)
+                    if self._grow_groups and grow is not None:
+                        grow(max(1, (self.depth_cur + 1) // 2))
+            if self.mode == "predict" and not self._contained(pos_np, entry.origins, entry.valid):
+                head = self._split_exact(entry) if entry.exact else [entry]
+                rest = list(self._pending)
+                self._pending.clear()
+                with self.timer.span("replay", seq=entry.seq):
+                    self._replay(head + rest)
+                return
+            with self.timer.span("accept"):
+                self._accept(pos_np, off_np, entry)
 
     # -- main loop ----------------------------------------------------------
     def run(self, pos0_abs, n_rest: int):
@@ -2258,24 +2281,26 @@ class SpeculativePipeline:
                         self._drain_one()
                         continue
                     break
-                with self.timer.section("aim"):
-                    origins = self._aim()
-                buf = self._take_buffer()
-                take = remaining
-                if self.mode == "predict" and not self._vel_ready:
-                    # no velocity yet: a short probe chunk learns it (the scan
-                    # runs all K rows; the extra ones are discarded)
-                    take = min(remaining, max(2, self.K // 4))
-                got = self.source.acquire(take, origins, buf, self.timer)
-                if got is None:
-                    self._free.append(buf)
-                    eof = True
-                    continue
-                tokens, valid = got
-                handle = self.engine.dispatch(buf, origins, self.P, valid)
+                seq = self.dispatches
+                with self.timer.span("dispatch", seq=seq, replay=False):
+                    with self.timer.section("aim"):
+                        origins = self._aim()
+                    buf = self._take_buffer()
+                    take = remaining
+                    if self.mode == "predict" and not self._vel_ready:
+                        # no velocity yet: a short probe chunk learns it (the scan
+                        # runs all K rows; the extra ones are discarded)
+                        take = min(remaining, max(2, self.K // 4))
+                    got = self.source.acquire(take, origins, buf, self.timer)
+                    if got is None:
+                        self._free.append(buf)
+                        eof = True
+                        continue
+                    tokens, valid = got
+                    handle = self.engine.dispatch(buf, origins, self.P, valid)
                 self.dispatches += 1
                 self._pending.append(_Pending(handle, origins, valid, tokens, buf,
-                                              blind=not self._vel_ready))
+                                              blind=not self._vel_ready, seq=seq))
                 remaining -= int(valid.max())
             if self.auto_depth:
                 # recorded on a clean finish only
@@ -2367,21 +2392,23 @@ def run_roi_pipeline(
         if progress is not None:
             progress(done, n_rest)
 
-    with timer.section("buffers"):  # the controller, its pinned crop buffers
-        pipe = SpeculativePipeline(
-            L=1, K=K, crop_shape=(ch, cw), margin=margin, spec=spec, mode=mode, depth=depth,
-            auto_cap=depth_max if depth == "auto" else None,
-            engine=_SingleEngine(fns.scan_sub if subpixel else fns.scan_bounded, (ch, cw),
-                                 spec.frame_shape, fill, subpixel, timer, device,
-                                 segments=functools.partial(fns.scan_bounded_super,
-                                                            subpixel=subpixel)),
-            source=SingleVideoSource(src, K=K, ch=ch, cw=cw, fill=fill, dia=dia, mode=mode,
-                                     native_roi=native_roi, depth=depth_max, n_rest=n_rest,
-                                     prefetchers=prefetchers, crop=lane_cropper(device)),
-            sink=sink,
-            timer=timer,
-        )
-    tracked = pipe.run(np.asarray(pos0_abs).reshape(1, 2), n_rest)
+    with timer.span("pipeline", stream="roi"):
+        with timer.section("buffers"):  # the controller, its pinned crop buffers
+            pipe = SpeculativePipeline(
+                L=1, K=K, crop_shape=(ch, cw), margin=margin, spec=spec, mode=mode, depth=depth,
+                auto_cap=depth_max if depth == "auto" else None,
+                engine=_SingleEngine(fns.scan_sub if subpixel else fns.scan_bounded, (ch, cw),
+                                     spec.frame_shape, fill, subpixel, timer, device,
+                                     segments=functools.partial(fns.scan_bounded_super,
+                                                                subpixel=subpixel)),
+                source=SingleVideoSource(src, K=K, ch=ch, cw=cw, fill=fill, dia=dia, mode=mode,
+                                         native_roi=native_roi, depth=depth_max, n_rest=n_rest,
+                                         prefetchers=prefetchers, crop=lane_cropper(device),
+                                         timer=timer),
+                sink=sink,
+                timer=timer,
+            )
+        tracked = pipe.run(np.asarray(pos0_abs).reshape(1, 2), n_rest)
     if stats is not None:
         pipe.report(stats)
     return positions, offsets, int(tracked[0])
@@ -2446,19 +2473,21 @@ def run_multi_roi_pipeline(
         if progress is not None:
             progress(done, n_rest)
 
-    with timer.section("buffers"):  # the controller, its pinned crop buffers
-        pipe = SpeculativePipeline(
-            L=N, K=K, crop_shape=(ch, cw), margin=margin, spec=spec, mode=mode, depth=depth,
-            auto_cap=depth_max if depth == "auto" else None,
-            engine=_BatchedEngine(scan, (ch, cw), spec.frame_shape, np.full(N, fill, np.uint8),
-                                  subpixel, timer, device, segments=segments),
-            source=FanoutSource(src, N=N, K=K, ch=ch, cw=cw, fill=fill, mode=mode, depth=depth_max,
-                                n_rest=n_rest, prefetchers=prefetchers, dia=dia,
-                                crop=lane_cropper(device)),
-            sink=sink,
-            timer=timer,
-        )
-    tracked = pipe.run(np.asarray(pos0_abs, np.int64), n_rest)
+    with timer.span("pipeline", stream="roi"):
+        with timer.section("buffers"):  # the controller, its pinned crop buffers
+            pipe = SpeculativePipeline(
+                L=N, K=K, crop_shape=(ch, cw), margin=margin, spec=spec, mode=mode, depth=depth,
+                auto_cap=depth_max if depth == "auto" else None,
+                engine=_BatchedEngine(scan, (ch, cw), spec.frame_shape,
+                                      np.full(N, fill, np.uint8), subpixel, timer, device,
+                                      segments=segments),
+                source=FanoutSource(src, N=N, K=K, ch=ch, cw=cw, fill=fill, mode=mode,
+                                    depth=depth_max, n_rest=n_rest, prefetchers=prefetchers,
+                                    dia=dia, crop=lane_cropper(device), timer=timer),
+                sink=sink,
+                timer=timer,
+            )
+        tracked = pipe.run(np.asarray(pos0_abs, np.int64), n_rest)
     if stats is not None:
         pipe.report(stats)
     return positions, offsets, int(tracked[0])

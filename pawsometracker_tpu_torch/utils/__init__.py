@@ -1,3 +1,3 @@
 """Utilities: profiling hooks and timers."""
 
-from .profiling import Timer, annotate, trace
+from .profiling import Timer, trace

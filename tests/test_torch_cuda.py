@@ -2043,3 +2043,35 @@ def test_staging_buffers_wait_for_their_copy_on_card(card, monkeypatch):
     kw = dict(fps=24, target_width=10, chunk_size=8, stream="full", pipeline_depth=3,
               start_location=None)
     np.testing.assert_array_equal(track(frames, **kw)[1], track(frames, device="cpu", **kw)[1])
+
+
+def test_spans_are_on_the_device_traces_clock(card):
+    """In 100 of 100 tries a kernel launched inside a span starts, on the
+    device trace a profiler session of CUDA activity gives (the benchmark's),
+    after the span's start and less than 1 ms after its end: the spans'
+    ``time.time_ns()`` is the trace's clock, with no offset to calibrate."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pawsometracker_tpu_torch.utils.profiling import Timer
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        timer = Timer()
+        for i in range(100):
+            with timer.span("launch", i=i):
+                torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+        timer.finish(stats := {})
+    spans = sorted((s for s in stats["spans"] if s.name == "launch"), key=lambda s: s.attrs["i"])
+
+    def start_ns(e):
+        return int(e.start_ns()) if hasattr(e, "start_ns") else int(e.start_us()) * 1000
+
+    kernels = sorted(start_ns(e) for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA)
+    assert len(spans) == len(kernels) == 100
+    late = [k - s.end_ns for s, k in zip(spans, kernels)]
+    assert all(s.start_ns <= k for s, k in zip(spans, kernels))
+    assert max(late) < 1_000_000, max(late)

@@ -32,6 +32,7 @@ from pawsometracker_tpu.parallel.mesh import ShardedBatchTracker as RefTracker
 from pawsometracker_tpu_torch.models.dog_tracker import make_spec, tracker_fns
 from pawsometracker_tpu_torch.ops import tracker_kernel as tk
 from pawsometracker_tpu_torch.parallel.mesh import ShardedBatchTracker, make_mesh
+from pawsometracker_tpu_torch.utils.profiling import Timer
 
 import helpers
 from test_tracker_core import draw_blob
@@ -490,13 +491,6 @@ def test_track_batch_mesh_group_matches_jax(tmp_path, monkeypatch, port_stats, s
 # ---- the engines' group semantics --------------------------------------------------
 
 
-class _T:
-    def section(self, _):
-        import contextlib
-
-        return contextlib.nullcontext()
-
-
 def _engines():
     """A single, a batched and a full-frame engine on the CPU, each with its
     segmented scan."""
@@ -506,14 +500,14 @@ def _engines():
     cpu = torch.device("cpu")
     return {
         "single": lambda: pipeline._SingleEngine(fns.scan_bounded, (61, 61), (200, 200), 128,
-                                                 False, _T(), cpu,
+                                                 False, Timer(), cpu,
                                                  segments=fns.scan_bounded_super),
         "batched": lambda: pipeline._BatchedEngine(tracker.scan_bounded, (61, 61), (200, 200),
-                                                   [128, 128], False, _T(), cpu,
+                                                   [128, 128], False, Timer(), cpu,
                                                    segments=fns.scan_bounded_batch_super),
         "full": lambda: pipeline._FullFrameEngine(
             tracker_fns(make_spec((200, 200), 21, 10, True), "cpu").scan, np.array([50, 50]),
-            128, False, _T(), cpu,
+            128, False, Timer(), cpu,
             segments=tracker_fns(make_spec((200, 200), 21, 10, True), "cpu").scan_super),
     }
 
@@ -560,7 +554,7 @@ def test_engine_without_segmented_scan_never_groups(monkeypatch):
     monkeypatch.setenv("PAWS_DISPATCH_GROUP", "3")
     spec = make_spec((200, 200), 21, 10, True)
     eng = pipeline._FullFrameEngine(tracker_fns(spec, "cpu").scan_multi, np.array([[50, 50]]),
-                                    128, False, _T(), torch.device("cpu"))
+                                    128, False, Timer(), torch.device("cpu"))
     assert eng.group_target == 1
     eng.grow_group()
     assert eng.group_target == 1
@@ -633,7 +627,7 @@ def test_auto_depth_memo_carries_the_group(monkeypatch):
     pipeline._AUTO_DEPTH_MEMO.clear()
     try:
         kw = dict(L=1, K=8, crop_shape=(61, 61), margin=(30, 30), spec=spec, mode="predict",
-                  depth="auto", source=Src(), sink=None, timer=_T())
+                  depth="auto", source=Src(), sink=None, timer=Timer())
         p = pipeline.SpeculativePipeline(engine=Eng(), **kw)
         p.run(np.array([[50, 50]]), 10)
         assert pipeline._AUTO_DEPTH_MEMO[p._memo_key] == (1, pipeline.AUTO_DEPTH_MAX, 1)
