@@ -653,8 +653,8 @@ class ChunkRing:
         """The source's next up to ``k`` frames, in a buffer of ``rows``
         frames of the ring, or views of the caller's array without ``copy``.
         ``timer``'s spans: ``stage.read`` (the source's read), ``stage.copy``
-        (the copy of viewed frames in), ``ring.wait`` (a buffer's last copy
-        to the card)."""
+        (the copy of viewed frames in, its ``form`` what ``copy`` returned),
+        ``ring.wait`` (a buffer's last copy to the card)."""
         if self._copy is None and getattr(source, "serves_views", False):
             with timer.span("stage.read"):
                 return source.read_chunk(k)
@@ -662,8 +662,8 @@ class ChunkRing:
         with timer.span("stage.read"):
             chunk = source.read_chunk(k, out=buf)
         if len(chunk) and chunk.ctypes.data != buf.ctypes.data and self._copy is not None:
-            with timer.span("stage.copy"):
-                self._copy(chunk, buf[:len(chunk)])  # frames served as views: copied in
+            with timer.span("stage.copy") as span:  # frames served as views: copied in
+                span.note(form=self._copy(chunk, buf[:len(chunk)]))
             chunk = buf[:len(chunk)]
         if not self.holds(chunk) or len(chunk) == 0:
             self._free.put((buf, None))

@@ -13,10 +13,11 @@ gives the pipelines the native one on the card and the plain one on the CPU;
 a native library that does not build raises, it never hands over to numpy on
 the card.
 
-The same call copies whole frames: a crop of the whole frame at origin
-(0, 0) has no border. :func:`copy_frames_native` is the full-frame engine's
-staging copy of frames served as views into a pinned buffer on the card
-(:func:`frame_copier`); on the CPU the engine copies each chunk itself.
+:func:`copy_frames_native` is the full-frame engine's staging copy of frames
+served as views into a pinned buffer on the card (:func:`frame_copier`), a
+call of its own in the same library: long byte ranges in non-temporal stores,
+in the form the view's strides allow (:data:`COPY_FORMS`). On the CPU the
+engine copies each chunk itself.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ import numpy as np
 
 __all__ = ["crop_with_fill", "crop_lanes_plain", "crop_lanes_native", "crop_threads",
            "lane_cropper", "copy_frames_native", "frame_copier",
-           "native_calls", "copy_calls", "THREADS", "BYTES_PER_THREAD"]
+           "native_calls", "copy_calls", "copy_forms", "COPY_FORMS", "THREADS",
+           "BYTES_PER_THREAD"]
 
 #: most threads one native call spreads its crops over (the caller's and
 #: helpers), leaving two of the host's cores to the caller's other threads: a
@@ -43,6 +45,12 @@ BYTES_PER_THREAD = 512 * 1024
 native_calls = 0
 #: native frame copies since import (each one staged chunk)
 copy_calls = 0
+#: the forms of ``copy_frames`` (``csrc/roi_crop.cpp``), by the code it
+#: returns: ``block``, the frames one contiguous run; ``frames``, each frame
+#: contiguous but lying apart; ``rows``, rows lying apart (or mirrored)
+COPY_FORMS = ("block", "frames", "rows")
+#: native frame copies since import, by form
+copy_forms = dict.fromkeys(COPY_FORMS, 0)
 
 
 def crop_threads(nbytes: int) -> int:
@@ -99,14 +107,23 @@ def _lib():
     from ._build import kernel_library
 
     lib = kernel_library("roi_crop")
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.roi_crop_lanes.argtypes = [i32, vp, i32, i32, i32, vp, i32, i32, vp, vp, i32]
     lib.roi_crop_lanes.restype = i32
+    lib.copy_frames.argtypes = [vp, i64, i64, i32, i32, i32, vp, i32]
+    lib.copy_frames.restype = i32
     return lib
 
 
-def _native(chunks, counts, origins, fills, out: np.ndarray, threads) -> None:
-    """One call of ``roi_crop_lanes`` (:func:`crop_lanes_native`)."""
+def crop_lanes_native(chunks, counts, origins, fills, out: np.ndarray,
+                      threads: int | None = None) -> None:
+    """:func:`crop_lanes_plain` in one call of ``csrc/roi_crop.cpp`` on
+    ``threads`` threads (by default one for each :data:`BYTES_PER_THREAD` of
+    crops, up to :data:`THREADS`): every lane's crops of the chunk, with
+    Python's lock released. ``out`` is C-contiguous; each chunk's frames have
+    1-byte columns. Raises when the library does not build or load, or the
+    call refuses its arguments."""
+    global native_calls
     L, K, ch, cw = out.shape
     if out.dtype != np.uint8 or not out.flags.c_contiguous:
         raise ValueError(f"out must be a C-contiguous uint8 [L, K, ch, cw], got {out.dtype}")
@@ -136,34 +153,36 @@ def _native(chunks, counts, origins, fills, out: np.ndarray, threads) -> None:
     if err:
         raise ValueError(f"roi_crop_lanes refused its arguments: counts {list(counts)}, K={K},"
                          f" frames {H}x{W}, crops {ch}x{cw}")
-
-
-def crop_lanes_native(chunks, counts, origins, fills, out: np.ndarray,
-                      threads: int | None = None) -> None:
-    """:func:`crop_lanes_plain` in one call of ``csrc/roi_crop.cpp`` on
-    ``threads`` threads (by default one for each :data:`BYTES_PER_THREAD` of
-    crops, up to :data:`THREADS`): every lane's crops of the chunk, with
-    Python's lock released. ``out`` is C-contiguous; each chunk's frames have
-    1-byte columns. Raises when the library does not build or load, or the
-    call refuses its arguments."""
-    global native_calls
-    _native(chunks, counts, origins, fills, out, threads)
     native_calls += 1
 
 
-def copy_frames_native(src: np.ndarray, dst: np.ndarray, threads: int | None = None) -> None:
+def copy_frames_native(src: np.ndarray, dst: np.ndarray, threads: int | None = None) -> str:
     """Copy the frames ``src [k, H, W]`` into ``dst`` of the same shape in one
-    call of ``csrc/roi_crop.cpp``: each frame cropped whole at origin (0, 0),
-    so with no border, on up to :data:`THREADS` threads with Python's lock
-    released. ``dst`` is C-contiguous; ``src``'s frames have 1-byte columns.
-    Raises as :func:`crop_lanes_native` does."""
+    call of ``csrc/roi_crop.cpp``'s ``copy_frames`` on ``threads`` threads (by
+    default one for each :data:`BYTES_PER_THREAD`, up to :data:`THREADS`),
+    with Python's lock released. ``dst`` is C-contiguous; ``src``'s frames
+    have 1-byte columns. Returns the form the copy took (:data:`COPY_FORMS`),
+    counted in :data:`copy_forms`. Raises when the library does not build or
+    load, or the call refuses its arguments."""
     global copy_calls
-    if src.shape != dst.shape:
+    if src.shape != dst.shape or src.ndim != 3:
         raise ValueError(f"copy of frames {src.shape} into {dst.shape}")
-    k = len(src)
-    _native([src], [k], np.zeros((1, k, 2), np.int64), np.zeros(1, np.uint8), dst[None],
-            threads)
+    if dst.dtype != np.uint8 or not dst.flags.c_contiguous:
+        raise ValueError(f"dst must be a C-contiguous uint8 [k, H, W], got {dst.dtype}")
+    if src.dtype != np.uint8 or src.strides[2] != 1:
+        raise ValueError(f"uint8 [k, H, W] frames with 1-byte columns are needed, got"
+                         f" {src.dtype} {src.shape} {src.strides}")
+    k, H, W = src.shape
+    if threads is None:
+        threads = crop_threads(src.nbytes)
+    form = _lib().copy_frames(src.ctypes.data, src.strides[0], src.strides[1], k, H, W,
+                              dst.ctypes.data, int(threads))
+    if not 0 <= form < len(COPY_FORMS):
+        raise ValueError(f"copy_frames refused its arguments: {k} frames {H}x{W}, strides"
+                         f" {src.strides}, {threads} threads")
     copy_calls += 1
+    copy_forms[COPY_FORMS[form]] += 1
+    return COPY_FORMS[form]
 
 
 def frame_copier():

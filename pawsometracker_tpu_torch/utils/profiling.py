@@ -68,6 +68,9 @@ class _Off:
     def __exit__(self, *exc):
         return False
 
+    def note(self, **attrs):
+        pass
+
 
 _OFF = _Off()
 _new_span = tuple.__new__  # a Span without NamedTuple's argument handling
@@ -95,6 +98,10 @@ class _Open:
         self.timer.spans.append(_new_span(Span, (self.name, self.start, end, self.id, self.parent,
                                                  self.timer.call, self.thread, self.attrs)))
         return False
+
+    def note(self, **attrs):
+        """Add ``attrs`` learnt inside the span (a copy's ``form``)."""
+        self.attrs = {**(self.attrs or {}), **attrs}
 
 
 def _profiling() -> bool:
@@ -152,8 +159,9 @@ class Timer:
             self.totals[name] = self.totals.get(name, 0.0) + time.perf_counter() - t0
 
     def span(self, name: str, **attrs):
-        """A span of the block, with ``attrs``; it adds nothing to ``totals``.
-        When not recording, one shared context manager that does nothing."""
+        """A span of the block, with ``attrs``, and any its ``note`` adds
+        inside it; it adds nothing to ``totals``. When not recording, one
+        shared context manager that does nothing."""
         if self.spans is None:
             return _OFF
         return _Open(self, name, attrs)

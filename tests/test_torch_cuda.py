@@ -1982,29 +1982,68 @@ def test_array_layouts_equal_cpu(card, entry, stream, layout, start):
         np.testing.assert_array_equal(ij, ij_c)
 
 
-def test_native_frame_copy_equals_numpy(card):
-    """The staging copy (csrc/roi_crop.cpp, each frame cropped whole) equals
-    the frames it copies: views of a contiguous array, views whose rows lie
-    apart, one frame and 64, on one thread and on the pool's."""
+#: the staging copy's sources, cut from a [70, H, W] array ``f``, a wider one
+#: ``w`` and a flat buffer ``b``, each with the form it takes
+H, W = 1080, 1920
+FRAME_COPY_SOURCES = {
+    "64 of a contiguous array": (lambda f, w, b: f[3:67], "block"),
+    "one frame": (lambda f, w, b: f[5:6], "block"),
+    "rows apart, 64 frames": (lambda f, w, b: f[2:66, :, :1918], "rows"),
+    "rows apart, cut": (lambda f, w, b: f[4:20, 7:1000, 1:], "rows"),
+    "frames apart": (lambda f, w, b: f[::2], "frames"),
+    "frames in reverse": (lambda f, w, b: f[66:2:-1], "frames"),
+    "mirrored rows": (lambda f, w, b: f[:, ::-1], "rows"),
+    "1 byte off, column 1 of a wider array": (lambda f, w, b: w[:, :, 1:], "rows"),
+    "1 byte off, a flat buffer": (lambda f, w, b: b[1:1 + 48 * H * W].reshape(48, H, W), "block"),
+    "width 1917": (lambda f, w, b: b[3:3 + 48 * H * 1917].reshape(48, H, 1917), "block"),
+    "width 1000, rows apart": (lambda f, w, b: f[:, :, 500:1500], "rows"),
+    "k 1, mirrored rows": (lambda f, w, b: f[9:10, ::-1], "rows"),
+    "k 48": (lambda f, w, b: f[10:58], "block"),
+    "k 64, mirrored rows": (lambda f, w, b: f[3:67, ::-1], "rows"),
+}
+
+
+@pytest.fixture(scope="module")
+def copy_sources():
+    rng = np.random.default_rng(5)
+    return (rng.integers(0, 256, (70, H, W), dtype=np.uint8),
+            rng.integers(0, 256, (48, H, W + 5), dtype=np.uint8),
+            rng.integers(0, 256, 48 * H * W + 64, dtype=np.uint8))
+
+
+@pytest.mark.parametrize("threads", ["1", "pool"])
+@pytest.mark.parametrize("source", list(FRAME_COPY_SOURCES))
+def test_native_frame_copy_equals_numpy(card, copy_sources, source, threads):
+    """The staging copy (csrc/roi_crop.cpp's copy_frames) equals the frames
+    it copies, on one thread and on the pool's, in the form the strides
+    allow (the counter records it), into a destination that is a view of a
+    larger buffer at an odd offset, whose guard bytes stay untouched."""
     from pawsometracker_tpu_torch.ops import roi_crop
 
-    rng = np.random.default_rng(5)
-    frames = rng.integers(0, 256, (70, 1080, 1920), dtype=np.uint8)
-    for src in (frames[3:67], frames[5:6], frames[2:66, :, :1918], frames[4:20, 7:1000, 1:]):
-        for threads in (1, roi_crop.THREADS):
-            dst = np.full(src.shape, 7, np.uint8)
-            before = roi_crop.copy_calls
-            roi_crop.copy_frames_native(src, dst, threads=threads)
-            assert roi_crop.copy_calls == before + 1
-            np.testing.assert_array_equal(dst, src)
+    cut, form = FRAME_COPY_SOURCES[source]
+    src = cut(*copy_sources)
+    guard = 3
+    big = np.full(src.size + guard + 64, 7, np.uint8)
+    dst = big[guard:guard + src.size].reshape(src.shape)
+    before, forms = roi_crop.copy_calls, dict(roi_crop.copy_forms)
+    got = roi_crop.copy_frames_native(src, dst, threads=1 if threads == "1" else roi_crop.THREADS)
+    assert got == form
+    assert roi_crop.copy_calls == before + 1
+    assert roi_crop.copy_forms == {**forms, form: forms[form] + 1}
+    np.testing.assert_array_equal(dst, src)
+    assert (big[:guard] == 7).all() and (big[guard + src.size:] == 7).all()
 
 
 class _Refusing:
-    """A native library whose crop refuses every call."""
+    """A native library whose crop and staging copy refuse every call."""
 
     class roi_crop_lanes:  # noqa: N801  (the C function's name)
         def __new__(cls, *a):
             return 1
+
+    class copy_frames:  # noqa: N801  (the C function's name)
+        def __new__(cls, *a):
+            return -1
 
 
 @pytest.mark.parametrize("entry", ["track", "track_batch"])

@@ -523,6 +523,10 @@ def test_staging_copy_that_is_refused_raises(monkeypatch):
         def roi_crop_lanes(*a):
             return 1
 
+        @staticmethod
+        def copy_frames(*a):
+            return -1
+
     monkeypatch.setattr(roi_crop, "_lib", lambda: Refusing)
     frames = numbered(6)
     with pytest.raises(ValueError, match="refused"):

@@ -164,6 +164,29 @@ def test_staging_ring_records_its_copy():
     assert names == ["stage.read", "stage.copy", "call"]
 
 
+def test_staging_copy_span_carries_the_copiers_form():
+    """The ring's ``stage.copy`` span carries the ``form`` its copier returned
+    (the native copy's ``block``, ``frames`` or ``rows``); without a session
+    the copy runs all the same."""
+    src = decode.ArrayFrameSource(frames(), fps=24)
+    forms = iter(["block", "rows", "frames"])
+
+    def copy(a, b):
+        np.copyto(b, a)
+        return next(forms)
+
+    ring = decode.ChunkRing(copy=copy)
+    with profile(activities=[ProfilerActivity.CPU]):
+        timer = Timer()
+        first = ring.read(src, 8, 8, timer)
+        second = ring.read(src, 8, 8, timer)
+        timer.finish(stats := {})
+    third = ring.read(src, 8, 8)
+    copies = [s for s in stats["spans"] if s.name == "stage.copy"]
+    assert [s.attrs for s in copies] == [{"form": "block"}, {"form": "rows"}]
+    np.testing.assert_array_equal(np.concatenate([first, second, third]), frames()[:24])
+
+
 def test_spans_are_on_the_profilers_clock():
     """A ``record_function`` range opened inside a span lies inside it on
     the profiler's clock, within 1 ms."""

@@ -114,9 +114,18 @@ def _minus(a, b) -> list:
 
 
 def counts(rec) -> dict:
-    """Spans a dispatch (ROI) or a chunk launch (full frames), and the
-    per-dispatch time of the lanes' waits for their prefetchers."""
+    """Spans a dispatch (ROI) or a chunk launch (full frames), the
+    per-dispatch time of the lanes' waits for their prefetchers, and the
+    staging copies (``stage.copy``) by their ``form``."""
     out = {}
+    forms: dict = {}
+    for _, spans, _ in calls_with_spans(rec):
+        for s in spans:
+            if s.name == "stage.copy":
+                form = str((s.attrs or {}).get("form"))
+                forms[form] = forms.get(form, 0) + 1
+    if forms:
+        out["stage_copy_forms"] = forms
     for stream, base in (("roi", "dispatches"), ("full", "groups")):
         calls = calls_with_spans(rec, stream)
         n = sum(c["stats"].get(base, 0) for c, _, _ in calls)

@@ -19,10 +19,17 @@ from memory, not from a cache), each chunk the next of the array:
   card, and the pages unregistered: once a chunk, and once a call (the whole
   array registered once, every chunk copied, then unregistered), the
   registration's own time counted;
-- (e) the copy of (a) and of (b) on 6 threads moved to a second thread, so
-  that it overlaps the previous chunk's copy to the card and a wait on the
-  card as long as the bench chunk's scan (0.33 ms): ms a chunk in the steady
-  state over ``--chunks`` chunks, beside the same work in one thread.
+- (e) the copy of (a), of (b) on 6 threads and of (f) on 6 threads moved to
+  a second thread, so that it overlaps the previous chunk's copy to the card
+  and a wait on the card as long as the bench chunk's scan (0.33 ms): ms a
+  chunk in the steady state over ``--chunks`` chunks, beside the same work in
+  one thread;
+- (f) the staging copy (``ops.roi_crop.copy_frames_native``: ``copy_frames``
+  of ``csrc/roi_crop.cpp``, byte ranges in non-temporal stores) in each form
+  it takes: the chunk's frames one block (on 1, 2, 4 and 6 threads), frames
+  lying apart (every other frame of the array) and rows lying apart (frames
+  of a second array whose rows are 64 bytes longer than a frame's), each
+  beside (b) on 6 threads on the same views.
 
 Each route's copy to the card lands in one device buffer and is checked
 equal to the chunk. Prints ms a chunk on the host's clock (the host part, and
@@ -75,6 +82,9 @@ def main() -> int:
     for k in range(N):  # every page written, each frame its own
         stack[k] = k % 251
         stack[k, ::7, ::5] = 90
+    wide = np.empty((3 * T, H, W + 64), np.uint8)  # rows lying apart
+    for k in range(3 * T):
+        wide[k] = (k * 7) % 251
     d_chunk = torch.empty((T, H, W), dtype=torch.uint8, device=dev)
     pinned = [torch.empty((T, H, W), dtype=torch.uint8, pin_memory=True) for _ in range(3)]
     zeros = np.zeros((1, T, 2), np.int64)
@@ -87,15 +97,24 @@ def main() -> int:
         at[0] = (t0 + T) % (N - T)
         return stack[t0:t0 + T]
 
+    def next_apart():  # every other frame
+        t0 = at[0]
+        at[0] = (t0 + 2 * T) % (N - 2 * T)
+        return stack[t0:t0 + 2 * T:2]
+
+    def next_wide(turn=[0]):  # the three chunks of ``wide`` in turn
+        turn[0] += 1
+        return wide[turn[0] % 3 * T:(turn[0] % 3 + 1) * T, :, :W]
+
     def check(view):
         if not torch.equal(d_chunk[[0, T - 1]].cpu(), torch.from_numpy(view[[0, T - 1]].copy())):
             raise SystemExit("staging_probe: the chunk on the card differs from the view")
 
-    def timed(host_fn, h2d_fn, verify=True):
+    def timed(host_fn, h2d_fn, verify=True, views=next_view):
         """(host ms, total ms) of one chunk by a route, medians over --chunks."""
         hosts, totals = [], []
         for _ in range(args.chunks + 1):
-            view = next_view()
+            view = views()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             src = host_fn(view)
@@ -120,17 +139,34 @@ def main() -> int:
         roi_crop.crop_lanes_native([view], [T], zeros, fill, buf.numpy()[None], threads=threads)
         return buf
 
+    forms = []
+
+    def staging_copy(view, threads, buf=pinned[0]):
+        forms.append(roi_crop.copy_frames_native(view, buf.numpy(), threads=threads))
+        return buf
+
     out = {"card": card, "host_cores": os.cpu_count(), "chunk": [T, H, W], "routes": {}}
 
     def report(name, host_ms, total_ms, **extra):
         out["routes"][name] = {"host_ms": host_ms, "total_ms": total_ms, **extra}
         print(f"{name}: host {host_ms:.2f} ms, until on the card {total_ms:.2f} ms a chunk"
-              + "".join(f", {k} {v:.2f}" for k, v in extra.items()), flush=True)
+              + "".join(f", {k} {v:.2f}" if isinstance(v, float) else f", {k} {v}"
+                        for k, v in extra.items()), flush=True)
 
     report("(a) numpy copy into pinned, then H2D", *timed(numpy_copy, h2d))
     for threads in (1, 2, 4, 6):
         report(f"(b) native copy on {threads} thread(s) into pinned, then H2D",
                *timed(lambda v, t=threads: native_copy(v, t), h2d))
+    for threads in (1, 2, 4, 6):
+        times = timed(lambda v, t=threads: staging_copy(v, t), h2d)
+        report(f"(f) staging copy on {threads} thread(s) into pinned, then H2D", *times,
+               form=forms[-1])
+    for name, views in (("frames apart", next_apart), ("rows apart", next_wide)):
+        report(f"(b) native copy on 6 threads into pinned, then H2D, {name}",
+               *timed(lambda v: native_copy(v, 6), h2d, views=views))
+        times = timed(lambda v: staging_copy(v, 6), h2d, views=views)
+        report(f"(f) staging copy on 6 threads into pinned, then H2D, {name}", *times,
+               form=forms[-1])
     report("(c) H2D from the pageable view", *timed(lambda v: torch.from_numpy(v), h2d))
     h2d_ms = timed(lambda v: pinned[1], h2d, verify=False)[1]
     report("H2D alone from pinned", 0.0, h2d_ms)
@@ -225,7 +261,8 @@ def main() -> int:
         return 1e3 * (time.perf_counter() - t0) / len(views)
 
     for name, copy in (("numpy copy", numpy_copy),
-                       ("native copy on 6 threads", lambda v, buf: native_copy(v, 6, buf))):
+                       ("native copy on 6 threads", lambda v, buf: native_copy(v, 6, buf)),
+                       ("staging copy on 6 threads", lambda v, buf: staging_copy(v, 6, buf))):
         serial = pipeline(copy, False)
         overlapped = pipeline(copy, True)
         report(f"(e) {name} on a second thread, overlapping H2D and the scan", overlapped,
