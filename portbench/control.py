@@ -66,9 +66,11 @@ class TF32Windows:
         return reference.argmax_colmajor(resp.cpu().numpy())
 
 
-def tf32_track(clips, starts, config: dict, device="cpu"):
-    """The reference's tracking with :class:`TF32Windows` in place of its
-    float32 sums."""
+def control_calls(config: dict, clip_sets: list, sets: list, device="cpu") -> list:
+    """One call a clip set, in the form the harness records its calls, with
+    the control's answers: the entry module's reference with
+    :class:`TF32Windows` in place of its float32 sums, and the timestamps of
+    the reference's grid."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -76,21 +78,8 @@ def tf32_track(clips, starts, config: dict, device="cpu"):
     def windows(g, direction, radii, L):
         return TF32Windows(g, direction, radii, L, device)
 
-    return reference.track(clips, starts, target_width=float(config["target_width"]),
-                           window=int(config["window_size"]),
-                           darker_target=bool(config["darker_target"]), windows=windows)[0]
-
-
-def control_calls(config: dict, clip_sets: list, starts: list, device="cpu") -> list:
-    """One call a clip set, in the form the harness records its calls, with
-    the control's answers: its positions, and the timestamps of the
-    reference's grid."""
-    calls = []
-    for k, (clips, st) in enumerate(zip(clip_sets, starts)):
-        pos = tf32_track(clips, st, config, device)
-        calls.append({"set": k, "out": [(reference.timestamps(len(p), float(config["fps"])), p)
-                                        for p in pos]})
-    return calls
+    answers = harness.entry(config).reference(config, clip_sets, sets, windows=windows)
+    return [{"set": k, "out": out} for k, out in enumerate(answers)]
 
 
 def main(argv=None) -> int:
@@ -103,10 +92,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         sets = frames.plan(config, traffic, seed)
         clips = frames.render(config, sets, seed, "cuda")
-        starts = [[v.start for v in vs] for vs in sets]
-        ref = harness.reference_outputs(config, clips, starts)
+        ref = harness.entry(config).reference(config, clips, sets)
         t1 = time.perf_counter()
-        verdict = harness.compare(control_calls(config, clips, starts, "cuda"), ref)
+        verdict = harness.compare(control_calls(config, clips, sets, "cuda"), ref)
         print(json.dumps({"workload": args.workload, "seed": seed, "control": "tf32",
                           "correct": verdict["correct"], "compared": verdict["compared"],
                           "reference_s": round(t1 - t0, 3),

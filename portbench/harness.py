@@ -2,8 +2,10 @@
 
 The cell (``BENCHMARK.json`` ``workloads``) names a configuration
 (``configs/<config>.json``) and a traffic mix (``traffic/<cell>.json``); the
-per-layer metrics are readers in ``metrics/<metric>.py``. Nothing here names a
-cell, a configuration or a metric: a new one is new files and a new entry.
+configuration names its entry point, a module ``entries/<entry>.py``
+(``entrykit.py`` says what it provides); the per-layer metrics are readers in
+``metrics/<metric>.py``. Nothing here names a cell, a configuration, an entry
+point or a metric: a new one is new files and a new entry.
 
 A run: point the program's caches at fixed directories of the checkout; make
 the trial videos on the card from the seed and hand them over as host arrays;
@@ -13,8 +15,8 @@ With ``trace=1`` a ``torch.profiler`` session (CUDA activity only) covers the
 window, and the per-layer metrics are read from the calls' wall times, the
 program's own per-call record (``paws_stats`` on its logger) and the device
 intervals. Once the window has closed and the memory peak is read, every
-answer of the window is compared with the plain reference
-(``reference/tracker.py``), which works each one out again from the same
+answer of the window is compared with the plain reference (the entry
+module's, in ``reference/``), which works each one out again from the same
 host frames.
 """
 
@@ -30,7 +32,6 @@ import numpy as np
 
 from . import frames
 from . import trace as tracing
-from .reference import tracker as reference
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HERE = os.path.join(ROOT, "portbench")
@@ -120,7 +121,8 @@ class StatsLog(logging.Handler):
 
 def merge_stats(records: list) -> dict | None:
     """A call's records as one (a call that runs in slices logs one a slice):
-    the first's stream, the sections and counts summed, the rest the last's."""
+    the first's stream, the sections and counts summed, every record's spans
+    in turn, the rest the last's."""
     if not records:
         return None
     out = dict(records[-1], stream=records[0]["stream"], sections={})
@@ -130,64 +132,40 @@ def merge_stats(records: list) -> dict | None:
     for key in ("dispatches", "replays", "groups"):
         if key in out:
             out[key] = sum(r.get(key, 0) for r in records)
+    if len(records) > 1 and any("spans" in r for r in records):
+        out["spans"] = [s for r in records for s in r.get("spans", ())]
     return out
 
 
-def _caller(port, config: dict, traffic: dict, device, mesh):
-    """``call(clips, starts) -> [(ts, positions), ...]``: one call of the
-    configuration's entry point on one set of videos."""
-    kw = dict(fps=float(config["fps"]), target_width=float(config["target_width"]),
-              window_size=int(config["window_size"]),
-              darker_target=bool(config["darker_target"]), engine=config["engine"],
-              stream=traffic["stream"], chunk_size=int(config["chunk_size"]), device=device)
-
-    def xy(start):  # (row, col) -> the display (x, y) a user passes
-        return None if start is None else (start[1], start[0])
-
-    if config["entry"] == "track":
-        def call(clips, starts):
-            return [port.track(clips[0], start_location=xy(starts[0]), **kw)]
-    elif config["entry"] == "track_batch":
-        def call(clips, starts):
-            return port.track_batch(list(clips), start_location=[xy(s) for s in starts],
-                                    mesh=mesh, **kw)
-    else:
-        raise ValueError(f"unknown entry point {config['entry']!r}")
-    return call
-
-
-def reference_outputs(config: dict, clip_sets: list, starts: list) -> list:
-    """Per set, per video, ``(ts, positions)`` as the plain reference works
-    them out from the host frames."""
-    out = []
-    for clips, st in zip(clip_sets, starts):
-        pos, _ = reference.track(clips, st, target_width=float(config["target_width"]),
-                                 window=int(config["window_size"]),
-                                 darker_target=bool(config["darker_target"]))
-        out.append([(reference.timestamps(len(p), float(config["fps"])), p) for p in pos])
-    return out
+def entry(config: dict):
+    """The module of the configuration's entry point, ``entries/<entry>.py``."""
+    return frames.load_module("entries", config["entry"])
 
 
 def compare(calls: list, ref: list) -> dict:
-    """The numbers that decide ``correct``, each with its limit: positions and
-    timestamps that differ from the reference's (a missing or extra one counts
-    as differing), and calls that raised or returned another number of
-    videos; all exact, so each limit is 0."""
+    """The numbers that decide ``correct``, each with its limit: positions
+    (``[T, 2]``, or ``[T, targets, 2]``; one a frame and target) and
+    timestamps that differ from the reference's (a missing or extra one
+    counts as differing), and calls that raised or returned another number
+    of videos or targets; all exact, so each limit is 0. ``compared`` counts
+    the reference's positions, frames × targets."""
     pos_off = ts_off = failed = compared = 0
     for c in calls:
         want = ref[c["set"]]
         out = c.get("out")
-        if out is None or len(out) != len(want):
+        if out is None or len(out) != len(want) or any(
+                np.shape(ij)[1:] != np.shape(ij_r)[1:] for (_, ij), (_, ij_r) in zip(out, want)):
             failed += 1
             continue
         for (ts, ij), (ts_r, ij_r) in zip(out, want):
             ij, ts = np.asarray(ij), np.asarray(ts)
             n = min(len(ij), len(ij_r))
-            pos_off += int(np.count_nonzero((ij[:n] != ij_r[:n]).any(axis=1))) \
-                + abs(len(ij) - len(ij_r))
+            per_frame = int(np.prod(ij_r.shape[1:-1]))  # targets
+            pos_off += int(np.count_nonzero((ij[:n] != ij_r[:n]).any(axis=-1))) \
+                + abs(len(ij) - len(ij_r)) * per_frame
             m = min(len(ts), len(ts_r))
             ts_off += int(np.count_nonzero(ts[:m] != ts_r[:m])) + abs(len(ts) - len(ts_r))
-            compared += len(ij_r)
+            compared += len(ij_r) * per_frame
     checks = {"positions_off": {"value": pos_off, "limit": 0},
               "ts_off": {"value": ts_off, "limit": 0},
               "calls_failed": {"value": failed, "limit": 0}}
@@ -215,9 +193,10 @@ def end_to_end(calls: list, setup_s: float) -> dict:
 class Records:
     """What a per-layer metric reads: the window's calls (``start_ns``,
     ``end_ns``, ``wall_s``, ``positions``, ``videos`` as ``(frames,
-    autodetect)``, the program's ``stats``), the device intervals
-    (:class:`.trace.Interval`), the window's seconds, the cards used, and the
-    cell's configuration and traffic."""
+    autodetect)``, where every disc of the video autodetects, the program's
+    ``stats``), the device intervals (:class:`.trace.Interval`), the
+    window's seconds, the cards used, and the cell's configuration and
+    traffic."""
 
     def __init__(self, calls, intervals, window_s, cards, config, traffic):
         self.calls, self.intervals, self.window_s = calls, intervals, window_s
@@ -255,7 +234,6 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *, device="cuda"
     t = time.time()
     sets = frames.plan(config, traffic, seed)
     clip_sets = frames.render(config, sets, seed, "cuda" if on_card else "cpu")
-    starts = [[v.start for v in vs] for vs in sets]
     cards = list(range(chips)) if on_card else []
     if on_card:
         torch.cuda.synchronize()
@@ -267,14 +245,15 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *, device="cuda"
     mesh = traffic.get("mesh")
     if mesh == "auto" and not on_card:  # the CPU counterpart of the cards' mesh
         mesh = port.make_mesh(devices=["cpu"] * chips)
-    call = _caller(port, config, traffic, None if on_card else "cpu", mesh)
+    ent = entry(config)
+    call = ent.caller(port, config, traffic, None if on_card else "cpu", mesh)
     log = logging.getLogger(PORT)
     handler = StatsLog()
     log.addHandler(handler)
     log.setLevel(logging.DEBUG)
 
     t = time.time()
-    call(clip_sets[0], starts[0])  # warm-up: builds, the engine choice, the depth memo
+    call(clip_sets[0], sets[0])  # warm-up: builds, the engine choice, the depth memo
     if on_card:
         torch.cuda.synchronize()
     handler.take()
@@ -299,7 +278,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *, device="cuda"
         s = k % len(clip_sets)
         c0, c0_ns = time.perf_counter(), time.time_ns()
         try:
-            out = call(clip_sets[s], starts[s])
+            out = call(clip_sets[s], sets[s])
         except Exception as e:  # counted as failed; the run goes on  # noqa: BLE001
             out, err = None, f"{type(e).__name__}: {e}"
         else:
@@ -308,8 +287,9 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *, device="cuda"
         recs = handler.take()
         calls.append({"set": s, "out": out, "error": err, "start_ns": c0_ns, "end_ns": c1_ns,
                       "wall_s": c1 - c0, "start_s": c0, "end_s": c1,
-                      "positions": sum(len(o[1]) for o in out) if out is not None else 0,
-                      "videos": [(len(v.centres), v.start is None) for v in sets[s]],
+                      "positions": ent.positions(out) if out is not None else 0,
+                      "videos": [(len(v.paths), all(x is None for x in v.starts))
+                                 for v in sets[s]],
                       "stats": merge_stats(recs)})
         k += 1
         if c1 - w0 >= seconds:
@@ -352,7 +332,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *, device="cuda"
         raise ImportError(f"the run loaded {found}: the benchmark drives {PORT} alone")
 
     t = time.time()
-    ref = reference_outputs(config, clip_sets, starts)
+    ref = ent.reference(config, clip_sets, sets)
     verdict = compare(calls, ref)
     result["correct"] = verdict["correct"]
     result["compared_positions"] = verdict["compared"]

@@ -117,9 +117,8 @@ def test_the_tf32_control_comes_out_not_correct(seed):
                                                      start="autodetect", phase_deg=[0, 180])])
     sets = frames.plan(config, traffic, seed)
     clips = frames.render(config, sets, seed, "cpu")
-    starts = [[v.start for v in vs] for vs in sets]
-    ref = harness.reference_outputs(config, clips, starts)
-    verdict = harness.compare(control.control_calls(config, clips, starts), ref)
+    ref = harness.entry(config).reference(config, clips, sets)
+    verdict = harness.compare(control.control_calls(config, clips, sets), ref)
     assert not verdict["correct"] and verdict["checks"]["positions_off"]["value"] > 0
     same = [{"set": k, "out": ref[k]} for k in range(len(clips))]
     assert harness.compare(same, ref)["correct"]

@@ -27,7 +27,7 @@ def test_same_seed_same_frames_other_seed_other_frames():
 def test_frames_hold_the_disc_and_the_noise():
     sets = frames.plan(CONFIG, TRAFFIC, 5)
     clip = frames.render(CONFIG, sets, 5, "cpu")[0][0]
-    i, j = np.round(sets[0][0].centres[0]).astype(int)
+    i, j = np.round(sets[0][0].paths[0, 0]).astype(int)
     assert clip[0, i, j] < 60  # the dark disc
     far = clip[0, :20, :20].astype(int)
     assert 120 < far.mean() < 136 and far.std() > 1  # the background and its noise
@@ -44,9 +44,10 @@ def test_autodetected_discs_start_inside_the_snap_window(name):
     for seed in range(40):
         for videos in frames.plan(config, traffic, BIG + seed):
             for v, spec in zip(videos, traffic["videos"]):
-                assert (v.start is None) == (spec["start"] == "autodetect")
-                if v.start is None:
-                    i, j = v.centres[0]
+                assert [s is None for s in v.starts] == \
+                    [d["start"] == "autodetect" for d in frames.discs_of(spec)]
+                if "discs" not in spec and v.starts[0] is None:  # one disc: the quarter-frame snap
+                    i, j = v.paths[0, 0]
                     assert abs(i - gi) + margin <= ri and abs(j - gj) + margin <= rj
 
 

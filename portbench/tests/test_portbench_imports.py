@@ -27,14 +27,15 @@ def test_the_harness_and_the_port_load_no_jax():
         "import runpy, sys; sys.path.insert(0, '.'); runpy.run_path('portbench/run.py');"
         "import portbench.reference, portbench.harness, portbench.control, portbench.trace;"
         "import pawsometracker_tpu_torch, pawsometracker_tpu_torch.batch;"
-        "from portbench import frames; [frames.load_module('metrics', f[:-3]) for f in "
-        "__import__('os').listdir('portbench/metrics')]")
+        "from portbench import frames; [frames.load_module(k, f[:-3]) for k in "
+        "('metrics', 'entries') for f in __import__('os').listdir('portbench/' + k)]")
     assert "pawsometracker_tpu_torch" in names  # the check compares whole names
     assert not names & BANNED, names & BANNED
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    names = top_names_after("import sys; sys.path.insert(0, '.'); import portbench.reference")
+    names = top_names_after("import sys; sys.path.insert(0, '.'); import portbench.reference;"
+                            "import portbench.reference.tracker, portbench.reference.multi")
     assert not names & (BANNED | {"pawsometracker_tpu_torch", "torch"})
 
 

@@ -165,3 +165,21 @@ def test_a_call_logged_in_slices_reads_as_one():
     assert m["sections"] == pytest.approx({"setup": 0.005, "crop": 0.010, "aim": 0.004})
     assert (m["dispatches"], m["replays"], m["groups"], m["depth"]) == (15, 1, 15, 3)
     assert harness.merge_stats([a]) == a and harness.merge_stats([]) is None
+
+
+def test_a_call_logged_in_slices_keeps_every_slices_spans():
+    from pawsometracker_tpu_torch.utils.profiling import Span
+
+    def rec(sid, a, b):  # one slice: its call span and its frame-1 mode
+        return {"stream": "roi", "sections": {}, "dispatches": 1,
+                "spans": [Span("call", a * MS, b * MS, sid, 0, sid, "MainThread", None),
+                          Span("mode", a * MS, (a + 2) * MS, sid + 1, sid, sid, "MainThread",
+                               None)]}
+
+    one, two = rec(1, 0, 10), rec(3, 10, 30)
+    m = harness.merge_stats([one, two])
+    assert m["spans"] == one["spans"] + two["spans"]
+    assert harness.merge_stats([one]) == one and harness.merge_stats([one])["spans"] is one["spans"]
+    call = {"start_ns": 0, "end_ns": 30 * MS, "wall_s": 0.03, "videos": [(240, True)], "stats": m}
+    rec_ = harness.Records([call], [], 0.03, [0], CONFIG, {})
+    assert reader("setup.mode_ms_per_video")(rec_) == pytest.approx(4.0)  # both slices' modes

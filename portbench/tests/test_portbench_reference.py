@@ -31,7 +31,7 @@ def clips_of(seed, n=40, config=CONFIG):
 def test_reference_follows_the_drawn_path(seed):
     videos, clips = clips_of(seed)
     pos, _ = ref.track(clips, [None], target_width=6, window=13)
-    assert np.abs(pos[0] - videos[0].centres).max() <= 1.0
+    assert np.abs(pos[0] - videos[0].paths[:, 0]).max() <= 1.0
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -39,7 +39,7 @@ def test_reference_follows_the_spiral(seed):
     sets = frames.plan(CONFIG, dict(TRAFFIC, **SPIRAL, clip_sets=1), seed)
     clips = frames.render(CONFIG, sets, seed, "cpu")[0]
     pos, _ = ref.track(clips, [None], target_width=6, window=13)
-    assert np.abs(pos[0] - sets[0][0].centres).max() <= 1.0
+    assert np.abs(pos[0] - sets[0][0].paths[:, 0]).max() <= 1.0
 
 
 @pytest.mark.parametrize("seed", [3, 4])
@@ -92,11 +92,11 @@ def test_reference_equals_the_ports_plain_run(kind):
     c, config, traffic = cell(kind)
     sets = frames.plan(config, traffic, 11)
     clips = frames.render(config, sets, 11, "cpu")
-    starts = [[v.start for v in vs] for vs in sets]
-    want = harness.reference_outputs(config, clips, starts)
-    call = harness._caller(port, config, traffic, "cpu", None)
+    entry = harness.entry(config)
+    want = entry.reference(config, clips, sets)
+    call = entry.caller(port, config, traffic, "cpu", None)
     for k in range(len(clips)):
-        got = call(clips[k], starts[k])
+        got = call(clips[k], sets[k])
         for (ts, ij), (ts_r, ij_r) in zip(got, want[k]):
             assert np.array_equal(ij, ij_r) and np.array_equal(ts, ts_r)
 
