@@ -58,6 +58,17 @@ __all__ = ["track_multi"]
 logger = logging.getLogger(__name__)
 
 
+def takes_roi(stream: str, n_targets: int, spec, roi_frames: int, depth_gate: int) -> bool:
+    """Whether ``n_targets`` lanes take the ROI pipeline: ``stream="roi"``, or
+    ``"auto"`` where their crops (:func:`.pipeline.roi_geometry` at the gate's
+    depth, predict mode unless the gate is 0) come to under half the frame, the
+    JAX package's rule."""
+    mode = "predict" if depth_gate > 0 else "contain"
+    ch, cw, _ = roi_geometry(spec, roi_frames, depth_gate, mode)
+    H, W = spec.frame_shape
+    return stream == "roi" or (stream == "auto" and n_targets * ch * cw * 2 < H * W)
+
+
 def track_multi(
     file,
     start_locations=None,
@@ -199,8 +210,11 @@ def track_multi(
 
         with timer.section("snap"):
             if autodetect:
-                peaks = global_detect_peaks(spec, int(n_targets), min_distance)
-                guesses = peaks(frame0_dev, fill).cpu().numpy()
+                # the whole detection as the caller waits on it: the response's and
+                # the rounds' launches, then the wait for the peaks on the host
+                with timer.span("detect", targets=int(n_targets)):
+                    peaks = global_detect_peaks(spec, int(n_targets), min_distance)
+                    guesses = peaks(frame0_dev, fill, timer=timer).cpu().numpy()
                 # exhausted suppression repeats the last peak: reject instead of
                 # seeding duplicate trackers pinned to the same blob
                 if len({tuple(g) for g in guesses}) < len(guesses):
@@ -228,11 +242,11 @@ def track_multi(
         # ROI streaming where the JAX package takes it: N crops a frame under
         # half the frame
         N = guesses.shape[0]
-        mode = "predict" if depth_gate > 0 else "contain"
-        ch, cw, _ = roi_geometry(spec, roi_frames, depth_gate, mode)
-        use_roi = stream == "roi" or (
-            stream == "auto" and N * ch * cw * 2 < frame_shape[0] * frame_shape[1])
-        stats = {"stream": "roi" if use_roi else "full"}
+        use_roi = takes_roi(stream, N, spec, roi_frames, depth_gate)
+        counts = {"multi.lanes": N}
+        if autodetect:
+            counts["detect.rounds"] = int(n_targets)
+        stats = {"stream": "roi" if use_roi else "full", "counts": counts}
         if n > 1 and use_roi:
             pos_blocks, off_blocks, tracked = run_multi_roi_pipeline(
                 src,

@@ -32,7 +32,6 @@ import torch
 
 from ..models.dog_tracker import TrackerSpec, autodetect_spec, resolve_device, tracker_fns
 from ..ops.dog_kernel import dog_kernel_separable
-from ..ops.filters import argmax_colmajor
 from ..utils.profiling import OFF
 
 __all__ = [
@@ -423,8 +422,11 @@ def global_detect_peaks(spec: TrackerSpec, n_targets: int, min_distance: int | N
     entries REPEAT the last valid peak; callers (``track_multi``) reject
     duplicate peaks with a clear error instead of seeding bogus trackers.
 
-    Returns ``fn(frame_u8 [H, W], fill_u8) -> int32 [n_targets, 2]``, run on
-    the frame's device."""
+    Returns ``fn(frame_u8 [H, W], fill_u8, timer=OFF) -> int32 [n_targets,
+    2]``, run on the frame's device; under a recording ``timer`` the
+    response's launches are the span ``detect.response`` and the N rounds
+    ``detect.suppress``. The rounds read nothing back to the host, so the
+    caller's copy of the peaks is the one wait for the device."""
     H, W = spec.frame_shape
     N = int(n_targets)
     if min_distance is None:
@@ -432,22 +434,32 @@ def global_detect_peaks(spec: TrackerSpec, n_targets: int, min_distance: int | N
     r2 = float(min_distance) ** 2
     response = _batch_frame_response(spec)
 
-    def detect(frame_u8, fill_u8):
+    def detect(frame_u8, fill_u8, timer=OFF):
         frame = torch.as_tensor(frame_u8)
-        resp = response(frame[None], [int(fill_u8)])[0]  # [H, W]
+        with timer.span("detect.response"):
+            resp = response(frame[None], [int(fill_u8)])[0]  # [H, W]
         dev = resp.device
-        ii = torch.arange(H, device=dev)[:, None]
-        jj = torch.arange(W, device=dev)[None, :]
-        out = torch.zeros((N, 2), dtype=torch.int32, device=dev)
-        for k in range(N):
-            idx = argmax_colmajor(resp)
-            if k > 0:
-                # suppression exhausted the frame: repeat the previous peak
-                exhausted = ~torch.isfinite(resp[idx[0].long(), idx[1].long()])
-                idx = torch.where(exhausted, out[k - 1], idx)
-            out[k] = idx
-            d2 = (ii - idx[0]) ** 2 + (jj - idx[1]) ** 2
-            resp = torch.where(d2.to(torch.float32) <= r2, -torch.inf, resp)
+        with timer.span("detect.suppress"):
+            # the rounds work on the column-major copy [W, H] that
+            # ops.filters.argmax_colmajor would make each round: its flat argmax is the
+            # tracker's tie-break, and a round gathers its peak's value
+            # without a host read
+            resp_t = resp.transpose(0, 1).contiguous()
+            flat = resp_t.view(-1)
+            ii = torch.arange(H, device=dev)[None, :]
+            jj = torch.arange(W, device=dev)[:, None]
+            out = torch.zeros((N, 2), dtype=torch.int32, device=dev)
+            for k in range(N):
+                at = torch.argmax(flat)
+                idx = torch.stack([at % H, at // H]).to(torch.int32)
+                if k > 0:
+                    # suppression exhausted the frame: repeat the previous peak
+                    found = torch.isfinite(flat[at.view(1)])
+                    idx = torch.where(found, idx, out[k - 1])
+                out[k] = idx
+                # int64 distances, compared in float32 as a float scalar promotes them
+                d2 = (ii - idx[0]) ** 2 + (jj - idx[1]) ** 2
+                resp_t.masked_fill_(d2 <= r2, -torch.inf)
         return out
 
     return detect

@@ -568,6 +568,43 @@ def test_frame_response_card_equals_cpu(card):
                        peaks(torch.from_numpy(frames[0]), 128))
 
 
+def syncs_in(fn):
+    """``fn()``'s result and the host synchronisations that it made, as
+    PyTorch's sync debug mode reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing" in str(w.message) for w in seen)
+
+
+def test_detection_rounds_read_nothing_back(card):
+    """The rounds of suppression stay on the card: detecting 24 peaks makes as
+    few host synchronisations as detecting 2, and the peaks, exhausted rounds
+    included, are the CPU's."""
+    from pawsometracker_tpu_torch.parallel.mesh import global_detect_peaks
+
+    spec = make_spec((240, 360), 21, 10, True)
+    frame = np.full((240, 360), 128, np.uint8)
+    for r in range(4):
+        for c in range(6):
+            frame[30 + 60 * r:36 + 60 * r, 30 + 60 * c:36 + 60 * c] = 20
+    on_card = torch.from_numpy(frame).to(card)
+    counts = {}
+    for n in (2, 24, 400):
+        peaks = global_detect_peaks(spec, n)
+        peaks(on_card, 128)  # warm: the first launches may load modules
+        got, counts[n] = syncs_in(lambda: peaks(on_card, 128))
+        assert torch.equal(got.cpu(), peaks(torch.from_numpy(frame), 128))
+    assert counts[24] == counts[2] and counts[400] == counts[2], counts
+
+
 # ---- dog_scan's prefetched superset, at the frame's edges and beyond ----------
 
 

@@ -3,6 +3,8 @@ forms and ``global_detect_peaks`` against the JAX package: positions and
 timestamps equal, offsets within 1e-3, the shared N-marker overlay equal, and
 the same loud failures."""
 
+import logging
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -213,3 +215,72 @@ def test_stream_and_engine_rules():
             port.track_multi(frames, locs, device="cpu", **bad)
     with pytest.raises(ValueError, match="must be one of"):
         port.track_multi(frames, [port.IJ(30, 40)], engine="cuda", device="cpu")
+
+
+#: a 96-well plate at 1080p and 12.635 px/mm, its well pitch in pixels (ANSI/SLAS 4-2004's 9 mm)
+PLATE_PITCH_PX = 9.0 * 12.635
+
+
+def scaled_plate(rows=4, cols=6, H=480, W=960, n=8, seed=3):
+    """A plate of ``rows x cols`` wells at the 96-well pitch, centred in an
+    ``H x W`` frame, one disc a well wandering on a small spiral (the plate
+    cell's traffic at a small size), drawn by the benchmark's own generator
+    on the CPU."""
+    from portbench import frames as bench_frames
+
+    config = dict(height=H, width=W, fps=24, target_width=12, window_size=25,
+                  darker_target=True, target_radius_px=6.0, target_level=30, noise_sigma=2.0)
+    discs = [dict(start="autodetect", phase_deg=[3.75 * (r * cols + c)],
+                  motion_params=dict(offset_px=[(r - (rows - 1) / 2) * PLATE_PITCH_PX,
+                                                (c - (cols - 1) / 2) * PLATE_PITCH_PX]))
+             for r in range(rows) for c in range(cols)]
+    traffic = dict(motion="spiral", phase_jitter_deg=1.875, clip_sets=1,
+                   motion_params=dict(loops=5, radius_px=20, jitter_px=1.0, start_box_px=4),
+                   videos=[dict(frames=n, background=128, discs=discs)])
+    sets = bench_frames.plan(config, traffic, seed)
+    return bench_frames.render(config, sets, seed, "cpu")[0][0]
+
+
+def test_scaled_plate_takes_full_frames_and_equals_reference_and_jax(caplog):
+    """24 autodetected larvae, one a well of a 4 x 6 plate, in 480 x 960
+    frames: by the stream rule their 24 crops of 105 x 105 (24 x 105^2 x 2 =
+    529,200 pixels) are not under half the frame (460,800), so
+    ``stream="auto"`` takes full frames, as the 96-well plate does at 1080p.
+    Positions, their order and timestamps equal the benchmark's NumPy
+    reference; integer positions equal the JAX package's."""
+    from portbench.reference import multi as bench_multi
+    from portbench.reference import tracker as bench_tracker
+
+    clip = scaled_plate()
+    kw = dict(n_targets=24, fps=24, target_width=12, window_size=25)
+    with caplog.at_level(logging.DEBUG, logger="pawsometracker_tpu_torch"):
+        ts, pos = port.track_multi(clip, device="cpu", **kw)
+    [stats] = [r.paws_stats for r in caplog.records if hasattr(r, "paws_stats")]
+    assert stats["stream"] == "full"
+    assert stats["counts"] == {"multi.lanes": 24, "detect.rounds": 24}
+    assert pos.shape == (8, 24, 2)
+    want = bench_multi.track(clip, [None] * 24, target_width=12, window=25)
+    np.testing.assert_array_equal(pos, want)
+    np.testing.assert_array_equal(ts, bench_tracker.timestamps(8, 24))
+    assert_multi_equal((ts, pos), ref_track_multi(clip, **kw))
+
+
+@pytest.mark.parametrize("lanes,stream", [(96, "full"), (80, "roi")])
+def test_plate_stream_rule_at_1080p(lanes, stream):
+    """The 96-well plate's geometry at 1080p and ``target_width`` 12: the
+    predict-mode crop is 105 x 105 (window 25, 33 taps, the prediction's
+    slack), so 96 lanes (2,116,800 pixels, twice their crops) take full
+    frames and 80 (1,764,000) ROI crops, against the frame's 2,073,600."""
+    from pawsometracker_tpu_torch.api import _auto_ring_gate, _resolve_roi_frames
+    from pawsometracker_tpu_torch.multi import takes_roi
+    from pawsometracker_tpu_torch.pipeline import AUTO_DEPTH_MAX, roi_geometry
+
+    video = np.broadcast_to(np.uint8(128), (240, 1080, 1920))
+    spec = make_spec((1080, 1920), 25, 12, True)
+    assert spec.kernel_len == 33
+    K = _resolve_roi_frames(None, AUTO_DEPTH_MAX, "predict")
+    gate = _auto_ring_gate(video, K, AUTO_DEPTH_MAX)
+    ch, cw, _ = roi_geometry(spec, K, gate, "predict")
+    assert (ch, cw) == (105, 105)
+    assert takes_roi("auto", lanes, spec, K, gate) == (stream == "roi")
+    assert takes_roi("roi", lanes, spec, K, gate) and not takes_roi("full", lanes, spec, K, gate)

@@ -241,3 +241,46 @@ def test_trace_writes_the_spans(tmp_path):
                and e.get("pid") == root["pid"]}
     assert len(threads) == 2 and any(t.startswith("paws-prefetch-") for t in threads)
     assert len({e["tid"] for e in mine}) == 2
+
+
+def two_discs(T=12, H=100, W=120):
+    """Two dark squares 60 px apart, each moving a pixel a frame."""
+    fr = np.full((T, H, W), 128, np.uint8)
+    for t in range(T):
+        fr[t, 30:36, 20 + t:26 + t] = 20
+        fr[t, 60:66, 80 - t:86 - t] = 20
+    return fr
+
+
+@pytest.mark.parametrize("stream", ["full", "roi"])
+def test_multi_detection_spans_and_counts(stats, stream):
+    """An autodetecting ``track_multi`` records ``detect`` (its ``targets``)
+    on the controller inside ``snap``, with ``detect.response`` and
+    ``detect.suppress`` nested in it, and counts its rounds
+    and lanes; with ``start_locations`` it records no detection and counts
+    its lanes alone."""
+    kw = dict(target_width=5, device="cpu", stream=stream)
+    with profile(activities=[ProfilerActivity.CPU]):
+        port.track_multi(two_discs(), n_targets=2, **kw)
+        port.track_multi(two_discs(), start_locations=[port.IJ(32, 22), port.IJ(62, 82)], **kw)
+    auto, given = stats
+    spans = auto["spans"]
+    root = check_tree(spans)
+    by_id = {s.id: s for s in spans}
+    [detect] = [s for s in spans if s.name == "detect"]
+    assert detect.attrs == {"targets": 2} and detect.thread == root.thread
+    assert by_id[detect.parent].name == "snap"
+    inner = sorted((s for s in spans if s.parent == detect.id), key=lambda s: s.start_ns)
+    assert [s.name for s in inner] == ["detect.response", "detect.suppress"]
+    assert inner[0].attrs is None and inner[1].attrs is None
+    assert auto["counts"] == {"multi.lanes": 2, "detect.rounds": 2}
+    check_tree(given["spans"])
+    assert not {s.name for s in given["spans"]} & {"detect", "detect.response", "detect.suppress"}
+    assert given["counts"] == {"multi.lanes": 2}
+
+
+def test_untraced_multi_counts_its_lanes(stats):
+    """Without a session the counts are there all the same, and no spans."""
+    port.track_multi(two_discs(), n_targets=2, target_width=5, device="cpu")
+    [st] = stats
+    assert "spans" not in st and st["counts"] == {"multi.lanes": 2, "detect.rounds": 2}
