@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--parent DIR]
 
 Builds the port's CUDA kernels (``dog_scan`` and ``dog_scan_tiled``, one
-source) and its native crop (``roi_crop.cpp``), both at once, from
-``pawsometracker_tpu_torch/csrc`` and runs three phases on the card, with the
-engine choice between the first two; any failure exits non-zero:
+source; ``detect_response`` and ``detect_rounds``, another) and its native crop
+(``roi_crop.cpp``), all at once, from ``pawsometracker_tpu_torch/csrc`` and
+runs three phases on the card, with the engine choice between the first two;
+any failure exits non-zero:
 
 1. Each kernel against its plain PyTorch version on the same card tensors, at
    the bench shape (1080p frames, ``target_width=25``, 41x41 window, T=64).
@@ -40,7 +41,14 @@ engine choice between the first two; any failure exits non-zero:
    machine: ``make_mesh()`` (every card), 2 and 4 shards on cuda:0, and 2
    cards where there are two or more; and the space-sharded whole-frame
    detector (2 data x 2 space on cuda:0, and 1 x 2 over two cards) against
-   the unsharded one at 1080p, B = 4. Segments (group dispatch: S chunk scans
+   the unsharded one at 1080p, B = 4, and the unsharded one (the response
+   kernel on the uint8 frames) against the plain response and argmax on the
+   same card tensors. The whole-frame detection kernels (``csrc/detect.cu``)
+   at the plate cell's shape, on a frame of 96 discs at 1080p: the response
+   kernel bit-equal to its plain version on the same card tensors at L = 33
+   (``target_width`` 12, the plate's), 65 and 149; the rounds kernel's 96
+   peaks (``min_distance`` 25) equal to the plain rounds' on the same
+   response; and the whole detection on the card equal to the CPU's. Segments (group dispatch: S chunk scans
    a lane in one launch of either kernel, chained as the JAX package's
    super-programs chain them), S = 2 and 4, each one launch against its plain
    version: one chain at both ROI crop sizes by the ks rule (a short chunk),
@@ -84,7 +92,11 @@ E. The engine choice (``engine="auto"`` on the ROI paths), with the engine
      a disc on its own background on the circle at phase b*pi/2: start
      locations given, lane 2 auto-detected, and ``subpixel=True``;
    - ``track_multi`` on one 1080p clip of 160 frames with four discs: start
-     locations given, ``n_targets=4``, and ``subpixel=True``;
+     locations given, ``n_targets=4``, and ``subpixel=True``; the
+     autodetecting call (``n_targets=4``, here and on ROI) must launch the
+     detection kernels twice (``detect_kernel.launches``, set to 0 before the
+     path) and report the two as ``detect.kernel_launches``, every other call
+     none;
    - ``track()`` of a large target: ``target_width=60`` with its default
      window (105x105, L = 149), a disc of radius 30 on the same circle, 480
      frames, the same three ways; every launch at the window must be the
@@ -161,7 +173,11 @@ E. The engine choice (``engine="auto"`` on the ROI paths), with the engine
    multi ROI paths beside their ``stream="full"`` figures; a cuDNN
    ``conv2d`` + ``argmax`` yardstick for the snaps at the bench window;
    ``track_resumable`` ROI frames/s over the 4-slice call beside "track ROI",
-   with its per-slice set-up and snap; a full-frame chunk's staging copy
+   with its per-slice set-up and snap; the detection kernels a launch at the
+   plate cell's shape (1080p, L = 33, N = 96; the rounds also at N = 1, 24
+   and 400) beside their plain versions and their bounds, and one whole
+   detection (frame on the card to peaks on the host) by the host clock,
+   kernels against the plain torch ops; a full-frame chunk's staging copy
    into pinned memory, native (the kept route) and numpy's (the route before
    it), beside its host-to-device copy and its kernel; and the CLI's wall time a process,
    split into process start, imports, CUDA initialisation, the kernel
@@ -330,6 +346,12 @@ def pr11(name) -> str:
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 N_SMS = 132
+#: the plate cell's detection: target_width 12 (L = 33) at 1080p, 96 peaks, min_distance 25
+#: (its window's edge), on a frame of 96 discs at a 96-well plate's pitch (12.635 px/mm)
+PLATE_TW = 12
+PLATE_WINDOW = 25
+PLATE_N = 96
+PLATE_PITCH = 9.0 * 12.635
 
 
 def log(*a):
@@ -452,6 +474,50 @@ def cost(radii, L, T, subpixel=False, bounded=False, lanes=1):
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "sm_bound_ms": 1e3 * flops / (PEAK_F32_FLOPS / N_SMS)}
+
+
+def plate_frame(seed: int = 1) -> np.ndarray:
+    """96 dark discs of radius 6 on 128-gray with noise, one a well of a 96-well plate
+    centred in the 1080p frame, each a little off its well's centre."""
+    rng = np.random.default_rng(seed)
+    fr = 128 + np.round(rng.normal(0, 2, (H, W)))
+    yy, xx = np.mgrid[0:H, 0:W]
+    for r in range(8):
+        for c in range(12):
+            ci = H / 2 + (r - 3.5) * PLATE_PITCH + rng.uniform(-20, 20)
+            cj = W / 2 + (c - 5.5) * PLATE_PITCH + rng.uniform(-20, 20)
+            fr[(yy - ci) ** 2 + (xx - cj) ** 2 <= 36] = 30
+    return np.clip(fr, 0, 255).astype(np.uint8)
+
+
+def detect_response_cost(h, w, L):
+    """FLOPs and bytes of one ``detect_response`` launch on a uint8 frame: two passes of L
+    taps (a multiply and an add each) for the centre and the surround, the vertical one over
+    the padded frame's W + L - 1 columns; the frame read once, the response and each 32-row
+    tile's column maxima (value, row) written once; and the least time at the card's peaks."""
+    flops = 2 * 2 * (h * (w + L - 1) + h * w) * L
+    nbytes = h * w + 4 * h * w + 8 * -(-h // 32) * w + 8 * L
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def detect_rounds_cost(h, w, n, r2, D):
+    """Bytes that one ``detect_rounds`` launch of ``n`` rounds moves, a round's disc wholly
+    inside the frame: the partials read once (each 32-row tile's column maxima); then each
+    round reads the 2D+1 columns of the tiles its disc's rows touch (at most
+    ceil((2D+1)/32) + 1), writes -inf over the disc's cells and those tiles' partials of
+    its columns, reads the columns' P partials back, and writes its peak. The least time at
+    the card's bandwidth; the kernel is one CTA walking n dependent rounds, so latency, not
+    bytes, bounds it."""
+    P = -(-h // 32)
+    nb, nt = min(w, 2 * D + 1), min(P, -(-(2 * D + 1) // 32) + 1)
+    d = np.arange(-D, D + 1, dtype=np.int64)
+    disc = int((np.float32(d[:, None] ** 2 + d[None, :] ** 2) <= np.float32(r2)).sum())
+    per_round = 4 * nt * 32 * nb + 4 * disc + 8 * nt * nb + 8 * P * nb + 8
+    nbytes = 8 * P * w + n * per_round
+    return {"flops": 0, "bytes": nbytes, "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
+            "bound_by": "bytes (latency: one CTA, n dependent rounds)"}
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -805,11 +871,12 @@ def main(argv=None) -> int:
         from pawsometracker_tpu_torch import (IJ, global_detect_peaks, load_checkpoint,
                                               make_mesh, track, track_batch, track_multi,
                                               track_resumable)
-        from pawsometracker_tpu_torch.parallel.mesh import (global_detect_batch,
+        from pawsometracker_tpu_torch.parallel.mesh import (_argmax_frames, global_detect_batch,
                                                             sharded_pallas_bounded)
         from pawsometracker_tpu_torch.models import dog_tracker
         from pawsometracker_tpu_torch.models.dog_tracker import autodetect_spec, make_spec
         from pawsometracker_tpu_torch.ops import _build, roi_crop, tracker_kernel as tk
+        from pawsometracker_tpu_torch.ops import detect_kernel as dk
         from pawsometracker_tpu_torch.ops.dog_kernel import dog_kernel_2d, guess_window_size
         from pawsometracker_tpu_torch.ops.filters import mode_u8_host
         from pawsometracker_tpu_torch import pipeline as pl
@@ -839,13 +906,20 @@ def main(argv=None) -> int:
     # paths never took them on the card
     plain_runs = count_plain_runs(tk, dog_tracker)
 
-    # both sources build at once, one nvcc each: the kernels and the native crop
+    # the three sources build at once, one nvcc each: the scan kernels, the detection
+    # kernels and the native crop
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for built in [pool.submit(tk._lib), pool.submit(roi_crop._lib)]:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        for built in [pool.submit(tk._lib), pool.submit(dk._lib), pool.submit(roi_crop._lib)]:
             built.result()
     record["build_s"] = time.perf_counter() - t0
-    log(f"build: dog_scan.cu and roi_crop.cpp at once in {record['build_s']:.2f} s")
+    log(f"build: dog_scan.cu, detect.cu and roi_crop.cpp at once in {record['build_s']:.2f} s")
+    for line in _build.build_log.get("detect", "").splitlines():
+        entry = re.search(r"Compiling entry function .*\d((?:response|rounds)_kernel)", line)
+        if entry:
+            log(f"  ptxas: {entry.group(1)}")
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
     for line in _build.build_log.get("dog_scan", "").splitlines():
         entry = re.search(r"Compiling entry function .*\d(dog_scan(?:_tiled)?_kernel)"
                           r"(ILb([01])ELb([01]))?", line)
@@ -1171,6 +1245,20 @@ def main(argv=None) -> int:
             raise SystemExit(f"phase 1 {name}: the sharded scan and its plain version disagree")
     detect_frames = lanes0[:, 0].contiguous()
     unsharded = global_detect_batch(spec)(detect_frames, lane_fills).cpu().numpy()
+    # the unsharded detector launches the response kernel on the uint8 frames: it must
+    # give the plain response's argmax on the same card tensors (the sharded detectors
+    # below are held to it)
+    plain_first = _argmax_frames(dk.correlate_plain(dk.pad_plain(detect_frames, lane_fills, L),
+                                                    spec.sigma, True), H).cpu().numpy()
+    ok = bool(np.array_equal(unsharded, plain_first))
+    phase1["global_detect_batch unsharded"] = {"kernel": "detect_response", "lanes": B,
+                                               "positions_equal": ok,
+                                               "max_abs_err": float(np.abs(
+                                                   unsharded - plain_first).max()), "ok": ok}
+    log(f"phase 1 global_detect_batch unsharded (detect_response): 1080p, B={B}, L={L}, equals"
+        f" the plain response's argmax={ok} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 1 global_detect_batch: the kernel's response differs from plain")
     for label, mesh in space_meshes(make_mesh).items():
         got = np.asarray(global_detect_batch(spec, mesh)(detect_frames, lane_fills))
         ok = bool(np.array_equal(got, unsharded))
@@ -1181,6 +1269,48 @@ def main(argv=None) -> int:
             f" B={B}, equals the unsharded detector={ok} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"phase 1 global_detect_batch {label}: differs from unsharded")
+    # the detection kernels at the plate cell's shape: the response (from the uint8 frame,
+    # the pad fused in) at L = 33, 65 and 149 and the rounds' 96 peaks, each against its
+    # plain version on the same card tensors; then the whole detection against the CPU's
+    plate_np = plate_frame()
+    plate_dev = torch.from_numpy(plate_np).to(dev)
+    plate_fill = int(mode_u8_host(plate_np))
+    pspec = make_spec((H, W), PLATE_WINDOW, PLATE_TW, True)
+    plate_r2 = float(max(2 * pspec.radii[0] + 1, 2 * pspec.radii[1] + 1)) ** 2
+    for tw in (PLATE_TW, TARGET_WIDTH, LARGE_TW):
+        tspec = make_spec((H, W), PLATE_WINDOW, tw, True)
+        tL = tspec.kernel_len
+        got, _ = dk.frame_response(plate_dev[None], [plate_fill], tspec.sigma, True)
+        want = dk.correlate_plain(dk.pad_plain(plate_dev[None], [plate_fill], tL), tspec.sigma,
+                                  True)
+        ok = bool(torch.equal(got, want))
+        err = float((got - want).abs().max())
+        phase1[f"detect_response 1080p L={tL}"] = {"kernel": "detect_response", "L": tL,
+                                                   "positions_equal": ok, "max_abs_err": err,
+                                                   "ok": ok}
+        log(f"phase 1 detect_response 1080p L={tL} (target_width {tw}): bit-equal to plain="
+            f"{ok} max_abs_err={err:.3g} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase 1 detect_response L={tL}: differs from its plain version")
+    plate_resp, plate_part = dk.frame_response(plate_dev[None], [plate_fill], pspec.sigma, True)
+    want = dk.suppress_plain(plate_resp[0], PLATE_N, plate_r2)
+    before = dk.launches
+    got = dk.suppress(plate_resp[0].clone(), plate_part[0].clone(), PLATE_N, plate_r2)
+    n_launch = dk.launches - before
+    cpu_peaks = global_detect_peaks(pspec, PLATE_N)(plate_np, plate_fill)
+    card_peaks = global_detect_peaks(pspec, PLATE_N)(plate_dev, plate_fill).cpu()
+    ok = (bool(torch.equal(got, want)) and n_launch == 1 and torch.equal(card_peaks, cpu_peaks)
+          and len({tuple(p) for p in cpu_peaks.tolist()}) == PLATE_N)
+    err = float((got - want).abs().max())
+    phase1[f"detect_rounds 1080p N={PLATE_N}"] = {"kernel": "detect_rounds", "launches": n_launch,
+                                                  "positions_equal": ok, "max_abs_err": err,
+                                                  "ok": ok}
+    log(f"phase 1 detect_rounds 1080p L={pspec.kernel_len} N={PLATE_N} r2={plate_r2:g}: one"
+        f" launch ({n_launch}), peaks equal the plain rounds'={bool(torch.equal(got, want))},"
+        f" the card's detection equals the CPU's={bool(torch.equal(card_peaks, cpu_peaks))},"
+        f" {len({tuple(p) for p in cpu_peaks.tolist()})} distinct -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 1 detect_rounds: differs from the plain rounds or the CPU")
     # segments: S chunk scans a lane in one launch (group dispatch) against
     # their plain versions, at the ROI crops (one chain by the ks rule with a
     # short chunk; 4 lanes by the carry, lane 2 with no real frame and lane 3 a
@@ -1545,12 +1675,14 @@ def main(argv=None) -> int:
                    "track large target": math.ceil((N_FRAMES - 1) / CHUNK),
                    "track_batch": sum(math.ceil((n - 1) / CHUNK) for n in BATCH_LENS),
                    "track_multi": math.ceil((MULTI_FRAMES - 1) / MULTI_CHUNK)}
-    results, main_counts, roi_stats, staged = {}, {}, {}, {}
+    results, main_counts, roi_stats, staged, detections = {}, {}, {}, {}, {}
     for path, runs in paths.items():
         tk.reset_launches()  # counts to 0 just before the path, read just after
+        dk.reset_launches()
         plain_runs["n"] = plain_runs["probe"] = 0
         for name, extra in runs.items():
             before, plain_before = tk.launches, plain_runs["n"]
+            detect_before = dk.launches
             tiled_before = tk.launches_by_kernel["dog_scan_tiled"]
             bounded_before = bounded_by_kernel()
             crops_before, copies_before = roi_crop.native_calls, roi_crop.copy_calls
@@ -1559,6 +1691,9 @@ def main(argv=None) -> int:
             out = entry[path](**extra)
             torch.cuda.synchronize()
             staged[path, name] = roi_crop.copy_calls - copies_before
+            # the detection kernels' launches, as counted and as the call reports them
+            detections[path, name] = (dk.launches - detect_before, (stats_log.last or {}).get(
+                "counts", {}).get("detect.kernel_launches"))
             results[path, name] = (out, tk.launches - before, plain_runs["n"] - plain_before,
                                    time.perf_counter() - t0,
                                    tk.launches_by_kernel["dog_scan_tiled"] - tiled_before)
@@ -1572,6 +1707,7 @@ def main(argv=None) -> int:
                                              native_crops=roi_crop.native_calls - crops_before)
         main_counts[path] = {"total": tk.launches, "by_config": dict(tk.launches_by_config),
                              "by_kernel": dict(tk.launches_by_kernel),
+                             "detect_launches": dict(dk.launches_by_kernel),
                              "plain_runs": plain_runs["n"], "probe_runs": plain_runs["probe"],
                              "probe_launches": dict(tk.probe_launches)}
     record["main_path_launches"] = main_counts
@@ -1655,8 +1791,13 @@ def main(argv=None) -> int:
             else:
                 want_n = want_launches[path][name]
             n_copies = staged[path, name]
+            # track_multi's autodetect: the response and all its rounds, two launches of
+            # csrc/detect.cu, reported as detect.kernel_launches; every other call none
+            n_detect, reported = detections[path, name]
+            want_detect = 2 if "n_targets" in extra else 0
+            detect_ok = n_detect == want_detect and reported == (2 if want_detect else None)
             ok = (n_launch == want_n and n_plain == 0 and max(errs) < 1.0 and equal_single
-                  and equal_cpu is not False and roi_ok
+                  and equal_cpu is not False and roi_ok and detect_ok
                   and n_copies == want_copies.get(path, 0))
             if kind in ("track", "track large target"):
                 ok = ok and len(out[1]) == N_FRAMES
@@ -1676,6 +1817,8 @@ def main(argv=None) -> int:
                               + (at_window if large_kernel == "dog_scan_tiled" else 0))
                 ok = ok and n_tiled == want_tiled
             phase2[f"{path} {name}"] = {"launches": n_launch, "want_launches": want_n,
+                                        "detect_launches": n_detect,
+                                        "reported_detect_launches": reported,
                                         "tiled_launches": n_tiled, "staged_copies": n_copies,
                                         "plain_runs": n_plain, "rmse_px": errs,
                                         "equals_single_track": equal_single,
@@ -1683,7 +1826,8 @@ def main(argv=None) -> int:
                                         **({"roi": roi_stats[path, name]}
                                            if path in roi_paths else {})}
             log(f"phase 2 {path}({name}): launches={n_launch} (want {want_n}, dog_scan_tiled"
-                f" {n_tiled}), plain runs={n_plain}, native staging copies={n_copies} (want"
+                f" {n_tiled}), detection kernel launches={n_detect} (want {want_detect},"
+                f" reported {reported}), plain runs={n_plain}, native staging copies={n_copies} (want"
                 f" {want_copies.get(path, 0)}),"
                 f" rmse max={max(errs):.4f} px over {len(errs)}, equals single track()="
                 f"{equal_single}, equals device='cpu' run={equal_cpu}, {wall:.3f} s{roi_note}"
@@ -2476,6 +2620,62 @@ def main(argv=None) -> int:
         record["profile"][path] = profile_busy(lambda: entry[path](**extra))
         log_profile(f"{path}()", record["profile"][path])
 
+    # the detection kernels a launch at the plate cell's shape (1080p, L = 33, N = 96) beside
+    # their plain versions on the same card tensors (whose card time holds the gaps while the
+    # host issues their launches), each with its bound; and one whole detection, frame on the
+    # card to peaks on the host, by the host clock, kernels against the plain torch ops
+    pL = pspec.kernel_len
+    D = dk.disc_reach(plate_r2, max(H, W))
+    detect_timing = {}
+
+    def response_launch():
+        return dk.frame_response(plate_dev[None], [plate_fill], pspec.sigma, True)
+
+    def response_plain():
+        return dk.correlate_plain(dk.pad_plain(plate_dev[None], [plate_fill], pL), pspec.sigma,
+                                  True)
+
+    detect_timing["detect_response"] = dict(
+        case=f"1080p L={pL}", ms=cuda_time_ms(response_launch, reps=50),
+        plain_ms=cuda_time_ms(response_plain, reps=1, warmup=0),
+        **detect_response_cost(H, W, pL))
+    reps = 20
+    for n in (PLATE_N, 1, 24, 400):
+        # each launch on its own copy of the response and partials: the rounds overwrite both
+        copies = iter([(plate_resp[0].clone(), plate_part[0].clone()) for _ in range(reps + 2)])
+        ms = cuda_time_ms(lambda: dk.suppress(*next(copies), n, plate_r2), reps=reps)
+        del copies
+        name = "detect_rounds" if n == PLATE_N else f"detect_rounds N={n}"
+        detect_timing[name] = dict(case=f"1080p N={n} r2={plate_r2:g} D={D}", ms=ms,
+                                   **detect_rounds_cost(H, W, n, plate_r2, D))
+    detect_timing["detect_rounds"]["plain_ms"] = cuda_time_ms(
+        lambda: dk.suppress_plain(plate_resp[0].clone(), PLATE_N, plate_r2), reps=1, warmup=0)
+    for name, t in detect_timing.items():
+        log(f"phase 3 {name} {t['case']}: {t['ms']:.4f} ms a launch"
+            + (f", plain {t['plain_ms']:.3f} ms" if "plain_ms" in t else "")
+            + f", bound {t['bound_ms']:.6f} ms ({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.2f}%"
+            f" of it reached)")
+    detect = global_detect_peaks(pspec, PLATE_N)
+
+    def plain_detection():
+        return dk.suppress_plain(response_plain()[0], PLATE_N, plate_r2).cpu()
+
+    host_ms = {}
+    for label, fn, n_runs in (("kernels", lambda: detect(plate_dev, plate_fill).cpu(), 20),
+                              ("plain", plain_detection, 3)):
+        runs = []
+        for _ in range(n_runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            runs.append(1e3 * (time.perf_counter() - t0))
+        host_ms[label] = runs
+    record["detect_timing"] = detect_timing
+    record["detection_host_ms"] = host_ms
+    log(f"phase 3 one {PLATE_N}-peak detection at 1080p, frame on the card to peaks on the host:"
+        f" kernels median {statistics.median(host_ms['kernels']):.3f} ms, plain torch ops median"
+        f" {statistics.median(host_ms['plain']):.2f} ms")
+
     # ---- the record -------------------------------------------------------------
     by_config: dict = {}
     for counts in main_counts.values():
@@ -2520,6 +2720,27 @@ def main(argv=None) -> int:
             "configs": [{"case": n, "launches": by_config.get(f"{kname}: {t['config']}", 0),
                          **{k: v for k, v in t.items() if k not in ("flops", "bytes", "kernel")}}
                         for n, t in timing.items() if t["kernel"] == kname],
+        })
+    for kname in ("detect_response", "detect_rounds"):
+        t = detect_timing[kname]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "pawsometracker_tpu_torch/csrc/detect.cu",
+            "replaces": "pawsometracker_tpu/parallel/mesh.py (XLA, no Pallas kernel)",
+            "launches": sum(c.get("detect_launches", {}).get(kname, 0)
+                            for c in main_counts.values()),
+            "max_abs_err": max(v["max_abs_err"] for v in phase1.values()
+                               if v["kernel"] == kname),
+            "case": t["case"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "launches_by_path": {p: c.get("detect_launches", {}).get(kname, 0)
+                                 for p, c in main_counts.items()},
+            "configs": [dict(tc, name=n) for n, tc in detect_timing.items()
+                        if n.startswith(kname + " ")],
         })
     line = {"kernels": kernels}
     record["kernels"] = kernels

@@ -41,6 +41,7 @@ from .api import (
 from .diagnose import Diagnose, Dont
 from .io.decode import open_source
 from .models.dog_tracker import make_spec, resolve_device, tracker_fns
+from .ops import detect_kernel
 from .ops.dog_kernel import fix_window_size, guess_window_size
 from .ops.filters import mode_u8_host
 from .parallel.mesh import global_detect_peaks
@@ -212,9 +213,11 @@ def track_multi(
             if autodetect:
                 # the whole detection as the caller waits on it: the response's and
                 # the rounds' launches, then the wait for the peaks on the host
+                launched = detect_kernel.launches
                 with timer.span("detect", targets=int(n_targets)):
                     peaks = global_detect_peaks(spec, int(n_targets), min_distance)
                     guesses = peaks(frame0_dev, fill, timer=timer).cpu().numpy()
+                launched = detect_kernel.launches - launched
                 # exhausted suppression repeats the last peak: reject instead of
                 # seeding duplicate trackers pinned to the same blob
                 if len({tuple(g) for g in guesses}) < len(guesses):
@@ -246,6 +249,7 @@ def track_multi(
         counts = {"multi.lanes": N}
         if autodetect:
             counts["detect.rounds"] = int(n_targets)
+            counts["detect.kernel_launches"] = launched
         stats = {"stream": "roi" if use_roi else "full", "counts": counts}
         if n > 1 and use_roi:
             pos_blocks, off_blocks, tracked = run_multi_roi_pipeline(

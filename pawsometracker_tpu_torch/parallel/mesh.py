@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..models.dog_tracker import TrackerSpec, autodetect_spec, resolve_device, tracker_fns
-from ..ops.dog_kernel import dog_kernel_separable
+from ..ops import detect_kernel
 from ..utils.profiling import OFF
 
 __all__ = [
@@ -293,60 +293,24 @@ class ShardedFn:
                          timer=self.timer)
 
 
-def _frame_response_parts(spec: TrackerSpec):
-    """Shared whole-frame DoG response, in two parts: ``pad(frames_u8
-    [B,H,W], fills [B]) -> float32 [B, H+L-1, W+L-1]``, each frame on its
-    fill, on the frames' device; and ``correlate(x) -> float32 [B, R, W]``,
-    the separable correlation with the signed kernel of a padded slab of
-    ``R + L - 1`` rows, on the slab's device. Both whole-frame detectors
-    build on them so they can never disagree.
-
-    The correlation is written as direct taps, each a float32 multiply and a
-    separate add, rows first: no matrix product, so no TF32 and no library
-    summation order, and the card and the CPU round every operation alike
-    (``tests/test_torch_cuda.py`` holds them bit-equal). Each output element
-    reads only its own rows of the slab, so a frame correlated in row slabs
-    (the space-sharded detector) is bit-equal to the whole frame. The JAX
-    package uses banded matmuls at HIGHEST precision; the two agree on the
-    peaks of distinct blobs, not on exact ties."""
-    gc_np, gs_np, direction, L = dog_kernel_separable(spec.sigma, spec.darker_target)
-    half = L // 2
-
-    def pad(frames: torch.Tensor, fills) -> torch.Tensor:
-        B, H, W = frames.shape
-        dev = frames.device
-        fill = fills if torch.is_tensor(fills) else torch.as_tensor(np.asarray(fills))
-        fill = fill.to(device=dev, dtype=torch.float32).view(B, 1, 1)
-        x = fill.expand(B, H + 2 * half, W + 2 * half).clone()
-        x[:, half:half + H, half:half + W] = frames.to(torch.float32)
-        return x
-
-    def correlate(x: torch.Tensor) -> torch.Tensor:
-        B, R, W = x.shape[0], x.shape[1] - L + 1, x.shape[2] - L + 1
-        dev = x.device
-
-        def corr(g_np):
-            g = torch.from_numpy(np.asarray(g_np, np.float32)).to(dev)
-            rows = torch.zeros((B, R, x.shape[2]), dtype=torch.float32, device=dev)
-            for k in range(L):
-                rows = rows + g[k] * x[:, k:k + R, :]
-            out = torch.zeros((B, R, W), dtype=torch.float32, device=dev)
-            for k in range(L):
-                out = out + g[k] * rows[:, :, k:k + W]
-            return out
-
-        return direction * (corr(gc_np) - corr(gs_np))
-
-    return pad, correlate, L
-
-
 def _batch_frame_response(spec: TrackerSpec):
     """``fn(frames_u8 [B,H,W], fills [B]) -> float32 [B,H,W]``: the whole
-    frame's response, :func:`_frame_response_parts` in one call."""
-    pad, correlate, _ = _frame_response_parts(spec)
+    frame's DoG response, each frame padded by half the taps with its fill.
+    Both whole-frame detectors build on :mod:`..ops.detect_kernel`'s response,
+    so they can never disagree.
+
+    The correlation is direct taps, each a float32 multiply and a separate
+    add, rows first: no matrix product, so no TF32 and no library summation
+    order. On the card it is one launch of ``csrc/detect.cu``'s response
+    kernel, on the CPU the same arithmetic in plain PyTorch, and the two round
+    every operation alike (``tests/test_torch_cuda.py`` holds them bit-equal).
+    Each output element reads only its own rows of the padded frame, so a
+    frame correlated in row slabs (the space-sharded detector) is bit-equal to
+    the whole frame. The JAX package uses banded matmuls at HIGHEST precision;
+    the two agree on the peaks of distinct blobs, not on exact ties."""
 
     def response(frames: torch.Tensor, fills) -> torch.Tensor:
-        return correlate(pad(frames, fills))
+        return detect_kernel.frame_response(frames, fills, spec.sigma, spec.darker_target)[0]
 
     return response
 
@@ -376,11 +340,12 @@ def global_detect_batch(spec: TrackerSpec, mesh: Mesh | None = None):
     response is computed per output element either way, so the sharded result
     is bit-equal to the unsharded one."""
     H = spec.frame_shape[0]
-    pad, correlate, L = _frame_response_parts(spec)
+    sigma, darker, L = spec.sigma, spec.darker_target, spec.kernel_len
+    response = _batch_frame_response(spec)
 
     if mesh is None:
         def detect(frames, fills):
-            return _argmax_frames(correlate(pad(torch.as_tensor(frames), fills)), H)
+            return _argmax_frames(response(torch.as_tensor(frames), fills), H)
 
         return detect
 
@@ -397,12 +362,13 @@ def global_detect_batch(spec: TrackerSpec, mesh: Mesh | None = None):
         for i, (f, fl) in enumerate(zip(f_parts, fill_parts)):
             home = mesh.devices[i, 0]
             with on_device(home):
-                x = pad(f, fl)
+                x = detect_kernel.pad_plain(f, fl, L)
             parts = []
             for s, (r0, r1) in enumerate(rows):
                 dev = mesh.devices[i, s]
                 with on_device(dev):
-                    parts.append(correlate(x[:, r0:r1 + L - 1].to(dev)))
+                    parts.append(detect_kernel.correlate(x[:, r0:r1 + L - 1].to(dev), sigma,
+                                                         darker))
             with on_device(home):
                 out.append(_argmax_frames(torch.cat([p.to(home) for p in parts], dim=1), H))
         return Sharded(out, BatchSharding(mesh, 2))
@@ -423,44 +389,24 @@ def global_detect_peaks(spec: TrackerSpec, n_targets: int, min_distance: int | N
     duplicate peaks with a clear error instead of seeding bogus trackers.
 
     Returns ``fn(frame_u8 [H, W], fill_u8, timer=OFF) -> int32 [n_targets,
-    2]``, run on the frame's device; under a recording ``timer`` the
-    response's launches are the span ``detect.response`` and the N rounds
-    ``detect.suppress``. The rounds read nothing back to the host, so the
-    caller's copy of the peaks is the one wait for the device."""
-    H, W = spec.frame_shape
+    2]``, run on the frame's device: on the card two launches of
+    ``csrc/detect.cu`` (the response, then all N rounds), whatever N and the
+    taps; on the CPU the plain rounds (:mod:`..ops.detect_kernel`). Under a
+    recording ``timer`` the response's launch is the span ``detect.response``
+    and the rounds' ``detect.suppress``. The rounds read nothing back to the
+    host, so the caller's copy of the peaks is the one wait for the device."""
     N = int(n_targets)
     if min_distance is None:
         min_distance = max(2 * spec.radii[0] + 1, 2 * spec.radii[1] + 1)
     r2 = float(min_distance) ** 2
-    response = _batch_frame_response(spec)
 
     def detect(frame_u8, fill_u8, timer=OFF):
         frame = torch.as_tensor(frame_u8)
         with timer.span("detect.response"):
-            resp = response(frame[None], [int(fill_u8)])[0]  # [H, W]
-        dev = resp.device
+            resp, part = detect_kernel.frame_response(frame[None], [int(fill_u8)], spec.sigma,
+                                                      spec.darker_target)
         with timer.span("detect.suppress"):
-            # the rounds work on the column-major copy [W, H] that
-            # ops.filters.argmax_colmajor would make each round: its flat argmax is the
-            # tracker's tie-break, and a round gathers its peak's value
-            # without a host read
-            resp_t = resp.transpose(0, 1).contiguous()
-            flat = resp_t.view(-1)
-            ii = torch.arange(H, device=dev)[None, :]
-            jj = torch.arange(W, device=dev)[:, None]
-            out = torch.zeros((N, 2), dtype=torch.int32, device=dev)
-            for k in range(N):
-                at = torch.argmax(flat)
-                idx = torch.stack([at % H, at // H]).to(torch.int32)
-                if k > 0:
-                    # suppression exhausted the frame: repeat the previous peak
-                    found = torch.isfinite(flat[at.view(1)])
-                    idx = torch.where(found, idx, out[k - 1])
-                out[k] = idx
-                # int64 distances, compared in float32 as a float scalar promotes them
-                d2 = (ii - idx[0]) ** 2 + (jj - idx[1]) ** 2
-                resp_t.masked_fill_(d2 <= r2, -torch.inf)
-        return out
+            return detect_kernel.suppress(resp[0], None if part is None else part[0], N, r2)
 
     return detect
 

@@ -605,6 +605,245 @@ def test_detection_rounds_read_nothing_back(card):
     assert counts[24] == counts[2] and counts[400] == counts[2], counts
 
 
+# ---- csrc/detect.cu: the whole-frame response and the rounds of suppression ----------
+
+
+def detect_case(card, h, w, target_width, seed=4):
+    """Random uint8 frames ``[2, h, w]`` with two dark squares, their spec's
+    sigma and L, and the frames on the card."""
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 256, size=(2, h, w)).astype(np.uint8)
+    frames[:, 5:17, 9:21] = 0
+    spec = make_spec((h, w), 21, target_width, True)
+    return spec, frames, torch.from_numpy(frames).to(card)
+
+
+def column_partials(resp, rows=32):
+    """``[P, W]`` values and first rows of each column's maximum over each
+    32-row tile of ``resp [H, W]``, as the response kernel writes them."""
+    H = resp.shape[0]
+    tiles = [resp[r:r + rows] for r in range(0, H, rows)]
+    vals = torch.stack([t.max(dim=0).values for t in tiles])
+    first = torch.stack([torch.argmax((t == t.max(dim=0).values).to(torch.uint8), dim=0) + r
+                         for t, r in zip(tiles, range(0, H, rows))])
+    return vals, first.to(torch.int32)
+
+
+@pytest.mark.parametrize("target_width,L", [(12, 33), (25, 65), (60, 149)])
+@pytest.mark.parametrize("shape", [(75, 203), (64, 128), (33, 7)])
+def test_detect_response_equals_plain(card, target_width, L, shape):
+    """The response kernel gives the plain version's bits at L = 33, 65 and
+    149, on frames whose sizes are and are not multiples of the tile: from
+    uint8 frames on their fills (the pad fused in), from padded float32 slabs,
+    and from a slab that is a row range of a larger one. Its partials are each
+    column's maximum over each 32-row tile and the first row holding it."""
+    from pawsometracker_tpu_torch.ops import detect_kernel as dk
+
+    spec, frames, dev_frames = detect_case(card, *shape, target_width)
+    assert spec.kernel_len == L
+    sig, fills = spec.sigma, [128, 90]
+    want = dk.correlate_plain(dk.pad_plain(dev_frames, fills, L), sig, True)
+    before = dk.launches
+    got, part = dk.frame_response(dev_frames, fills, sig, True)
+    assert dk.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), dk.correlate_plain(dk.pad_plain(torch.from_numpy(frames),
+                                                                  fills, L), sig, True))
+    vals, first = column_partials(want[0])
+    assert torch.equal(part[0, ..., 0], vals)
+    assert torch.equal(part[0, ..., 1].contiguous().view(torch.int32), first)
+    x = dk.pad_plain(dev_frames, torch.tensor(fills, dtype=torch.uint8, device=card), L)
+    assert torch.equal(dk.correlate(x, sig, True), want)
+    h = shape[0]
+    r0, r1 = h // 3, h // 3 + max(1, h // 4)
+    assert torch.equal(dk.correlate(x[:, r0:r1 + L - 1], sig, True), want[:, r0:r1])
+    assert torch.equal(dk.frame_response(dev_frames[1:], [90], sig, True)[0], want[1:])
+
+
+def test_detect_response_refuses_what_it_cannot_take(card):
+    """Too many taps for a tile in shared memory, or a slab too small for one
+    output, raise; nothing runs in their place."""
+    from pawsometracker_tpu_torch.ops import detect_kernel as dk
+
+    frame = torch.zeros((1, 40, 40), dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        dk.frame_response(frame, [0], make_spec((40, 40), 21, 100, True).sigma, True)
+    with pytest.raises(ValueError, match="holds no output"):
+        dk.correlate(torch.zeros((1, 20, 40), device=card), 4.0, True)
+
+
+@pytest.mark.parametrize("fills", [
+    torch.tensor([128], dtype=torch.uint8), torch.tensor([128, 90, 100], dtype=torch.uint8),
+    torch.tensor([127.5, 128.0]), torch.tensor([128, 90], dtype=torch.int64),
+])
+def test_detect_response_refuses_card_fills_it_cannot_read(card, fills):
+    """A fills tensor already on the card must hold one uint8 a frame: one of
+    the wrong length (which the kernel would read past) or of another dtype
+    (which it would cut to uint8) raises, in the kernel's wrapper and in the
+    plain pad alike, and nothing is launched."""
+    from pawsometracker_tpu_torch.ops import detect_kernel as dk
+
+    spec, _, dev_frames = detect_case(card, 64, 128, 12)
+    fills = fills.to(card)
+    before = dk.launches
+    with pytest.raises(ValueError, match="fills on the card"):
+        dk.frame_response(dev_frames, fills, spec.sigma, True)
+    with pytest.raises(ValueError, match="fills on the card"):
+        dk.pad_plain(dev_frames, fills, spec.kernel_len)
+    assert dk.launches == before
+
+
+def rounds_frames():
+    """Frames whose peaks test the rounds: name -> (uint8 frame, fill, n, min_distance)."""
+    plateau = np.full((90, 130), 128, np.uint8)  # a flat response: every cell ties
+    twins = np.full((120, 160), 128, np.uint8)
+    for i, j in ((30, 40), (30, 100), (80, 40), (80, 100)):  # four equal blobs
+        twins[i - 3:i + 3, j - 3:j + 3] = 20
+    corners = np.full((100, 150), 128, np.uint8)
+    for i, j in ((0, 0), (0, 146), (96, 0), (96, 146), (0, 70), (50, 0), (96, 75), (48, 146)):
+        corners[i:i + 4, j:j + 4] = 10 + i // 8 + j // 16
+    rng = np.random.default_rng(5)
+    noise = rng.integers(0, 256, size=(150, 210)).astype(np.uint8)
+    return {"tied plateau": (plateau, 128, 6, None),
+            "four tied blobs": (twins, 128, 4, 11),
+            "exhausted": (twins, 128, 30, 25),
+            "corners and edges": (corners, 128, 8, 9),
+            "min_distance beyond the frame": (twins, 128, 5, 500),
+            "min_distance 0": (noise, 128, 40, 0),
+            "noise, N = 1": (noise, 100, 1, None),
+            "noise, N = 96": (noise, 100, 96, 7),
+            "noise, N = 400": (noise, 100, 400, 3)}
+
+
+@pytest.mark.parametrize("name", list(rounds_frames()))
+def test_detect_rounds_equal_plain(card, name):
+    """The rounds kernel's peaks are the plain rounds': on the card and on the
+    CPU, ties (the first column-major maximum wins), exhausted suppression
+    (the last peak repeats), discs clipped at the frame's edges and corners,
+    a disc larger than the frame, and N from 1 to 400, in one launch."""
+    from pawsometracker_tpu_torch.ops import detect_kernel as dk
+    from pawsometracker_tpu_torch.parallel.mesh import global_detect_peaks
+
+    frame, fill, n, md = rounds_frames()[name]
+    spec = make_spec(frame.shape, 21, 10, True)
+    on_card = torch.from_numpy(frame).to(card)
+    resp = dk.frame_response(on_card[None], [fill], spec.sigma, True)[0][0]
+    r2 = float(md if md is not None else 21) ** 2
+    want = dk.suppress_plain(resp, n, r2)
+    resp2, part = dk.frame_response(on_card[None], [fill], spec.sigma, True)
+    before = dk.launches
+    got = dk.suppress(resp2[0], part[0], n, r2)
+    assert dk.launches == before + 1
+    assert torch.equal(got, want), (got.tolist()[:8], want.tolist()[:8])
+    cpu = global_detect_peaks(spec, n, md)(torch.from_numpy(frame), fill)
+    assert torch.equal(global_detect_peaks(spec, n, md)(on_card, fill).cpu(), cpu)
+
+
+def test_detect_rounds_on_tied_random_responses(card):
+    """Integer-valued responses full of ties, -inf cells, odd sizes and disc
+    radii around whole and half pixels, from a disc of one cell to one larger
+    than the frame: the rounds kernel, started from the partials of each
+    32-row tile (which it keeps up to date), gives the plain rounds' peaks."""
+    from pawsometracker_tpu_torch.ops import detect_kernel as dk
+
+    rng = np.random.default_rng(11)
+    for trial in range(24):
+        h, w = int(rng.integers(1, 140)), int(rng.integers(1, 300))
+        resp = torch.from_numpy(rng.integers(-2, 3, size=(h, w)).astype(np.float32))
+        resp[torch.from_numpy(rng.random((h, w)) < 0.1)] = -torch.inf
+        resp = resp.to(card)
+        vals, first = column_partials(resp)
+        part = torch.stack([vals, first.view(torch.float32)], dim=-1).contiguous()
+        md = float(rng.choice([0, 1, 1.5, 2, 4.5, 9, 40, 400]))
+        n = int(rng.integers(1, 120))
+        want = dk.suppress_plain(resp.clone(), n, md ** 2)  # a 1-row copy is resp itself
+        got = dk.suppress(resp.clone(), part, n, md ** 2)
+        assert torch.equal(got, want), (trial, h, w, md, n)
+
+
+def test_plate_frame_peaks_equal_the_reference(card):
+    """Frame 1 of the plate cell's traffic (96 discs at 1080p, made by the
+    benchmark's generator on the card): the kernels' 96 peaks equal
+    ``portbench/reference/multi.py::peaks(frame_response(...))``, and the
+    response is the reference's to the bit."""
+    from portbench import frames as bench_frames
+    from portbench.reference import multi as bench_multi
+    from portbench.reference import tracker as bench_tracker
+    from pawsometracker_tpu_torch.ops import detect_kernel as dk
+    from pawsometracker_tpu_torch.parallel.mesh import global_detect_peaks
+
+    with open("portbench/configs/plate96-larvae1080-tw12.json") as f:
+        config = json.load(f)
+    with open("portbench/traffic/multi96-plate-full-1080.json") as f:
+        traffic = json.load(f)
+    traffic["clip_sets"] = 1
+    for v in traffic["videos"]:
+        v["frames"] = 1
+    frame = bench_frames.render(config, bench_frames.plan(config, traffic, 2**31 + 7), 2**31 + 7,
+                                card)[0][0][0]
+    fill = bench_tracker.mode_u8(frame)
+    g, direction, _ = bench_tracker.taps(config["target_width"], config["darker_target"])
+    want_resp = bench_multi.frame_response(frame, fill, g, direction)
+    want = bench_multi.peaks(want_resp, 96, 25)
+    spec = make_spec(frame.shape, config["window_size"], config["target_width"], True)
+    on_card = torch.from_numpy(frame).to(card)
+    resp = dk.frame_response(on_card[None], [fill], spec.sigma, True)[0][0]
+    assert np.array_equal(resp.cpu().numpy().view(np.uint32), want_resp.view(np.uint32))
+    got = global_detect_peaks(spec, 96)(on_card, fill).cpu().numpy()
+    assert [tuple(p) for p in got.tolist()] == [tuple(p) for p in want]
+
+
+@pytest.mark.parametrize("target_width", [12, 25])
+def test_space_sharded_detection_on_card_equals_unsharded(card, target_width):
+    """global_detect_batch over space = 2 and 4 shards of cuda:0 (each shard's
+    padded slab through the response kernel) equals the unsharded detector
+    (the kernel on the uint8 frames) and the CPU's, at 270 x 481."""
+    from pawsometracker_tpu_torch import make_mesh
+    from pawsometracker_tpu_torch.parallel.mesh import global_detect_batch
+
+    rng = np.random.default_rng(9)
+    frames = rng.integers(100, 140, size=(2, 270, 481)).astype(np.uint8)
+    frames[0, 100:110, 300:310] = 0
+    frames[1, 200:206, 17:23] = 0
+    fills = np.array([120, 128], np.uint8)
+    spec = make_spec((270, 481), 21, target_width, True)
+    want = global_detect_batch(spec)(frames, fills).numpy()
+    on_card = torch.from_numpy(frames).to(card)
+    np.testing.assert_array_equal(global_detect_batch(spec)(on_card, fills).cpu().numpy(), want)
+    for space in (2, 4):
+        mesh = make_mesh(devices=["cuda:0"] * space, space=space)
+        np.testing.assert_array_equal(np.asarray(global_detect_batch(spec, mesh)(on_card, fills)),
+                                      want)
+
+
+def test_detection_launches_are_constant(card, caplog):
+    """A detection is two kernel launches whatever its N: 2, 24 and 400 peaks
+    add the same ``detect_kernel.launches``, and an autodetecting
+    ``track_multi`` on the card reports them as ``detect.kernel_launches``."""
+    from pawsometracker_tpu_torch import track_multi
+    from pawsometracker_tpu_torch.ops import detect_kernel as dk
+    from pawsometracker_tpu_torch.parallel.mesh import global_detect_peaks
+
+    spec = make_spec((240, 360), 21, 10, True)
+    frame = np.full((240, 360), 128, np.uint8)
+    for r in range(4):
+        for c in range(6):
+            frame[30 + 60 * r:36 + 60 * r, 30 + 60 * c:36 + 60 * c] = 20
+    on_card = torch.from_numpy(frame).to(card)
+    added = {}
+    for n in (2, 24, 400):
+        before = dk.launches
+        global_detect_peaks(spec, n)(on_card, 128).cpu()
+        added[n] = dk.launches - before
+    assert added == {2: 2, 24: 2, 400: 2}
+    clip = np.repeat(frame[None], 5, axis=0)
+    with caplog.at_level(logging.DEBUG, logger="pawsometracker_tpu_torch"):
+        track_multi(clip, n_targets=24, target_width=10, stream="full")
+    [stats] = [r.paws_stats for r in caplog.records if hasattr(r, "paws_stats")]
+    assert stats["counts"] == {"multi.lanes": 24, "detect.rounds": 24,
+                               "detect.kernel_launches": 2}
+
+
 # ---- dog_scan's prefetched superset, at the frame's edges and beyond ----------
 
 

@@ -257,7 +257,8 @@ def test_scaled_plate_takes_full_frames_and_equals_reference_and_jax(caplog):
         ts, pos = port.track_multi(clip, device="cpu", **kw)
     [stats] = [r.paws_stats for r in caplog.records if hasattr(r, "paws_stats")]
     assert stats["stream"] == "full"
-    assert stats["counts"] == {"multi.lanes": 24, "detect.rounds": 24}
+    assert stats["counts"] == {"multi.lanes": 24, "detect.rounds": 24,
+                               "detect.kernel_launches": 0}
     assert pos.shape == (8, 24, 2)
     want = bench_multi.track(clip, [None] * 24, target_width=12, window=25)
     np.testing.assert_array_equal(pos, want)

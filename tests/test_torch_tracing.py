@@ -273,7 +273,7 @@ def test_multi_detection_spans_and_counts(stats, stream):
     inner = sorted((s for s in spans if s.parent == detect.id), key=lambda s: s.start_ns)
     assert [s.name for s in inner] == ["detect.response", "detect.suppress"]
     assert inner[0].attrs is None and inner[1].attrs is None
-    assert auto["counts"] == {"multi.lanes": 2, "detect.rounds": 2}
+    assert auto["counts"] == {"multi.lanes": 2, "detect.rounds": 2, "detect.kernel_launches": 0}
     check_tree(given["spans"])
     assert not {s.name for s in given["spans"]} & {"detect", "detect.response", "detect.suppress"}
     assert given["counts"] == {"multi.lanes": 2}
@@ -283,4 +283,22 @@ def test_untraced_multi_counts_its_lanes(stats):
     """Without a session the counts are there all the same, and no spans."""
     port.track_multi(two_discs(), n_targets=2, target_width=5, device="cpu")
     [st] = stats
-    assert "spans" not in st and st["counts"] == {"multi.lanes": 2, "detect.rounds": 2}
+    assert "spans" not in st and st["counts"] == {"multi.lanes": 2, "detect.rounds": 2,
+                                                  "detect.kernel_launches": 0}
+
+
+@pytest.mark.parametrize("n_targets", [1, 2, 3])
+def test_cpu_detection_launches_no_kernel(stats, n_targets):
+    """On the CPU the detection runs its plain rounds: ``detect.kernel_launches``
+    reads 0 beside ``detect.rounds``, whatever N, and the detection kernels'
+    count does not move."""
+    from pawsometracker_tpu_torch.ops import detect_kernel
+
+    frames = two_discs()
+    frames[:, 85:91, 50:56] = 20  # a third disc
+    before = detect_kernel.launches
+    port.track_multi(frames, n_targets=n_targets, target_width=5, device="cpu")
+    [st] = stats
+    assert st["counts"]["detect.rounds"] == n_targets
+    assert st["counts"]["detect.kernel_launches"] == 0
+    assert detect_kernel.launches == before
