@@ -48,11 +48,11 @@ any failure exits non-zero:
    kernel bit-equal to its plain version on the same card tensors at L = 33
    (``target_width`` 12, the plate's), 65 and 149; the rounds kernel's 96
    peaks (``min_distance`` 25) equal to the plain rounds' on the same
-   response; and the whole detection on the card equal to the CPU's. Segments (group dispatch: S chunk scans
-   a lane in one launch of either kernel, chained as the JAX package's
-   super-programs chain them), S = 2 and 4, each one launch against its plain
-   version: one chain at both ROI crop sizes by the ks rule (a short chunk),
-   4 lanes with the carry in the launch (a lane with no real frame and a
+   response; and the whole detection on the card equal to the CPU's. Segments
+   (S chunk scans a lane in one launch of either kernel, chained as the JAX
+   package's super-programs chain them; no pipeline launches S > 1), S = 2
+   and 4, each one launch against its plain version: one chain at both ROI
+   crop sizes by the ks rule (a short chunk), 4 lanes with the carry in the launch (a lane with no real frame and a
    short one in chunk 1; positions and carry), and 1080p 64-frame chunks from
    the last step; and 3 segments of 12 1080p frames at ``target_width=60``'s
    window from the last step (± subpixel), each segment's first patch read
@@ -144,12 +144,6 @@ E. The engine choice (``engine="auto"`` on the ROI paths), with the engine
    same three ways as track_batch, each equal to its ``mesh=None`` run above
    and launching once a data shard for each of that run's launches (the
    snap(s), then each chunk or dispatch), with no plain run.
-   Then group dispatch ("<path> pin 2", "<path> pin 4"): ``track`` on full
-   frames, the three ROI cells and "track_batch ROI mesh=cuda:0 x4" under
-   ``PAWS_DISPATCH_GROUP``, each equal to its unpinned run and launching the
-   snap plus one launch a group (once a data shard), fewer than its chunks,
-   with no plain run (the segmented plain versions and the batched chain's
-   tensor ops counted too).
 3. Timing with CUDA events: each kernel per launch at T=64 (one chain:
    unbounded, bounded, bounded+subpixel, the snap; lanes: B = 1, 4 and 16,
    and four targets on shared frames; bounded and bounded+subpixel lanes at
@@ -186,16 +180,14 @@ E. The engine choice (``engine="auto"`` on the ROI paths), with the engine
    where every shard is on cuda:0, wall time a call, the host's time) beside
    the unsharded launch, and e2e frames/s of each mesh path beside
    ``mesh=None`` in the same call, with a profile of each mesh's ROI call;
-   and group dispatch: each segmented launch of phase 1 at S = 1, 2 and 4
-   beside S times its S = 1 launch (the plain version at S = 2, the
-   wrapper's host time a launch), and e2e frames/s of the group paths of
-   phase 2 unpinned and under pins 1, 2 and 4, in turns, with their timer
-   sections a chunk and their launches; and the ROI path's host work by cell
+   and each segmented launch of phase 1 at S = 1, 2 and 4 beside S times its
+   S = 1 launch (the plain version at S = 2, the wrapper's host time a
+   launch); and the ROI path's host work by cell
    (track ROI, the large target's, track_batch ROI, track_multi ROI): the
    set-up a call and outside the sections, crop, device and upload a chunk
    from the e2e runs, the chunk's crops alone natively (equal to numpy on
    every chunk) and in numpy, and a chunk launch's host microseconds through
-   the scan the engines stage once over a device group and through the public
+   the scan the engines stage once over a device slot and through the public
    wrapper (equal outputs); with ``--parent DIR``, the same cells against
    that checkout in turns (``tools/host_path_ab.py``).
 
@@ -266,10 +258,6 @@ SWEEP_TW = (30, 35, 38)
 #: own pick and the largest the card schedules: the whole window on one CTA, two CTAs, and
 #: one 7-row block a CTA at the bench window (41 = 6 * 7 - 1)
 SCAN_CLUSTERS = (1, 2, 6)
-#: the PAWS_DISPATCH_GROUP pins the group-dispatch phases drive: phase 2's
-#: checks, and phase 3's end-to-end timing (None: unpinned)
-PINS = (2, 4)
-GROUP_E2E_PINS = (None, 1, 2, 4)
 #: dog_scan's ms a launch in PR 10's last chip_smoke.py run (H100 80GB HBM3, 700 W), before
 #: its redesign as a cluster, by phase-3 timing name: printed in the log beside this run's
 #: (never in the kernels line, which holds only what this run measured)
@@ -881,8 +869,8 @@ def main(argv=None) -> int:
         from pawsometracker_tpu_torch.ops.filters import mode_u8_host
         from pawsometracker_tpu_torch import pipeline as pl
         from pawsometracker_tpu_torch.io.decode import ArrayFrameSource
-        from pawsometracker_tpu_torch.pipeline import (_AUTO_DEPTH_MEMO, _crop_with_fill,
-                                                       roi_geometry)
+        from pawsometracker_tpu_torch.ops.roi_crop import crop_with_fill as _crop_with_fill
+        from pawsometracker_tpu_torch.pipeline import roi_geometry
     except ImportError as e:
         print(f"chip_smoke: the port's package is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -1311,7 +1299,7 @@ def main(argv=None) -> int:
         f" {len({tuple(p) for p in cpu_peaks.tolist()})} distinct -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("phase 1 detect_rounds: differs from the plain rounds or the CPU")
-    # segments: S chunk scans a lane in one launch (group dispatch) against
+    # segments: S chunk scans a lane in one launch (the kernel layer's form) against
     # their plain versions, at the ROI crops (one chain by the ks rule with a
     # short chunk; 4 lanes by the carry, lane 2 with no real frame and lane 3 a
     # short one in chunk 1) and at the 1080p full-frame chunk (each segment
@@ -1776,8 +1764,8 @@ def main(argv=None) -> int:
                 equal_pallas = all(same(a[1], f[1], sub) and np.array_equal(a[0], f[0])
                                    for a, f in pairs)
                 st["equals_engine_pallas"] = equal_pallas
-                # unpinned, a group is one chunk: one launch a dispatch; the
-                # chunks' crops cut natively (csrc/roi_crop.cpp)
+                # one launch a dispatch; the chunks' crops cut natively
+                # (csrc/roi_crop.cpp)
                 roi_ok = (st.get("stream") == "roi" and equal_full and equal_pallas
                           and st["bounded_launches"] == st.get("groups") == st.get("dispatches")
                           and list(st["bounded_by_kernel"]) == [want_kernel]
@@ -1888,65 +1876,6 @@ def main(argv=None) -> int:
                                  "by_kernel": dict(tk.launches_by_kernel),
                                  "plain_runs": plain_runs["n"]}
     phase_done("phase 2, mesh")
-    # group dispatch: track on full frames, the ROI cells and track_batch ROI
-    # over 4 shards of cuda:0 under PAWS_DISPATCH_GROUP 2 and 4; each equal to
-    # its unpinned run above, launching the snap(s) and then one launch a
-    # group (once a data shard), fewer than its chunks, with no plain run
-    pinned_paths = {"track": paths["track"], "track ROI": paths["track ROI"],
-                    "track_batch ROI": paths["track_batch ROI"],
-                    "track_multi ROI": paths["track_multi ROI"],
-                    "track_batch ROI mesh=cuda:0 x4": paths["track_batch"]}
-    for pin in PINS:
-        for path, runs in pinned_paths.items():
-            kind = roi_paths.get(mesh_paths.get(path, path), mesh_paths.get(path, path))
-            label = f"{path} pin {pin}"
-            tk.reset_launches()  # counts to 0 just before the path, read just after
-            plain_runs["n"] = 0
-            for name in ("start_location" if kind != "track_multi" else "start_locations",
-                         "subpixel"):
-                extra = runs[name]
-                before, plain_before = tk.launches, plain_runs["n"]
-                stats_log.last = None
-                os.environ["PAWS_DISPATCH_GROUP"] = str(pin)
-                try:
-                    t0 = time.perf_counter()
-                    out = entry[path](**extra)
-                    torch.cuda.synchronize()
-                    wall = time.perf_counter() - t0
-                finally:
-                    del os.environ["PAWS_DISPATCH_GROUP"]
-                n_launch, n_plain = tk.launches - before, plain_runs["n"] - plain_before
-                st = stats_log.last or {}
-                sub = bool(extra.get("subpixel"))
-                want_out = results[mesh_paths.get(path, path), name][0]
-                pairs = list(zip(out, want_out)) if kind == "track_batch" else [(out, want_out)]
-                equal = all(same(a[1], w[1], sub) and np.array_equal(a[0], w[0])
-                            for a, w in pairs)
-                shards = st.get("shards", 1)
-                groups = st.get("groups", -1)
-                want_n = shards * (1 + groups)
-                chunks = st.get("dispatches", math.ceil((N_FRAMES - 1) / CHUNK))
-                ok = (equal and n_launch == want_n and n_plain == 0 and 0 < groups < chunks
-                      and st.get("group", pin) == pin)
-                phase2[f"{label} {name}"] = {"launches": n_launch, "want_launches": want_n,
-                                             "groups": groups, "chunks": chunks,
-                                             "shards": shards, "plain_runs": n_plain,
-                                             "equals_unpinned": equal, "wall_s": wall,
-                                             "stats": st, "ok": ok}
-                log(f"phase 2 {label}({name}): launches={n_launch} (want {want_n}: {shards}"
-                    f" shard(s) x (the snap + {groups} groups of {chunks} chunks)), plain runs="
-                    f"{n_plain}, equals unpinned={equal}, {wall:.3f} s"
-                    f" -> {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise SystemExit(f"phase 2 {label} {name} failed")
-            main_counts[label] = {"total": tk.launches, "by_config": dict(tk.launches_by_config),
-                                  "by_kernel": dict(tk.launches_by_kernel),
-                                  "plain_runs": plain_runs["n"]}
-    # the auto-depth memo keeps the group a pinned run ended at, and an unpinned run of the
-    # same geometry would start from it (as in the JAX package): the paths after this one
-    # start unpinned
-    _AUTO_DEPTH_MEMO.clear()
-    phase_done("phase 2, group dispatch")
     # track_resumable of the bench clip on ROI, in 4 slices of 120 frames:
     # each run equals track ROI's uninterrupted track() and launches, per
     # slice, its snap and one bounded launch a dispatch
@@ -2274,7 +2203,7 @@ def main(argv=None) -> int:
             f" {host_us:.1f} us a call; one unsharded B={B} launch {timing[case]['ms']:.4f} ms,"
             f" bound {timing[case]['bound_ms']:.6f} ms ({timing[case]['bound_by']})")
     record["sharded_pallas_bounded"] = sharded_timing
-    # segmented launches (group dispatch): card ms at S = 1, 2 and 4 beside S
+    # segmented launches: card ms at S = 1, 2 and 4 beside S
     # times the S = 1 launch, at the ROI crops (one chain by the ks rule; 4
     # lanes with the carry in the launch) and at the 1080p 64-frame chunk; the
     # plain version at S = 2; the wrapper's host time a launch
@@ -2410,7 +2339,7 @@ def main(argv=None) -> int:
                ", clip frames with 4 targets)" if kind == "track_multi" else ")") + note)
     # the ROI path's host work a chunk and a call, by cell: the crops (native
     # against numpy), the launch (the scan the engines stage once over a device
-    # group, against the public wrapper the engines called before: its checks,
+    # slot, against the public wrapper the engines called before: its checks,
     # conversions and repacking), and from the e2e runs above the set-up a
     # call and the time outside the sections a chunk
     host_path = {}
@@ -2437,7 +2366,7 @@ def main(argv=None) -> int:
         else:
             eng = pl._SingleEngine(fns.scan_bounded, (ch, cw), (H, W), fl, False, None, dev,
                                    segments=fns.scan_bounded_super)
-        group = eng._new_group(1, ROI_K)
+        group = eng._new_group(ROI_K)
         group.frames[0][0].copy_(crops if batched else crops[None])
         if batched:  # the carry starts each lane at its position, as the chain does
             a = pl._batch_args(group.args[0], B, ROI_K)
@@ -2496,55 +2425,6 @@ def main(argv=None) -> int:
             log(f"phase 3 host path A/B: {line}")
         record["host_path_ab"] = json.loads(lines[-1])
         log(f"phase 3 host path before/after (parent, change, change, parent): {lines[-1]}")
-    # group dispatch end to end: track (full frames), the ROI cells and
-    # track_batch ROI over 4 shards of cuda:0, unpinned and under pins 1, 2 and
-    # 4, in turns, 3 runs each; the median run's timer sections a dispatch. Each
-    # run starts with the auto-depth memo cleared, as a fresh process does, so
-    # that no run starts from the depth or group another left
-    group_e2e = {}
-    group_paths = (("track", N_FRAMES, paths["track"]["start_location"]),
-                   ("track ROI", N_FRAMES, paths["track ROI"]["start_location"]),
-                   ("track_batch ROI", sum(BATCH_LENS), paths["track_batch"]["start_location"]),
-                   ("track_multi ROI", MULTI_FRAMES, paths["track_multi"]["start_locations"]),
-                   ("track_batch ROI mesh=cuda:0 x4", sum(BATCH_LENS),
-                    paths["track_batch"]["start_location"]))
-    pin_runs = {(p, pin): ([], []) for p, _, _ in group_paths for pin in GROUP_E2E_PINS}
-    for _ in range(3):
-        for path, _, extra in group_paths:
-            for pin in GROUP_E2E_PINS:
-                if pin is not None:
-                    os.environ["PAWS_DISPATCH_GROUP"] = str(pin)
-                try:
-                    _AUTO_DEPTH_MEMO.clear()
-                    torch.cuda.synchronize()
-                    stats_log.last = None
-                    t0 = time.perf_counter()
-                    entry[path](**extra)
-                    pin_runs[path, pin][0].append(time.perf_counter() - t0)
-                    pin_runs[path, pin][1].append(stats_log.last)
-                finally:
-                    os.environ.pop("PAWS_DISPATCH_GROUP", None)
-    for path, frames_per_call, _ in group_paths:
-        group_e2e[path] = {}
-        for pin in GROUP_E2E_PINS:
-            walls, sts = pin_runs[path, pin]
-            med = sorted(range(len(walls)), key=walls.__getitem__)[len(walls) // 2]
-            st = sts[med] or {}
-            sec = dict(st.get("sections", {}))
-            sec["outside the sections"] = walls[med] - sum(sec.values())
-            n_disp = st.get("dispatches", math.ceil((N_FRAMES - 1) / CHUNK))
-            per = {k: 1e6 * v / n_disp for k, v in sec.items()
-                   if k not in ("setup", "snap", "buffers")}
-            key = "unpinned" if pin is None else f"pin {pin}"
-            group_e2e[path][key] = {
-                "frames_per_s": frames_per_call / statistics.median(walls), "runs_s": walls,
-                "dispatches": n_disp, "groups": st.get("groups"), "group": st.get("group"),
-                "depth": st.get("depth"), "host_us_per_dispatch": per}
-            log(f"phase 3 e2e {path} {key}: {frames_per_call / statistics.median(walls):.1f}"
-                f" frames/s (median of {len(walls)}, in turns), {n_disp} chunks in"
-                f" {st.get('groups')} launches a shard, depth {st.get('depth')}; us a chunk: "
-                + ", ".join(f"{k} {v:.1f}" for k, v in per.items()))
-    record["group_e2e"] = group_e2e
     # track_resumable on ROI over its 4 slices, beside track ROI in this call:
     # the gap is each slice's set-up (its frame 1 and that frame's mode) and snap
     walls, runs_slices = [], []
@@ -2713,7 +2593,7 @@ def main(argv=None) -> int:
             # the launch wrapper over the mesh, with its shards' times
             "sharded_pallas_bounded": {n: t for n, t in sharded_timing.items()
                                        if t["kernel"] == kname},
-            # the segmented launches (group dispatch) at S = 1, 2, 4
+            # the segmented launches at S = 1, 2, 4
             "segmented": {n: t for n, t in seg_timing.items() if t["kernel"] == kname},
             # the kernel's timed cases, each with its configuration's launches
             # on the main paths

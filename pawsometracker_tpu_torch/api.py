@@ -19,7 +19,6 @@ Returns ``(ts, positions)``: ``ts`` float64 seconds, ``positions`` int
 
 from __future__ import annotations
 
-import functools
 import logging
 from typing import NamedTuple, Sequence
 
@@ -368,8 +367,6 @@ def _track_one(
                 prefetchers=prefetchers,
                 device=device,
                 progress=progress,
-                segments=functools.partial(tracker_fns(spec, device, engine).scan_super,
-                                           subpixel=subpixel),
                 stats=stats,
             )
             positions.extend(pos_blocks)

@@ -52,6 +52,7 @@ from collections import deque
 
 import numpy as np
 
+from ..ops.roi_crop import crop_with_fill
 from .decode import VideoInfo  # noqa: F401  (re-export convenience)
 
 __all__ = ["ParallelNativeSource", "parallel_ok"]
@@ -538,9 +539,7 @@ class ParallelNativeSource:
         return self._consume(n, lambda blk: self._retained.extend(blk))
 
     def _crop(self, frame, origin, ch, cw, fill, out):
-        from ..pipeline import _crop_with_fill  # lazy: avoids an import cycle
-
-        _crop_with_fill(frame, origin, ch, cw, fill, out=out)
+        crop_with_fill(frame, origin, ch, cw, fill, out=out)
 
     @staticmethod
     def _origin_at(origin, i):

@@ -221,10 +221,9 @@ class ShardedFn:
     :class:`Sharded` (a tuple of them where the function returns a tuple).
 
     A bounded scan over the mesh also carries its segmented form:
-    ``segments[i]`` is shard i's ``scan_bounded_batch_super`` (S chained
-    scans a launch, see :class:`~..models.dog_tracker.TrackerFns`), which the
-    lane engines call a shard at a time and :meth:`segmented` calls over the
-    whole batch. ``timer`` (a call's :class:`~..utils.profiling.Timer`;
+    ``segments[i]`` is shard i's ``scan_bounded_batch_super`` (see
+    :class:`~..models.dog_tracker.TrackerFns`), which the lane engines launch
+    at S = 1 a shard at a time. ``timer`` (a call's :class:`~..utils.profiling.Timer`;
     None: no spans) records each shard's turn of a call as ``shard.launch``."""
 
     def __init__(self, fns, mesh: Mesh, segments=None, timer=None):
@@ -248,44 +247,6 @@ class ShardedFn:
         if isinstance(outs[0], tuple):
             return tuple(wrap([o[k] for o in outs]) for k in range(len(outs[0])))
         return wrap(outs)
-
-    def segmented(self, crops, carry, fills, deltas, lo, hi, ks, origin0, origin_last):
-        """S chained batched scans over the mesh, one launch a data shard on
-        that shard's lanes and carry, in its device's context (the JAX
-        package's ``make_super_chain_batch`` over ``sharded_pallas_bounded``).
-        Arguments as ``scan_bounded_batch_super``'s, lanes on axis 1 of the
-        per-segment ones (``crops [S,L,...]``, ``ks [S,L]``, ...) and on axis
-        0 of ``carry`` and ``fills``. Returns ``(positions, carry)`` as
-        :class:`Sharded` s with lanes first: positions ``[L, S, K, 2]`` (a pair
-        with offsets for a subpixel scan), carry ``[L, 2]``."""
-        if self.segments is None:
-            raise ValueError("this ShardedFn has no segmented form")
-        batch = carry.shape[0]
-        sharding = BatchSharding(self.mesh, 1)
-        lanes = sharding.lanes(batch)
-
-        def per_segment(x):  # lanes on axis 1
-            t = x if torch.is_tensor(x) else torch.as_tensor(np.ascontiguousarray(x))
-            return [t[:, sl].to(d) for sl, d in zip(lanes, sharding.devices)]
-
-        seg_args = [per_segment(a) for a in (crops, deltas, lo, hi, ks, origin0, origin_last)]
-        carries = shard_lanes(carry, sharding, batch)
-        fill_parts = shard_lanes(fills, sharding, batch)
-        outs, new_carry = [], []
-        for i, (fn, dev) in enumerate(zip(self.segments, self.devices)):
-            c, d, l, h, k, o0, ol = (p[i] for p in seg_args)
-            with on_device(dev):
-                out, cy = fn(c, carries[i], fill_parts[i], d, l, h, k, o0, ol)
-            outs.append(out)
-            new_carry.append(cy)
-
-        def wrap(shards):  # [S, L_i, ...] -> lanes first
-            shards = [x.transpose(0, 1) for x in shards]
-            return Sharded(shards, BatchSharding(self.mesh, shards[0].dim()))
-
-        out = (tuple(wrap([o[k] for o in outs]) for k in range(2)) if isinstance(outs[0], tuple)
-               else wrap(outs))
-        return out, Sharded(new_carry, BatchSharding(self.mesh, 2))
 
     def map(self, make) -> "ShardedFn":
         """A new ShardedFn of ``make(fn, device)`` for each shard's function."""

@@ -42,31 +42,19 @@ device's side stream, run one launch a shard in that device's context, keep
 the chain per shard on its device, and gather the positions into one pinned
 buffer behind an event a shard.
 
-Group dispatch, the counterpart of the reference's (``_GroupDispatchBase``,
-the ``make_super_*`` programs): every engine stages its chunks, and a group of
-them runs as one launch a data shard of the kernel's segmented form, which
-chains the S chunk scans on the card as the super-programs do, the batched
-chain's carry included (see :class:`_ShardedEngine`). The size is 1 unless
-``PAWS_DISPATCH_GROUP`` pins it (clamped to :data:`GROUP_MAX`, ``"0"``
-unpinned); adaptive growth is off on the port's devices
-(:func:`_grouping_pays`). Full frames group on ``track``'s single stream, as
-the reference's ``run_full_pipeline``; the batch and multi-target full-frame
-loops have no group dispatch there, and none here.
+Every dispatch is one launch a data shard, made at once: the reference's group
+dispatch (``_GroupDispatchBase``, the ``make_super_*`` programs and the
+variable that pins their size) has no counterpart here. It pays a device
+reached over a link, where each call is a round trip; the card sits on the
+host's own bus, a launch returns at once and the copies run on side streams.
+Without a counterpart for the same reason: the reference's dispatch thread
+(``_SerialDispatcher``, ``_ImmediateResult``) and its ``PAWS_SYNC_DISPATCH``
+and ``PAWS_STAGE_THREADS``, and its prewarm of the super-programs
+(``_maybe_prewarm``, ``PAWS_SUPER_PREWARM``).
 
-Without a counterpart, as there is nothing on the card for them to do:
-
-- the reference's dispatch thread (``_SerialDispatcher``, ``_ImmediateResult``)
-  and its ``PAWS_SYNC_DISPATCH`` and ``PAWS_STAGE_THREADS``: a group launches
-  inline, a launch returns at once, and the copies to the card already run on
-  side streams;
-- its prewarm of the super-programs (``_maybe_prewarm``,
-  ``PAWS_SUPER_PREWARM``): a segmented launch is the same kernel, with no
-  program to compile per group size.
-
-Also here: the ring-budget cap on the pipeline depth, and ``_crop_with_fill``
-(:func:`.ops.roi_crop.crop_with_fill`), which the parallel decoder imports.
-The lane sources cut a chunk's crops of every lane in one call of the
-device's cropper (:func:`.ops.roi_crop.lane_cropper`: native on the card).
+Also here: the ring-budget cap on the pipeline depth. The lane sources cut a
+chunk's crops of every lane in one call of the device's cropper
+(:func:`.ops.roi_crop.lane_cropper`: native on the card).
 """
 
 from __future__ import annotations
@@ -86,7 +74,6 @@ from .io.decode import ChunkPrefetcher, ChunkRing
 from .models.dog_tracker import make_spec, resolve_device, tracker_fns
 from .ops import tracker_kernel as tk
 from .ops.roi_crop import crop_lanes_plain, frame_copier, lane_cropper
-from .ops.roi_crop import crop_with_fill as _crop_with_fill  # noqa: F401  (io/parallel_decode.py)
 from .parallel.mesh import BatchSharding, Sharded, ShardedBatchTracker, ShardedFn, on_device
 from .utils.compilecache import cache_root
 
@@ -211,44 +198,14 @@ def _record(stream):
     return event
 
 
-#: most chunks one launch runs (the JAX package's ``_GroupDispatchBase.GROUP_MAX``)
-GROUP_MAX = 4
-
-
-def _grouping_pays() -> bool:
-    """Whether the pipelines grow dispatch groups by themselves (the JAX
-    package's ``_grouping_pays``, ``pawsometracker_tpu/pipeline.py:615-627``):
-    never on the port's devices. Growth is for a device reached over a link,
-    where every call is a round trip that a group of S chunks pays once, which
-    is why the JAX package grows groups on the TPU alone. The port's card sits
-    on the host's own bus: a launch returns at once and the copies run on side
-    streams, so growth stays off, as the JAX package keeps it off on every
-    other backend. ``PAWS_DISPATCH_GROUP`` pins a group size on every device."""
-    return False
-
-
-class _GroupHandle:
-    """The handle of a dispatched chunk (the JAX package's ``_GroupHandle``,
-    ``pawsometracker_tpu/pipeline.py:233-245``): ``result`` is None while the
-    chunk is staged, then its ``(positions, offsets, events)`` once its group
-    is launched."""
-
-    __slots__ = ("result",)
-
-    def __init__(self):
-        self.result = None
-
-
 class _DeviceGroup:
-    """The card side of one group of chunks: per data shard their frames
-    ``frames[i] [cap, ...]`` (u8, chunk s at ``frames[i][s]``), for the ROI
-    engines their int32 arguments ``args[i] [cap, n]`` (else None), and the
-    event that marks done the launch that read them."""
+    """The card side of one chunk: per data shard its frames ``frames[i]``
+    (u8), for the ROI engines its int32 arguments ``args[i]`` (else None),
+    and the event that marks done the launch that read them."""
 
-    __slots__ = ("cap", "frames", "args", "consumed")
+    __slots__ = ("frames", "args", "consumed")
 
-    def __init__(self, cap: int, frames: list, args: list):
-        self.cap = cap
+    def __init__(self, frames: list, args: list):
         self.frames = frames
         self.args = args
         self.consumed = [None] * len(frames)
@@ -257,29 +214,19 @@ class _DeviceGroup:
 class _ShardedEngine:
     """What the engines share: their lanes split into data shards
     (:func:`_lane_shards`), on the card a side stream a device for the copies
-    to the card (shards on one device share it), results that come back into
-    pinned buffers behind an event a shard, and group dispatch.
+    to the card (shards on one device share it), and results that come back
+    into pinned buffers behind an event a shard.
 
-    Group dispatch is the JAX package's ``_GroupDispatchBase``
-    (``pawsometracker_tpu/pipeline.py:727-877``) with one segmented launch in
-    place of a super-program. A dispatch stages its chunk: on the card its copy
-    starts at once, into the chunk's slot of a device group (:class:`_DeviceGroup`,
-    from a ring of :attr:`RING`; a group's buffers are refilled only behind the
-    launch that read them, a wait on the card). ``group_target`` staged chunks
-    run as one launch a data shard, the engine's scan for one chunk and its
-    segmented form (S chained scans) for more, and the launch waits on the
-    chunks' copies. The first dispatch of a chain runs alone, and draining a
-    chunk whose group is still staged launches what is staged.
-    ``group_target`` is 1, or ``PAWS_DISPATCH_GROUP`` clamped to
-    :data:`GROUP_MAX` (``"0"`` unpins) where the engine has a segmented scan;
-    :meth:`grow_group` raises it and :meth:`reset` sets it back to 1 unless it
-    is pinned. Positions are the same at every group size."""
+    A dispatch stages its chunk and launches it at once, one launch a data
+    shard; it returns the chunk's handle, ``(positions, offsets, events)``.
+    On the card the chunk's copy starts at once, into the next device slot
+    (:class:`_DeviceGroup`) of a ring of :attr:`RING`; a slot's buffers are
+    refilled only behind the launch that read them, a wait on the card."""
 
-    GROUP_MAX = GROUP_MAX
-    #: device groups in the ring; its size sets how far copies run ahead of launches
+    #: device slots in the ring; its size sets how far copies run ahead of launches
     RING = 3
 
-    def __init__(self, scan, lanes, device, group_allowed: bool):
+    def __init__(self, scan, lanes, device):
         self.shards = _lane_shards(scan, lanes, device)
         self._cuda = self.shards[0][1].type == "cuda"
         if self._cuda:
@@ -288,97 +235,44 @@ class _ShardedEngine:
             self._copy_stream = self._copy_streams[self.shards[0][1]]
         self._ring: list[_DeviceGroup] = []
         self._ring_next = 0
-        self._group = None  # the device group being staged
-        self._staged: list = []  # (entry, handle) of the chunks staged and not launched
-        self._chain_started = False
-        #: launches of staged groups, each one launch a data shard
+        self._group = None  # the device slot of the chunk being dispatched
+        #: chunk launches, each one launch a data shard
         self.groups = 0
-        pin = os.environ.get("PAWS_DISPATCH_GROUP")
-        self._group_pinned = bool(pin) and pin != "0"
-        self._group_allowed = group_allowed
-        want = min(int(pin), GROUP_MAX) if self._group_pinned else 1
-        self.group_target = want if group_allowed else 1
 
-    # -- group dispatch ---------------------------------------------------
     def reset(self):
-        """Invalidate the chain on the device (replay, run start). The staged
-        chunks are dropped: their handles are never drained, and later groups
-        refill their device slots."""
-        self._staged.clear()
-        self._chain_started = False
-        if not self._group_pinned:
-            self.group_target = 1
-        self._reset_chain()
+        """Invalidate the chain on the device (replay, run start)."""
 
-    def _reset_chain(self):
-        pass
-
-    def grow_group(self, cap: int = GROUP_MAX):
-        """The controller's signal that the lagged drain still blocks at the
-        depth ceiling: one more chunk a launch, up to ``cap`` (the overlap
-        bound ``(depth + 1) // 2``) and :data:`GROUP_MAX`; nothing when the
-        size is pinned or the engine has no segmented scan."""
-        if (self._group_allowed and not self._group_pinned
-                and self.group_target < min(cap, self.GROUP_MAX)):
-            self.group_target += 1
-
-    def _stage_entry(self, entry) -> _GroupHandle:
-        """Stage one dispatch; launch the group when it is full, and the first
-        dispatch of a chain alone (it starts the chain from the host)."""
-        handle = _GroupHandle()
-        self._staged.append((entry, handle))
-        if len(self._staged) >= self.group_target or not self._chain_started:
-            self._flush()
-        self._chain_started = True
+    def _run(self, entry):
+        """Launch the staged chunk; returns its handle."""
+        with self.timer.section("device"):
+            handle = self._launch(entry)
+        self.groups += 1
         return handle
 
-    def _flush(self):
-        """Launch the staged chunks as one group."""
-        if not self._staged:
-            return
-        staged, self._staged = self._staged, []
-        with self.timer.section("device"):
-            results = self._launch([e for e, _ in staged])
-        self.groups += 1
-        for (_, handle), result in zip(staged, results):
-            handle.result = result
-
     def _slot(self, make):
-        """``(device group, s)``: where the chunk about to be staged goes, s
-        its index in the group. A group starts in the next device group of the
-        ring, made by ``make(cap)`` (again, once the card is done with the old
-        one, where it has less room than ``group_target``). On the CPU there
-        are no device groups (None)."""
-        s = len(self._staged)
-        if s and self._group is not None and s >= self._group.cap:
-            self._flush()  # the target grew past this group's room
-            s = 0
+        """The device slot the chunk about to be staged goes to: the next of
+        the ring, made by ``make()`` the first time round. On the CPU there
+        are no device slots (None)."""
         if not self._cuda:
-            return None, s
-        if s == 0:
-            i = self._ring_next
-            self._ring_next = (i + 1) % self.RING
-            cap = max(1, self.group_target)
-            if i == len(self._ring):
-                self._ring.append(make(cap))
-            elif self._ring[i].cap < cap:
-                self._sync()  # nothing may still read or write the buffers that go
-                self._ring[i] = make(cap)
-            self._group = self._ring[i]
-        return self._group, s
+            return None
+        i = self._ring_next
+        self._ring_next = (i + 1) % self.RING
+        if i == len(self._ring):
+            self._ring.append(make())
+        self._group = self._ring[i]
+        return self._group
 
-    def _copy_in(self, group, s: int, copies, events=None) -> list:
-        """Per shard i, on its device's side stream: (for a group's first
-        chunk) wait for the launch that last read ``group``, start the
-        ``(dst, src)`` copies ``copies[i]`` and record their event (new, or
-        ``events[i]`` recorded again), which the shard's scan stream waits
-        for. Returns the events."""
+    def _copy_in(self, group, copies, events=None) -> list:
+        """Per shard i, on its device's side stream: wait for the launch that
+        last read ``group``, start the ``(dst, src)`` copies ``copies[i]``
+        and record their event (new, or ``events[i]`` recorded again), which
+        the shard's scan stream waits for. Returns the events."""
         out = []
         for i, (_, dev, _) in enumerate(self.shards):
             stream = self._copy_streams[dev]
             with self.timer.span("shard.copy_in", shard=i):
                 with torch.cuda.device(dev), torch.cuda.stream(stream):
-                    if s == 0 and group.consumed[i] is not None:
+                    if group.consumed[i] is not None:
                         stream.wait_event(group.consumed[i])
                     for dst, src in copies[i]:
                         dst.copy_(src, non_blocking=True)
@@ -390,60 +284,51 @@ class _ShardedEngine:
                 torch.cuda.current_stream(dev).wait_event(out[-1])
         return out
 
-    def _results(self, outs, bufs) -> list:
-        """The handles' results of a launched group whose scans gave, per
-        shard, ``(positions, offsets or None)`` with the group's chunks first
-        and lanes next: on the CPU, chunk s's rows (the shards' concatenated);
-        on the card, after marking the device group consumed once the work
-        queued so far has run, the copies of each chunk's rows into its lanes
-        of its pinned ``bufs[s] = (pos_h, off_h)``, behind one event a shard."""
+    def _results(self, outs, bufs):
+        """The handle of a launched chunk whose scans gave, per shard,
+        ``(positions, offsets or None)``, lanes first: on the CPU the shards'
+        rows concatenated; on the card, after marking the device slot consumed
+        once the work queued so far has run, the copies of each shard's rows
+        into its lanes of the pinned ``bufs = (pos_h, off_h)``, behind one
+        event a shard."""
         if not self._cuda:
             def cat(parts):
                 return parts[0] if len(parts) == 1 else torch.cat(parts)
 
-            return [(cat([p[s] for p, _ in outs]),
-                     None if outs[0][1] is None else cat([o[s] for _, o in outs]), None)
-                    for s in range(outs[0][0].shape[0])]
+            return (cat([p for p, _ in outs]),
+                    None if outs[0][1] is None else cat([o for _, o in outs]), None)
+        pos_h, off_h = bufs
         done = []
         for i, ((sl, dev, _), (pos, off)) in enumerate(zip(self.shards, outs)):
             with self.timer.span("shard.results", shard=i), torch.cuda.device(dev):
                 stream = torch.cuda.current_stream(dev)
                 self._group.consumed[i] = _record(stream)
-                for s, (pos_h, off_h) in enumerate(bufs):
-                    pos_h[sl].copy_(pos[s], non_blocking=True)
-                    if off is not None:
-                        off_h[sl].copy_(off[s], non_blocking=True)
+                pos_h[sl].copy_(pos, non_blocking=True)
+                if off is not None:
+                    off_h[sl].copy_(off, non_blocking=True)
                 done.append(_record(stream))
-        return [(pos_h, off_h, done) for pos_h, off_h in bufs]
+        return pos_h, off_h, done
 
     @staticmethod
     def ready(handle) -> bool:
-        """True when :meth:`to_host` will not block: the chunk's group is
-        launched and its results are in. A staged chunk is never ready."""
-        r = handle.result
-        return r is not None and (r[2] is None or all(e.query() for e in r[2]))
+        """True when :meth:`to_host` will not block: the chunk's results are in."""
+        return handle[2] is None or all(e.query() for e in handle[2])
 
     def to_host(self, handle):
-        """The chunk's positions (and offsets) as numpy arrays; launches the
-        chunk's group first if it is still staged."""
-        if handle.result is None:
-            self._flush()
-        pos, off, done = handle.result
+        """The chunk's positions (and offsets) as numpy arrays."""
+        pos, off, done = handle
         with self.timer.span("drain.wait"):
             for i, e in enumerate(done or ()):
                 with self.timer.span("shard.wait", shard=i):
                     e.synchronize()
         return pos.numpy().copy(), (None if off is None else off.numpy().copy())
 
-    def _sync(self):
-        for dev, stream in self._copy_streams.items():
-            torch.cuda.current_stream(dev).synchronize()
-            stream.synchronize()
-
     def close(self):
         """Wait for the card's work on this engine's buffers before they go."""
         if self._cuda:
-            self._sync()
+            for dev, stream in self._copy_streams.items():
+                torch.cuda.current_stream(dev).synchronize()
+                stream.synchronize()
         self._ring.clear()
         self._group = None
 
@@ -480,26 +365,20 @@ class _FullFrameEngine(_ShardedEngine):
     ``[lanes,T,H,W]`` and returns positions (steps first for one stream,
     ``[lanes,T,2]`` for lanes), or ``(positions, offsets)`` with
     ``subpixel``; a :class:`~.parallel.mesh.ShardedFn` runs each shard's lanes
-    on its device, the chain kept per shard. ``segments(frames [S,T,H,W],
-    pos0, fill)``, given for one stream and one target, is the scan's
-    segmented form (``scan_super``): with it, group dispatch runs S chunks a
-    launch, each from the last one's last step (the JAX package's
-    ``make_super_full``).
+    on its device, the chain kept per shard.
 
     Every chunk is padded to the scan length by repeating its last frame. On
     the CPU it is copied into a new host array, which the scan reads. On the
     card it lies in a pinned buffer of its stream's ring (``rings``, one a
     stream, each a :func:`staging_ring` its prefetcher fills); its real frames
-    go from there to their slot of each shard's device group on that device's
-    side stream, which then pads the slot on the card, and the ring hands the
-    buffer out again only once that copy's event has completed. The dispatch
+    go from there to each shard's device slot on that device's side stream,
+    which then pads the slot on the card, and the ring hands the buffer out
+    again only once that copy's event has completed. The dispatch
     returns before the scans end, the results coming back into pinned buffers
     behind an event a shard that :meth:`to_host` waits on."""
 
-    def __init__(self, scan, pos0, fill, subpixel, timer, device, lanes=None, segments=None,
-                 rings=None):
-        super().__init__(scan, lanes, device, group_allowed=segments is not None)
-        self.segments = segments
+    def __init__(self, scan, pos0, fill, subpixel, timer, device, lanes=None, rings=None):
+        super().__init__(scan, lanes, device)
         self.pos0 = [torch.as_tensor(p).to(device=dev, dtype=torch.int32)
                      for p, (_, dev, _) in zip(_parts(pos0, self.shards), self.shards)]
         self.fill = _parts(fill, self.shards)
@@ -508,18 +387,18 @@ class _FullFrameEngine(_ShardedEngine):
         self.lanes = lanes
         self.rings = rings
 
-    def _new_group(self, cap: int, shape) -> _DeviceGroup:
-        return _DeviceGroup(cap, [torch.empty((cap,) + _shard_shape(shape, sl), dtype=torch.uint8,
-                                              device=dev) for sl, dev, _ in self.shards], None)
+    def _new_group(self, shape) -> _DeviceGroup:
+        return _DeviceGroup([torch.empty(_shard_shape(shape, sl), dtype=torch.uint8, device=dev)
+                             for sl, dev, _ in self.shards], None)
 
     def _stage(self, chunks, T: int):
         """Stage one chunk per stream (``None`` for a lane past its end), each
         padded to ``T`` steps by repeating its last frame: on the CPU into a
-        new host array; on the card from its ring's buffer to its slot of
-        each shard's device group, padded there; returns the staged entry."""
+        new host array; on the card from its ring's buffer to each shard's
+        device slot, padded there; returns the staged entry."""
         frame_shape = next(c.shape[1:] for c in chunks if c is not None)
         shape = ((T,) if self.lanes is None else (self.lanes, T)) + tuple(frame_shape)
-        group, s = self._slot(lambda cap: self._new_group(cap, shape))
+        group = self._slot(lambda: self._new_group(shape))
         valid = [0 if c is None else len(c) for c in chunks]
         if not self._cuda:
             host = np.empty(shape, np.uint8)
@@ -531,7 +410,7 @@ class _FullFrameEngine(_ShardedEngine):
             return _FullEntry(host, valid)
         copies, lanes_of = [], []
         for i, (sl, _, _) in enumerate(self.shards):
-            dst = group.frames[i][s]
+            dst = group.frames[i]
             pairs, mine = [], []
             lanes = (0,) if self.lanes is None else range(self.lanes)[sl]
             for r, b in enumerate(lanes):
@@ -548,7 +427,7 @@ class _FullFrameEngine(_ShardedEngine):
                 mine.append(b)
             copies.append(pairs)
             lanes_of.append(mine)
-        events = self._copy_in(group, s, copies)
+        events = self._copy_in(group, copies)
         for event, mine in zip(events, lanes_of):
             for b in mine:
                 self.rings[b].copied(chunks[b], event)
@@ -570,38 +449,27 @@ class _FullFrameEngine(_ShardedEngine):
         handle for :meth:`ready` and :meth:`to_host`."""
         with self.timer.section("upload"):
             entry = self._stage(chunks, T)
-        return self._stage_entry(entry)
+        return self._run(entry)
 
-    def _launch(self, entries) -> list:
-        S = len(entries)
+    def _launch(self, entry):
         outs = []
         for i, (sl, dev, scan) in enumerate(self.shards):
-            if self._cuda:
-                frames = self._group.frames[i][:S]
-            else:
-                frames = torch.from_numpy(entries[0].host[sl][None] if S == 1 else
-                                          np.stack([e.host[sl] for e in entries]))
+            frames = self._group.frames[i] if self._cuda else torch.from_numpy(entry.host[sl])
             T = frames.shape[-3]
             with self.timer.span("shard.launch", shard=i), on_device(dev):
-                if S == 1:
-                    out = scan(frames[0], self.pos0[i], self.fill[i])
-                    out = tuple(o[None] for o in out) if self.subpixel else out[None]
-                else:  # one stream, one target: its segmented scan
-                    out = self.segments(frames, self.pos0[i], self.fill[i])
+                out = scan(frames, self.pos0[i], self.fill[i])
                 pos, off = out if self.subpixel else (out, None)
-                self.pos0[i] = self._chain(self.pos0[i], pos[-1], entries[-1].valid[sl], T)
+                self.pos0[i] = self._chain(self.pos0[i], pos, entry.valid[sl], T)
             outs.append((pos, off))
-        bufs = []
+        bufs = None
         if self._cuda:
             first = outs[0][0]
-            shape = (tuple(first.shape[1:]) if len(outs) == 1
-                     else (self.lanes,) + tuple(first.shape[2:]))
-            for _ in entries:
-                bufs.append((torch.empty(shape, dtype=first.dtype, pin_memory=True),
-                             torch.empty(shape, dtype=torch.float32, pin_memory=True)
-                             if self.subpixel else None))
+            shape = (tuple(first.shape) if len(outs) == 1
+                     else (self.lanes,) + tuple(first.shape[1:]))
+            bufs = (torch.empty(shape, dtype=first.dtype, pin_memory=True),
+                    torch.empty(shape, dtype=torch.float32, pin_memory=True)
+                    if self.subpixel else None)
         return self._results(outs, bufs)
-
 
 
 def run_full_pipeline(
@@ -619,20 +487,15 @@ def run_full_pipeline(
     prefetchers: list,
     device,
     progress=None,
-    segments=None,
     stats: dict | None = None,
 ):
     """Full-frame streaming of one video: chunk scans chain their start
     positions on the device and the host drains positions ``depth`` chunks
     behind. ``pos0_abs`` is one position ``[2]``, or ``[N, 2]`` for N targets
-    (``scan`` then returns ``[T, N, 2]``). ``segments``, the scan's segmented
-    form for one target, turns on group dispatch (``PAWS_DISPATCH_GROUP``;
-    growth after ``depth + 2`` drains where :func:`_grouping_pays`, capped at
-    ``(depth + 1) // 2`` so two groups stay in flight), as the JAX package's
-    ``run_full_pipeline`` has it. Frames are whole, so results equal the
-    synchronous loop's at every depth and group size. ``stats``, when given,
-    receives the group launches. Returns ``(position blocks, offset blocks,
-    frames tracked)``."""
+    (``scan`` then returns ``[T, N, 2]``). Frames are whole, so results equal
+    the synchronous loop's at every depth. ``stats``, when given, receives
+    the chunk launches as ``groups``. Returns ``(position blocks, offset
+    blocks, frames tracked)``."""
     positions: list[np.ndarray] = []
     offsets: list[np.ndarray] = []
     tracked = 0
@@ -643,10 +506,7 @@ def run_full_pipeline(
 
     keep = not isinstance(dia, Dont)
     ring = staging_ring(device)
-    eng = _FullFrameEngine(scan, pos0_abs, fill, subpixel, timer, device, segments=segments,
-                           rings=[ring])
-    grow_groups = _grouping_pays()
-    group_cap = max(1, (depth + 1) // 2)
+    eng = _FullFrameEngine(scan, pos0_abs, fill, subpixel, timer, device, rings=[ring])
 
     def drain_one():
         nonlocal tracked, drained
@@ -654,13 +514,8 @@ def run_full_pipeline(
         k = len(frames)
         with timer.span("drain", seq=drained):
             with timer.section("drain"):
-                t0 = time.perf_counter()
                 out_np, off_np = eng.to_host(handle)
-                blocked = time.perf_counter() - t0
             drained += 1
-            # the first drains wait for the pipeline to fill, not for a round trip
-            if grow_groups and drained > depth + 2 and blocked > AUTO_DRAIN_BLOCK_S:
-                eng.grow_group(group_cap)
             positions.append(out_np[:k])
             if off_np is not None:
                 offsets.append(off_np[:k])
@@ -880,9 +735,7 @@ def pick_bounded_engine(roi_spec, k_frames: int, fill: int = 128, subpixel: bool
     stays unless the other takes under :data:`ENGINE_MARGIN` of its time.
     The decision is kept for the process and in the engine cache
     (:func:`_engine_cache_path`), per card, software and geometry, so each
-    card measures once. The probe times one chunk launch; the segmented
-    launches of grouped dispatch (``PAWS_DISPATCH_GROUP``) at that geometry
-    take the same kernel, unmeasured in that form.
+    card measures once. The probe times one chunk launch.
 
     Unlike the JAX package's chooser, nothing falls back: a kernel that
     differs from the plain version raises :class:`RuntimeError` (naming the
@@ -1064,7 +917,7 @@ def _select_batched_bounded(tracker, roi_spec, k_frames: int, batch: int, fill: 
     card), ``"pallas"`` the shape rule's kernel, ``"xla"`` the plain version.
     Returns ``(scan, segments)``: the chunk scan (``scan_sub_batch`` with
     ``subpixel``, else ``scan_bounded_batch``) and its segmented form, which
-    the port's lane engine launches for every group."""
+    the port's lane engine launches for every chunk."""
     kernel = None
     if engine == "auto":
         engine, info = pick_bounded_engine_batch(roi_spec, k_frames, batch, fill,
@@ -1131,7 +984,7 @@ class _RoiSlot:
     """The host side of one crop buffer ``[L, K, ch, cw]`` on the card: one
     pinned buffer ``raw`` holding the crops ``host`` and, after them, the
     scan's int32 arguments ``args`` (laid out by the engine, a span a shard),
-    as a device group's row holds them, so that one copy takes both to the
+    as a device slot's row holds them, so that one copy takes both to the
     card; pinned buffers for the positions ``[L, K, 2]`` (and offsets) coming
     back; and per shard an event recorded after its copies to the card
     (``copied``, the last ones) and one after its results' copies back
@@ -1156,14 +1009,14 @@ class _RoiSlot:
 
 
 class _RoiGroup(_DeviceGroup):
-    """A ROI engine's device group: per shard one buffer ``[cap, row]`` u8 whose
-    row s holds chunk s's crops and, after them, its int32 arguments (the
-    slot's ``raw`` layout); ``frames`` and ``args`` are its views, ``rows``
-    its rows. ``staged`` holds per shard the engine's segmented scan over it
-    (:class:`~.ops.tracker_kernel.StagedScan`, checked once, here) and
-    ``starts`` the view of slot 0's chain start (a chain's first chunk is
-    staged at slot 0). ``launched`` holds per shard the event re-recorded
-    after each launch, which ``consumed`` then names."""
+    """A ROI engine's device slot: per shard one buffer ``[1, row]`` u8 whose
+    row holds a chunk's crops and, after them, its int32 arguments (the
+    slot's ``raw`` layout); ``frames [1, L_i, K, ch, cw]`` and ``args [1, n]``
+    are its views, ``rows`` its row. ``staged`` holds per shard the engine's
+    segmented scan over it (:class:`~.ops.tracker_kernel.StagedScan`, checked
+    once, here), launched at S = 1, and ``starts`` the view of its chain
+    start. ``launched`` holds per shard the event re-recorded after each
+    launch, which ``consumed`` then names."""
 
     __slots__ = ("rows", "staged", "starts", "launched")
 
@@ -1187,17 +1040,16 @@ class _RoiEngine(_ShardedEngine):
     its own scan and segmented scan (``segments``: one device's, or a
     :class:`~.parallel.mesh.ShardedFn` scan's own ``segments``). On the card
     every crop buffer comes from :meth:`alloc`, pinned, with a
-    :class:`_RoiSlot`: each shard's crops and int32 arguments go to its slot
-    of the device group (:class:`_RoiGroup`) in non-blocking copies on that
-    device's side stream, one where there is one shard, the group's launch
-    waits on their events, and the positions come back into the buffer's
-    pinned ones behind an event a shard that :meth:`ready` queries and
-    :meth:`to_host` waits on. The launch is the segmented scan staged over the
-    group's buffers when the group was made (``segments``' ``stage``, checked
-    once), so a launch converts, checks and repacks nothing. A buffer is
-    refilled only after :meth:`claim` (its last copies done). On the CPU the
-    staged chunks keep their buffers, which the launch stacks and hands to
-    the scans as arguments."""
+    :class:`_RoiSlot`: each shard's crops and int32 arguments go to its
+    device slot (:class:`_RoiGroup`) in non-blocking copies on that device's
+    side stream, one where there is one shard, the launch waits on their
+    events, and the positions come back into the buffer's pinned ones behind
+    an event a shard that :meth:`ready` queries and :meth:`to_host` waits on.
+    The launch is the segmented scan at S = 1, staged over the slot's buffers
+    when the slot was made (``segments``' ``stage``, checked once), so a
+    launch converts, checks and repacks nothing. A buffer is refilled only
+    after :meth:`claim` (its last copies done). On the CPU the launch hands
+    the chunk's buffers to the scans as arguments."""
 
     def __init__(self, scan, crop_shape, frame_shape, subpixel, timer, device, lanes: int,
                  segments):
@@ -1205,10 +1057,8 @@ class _RoiEngine(_ShardedEngine):
         self.frame_max = np.array([frame_shape[0] - 1, frame_shape[1] - 1])
         self.subpixel = subpixel
         self.timer = timer
-        seg = scan.segments if isinstance(scan, ShardedFn) else [segments]
-        super().__init__(scan, lanes, device,
-                         group_allowed=seg is not None and all(f is not None for f in seg))
-        self.seg_fns = seg
+        super().__init__(scan, lanes, device)
+        self.seg_fns = scan.segments if isinstance(scan, ShardedFn) else [segments]
         self.lanes = [len(range(lanes)[sl]) for sl, _, _ in self.shards]
         self.reset()
 
@@ -1242,20 +1092,20 @@ class _RoiEngine(_ShardedEngine):
         hi = np.minimum([self.ch - 1, self.cw - 1], self.frame_max - o)
         return lo, hi
 
-    def _new_group(self, cap: int, K: int) -> _RoiGroup:
-        """A device group of ``cap`` chunks: per shard its buffer, the views
-        of it and the staged segmented scan over them."""
-        group = _RoiGroup(cap, [], [])
+    def _new_group(self, K: int) -> _RoiGroup:
+        """A device slot: per shard its buffer, the views of it and the
+        staged segmented scan over them."""
+        group = _RoiGroup([], [])
         group.rows, group.staged, group.starts, group.launched = [], [], [], []
         for i, (n, (_, dev, _)) in enumerate(zip(self.lanes, self.shards)):
             crop, at = _crop_bytes((n, K, self.ch, self.cw))
-            raw = torch.empty((cap, at + 4 * self._n_args(n, K)), dtype=torch.uint8, device=dev)
-            frames = raw[:, :crop].view(cap, n, K, self.ch, self.cw)
+            raw = torch.empty((1, at + 4 * self._n_args(n, K)), dtype=torch.uint8, device=dev)
+            frames = raw[:, :crop].view(1, n, K, self.ch, self.cw)
             args = raw[:, at:].view(torch.int32)
             staged, start = self._staged_scan(i, frames, args)
             group.frames.append(frames)
             group.args.append(args)
-            group.rows.append(list(raw.unbind(0)))
+            group.rows.append(raw[0])
             group.staged.append(staged)
             group.starts.append(start)
             group.launched.append(torch.cuda.Event() if dev.type == "cuda" else None)
@@ -1264,60 +1114,51 @@ class _RoiEngine(_ShardedEngine):
 
     def _stage(self, buf, args):
         """Stage the chunk's crops ``buf [L, K, ch, cw]`` and flat arguments:
-        on the card, start their copies from the pinned buffer into the
-        chunk's slot of each shard's device group, on the shard's side stream,
-        with its scan stream waiting for them: one copy for one shard (the
-        slot's buffer is the group's row), else two a shard (its lanes' crops,
-        and its span of the arguments, lie apart in the slot)."""
+        on the card, start their copies from the pinned buffer into each
+        shard's device slot, on the shard's side stream, with its scan stream
+        waiting for them: one copy for one shard (the buffer's ``raw`` is the
+        slot's row), else two a shard (its lanes' crops, and its span of the
+        arguments, lie apart in the buffer)."""
         K = buf.shape[1]
-        group, s = self._slot(lambda cap: self._new_group(cap, K))
+        group = self._slot(lambda: self._new_group(K))
         if not self._cuda:
             return
         slot = buf.slot
         slot.args_np[...] = args
         if len(self.shards) == 1:
-            copies = [[(group.rows[0][s], slot.raw)]]
+            copies = [[(group.rows[0], slot.raw)]]
         else:
-            copies = [[(group.frames[i][s], slot.host[sl]), (group.args[i][s], slot.args[a0:a1])]
+            copies = [[(group.frames[i][0], slot.host[sl]), (group.args[i][0], slot.args[a0:a1])]
                       for i, ((sl, _, _), (a0, a1)) in enumerate(zip(self.shards,
                                                                       self._spans(K)))]
-        slot.copied = self._copy_in(group, s, copies, slot.copy_events)
+        slot.copied = self._copy_in(group, copies, slot.copy_events)
 
-    def _inputs(self, entries) -> list:
-        """Per shard, ``(crops [S, L_i, K, ch, cw], args [S, n_i])`` of the
-        staged ``entries`` on the CPU: stacks of their host buffers."""
-        spans = self._spans(entries[0].buf.shape[1])
-        return [(torch.from_numpy(np.stack([e.buf[sl] for e in entries])),
-                 torch.from_numpy(np.stack([e.args[a0:a1] for e in entries])))
-                for (sl, _, _), (a0, a1) in zip(self.shards, spans)]
-
-    def _finish(self, entries, outs) -> list:
-        """The results of launched ``entries`` whose scans gave, per shard,
-        ``(positions [S, L_i, K, 2], offsets)``: on the CPU the rows; on the
-        card, after marking the device group consumed once the work queued so
-        far has run, the copies of each chunk's rows into its lanes of its
-        buffer's pinned ones, each behind its slot's ``done`` events."""
+    def _finish(self, entry, outs):
+        """The handle of the launched ``entry`` whose scans gave, per shard,
+        ``(positions [L_i, K, 2], offsets)``: on the CPU the rows; on the
+        card, after marking the device slot consumed once the work queued so
+        far has run, the copies of the rows into the shard's lanes of the
+        buffer's pinned ones, behind its slot's ``done`` events."""
         if not self._cuda:
             return self._results(outs, None)
         group = self._group
+        slot = entry.buf.slot
         one = len(self.shards) == 1
         for i, ((sl, dev, _), (pos, off)) in enumerate(zip(self.shards, outs)):
             with self.timer.span("shard.results", shard=i), torch.cuda.device(dev):
                 stream = torch.cuda.current_stream(dev)
                 group.launched[i].record(stream)
                 group.consumed[i] = group.launched[i]
-                for s, e in enumerate(entries):
-                    slot = e.buf.slot
-                    (slot.pos if one else slot.pos[sl]).copy_(pos[s], non_blocking=True)
-                    if off is not None:
-                        (slot.off if one else slot.off[sl]).copy_(off[s], non_blocking=True)
-                    slot.done[i].record(stream)
-        return [(e.buf.slot.pos, e.buf.slot.off, e.buf.slot.done) for e in entries]
+                (slot.pos if one else slot.pos[sl]).copy_(pos, non_blocking=True)
+                if off is not None:
+                    (slot.off if one else slot.off[sl]).copy_(off, non_blocking=True)
+                slot.done[i].record(stream)
+        return slot.pos, slot.off, slot.done
 
 
 class _SingleArgs(NamedTuple):
     """Views of :class:`_SingleEngine`'s flat int32 arguments (the last axis of
-    a numpy array on the host, or of its ``[S, n]`` twin on the device):
+    a numpy array on the host, or of its ``[1, n]`` twin on the device):
     ``deltas``, ``lo``, ``hi`` ``[..., K, 2]``, the chain's start ``[..., 2]``
     (a chain's first chunk) and the real frame count ``ks [...]``."""
 
@@ -1342,14 +1183,12 @@ class _SingleEngine(_RoiEngine):
     segmented form ``segments`` (``scan_bounded_super``): the JAX package's
     ``_SingleEngine``.
 
-    It owns the chain on the device: a group starts from a view of the
+    It owns the chain on the device: a chunk starts from a view of the
     previous output's last real row, ``prev[prev_k - 1]``, which ``deltas[0]``
-    rebases into the new crop, so the host never waits for it; inside a
-    group the kernel carries it (segment s from segment s-1's row
-    ``max(ks-1, 0)``). After :meth:`reset` (a replay, or the start of a run)
-    the first chunk runs alone and takes its absolute start ``P - o[0]`` from
-    the host. Its arguments: deltas, lo, hi ``[K, 2]``, a chain start and
-    ``ks``."""
+    rebases into the new crop, so the host never waits for it. After
+    :meth:`reset` (a replay, or the start of a run) the first chunk takes its
+    absolute start ``P - o[0]`` from the host. Its arguments: deltas, lo, hi
+    ``[K, 2]``, a chain start and ``ks``."""
 
     def __init__(self, scan, crop_shape, frame_shape, fill, subpixel, timer, device,
                  segments=None):
@@ -1358,7 +1197,7 @@ class _SingleEngine(_RoiEngine):
         super().__init__(scan, crop_shape, frame_shape, subpixel, timer, device, lanes=1,
                          segments=segments)
 
-    def _reset_chain(self):
+    def reset(self):
         self._prev = None
         self._prev_k = None
         self._prev_origin = None
@@ -1379,14 +1218,14 @@ class _SingleEngine(_RoiEngine):
         return d
 
     def dispatch(self, buf, origins, P_abs, valid=None):
-        """Stage the scan of the chunk in ``buf`` (``[1, K, ch, cw]``, cropped
+        """Launch the scan of the chunk in ``buf`` (``[1, K, ch, cw]``, cropped
         at per-frame ``origins [1, K, 2]``; ``valid[0]`` real frames), chained
         to the last one, or from ``P_abs`` after a reset; returns a handle for
         :meth:`ready` and :meth:`to_host`."""
         o = np.asarray(origins[0], np.int64)
         K = buf.shape[1]
         k = K if valid is None else int(valid[0])
-        first = not self._chain_started
+        first = self._prev is None
         args = np.zeros(self._n_args(1, K), np.int32)
         a = _single_args(args, K)
         a.deltas[...] = self._deltas(o, o[0] if first else self._prev_origin)
@@ -1399,39 +1238,34 @@ class _SingleEngine(_RoiEngine):
         # the chain continues from the last REAL row: its frame count, and the
         # origin that row was cropped at
         self._prev_origin = o[max(k - 1, 0)]
-        return self._stage_entry(_RoiEntry(buf, args, first, max(k, 1)))
+        return self._run(_RoiEntry(buf, args, first, max(k, 1)))
 
     def _staged_scan(self, i: int, frames, args):
         a = _single_args(args, frames.shape[2])
         return (_staged(self.seg_fns[0], frames[:, 0], self.fill, a.deltas, a.lo, a.hi, a.ks,
                         subpixel=self.subpixel), a.start[0])
 
-    def _launch(self, entries) -> list:
-        if self._cuda:  # the staged scan of the group, from its start or the chain
-            pos0 = self._group.starts[0] if entries[0].first else self._prev[self._prev_k - 1]
+    def _launch(self, entry):
+        # positions [1, K, 2]: the staged scan's one segment, or the scan's one lane
+        if self._cuda:  # the staged scan, from its start or the chain
+            pos0 = self._group.starts[0] if entry.first else self._prev[self._prev_k - 1]
             with self.timer.span("shard.launch", shard=0):
-                out = self._group.staged[0].run(len(entries), pos0=pos0)
-            pos, off = out if self.subpixel else (out, None)
-            self._prev, self._prev_k = pos[-1], entries[-1].k
-            return self._finish(entries, [(pos[:, None], None if off is None else off[:, None])])
-        [(frames, flat)] = self._inputs(entries)  # [S, 1, K, ch, cw], [S, n]
-        a = _single_args(flat, frames.shape[2])
-        with self.timer.span("shard.launch", shard=0):
-            if len(entries) == 1:
-                pos0 = a.start[0] if entries[0].first else self._prev[self._prev_k - 1]
-                out = self.scan(frames[0, 0], pos0, self.fill, a.deltas[0], a.lo[0], a.hi[0])
+                out = self._group.staged[0].run(1, pos0=pos0)
+        else:
+            a = _single_args(torch.from_numpy(entry.args), entry.buf.shape[1])
+            pos0 = a.start if entry.first else self._prev[self._prev_k - 1]
+            with self.timer.span("shard.launch", shard=0):
+                out = self.scan(torch.from_numpy(entry.buf[0]), pos0, self.fill, a.deltas, a.lo,
+                                a.hi)
                 out = tuple(x[None] for x in out) if self.subpixel else out[None]
-            else:  # a chained group: the chain started before it
-                out = self.seg_fns[0](frames[:, 0], self._prev[self._prev_k - 1], self.fill,
-                                      a.deltas, a.lo, a.hi, a.ks)
         pos, off = out if self.subpixel else (out, None)
-        self._prev, self._prev_k = pos[-1], entries[-1].k
-        return self._finish(entries, [(pos[:, None], None if off is None else off[:, None])])
+        self._prev, self._prev_k = pos[0], entry.k
+        return self._finish(entry, [(pos, off)])
 
 
 class _BatchArgs(NamedTuple):
     """Views of :class:`_BatchedEngine`'s flat int32 arguments of one shard
-    (the last axis of a numpy array on the host, or of its ``[S, n]`` twin on
+    (the last axis of a numpy array on the host, or of its ``[1, n]`` twin on
     the device): the scan's ``deltas``, ``lo``, ``hi`` ``[..., L, K, 2]``; per
     lane the first and last real frame's crop origin and the chain's seed
     ``[..., L, 2]``; and the real frame count ``ks [..., L]``."""
@@ -1487,13 +1321,13 @@ class _BatchedEngine(_RoiEngine):
     the batched bounded scan ``scan(frames [L,K,ch,cw], pos0 [L,2], fills
     [L], deltas, lo, hi [L,K,2])`` and its segmented form ``segments``
     (``scan_bounded_batch_super``; a :class:`~.parallel.mesh.ShardedFn` scan
-    brings its own): the JAX package's ``_BatchedEngine``. Every group is one
-    segmented launch a data shard.
+    brings its own): the JAX package's ``_BatchedEngine``. Every chunk is one
+    segmented launch at S = 1 a data shard.
 
     The chain is an absolute per-lane carry ``[L, 2]`` on the device, one a
     shard, which the launches read and write themselves (the JAX package's
-    ``make_chained_batch`` for one chunk, ``make_super_chain_batch`` for
-    more; :func:`chain_batch` is the same rule as tensor ops). After
+    ``make_chained_batch``; :func:`chain_batch` is the same rule as tensor
+    ops). After
     :meth:`reset` (a replay, or the start of a run) the next chunk seeds every
     shard's from the controller's ``P_abs``, which travels in the staged
     arguments. The arguments are one flat int32 buffer, a :func:`_batch_args`
@@ -1507,6 +1341,9 @@ class _BatchedEngine(_RoiEngine):
         self.fills = [torch.as_tensor(fills[sl]).to(dev) for sl, dev, _ in self.shards]
         self._carry = [torch.zeros((n, 2), dtype=torch.int32, device=dev)
                        for n, (_, dev, _) in zip(self.lanes, self.shards)]
+
+    def reset(self):
+        self._seed = True  # the next chunk seeds the carries from P_abs
 
     @staticmethod
     def _n_args(lanes, K):
@@ -1527,14 +1364,14 @@ class _BatchedEngine(_RoiEngine):
         return origins[np.arange(origins.shape[0]), idx]
 
     def dispatch(self, buf, origins, P_abs, valid=None):
-        """Stage the scan of the chunk in ``buf`` (``[L, K, ch, cw]``, cropped
+        """Launch the scan of the chunk in ``buf`` (``[L, K, ch, cw]``, cropped
         at per-frame ``origins [L, K, 2]``; ``valid[b]`` real frames in lane
         b), chained by the carry, or from ``P_abs [L, 2]`` after a reset;
         returns a handle for :meth:`ready` and :meth:`to_host`."""
         L, K = buf.shape[:2]
         o = np.asarray(origins, np.int64)
         ks = np.full(L, K, np.int64) if valid is None else np.asarray(valid, np.int64)
-        first = not self._chain_started
+        first, self._seed = self._seed, False
         spans = self._spans(K)
         args = np.zeros(spans[-1][1], np.int32)
         for (sl, _, _), n, (a0, a1) in zip(self.shards, self.lanes, spans):
@@ -1548,36 +1385,33 @@ class _BatchedEngine(_RoiEngine):
                 a.seed[...] = np.asarray(P_abs, np.int64).reshape(L, 2)[sl]
         with self.timer.section("upload"):
             self._stage(buf, args)
-        return self._stage_entry(_RoiEntry(buf, args, first, 0))
+        return self._run(_RoiEntry(buf, args, first, 0))
 
     def _staged_scan(self, i: int, frames, args):
         a = _batch_args(args, self.lanes[i], frames.shape[2])
         return (_staged(self.seg_fns[i], frames, self.fills[i], a.deltas, a.lo, a.hi, a.ks,
                         a.origin0, a.origin_last, subpixel=self.subpixel), a.seed[0])
 
-    def _launch(self, entries) -> list:
-        if self._cuda:  # each shard's staged scan of the group, from its seed or carry
-            outs = []
+    def _launch(self, entry):
+        outs = []  # per shard, positions [1, L_i, K, 2] (and offsets): one segment
+        if self._cuda:  # each shard's staged scan, from its seed or carry
             for i, carry in enumerate(self._carry):
-                if entries[0].first:
-                    carry_in = self._group.starts[i]
-                else:
-                    carry_in = carry
+                carry_in = self._group.starts[i] if entry.first else carry
                 with self.timer.span("shard.launch", shard=i):
-                    out = self._group.staged[i].run(len(entries), carry=carry_in, carry_out=carry)
+                    out = self._group.staged[i].run(1, carry=carry_in, carry_out=carry)
                 outs.append(out if self.subpixel else (out, None))
-            return self._finish(entries, outs)
-        K = entries[0].buf.shape[1]
-        outs = []
-        for i, ((_, dev, _), n, (frames, flat), seg) in enumerate(
-                zip(self.shards, self.lanes, self._inputs(entries), self.seg_fns)):
-            a = _batch_args(flat, n, K)  # each [S, ...]
-            carry = a.seed[0] if entries[0].first else self._carry[i]
-            with self.timer.span("shard.launch", shard=i), on_device(dev):
-                out, _ = seg(frames, carry, self.fills[i], a.deltas, a.lo, a.hi, a.ks, a.origin0,
-                             a.origin_last, carry_out=self._carry[i])
-            outs.append(out if self.subpixel else (out, None))
-        return self._finish(entries, outs)
+        else:  # each shard's lanes of the host buffers, as a segment
+            K = entry.buf.shape[1]
+            for i, ((sl, dev, _), n, (a0, a1), seg) in enumerate(
+                    zip(self.shards, self.lanes, self._spans(K), self.seg_fns)):
+                a = _batch_args(torch.from_numpy(entry.args[None, a0:a1]), n, K)
+                carry = a.seed[0] if entry.first else self._carry[i]
+                with self.timer.span("shard.launch", shard=i), on_device(dev):
+                    out, _ = seg(torch.from_numpy(entry.buf[None, sl]), carry, self.fills[i],
+                                 a.deltas, a.lo, a.hi, a.ks, a.origin0, a.origin_last,
+                                 carry_out=self._carry[i])
+                outs.append(out if self.subpixel else (out, None))
+        return self._finish(entry, [(p[0], None if o is None else o[0]) for p, o in outs])
 
 
 class SingleVideoSource:
@@ -1874,10 +1708,9 @@ class PerVideoSource:
 
 
 #: converged auto depth per (lanes, K, crop, frame, mode) geometry and
-#: process, with the replay-learned soft cap and the dispatch group size: a
-#: later run of the same geometry starts where the last one settled instead of
-#: ramping from 1. Positions are the same at every depth and group size, so
-#: this is only a warm start.
+#: process, with the replay-learned soft cap: a later run of the same geometry
+#: starts where the last one settled instead of ramping from 1. Positions are
+#: the same at every depth, so this is only a warm start.
 _AUTO_DEPTH_MEMO: dict = {}
 
 
@@ -1955,14 +1788,11 @@ class SpeculativePipeline:
             self.depth_max = depth
         self._memo_key = (L, K, crop_shape, spec.frame_shape, mode)
         if self.auto_depth:
-            memo_depth, memo_cap, memo_group = _AUTO_DEPTH_MEMO.get(self._memo_key,
-                                                                   (1, AUTO_DEPTH_MAX, 1))
+            memo_depth, memo_cap = _AUTO_DEPTH_MEMO.get(self._memo_key, (1, AUTO_DEPTH_MAX))
             self.depth_cur = min(memo_depth, self.depth_max)
         else:
             self.depth_cur = depth
-            memo_cap, memo_group = AUTO_DEPTH_MAX, 1
-        self._memo_group = memo_group
-        self._grow_groups = _grouping_pays()
+            memo_cap = AUTO_DEPTH_MAX
         self.engine = engine
         self.source = source
         self.sink = sink
@@ -2210,15 +2040,10 @@ class SpeculativePipeline:
                     # the lagged drain still blocked: add a chunk of slack (up to
                     # the replay-learned soft cap)
                     self.depth_cur += 1
-                else:
-                    # blocked at the ceiling: the soft cap may be explored, and
-                    # where groups pay, more chunks a launch (capped so that two
-                    # groups stay in flight); never in the same event as deepening
-                    if self._depth_soft_cap < self.depth_max:
-                        self._cap_wanted = True
-                    grow = getattr(self.engine, "grow_group", None)
-                    if self._grow_groups and grow is not None:
-                        grow(max(1, (self.depth_cur + 1) // 2))
+                elif self._depth_soft_cap < self.depth_max:
+                    # blocked at the ceiling: the soft cap may be explored; never
+                    # in the same event as deepening
+                    self._cap_wanted = True
             if self.mode == "predict" and not self._contained(pos_np, entry.origins, entry.valid):
                 head = self._split_exact(entry) if entry.exact else [entry]
                 rest = list(self._pending)
@@ -2241,13 +2066,6 @@ class SpeculativePipeline:
         self._vel_ready = False
         self.tracked = np.zeros(self.L, np.int64)
         self.engine.reset()
-        # warm start of the group size the memo holds, after reset (which sets
-        # it back to 1) and within the overlap bound; replays still reset it
-        if (self.auto_depth and self._memo_group > 1
-                and not os.environ.get("PAWS_DISPATCH_GROUP")
-                and getattr(self.engine, "_group_allowed", False)):
-            self.engine.group_target = min(self._memo_group, max(1, (self.depth_cur + 1) // 2),
-                                           self.engine.GROUP_MAX)
         try:
             remaining = n_rest
             eof = False
@@ -2304,9 +2122,7 @@ class SpeculativePipeline:
                 remaining -= int(valid.max())
             if self.auto_depth:
                 # recorded on a clean finish only
-                _AUTO_DEPTH_MEMO[self._memo_key] = (
-                    self.depth_cur, self._depth_soft_cap,
-                    getattr(self.engine, "group_target", 1) or 1)
+                _AUTO_DEPTH_MEMO[self._memo_key] = (self.depth_cur, self._depth_soft_cap)
         finally:
             close = getattr(self.engine, "close", None)
             if close is not None:
@@ -2315,12 +2131,11 @@ class SpeculativePipeline:
 
     def report(self, stats: dict) -> None:
         """Add the run's crop shape, K, mode, final depth, its dispatch and
-        replay counts, and its group launches (each one launch a data shard)
-        and final group size to ``stats``."""
+        replay counts, and its chunk launches (``groups``, each one launch a
+        data shard) to ``stats``."""
         stats.update(crop=(self.ch, self.cw), K=self.K, mode=self.mode, depth=self.depth_cur,
                      dispatches=self.dispatches, replays=self.replays,
-                     groups=getattr(self.engine, "groups", self.dispatches),
-                     group=getattr(self.engine, "group_target", 1))
+                     groups=getattr(self.engine, "groups", self.dispatches))
 
 
 def run_roi_pipeline(

@@ -1737,11 +1737,12 @@ def test_carry_in_launch_equals_chain_batch(card, monkeypatch):
 
 @pytest.mark.parametrize("pin", ["2", "4"])
 def test_entry_points_group_on_card(card, caplog, monkeypatch, pin):
-    """Under PAWS_DISPATCH_GROUP each entry point on the card equals its
-    unpinned run (offsets included), launches the snap(s) plus one launch a
-    group (once a shard under a mesh), fewer than its chunks, and never runs a
-    plain version: track on ROI and on full frames, track_batch on ROI (and
-    over 4 shards of cuda:0), track_multi on ROI."""
+    """With PAWS_DISPATCH_GROUP set (the JAX package's pin, which the port
+    does not read) each entry point on the card equals its run without it
+    (offsets included), launches the snap plus one launch a dispatch (once a
+    shard under a mesh), and never runs a plain version: track on ROI and on
+    full frames, track_batch on ROI (and over 4 shards of cuda:0),
+    track_multi on ROI."""
     from pawsometracker_tpu_torch import make_mesh, track_batch, track_multi
     from pawsometracker_tpu_torch.models import dog_tracker
 
@@ -1783,9 +1784,13 @@ def test_entry_points_group_on_card(card, caplog, monkeypatch, pin):
                 stats = _roi_stats(caplog)
             shards = stats.get("shards", 1)
             snaps = 1
-            assert tk.launches == shards * (snaps + stats["groups"]), name
-            if name != "track full":
-                assert stats["group"] == int(pin) and stats["groups"] < stats["dispatches"]
+            if name == "track full":  # one launch a chunk
+                dispatches = -(-(len(frames) - 1) // 4)
+                assert stats["groups"] == dispatches
+            else:
+                dispatches = stats["dispatches"]
+                assert stats["groups"] == dispatches and "group" not in stats
+            assert tk.launches == shards * (snaps + dispatches), name
             pairs = list(zip(got, want)) if name.startswith("track_batch") else [(got, want)]
             for (ts, ij), (ts_w, ij_w) in pairs:
                 np.testing.assert_array_equal(ts, ts_w)

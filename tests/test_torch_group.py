@@ -1,13 +1,15 @@
-"""Group dispatch in the port on the CPU, against the JAX package.
+"""The segmented scans and one launch a dispatch, on the CPU, against the JAX package.
 
 The JAX package runs S chunk scans as one program under ``PAWS_DISPATCH_GROUP``
 (``make_super_chain``, ``make_chained_batch``, ``make_super_chain_batch``,
-``make_super_full`` in ``pawsometracker_tpu/pipeline.py``); the port runs them as
-one segmented launch, whose plain versions run here. Each test sets the same pin
-for both packages. Integer positions must be equal, ``ts`` equal, offsets within
-``atol=1e-3``. The inputs hold no exact ties (a dark disc on a flat background),
-where the JAX package's XLA scan breaks ties its own way (ROADMAP "Exact ties").
-Mirrors ``tests/test_roi_stream.py:384-527`` and ``tests/test_sharding.py:357``.
+``make_super_full`` in ``pawsometracker_tpu/pipeline.py``); the kernel layer's
+segmented scans are their counterpart, and their plain versions run here. The
+port's pipelines launch every dispatch at once and read no pin: the end-to-end
+tests set the pin for the JAX package and hold the port to it. Integer positions
+must be equal, ``ts`` equal, offsets within ``atol=1e-3``. The inputs hold no
+exact ties (a dark disc on a flat background), where the JAX package's XLA scan
+breaks ties its own way (ROADMAP "Exact ties"). Mirrors
+``tests/test_roi_stream.py:384-527`` and ``tests/test_sharding.py:357``.
 """
 
 import logging
@@ -30,6 +32,7 @@ from pawsometracker_tpu.multi import track_multi as ref_track_multi
 from pawsometracker_tpu.parallel import mesh as ref_mesh
 from pawsometracker_tpu.parallel.mesh import ShardedBatchTracker as RefTracker
 from pawsometracker_tpu_torch.models.dog_tracker import make_spec, tracker_fns
+from pawsometracker_tpu_torch.ops import roi_crop
 from pawsometracker_tpu_torch.ops import tracker_kernel as tk
 from pawsometracker_tpu_torch.parallel.mesh import ShardedBatchTracker, make_mesh
 from pawsometracker_tpu_torch.utils.profiling import Timer
@@ -118,8 +121,8 @@ def chain_case(seed, ks, K=6, ch=41, cw=41, h=120, w=120, off_crop=None):
                     o = ij - c + rng.integers(-3, 4, 2)
                     if off_crop == b and s == 0 and t == 0:
                         o = ij - [ch - 2, c[1]]
-                    crops[s, b, t] = pipeline._crop_with_fill(draw_blob(h, w, ij, 3), o, ch, cw,
-                                                              128)
+                    crops[s, b, t] = roi_crop.crop_with_fill(draw_blob(h, w, ij, 3), o, ch, cw,
+                                                             128)
                     last = o
                 elif t > 0:
                     crops[s, b, t] = crops[s, b, t - 1]
@@ -225,39 +228,6 @@ def test_batch_segments_match_make_super_chain_batch(S, subpixel):
     np.testing.assert_array_equal(c.numpy(), np.asarray(want_carry))
 
 
-@pytest.mark.parametrize("subpixel", [False, True])
-def test_sharded_segments_match_make_super_chain_batch(subpixel):
-    """ShardedFn.segmented over an 8-entry CPU mesh (data 4: one lane a
-    shard, each shard its own carry) equals JAX make_super_chain_batch over
-    its vmapped scan: the counterpart of the super-program over
-    sharded_pallas_bounded."""
-    from pawsometracker_tpu_torch.parallel.mesh import Sharded, sharded_pallas_bounded
-
-    S, B, ch, cw = 3, 4, 41, 41
-    ks = np.tile(np.array(SHORT_KS[:S], np.int64)[:, None], (1, B))
-    ks[1, 1] = 0
-    crops, o, starts, (lo, hi) = chain_case(40, ks)
-    deltas = np.stack([pipeline._BatchedEngine._deltas(o[s]) for s in range(S)]).astype(np.int32)
-    origin0 = o[:, :, 0].astype(np.int32)
-    origin_last = np.stack([pipeline._BatchedEngine._last_origin(o[s], ks[s])
-                            for s in range(S)]).astype(np.int32)
-    carry, kss, fills = starts.astype(np.int32), ks.astype(np.int32), np.full(B, 128, np.uint8)
-    mesh = make_mesh(devices=["cpu"] * 8, space=2)
-    fn = sharded_pallas_bounded(make_spec((ch, cw), 15, 6, True), mesh, subpixel=subpixel)
-    got, got_carry = fn.segmented(crops, carry, fills, deltas, lo, hi, kss, origin0, origin_last)
-    assert isinstance(got_carry, Sharded) and len(got_carry.shards) == 4
-    rscan = RefTracker(ref_make_spec((ch, cw), 15, 6, True))
-    outs, want_carry = ref_pipeline.make_super_chain_batch(
-        rscan.scan_sub if subpixel else rscan.scan_bounded, S, subpixel)(
-        tuple(jnp.asarray(c) for c in crops), carry, kss, origin0, origin_last, deltas, fills,
-        lo, hi)
-    np.testing.assert_array_equal(np.asarray(got_carry), np.asarray(want_carry))
-    lanes_first = ((torch.from_numpy(np.asarray(got[0])).transpose(0, 1),
-                    torch.from_numpy(np.asarray(got[1])).transpose(0, 1)) if subpixel
-                   else torch.from_numpy(np.asarray(got)).transpose(0, 1))
-    assert_real_rows(lanes_first, outs, ks, subpixel)
-
-
 def test_batch_segments_carry_equals_chain_batch():
     """With S = 1 the segmented launch's carry is chain_batch's: the engines'
     kernel carry and the tensor-op form of the same rule agree."""
@@ -341,7 +311,7 @@ def test_segment_wrappers_dispatch_and_check():
         "batched bounded+subpixel, segmented"
 
 
-# ---- the pipelines under a pin, against the JAX package -----------------------------
+# ---- the pipelines, against the JAX package under a pin ----------------------------
 
 
 def walk_video(tmp_path, seed, T=44, h=160, w=160):
@@ -357,12 +327,17 @@ def walk_video(tmp_path, seed, T=44, h=160, w=160):
     return helpers.write_video(frames, str(tmp_path / "walk"), 24)
 
 
+def assert_one_launch_a_dispatch(st):
+    """A ROI call's record: one chunk launch a dispatch, and no group size."""
+    assert st["stream"] == "roi" and st["groups"] == st["dispatches"] and "group" not in st
+
+
 @pytest.mark.parametrize("group", [2, 4])
 @pytest.mark.parametrize("subpixel", [False, True])
 def test_roi_group_matches_jax_and_full(tmp_path, monkeypatch, port_stats, group, subpixel):
-    """track(stream="roi") under PAWS_DISPATCH_GROUP equals the JAX package's
-    under the same pin and the port's stream="full", and runs fewer launches
-    than chunks (the first of a chain alone, then groups)."""
+    """track(stream="roi") equals the JAX package's under PAWS_DISPATCH_GROUP
+    and the port's stream="full", and the port, which reads no pin, launches
+    once a dispatch."""
     f = walk_video(tmp_path, 300 + group)
     kw = dict(fps=24, target_width=8, window_size=21, subpixel=subpixel)
     _, full = port.track(f, start_location=port.IJ(80, 80), stream="full", device="cpu", **kw)
@@ -372,14 +347,12 @@ def test_roi_group_matches_jax_and_full(tmp_path, monkeypatch, port_stats, group
     want = ref.track(f, start_location=ref.IJ(80, 80), **roi)
     assert_same(got, want, subpixel)
     assert_same(got, (got[0], full), subpixel)
-    st = port_stats[-1]
-    assert st["stream"] == "roi" and st["group"] == group
-    assert st["groups"] < st["dispatches"]
+    assert_one_launch_a_dispatch(port_stats[-1])
 
 
 def test_roi_group_replay_matches(tmp_path, monkeypatch, port_stats):
-    """Velocity-defeating motion at pin 3: replays drop staged chunks, reset
-    the chain, and the positions stay the JAX package's and full-frame's."""
+    """Velocity-defeating motion, the JAX package at pin 3: replays reset the
+    chain, and the positions stay the JAX package's and full-frame's."""
     h, w = 200, 200
     frames = []
     for t in range(48):
@@ -399,13 +372,13 @@ def test_roi_group_replay_matches(tmp_path, monkeypatch, port_stats):
     assert_same(got, want)
     np.testing.assert_array_equal(got[1], full)
     assert pipeline.replay_count > before and port_stats[-1]["replays"] > 0
+    assert_one_launch_a_dispatch(port_stats[-1])
 
 
 @pytest.mark.parametrize("subpixel", [False, True])
 def test_full_stream_group_matches_jax(tmp_path, monkeypatch, port_stats, subpixel):
-    """Full-frame streaming at pin 3 with 4-frame chunks equals the JAX
-    package's under the same pin and the port's depth-0 run; its launches are
-    the first chunk alone and then groups."""
+    """Full-frame streaming with 4-frame chunks equals the JAX package's at
+    pin 3 and the port's depth-0 run; the port launches once a chunk."""
     rng = np.random.default_rng(310)
     _, tra = helpers.build_trajectory(30, 24, (60, 60), rng)
     f = helpers.trajectory2video(tra, str(tmp_path), 24, 140, 140, 10, True)
@@ -417,14 +390,13 @@ def test_full_stream_group_matches_jax(tmp_path, monkeypatch, port_stats, subpix
     want = ref.track(f, start_location=ref.IJ(60, 60), pipeline_depth=3, chunk_size=4, **kw)
     assert_same(got, want, subpixel)
     assert_same(got, base, subpixel)
-    chunks = -(-(len(got[1]) - 1) // 4)
-    assert port_stats[-1]["groups"] == 1 + -(-(chunks - 1) // 3)
+    assert port_stats[-1]["groups"] == -(-(len(got[1]) - 1) // 4)
 
 
 def test_batch_and_multi_roi_group_match_jax(tmp_path, monkeypatch, port_stats):
-    """track_batch and track_multi on ROI at pin 3 equal the JAX package's
-    under the same pin and their unpinned runs: two videos of their own
-    length, and two discs of one video."""
+    """track_batch and track_multi on ROI equal the JAX package's at pin 3:
+    two videos of their own length, and two discs of one video; the port
+    launches once a dispatch."""
     rng = np.random.default_rng(320)
     _, tra = helpers.build_trajectory(30, 24, (60, 60), rng)
     f = helpers.trajectory2video(tra, str(tmp_path), 24, 140, 140, 10, True)
@@ -440,29 +412,24 @@ def test_batch_and_multi_roi_group_match_jax(tmp_path, monkeypatch, port_stats):
     fm = helpers.write_video(two, str(tmp_path / "two"), 24)
     locs = [tuple(int(v) for v in tra[0]), tuple(int(v) for v in shifted[0])]
     kw = dict(fps=24, target_width=10, stream="roi", roi_frames=4, pipeline_depth=3)
-    unpinned = port.track_batch([f, f2], start_location=port.IJ(60, 60), device="cpu", **kw)
-    munpinned = port.track_multi(fm, [port.IJ(*x) for x in locs], device="cpu", **kw)
     monkeypatch.setenv("PAWS_DISPATCH_GROUP", "3")
     got = port.track_batch([f, f2], start_location=port.IJ(60, 60), device="cpu", **kw)
-    st = port_stats[-1]
+    assert_one_launch_a_dispatch(port_stats[-1])
     want = ref_track_batch([f, f2], start_location=ref.IJ(60, 60), **kw)
-    for g, w, u in zip(got, want, unpinned):
+    for g, w in zip(got, want):
         assert_same(g, w)
-        assert_same(g, u)
-    assert st["group"] == 3 and st["groups"] < st["dispatches"]
     mgot = port.track_multi(fm, [port.IJ(*x) for x in locs], device="cpu", **kw)
+    assert_one_launch_a_dispatch(port_stats[-1])
     mwant = ref_track_multi(fm, [ref.IJ(*x) for x in locs], **kw)
     assert_same(mgot, mwant)
-    assert_same(mgot, munpinned)
-    assert port_stats[-1]["groups"] < port_stats[-1]["dispatches"]
 
 
 @pytest.mark.parametrize("subpixel", [False, True])
 def test_track_batch_mesh_group_matches_jax(tmp_path, monkeypatch, port_stats, subpixel):
-    """tests/test_sharding.py:357 on the port: track_batch on ROI at pin 3 over
-    an 8-entry CPU mesh (data 4 x space 2) equals JAX's over its 8 virtual
-    devices, and the port's unpinned mesh=None run; one launch a data shard
-    a group."""
+    """tests/test_sharding.py:357 on the port: track_batch on ROI over an
+    8-entry CPU mesh (data 4 x space 2) equals JAX's at pin 3 over its 8
+    virtual devices, and the port's mesh=None run; one launch a data shard a
+    dispatch, each shard's staged segmented scan at S = 1."""
     import os
 
     assert len(jax.devices()) >= 8, "conftest must provide 8 virtual CPU devices"
@@ -485,15 +452,15 @@ def test_track_batch_mesh_group_matches_jax(tmp_path, monkeypatch, port_stats, s
     for g, w, p in zip(got, want, plain):
         assert_same(g, w, subpixel)
         assert_same(g, p, subpixel)
-    assert st["shards"] == 4 and st["group"] == 3 and st["groups"] < st["dispatches"]
+    assert st["shards"] == 4
+    assert_one_launch_a_dispatch(st)
 
 
-# ---- the engines' group semantics --------------------------------------------------
+# ---- the engines: one launch a dispatch ---------------------------------------------
 
 
 def _engines():
-    """A single, a batched and a full-frame engine on the CPU, each with its
-    segmented scan."""
+    """A single, a batched and a full-frame engine on the CPU."""
     spec = make_spec((61, 61), 21, 10, True)
     fns = tracker_fns(spec, "cpu")
     tracker = ShardedBatchTracker(spec, device="cpu")
@@ -507,118 +474,92 @@ def _engines():
                                                    segments=fns.scan_bounded_batch_super),
         "full": lambda: pipeline._FullFrameEngine(
             tracker_fns(make_spec((200, 200), 21, 10, True), "cpu").scan, np.array([50, 50]),
-            128, False, Timer(), cpu,
-            segments=tracker_fns(make_spec((200, 200), 21, 10, True), "cpu").scan_super),
+            128, False, Timer(), cpu),
     }
 
 
+def _box(o, crop=61, frame=200):
+    """The clamp box ``(lo, hi)`` of crops of ``crop`` px at origins ``o``."""
+    return np.maximum(-o, 0), np.minimum([crop - 1, crop - 1], [frame - 1, frame - 1] - o)
+
+
+def _i32(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32))
+
+
 @pytest.mark.parametrize("kind", ["single", "batched", "full"])
-def test_group_target_adaptation(monkeypatch, kind):
-    """tests/test_roi_stream.py:497 on each of the port's engines: grow_group
-    raises the target up to its cap and GROUP_MAX, reset drops it back to 1
-    and restarts the chain, and a pinned PAWS_DISPATCH_GROUP disables both.
-    Growth is never on by itself on the port's devices."""
-    assert pipeline._grouping_pays() is False
-    monkeypatch.delenv("PAWS_DISPATCH_GROUP", raising=False)
+def test_dispatch_launches_at_once(kind):
+    """After reset(), each of five dispatches is one launch: ``groups`` rises
+    by one with it and its handle is ready. Each handle's to_host gives its
+    chunk's positions: the plain chunk scan chained from the previous chunk's
+    last real step (a short chunk, and a lane with none, included)."""
+    rng = np.random.default_rng(9)
+    n, K = 5, 4
     eng = _engines()[kind]()
-    assert eng.group_target == 1 and eng.GROUP_MAX == ref_pipeline._GroupDispatchBase.GROUP_MAX
-    eng.grow_group(2)
-    eng.grow_group(2)
-    assert eng.group_target == 2  # the overlap bound
-    for _ in range(10):
-        eng.grow_group()
-    assert eng.group_target == eng.GROUP_MAX
     eng.reset()
-    assert eng.group_target == 1 and not eng._chain_started
-    eng.close()
-
-    monkeypatch.setenv("PAWS_DISPATCH_GROUP", "2")
-    eng2 = _engines()[kind]()
-    assert eng2.group_target == 2
-    eng2.grow_group()
-    eng2.reset()
-    assert eng2.group_target == 2  # pinned: adaptation disabled
-    eng2.close()
-    monkeypatch.setenv("PAWS_DISPATCH_GROUP", "9")
-    assert _engines()[kind]().group_target == eng.GROUP_MAX  # clamped
-    monkeypatch.setenv("PAWS_DISPATCH_GROUP", "0")
-    eng0 = _engines()[kind]()
-    assert eng0.group_target == 1 and not eng0._group_pinned  # "0" unpins
-    eng0.grow_group()
-    assert eng0.group_target == 2
-
-
-def test_engine_without_segmented_scan_never_groups(monkeypatch):
-    """The batch and multi-target full-frame loops have no group dispatch in
-    the JAX package, and none in the port: a pin leaves them at 1."""
-    monkeypatch.setenv("PAWS_DISPATCH_GROUP", "3")
-    spec = make_spec((200, 200), 21, 10, True)
-    eng = pipeline._FullFrameEngine(tracker_fns(spec, "cpu").scan_multi, np.array([[50, 50]]),
-                                    128, False, Timer(), torch.device("cpu"))
-    assert eng.group_target == 1
-    eng.grow_group()
-    assert eng.group_target == 1
-
-
-def test_stage_flush_and_drain_rules(monkeypatch):
-    """The first dispatch of a chain runs alone; later ones stay staged (never
-    ready) until the group is full; draining a staged chunk launches the
-    partial group; a reset drops what is staged. Results equal per-chunk
-    dispatch."""
-    monkeypatch.setenv("PAWS_DISPATCH_GROUP", "3")
-    rng = np.random.default_rng(8)
-    K, ch, cw = 4, 61, 61
-    crops = moving_blobs(rng, 6 * K, ch, cw)[0].reshape(6, 1, K, ch, cw)
-    origins = (np.arange(6 * K).reshape(6, 1, K, 1) + np.array([20, 30])).astype(np.int64)
-    P = np.array([[50, 60]])
-
-    def run(eng, order):
-        handles, out = [], {}
-        for i, c in enumerate(crops):
-            handles.append(eng.dispatch(c.copy(), origins[i], P))
-            for j in order.get(i, ()):
-                out[j] = eng.to_host(handles[j])[0]
-        return handles, out
-
-    eng = _engines()["single"]()
-    eng.reset()
-    h = [eng.dispatch(crops[0].copy(), origins[0], P)]
-    assert eng.groups == 1 and eng.ready(h[0])  # the first alone
-    h += [eng.dispatch(crops[i].copy(), origins[i], P) for i in (1, 2)]
-    assert eng.groups == 1 and not eng.ready(h[1]) and not eng.ready(h[2])
-    h.append(eng.dispatch(crops[3].copy(), origins[3], P))
-    assert eng.groups == 2 and all(eng.ready(x) for x in h)
-    h.append(eng.dispatch(crops[4].copy(), origins[4], P))
-    got4 = eng.to_host(h[4])[0]  # a partial group of one
-    assert eng.groups == 3
-    staged = eng.dispatch(crops[5].copy(), origins[5], P)
-    eng.reset()
-    assert not eng._staged and staged.result is None
-    monkeypatch.setenv("PAWS_DISPATCH_GROUP", "1")
-    one = _engines()["single"]()
-    one.reset()
-    want = [one.to_host(one.dispatch(crops[i].copy(), origins[i], P))[0] for i in range(5)]
-    for i in range(4):
-        np.testing.assert_array_equal(eng.to_host(h[i])[0], want[i])
-    np.testing.assert_array_equal(got4, want[4])
+    if kind == "full":
+        frames = moving_blobs(rng, n * K - 2, 200, 200)[0]
+        chunks = [frames[i * K:(i + 1) * K] for i in range(n)]
+        handles = []
+        for i, chunk in enumerate(chunks):
+            handles.append(eng.dispatch([chunk], K))
+            assert eng.groups == i + 1 and eng.ready(handles[-1])
+        scan = tracker_fns(make_spec((200, 200), 21, 10, True), "cpu").scan
+        pos = torch.tensor([50, 50], dtype=torch.int32)
+        for chunk, h in zip(chunks, handles):
+            padded = np.concatenate([chunk] + [chunk[-1:]] * (K - len(chunk)))
+            want = scan(torch.from_numpy(padded), pos, 128)
+            np.testing.assert_array_equal(eng.to_host(h)[0], want.numpy())
+            pos = want[len(chunk) - 1]
+        return
+    L = 1 if kind == "single" else 2
+    crops = np.ascontiguousarray(
+        moving_blobs(rng, n * K, 61, 61, lanes=L).reshape(L, n, K, 61, 61).swapaxes(0, 1))
+    origins = (np.arange(n * K * L).reshape(n, L, K, 1) + np.array([20, 30])).astype(np.int64)
+    valid = np.full((n, L), K, np.int64)
+    valid[2] = 2  # a short chunk
+    if L > 1:
+        valid[3, 1] = 0  # a lane with no real frame
+    P = np.array([[50, 60], [70, 80]][:L])
+    handles = []
+    for i in range(n):
+        handles.append(eng.dispatch(crops[i].copy(), origins[i], P, valid[i]))
+        assert eng.groups == i + 1 and eng.ready(handles[-1])
+    got = [eng.to_host(h)[0] for h in handles]
+    if kind == "single":
+        scan = tracker_fns(make_spec((61, 61), 21, 10, True), "cpu").scan_bounded
+        pos0, prev_o = _i32(P[0] - origins[0, 0, 0]), origins[0, 0, 0]
+        for i in range(n):
+            o, k = origins[i, 0], int(valid[i, 0])
+            lo, hi = _box(o)
+            want = scan(torch.from_numpy(crops[i, 0]), pos0, 128,
+                        _i32(pipeline._SingleEngine._deltas(o, prev_o)), _i32(lo), _i32(hi))
+            np.testing.assert_array_equal(got[i][0], want.numpy())
+            pos0, prev_o = want[k - 1], o[k - 1]
+        return
+    tracker = ShardedBatchTracker(make_spec((61, 61), 21, 10, True), device="cpu")
+    carry = _i32(P)
+    fills = torch.full((L,), 128, dtype=torch.uint8)
+    for i in range(n):
+        o, ks = origins[i], valid[i]
+        lo, hi = _box(o)
+        want, carry = pipeline.chain_batch(
+            tracker.scan_bounded, torch.from_numpy(crops[i]), carry, _i32(ks),
+            torch.from_numpy(pipeline.last_rows(ks, K)), _i32(o[:, 0]),
+            _i32(pipeline._BatchedEngine._last_origin(o, ks)), fills,
+            _i32(pipeline._BatchedEngine._deltas(o)), _i32(lo), _i32(hi))
+        np.testing.assert_array_equal(got[i], want.numpy())
 
 
 def test_auto_depth_memo_carries_the_group(monkeypatch):
-    """The memo's third field is the group size a run ended at, and a later
-    run of the same geometry warm-starts it (after reset, within the overlap
-    bound); a pin skips the warm start."""
-    monkeypatch.delenv("PAWS_DISPATCH_GROUP", raising=False)
+    """The memo holds ``(depth, soft cap)`` a run ended at, and no group size:
+    a later run of the same geometry warm-starts both, whatever
+    PAWS_DISPATCH_GROUP says, and records them again."""
     spec = make_spec((200, 200), 21, 10, True)
 
     class Eng:
-        GROUP_MAX = pipeline.GROUP_MAX
-        _group_allowed = True
-
-        def __init__(self):
-            self.group_target = 1
-
         def reset(self):
-            self.group_target = 1
+            pass
 
     class Src:
         def acquire(self, *a):
@@ -630,16 +571,12 @@ def test_auto_depth_memo_carries_the_group(monkeypatch):
                   depth="auto", source=Src(), sink=None, timer=Timer())
         p = pipeline.SpeculativePipeline(engine=Eng(), **kw)
         p.run(np.array([[50, 50]]), 10)
-        assert pipeline._AUTO_DEPTH_MEMO[p._memo_key] == (1, pipeline.AUTO_DEPTH_MAX, 1)
-        pipeline._AUTO_DEPTH_MEMO[p._memo_key] = (5, 6, 4)
-        eng = Eng()
-        p2 = pipeline.SpeculativePipeline(engine=eng, **kw)
-        p2.run(np.array([[50, 50]]), 10)
-        assert eng.group_target == 3  # min(4, (5 + 1) // 2)
-        assert pipeline._AUTO_DEPTH_MEMO[p._memo_key] == (5, 6, 3)
+        assert pipeline._AUTO_DEPTH_MEMO[p._memo_key] == (1, pipeline.AUTO_DEPTH_MAX)
+        pipeline._AUTO_DEPTH_MEMO[p._memo_key] = (5, 6)
         monkeypatch.setenv("PAWS_DISPATCH_GROUP", "2")
-        eng3 = Eng()
-        pipeline.SpeculativePipeline(engine=eng3, **kw).run(np.array([[50, 50]]), 10)
-        assert eng3.group_target == 1
+        p2 = pipeline.SpeculativePipeline(engine=Eng(), **kw)
+        assert (p2.depth_cur, p2._depth_soft_cap) == (5, 6)
+        p2.run(np.array([[50, 50]]), 10)
+        assert pipeline._AUTO_DEPTH_MEMO[p._memo_key] == (5, 6)
     finally:
         pipeline._AUTO_DEPTH_MEMO.clear()

@@ -16,7 +16,7 @@ crops, and the segmented scan staged once over an engine's buffers.
 - The checks: bad arguments to the public segmented wrappers raise their
   ``ValueError`` as before; a :class:`StagedScan` checks its buffers once,
   when made, and its runs equal the plain segmented scans on the same views,
-  as an engine's device group lays them out.
+  as an engine's device slot lays them out.
 """
 
 import numpy as np
@@ -255,7 +255,6 @@ def test_crop_with_fill_equals_jax(frames_1080p, where):
         dirty = np.full((ch, cw), 201, np.uint8)
         roi_crop.crop_with_fill(frames_1080p[0], ORIGINS[where], ch, cw, 77, out=dirty)
         np.testing.assert_array_equal(dirty, want)
-    assert pipeline._crop_with_fill is roi_crop.crop_with_fill
 
 
 def test_lane_cropper_is_native_on_the_card_and_raises_without_it(monkeypatch):
@@ -325,7 +324,7 @@ def test_public_segment_wrappers_keep_their_checks(bad, match):
 def test_staged_scan_checks_its_buffers_once():
     """A staged scan whose shapes the wrapper refuses, or whose arguments do
     not share one segment stride, raises when it is made; a run past the
-    buffers' room raises."""
+    buffers' room (an engine's device slot holds one chunk) raises."""
     frames, box = seg_inputs()
     fills = torch.tensor([128, 100], dtype=torch.uint8)
     fns = tracker_fns(SPEC, "cpu")
@@ -338,9 +337,9 @@ def test_staged_scan_checks_its_buffers_once():
               box["origin_last"])
     eng = pipeline._BatchedEngine(None, (41, 41), (200, 200), [128, 100], False, None,
                                   torch.device("cpu"), segments=fns.scan_bounded_batch_super)
-    staged = eng._new_group(3, 4).staged[0]
-    with pytest.raises(ValueError, match=r"S must lie in \[1, 3\]"):
-        staged.run(4, carry=torch.zeros((2, 2), dtype=torch.int32),
+    staged = eng._new_group(4).staged[0]
+    with pytest.raises(ValueError, match=r"S must lie in \[1, 1\]"):
+        staged.run(2, carry=torch.zeros((2, 2), dtype=torch.int32),
                    carry_out=torch.zeros((2, 2), dtype=torch.int32))
 
 
@@ -348,11 +347,12 @@ def test_staged_scan_checks_its_buffers_once():
 @pytest.mark.parametrize("subpixel", [False, True])
 @pytest.mark.parametrize("kind", ["single", "batched"])
 def test_engine_group_staged_scan_equals_plain(kind, subpixel, cap):
-    """A ROI engine's device group of ``cap`` chunks made on the CPU (one
-    buffer a shard, a row a chunk: crops, then the int32 arguments): its
-    staged scan, run for every S up to the group's room, equals the plain
-    segmented scans on the same views, and the views read back what a row
-    holds where the slot's layout put it."""
+    """``cap`` chunks in one buffer a row a chunk, laid out as a ROI engine's
+    device slot (crops, then the int32 arguments): with ``cap`` 1 the
+    engine's own slot made on the CPU, else a ``[cap, row]`` buffer and its
+    staged scan made at the kernel layer. The staged scan, run for every S up
+    to the buffer's room, equals the plain segmented scans on the same views,
+    and the views read back what a row holds where the slot's layout put it."""
     K, crop = 4, 41
     fns = tracker_fns(SPEC, "cpu")
     cpu = torch.device("cpu")
@@ -363,10 +363,29 @@ def test_engine_group_staged_scan_equals_plain(kind, subpixel, cap):
         eng = pipeline._BatchedEngine(None, (crop, crop), (200, 200), [128, 100], subpixel, None,
                                       cpu, segments=fns.scan_bounded_batch_super)
     L = eng.lanes[0]
-    group = eng._new_group(cap, K)
-    frames, box = seg_inputs(cap, L, K)
     n_args = eng._n_args(L, K)
-    assert group.rows[0][0].numel() == pipeline._crop_bytes((L, K, crop, crop))[1] + 4 * n_args
+    if cap == 1:
+        group = eng._new_group(K)
+        rows, views = [group.rows[0]], group.frames[0]
+        staged, start = group.staged[0], group.starts[0]
+    else:
+        n, at = pipeline._crop_bytes((L, K, crop, crop))
+        raw = torch.empty((cap, at + 4 * n_args), dtype=torch.uint8)
+        rows, views = list(raw.unbind(0)), raw[:, :n].view(cap, L, K, crop, crop)
+        args = raw[:, at:].view(torch.int32)
+        if kind == "single":
+            a = pipeline._single_args(args, K)
+            staged = fns.scan_bounded_super.stage(views[:, 0], 128, a.deltas, a.lo, a.hi, a.ks,
+                                                  subpixel=subpixel)
+            start = a.start[0]
+        else:
+            a = pipeline._batch_args(args, L, K)
+            staged = fns.scan_bounded_batch_super.stage(views, eng.fills[0], a.deltas, a.lo, a.hi,
+                                                        a.ks, a.origin0, a.origin_last,
+                                                        subpixel=subpixel)
+            start = a.seed[0]
+    frames, box = seg_inputs(cap, L, K)
+    assert rows[0].numel() == pipeline._crop_bytes((L, K, crop, crop))[1] + 4 * n_args
     for s in range(cap):  # each row as one copy of a slot's buffer would fill it
         n, at = pipeline._crop_bytes((L, K, crop, crop))
         flat = np.zeros(n_args, np.int32)
@@ -382,24 +401,23 @@ def test_engine_group_staged_scan_equals_plain(kind, subpixel, cap):
             a.origin0[...] = box["origin0"][s].numpy()
             a.origin_last[...] = box["origin_last"][s].numpy()
             a.seed[...] = [(20, 20), (22, 20)]
-        row = np.zeros(group.rows[0][s].numel(), np.uint8)
+        row = np.zeros(rows[s].numel(), np.uint8)
         row[:n] = frames[s].numpy().reshape(-1)
         row[at:] = flat.view(np.uint8)
-        group.rows[0][s].copy_(torch.from_numpy(row))
-    np.testing.assert_array_equal(group.frames[0].numpy(), frames.numpy())
-    staged = group.staged[0]
+        rows[s].copy_(torch.from_numpy(row))
+    np.testing.assert_array_equal(views.numpy(), frames.numpy())
     for S in range(1, cap + 1):
         if kind == "single":
-            got = staged.run(S, pos0=group.starts[0])
+            got = staged.run(S, pos0=start)
             want = tk.dog_scan_segments_plain(frames[:S, 0], torch.tensor([20, 20]), 128,
                                               deltas=box["deltas"][:S, 0], lo=box["lo"][:S, 0],
                                               hi=box["hi"][:S, 0],
                                               ks=None if S == 1 else box["ks"][:S, 0],
                                               subpixel=subpixel, **SKW)
         else:
-            np.testing.assert_array_equal(group.starts[0].numpy(), [(20, 20), (22, 20)])
-            carry = group.starts[0].clone()
-            got = staged.run(S, carry=group.starts[0], carry_out=carry)
+            np.testing.assert_array_equal(start.numpy(), [(20, 20), (22, 20)])
+            carry = start.clone()
+            got = staged.run(S, carry=start, carry_out=carry)
             want, want_carry = tk.dog_scan_batch_segments_plain(
                 frames[:S], None, torch.tensor([128, 100], dtype=torch.uint8),
                 carry=torch.tensor([(20, 20), (22, 20)], dtype=torch.int32),

@@ -167,11 +167,17 @@ def test_tracker_fns_without_device_raises_without_cuda(monkeypatch):
 
 
 def test_parallel_decode_lazy_import_resolves():
-    """io/parallel_decode.py imports _crop_with_fill from the package's
-    pipeline lazily: the port's pipeline must define it."""
+    """io/parallel_decode.py takes its crop from the ops layer, not from the
+    pipeline above it, and crops with it."""
     from pawsometracker_tpu_torch import pipeline
+    from pawsometracker_tpu_torch.io import parallel_decode
+    from pawsometracker_tpu_torch.ops import roi_crop
 
     src = open(os.path.join(PORT_DIR, "io", "parallel_decode.py")).read()
-    assert "from ..pipeline import _crop_with_fill" in src
-    out = pipeline._crop_with_fill(np.arange(12, dtype=np.uint8).reshape(3, 4), (-1, 2), 3, 3, 9)
+    assert "from ..ops.roi_crop import crop_with_fill" in src and "..pipeline" not in src
+    assert parallel_decode.crop_with_fill is roi_crop.crop_with_fill
+    assert not hasattr(pipeline, "_crop_with_fill")
+    out = np.empty((3, 3), np.uint8)
+    parallel_decode.ParallelNativeSource._crop(None, np.arange(12, dtype=np.uint8).reshape(3, 4),
+                                               (-1, 2), 3, 3, 9, out)
     np.testing.assert_array_equal(out, [[9, 9, 9], [2, 3, 9], [6, 7, 9]])

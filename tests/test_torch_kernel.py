@@ -14,7 +14,7 @@ from pawsometracker_tpu.models.dog_tracker import tracker_fns as ref_tracker_fns
 from pawsometracker_tpu.ops.pallas_tracker import pallas_scan_fn
 from pawsometracker_tpu_torch.models.dog_tracker import make_spec, tracker_fns
 from pawsometracker_tpu_torch.ops import tracker_kernel as tk
-from pawsometracker_tpu_torch.pipeline import _crop_with_fill
+from pawsometracker_tpu_torch.ops.roi_crop import crop_with_fill as _crop_with_fill
 
 from test_pallas import draw_blob_aniso
 from test_tracker_core import draw_blob

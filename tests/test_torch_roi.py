@@ -25,11 +25,11 @@ import pawsometracker_tpu_torch.pipeline as pipeline
 from pawsometracker_tpu.models.dog_tracker import make_spec as ref_make_spec
 from pawsometracker_tpu_torch.io import native_io
 from pawsometracker_tpu_torch.models.dog_tracker import make_spec
+from pawsometracker_tpu_torch.ops.roi_crop import crop_with_fill as _crop_with_fill
 from pawsometracker_tpu_torch.pipeline import (
     AUTO_DEPTH_MAX,
     SpeculativePipeline,
     _AUTO_DEPTH_MEMO,
-    _crop_with_fill,
     _Pending,
     auto_depth_cap,
     roi_geometry,
@@ -482,9 +482,9 @@ def test_auto_depth_memo_warm_starts_same_geometry(memo):
     kw = dict(depth="auto")
     p1 = _pipe(**kw)
     assert p1.depth_cur == 1
-    memo[p1._memo_key] = (5, 6, 2)  # what a converged run records: depth, soft cap, group
+    memo[p1._memo_key] = (5, 6)  # what a converged run records: depth, soft cap
     p2 = _pipe(**kw)
-    assert p2.depth_cur == 5 and p2._depth_soft_cap == 6 and p2._memo_group == 2
+    assert p2.depth_cur == 5 and p2._depth_soft_cap == 6
     assert _pipe(auto_cap=2, **kw).depth_cur == 2  # never above this pipeline's cap
     assert _pipe(K=4, **kw).depth_cur == 1  # another geometry ramps from 1
     assert _pipe(depth=3).depth_cur == 3  # a fixed depth ignores the memo

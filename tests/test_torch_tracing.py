@@ -134,7 +134,7 @@ def test_traced_call_spans_form_one_tree(stats, entry, stream):
 
 
 def test_mesh_launches_once_a_shard(stats):
-    """On a 4-device mesh each launch (the snap's, then each group's) is one
+    """On a 4-device mesh each launch (the snap's, then each chunk's) is one
     ``shard.launch`` a shard, and a lane's waits for its prefetcher lie in
     the ``crop`` section that holds them."""
     with profile(activities=[ProfilerActivity.CPU]):

@@ -10,7 +10,7 @@ default; for example a ``git archive`` of the parent commit unpacked under
 - the 24-hour timestamp grid (``np.linspace(0, 86399.999, 2073600)``) and
   ``mode_u8_host`` of a 1080p frame of ``chip_smoke.py``'s clip;
 - 12 crops of 185x185 and of 461x461 with the checkout's numpy crop
-  (``pipeline._crop_with_fill``, a frame at a time), into a numpy buffer and a
+  (``ops.roi_crop.crop_with_fill``, a frame at a time), into a numpy buffer and a
   pinned one, from frames in cache and from frames read once (a 480-frame
   1080p stack); and, where the checkout has it, its native chunk crop
   (``ops.roi_crop.crop_lanes_native``) on 1, 2, 3, 4 and 6 threads, one lane
@@ -69,6 +69,7 @@ def main() -> int:
     from pawsometracker_tpu_torch.models.dog_tracker import make_spec, tracker_fns
     from pawsometracker_tpu_torch.ops import tracker_kernel as tk
     from pawsometracker_tpu_torch.ops.filters import mode_u8_host
+    from pawsometracker_tpu_torch.ops.roi_crop import crop_with_fill
 
     print(cs.card_line(), f"({os.path.abspath(args.root)})", flush=True)
     frames, _ = cs.synth_clip()
@@ -89,7 +90,7 @@ def main() -> int:
             def cold(buf=buf, c=c, at=at):
                 t = at[0] = (at[0] + 12) % 468
                 for i in range(12):
-                    pl._crop_with_fill(stack[t + i], (300 + i, 600 + i), c, c, 128, out=buf[i])
+                    crop_with_fill(stack[t + i], (300 + i, 600 + i), c, c, 128, out=buf[i])
 
             print(f"crop {c}x{c} x12 into {name}: numpy crop of frames read once"
                   f" {host_us(cold, 39):.1f} us, copies from frames in cache {hot:.1f} us")

@@ -71,7 +71,8 @@ def main(argv=None) -> int:
     from pawsometracker_tpu_torch.ops import tracker_kernel as tk
     from pawsometracker_tpu_torch.parallel.mesh import (global_detect_batch,
                                                         sharded_pallas_bounded)
-    from pawsometracker_tpu_torch.pipeline import _crop_with_fill, roi_geometry
+    from pawsometracker_tpu_torch.ops.roi_crop import crop_with_fill
+    from pawsometracker_tpu_torch.pipeline import roi_geometry
 
     on_cpu = args.device == "cpu"
     if not on_cpu and not torch.cuda.is_available():
@@ -159,7 +160,7 @@ def main(argv=None) -> int:
     rspec = make_spec((ch, cw), spec.window_size, spec.target_width, True)
     lane_frames = [None if b == 2 else c for b, c in enumerate(clips)]
     crops, pos0, fills, bnd = cs.roi_lanes(lane_frames, truths, cs.BATCH_FILLS, spec, dev,
-                                           roi_geometry, _crop_with_fill)
+                                           roi_geometry, crop_with_fill)
     bnds = (bnd["deltas"], bnd["lo"], bnd["hi"])
     sharded = {}
     for label, mesh in meshes.items():
